@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive godsp_tpu_torch's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises; the script then exits non-zero and prints no
+final line):
+
+  1. the card: torch.cuda must be available; prints nvidia-smi's name and
+     power limit and torch's device name;
+  2. builds the CUDA kernels from godsp_tpu_torch/csrc (nvcc, sm_90a);
+  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K4
+     pwelch_power_partials) against its plain PyTorch version run in
+     float64 on the card, at main-path shapes: SNR >= 120 dB, and each
+     launch count must rise; times kernel and plain version (float32)
+     with CUDA events;
+  4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
+     recording (26,460,000 samples) written with the port's WavWriter,
+     then, after one warm-up call, one session through the public entry
+     points with the launch counts zeroed just before it and read just
+     after it, and per step:
+       - wav_psd(..., device="cuda") at nfft 1024 / noverlap 512 (the
+         fused route: K4 once per chunk, nothing else);
+       - wav_psd at nfft 1000 / noverlap 500 (the unfused route: frames,
+         Bluestein over K1 and K2);
+       - fft_real, ifft and rfft_split of the recording's 1024-point
+         frames (K1 real input, K2, K3);
+     then, outside the counted session, each result is held against a
+     float64 oracle of the same decoded samples built on the card from
+     the plain transforms (>= 120 dB), and the 129-bin golden goes
+     through the public pwelch;
+  5. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+
+Imports nothing of JAX.  Needs one card; stops nothing it did not start
+(nvidia-smi runs to completion).
+"""
+
+from __future__ import annotations
+
+import ast
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+SNR_DB = 120.0  # every kernel and the main path vs their float64 references
+FS = 44100
+SECONDS = 600
+WELCH = dict(nfft=1024, noverlap=512)
+WELCH_UNFUSED = dict(nfft=1000, noverlap=500)
+PLANE = 1 << 24  # points per plane in the FFT kernel checks
+# Steps of the counted main-path session (phase 4).
+FUSED = "wav_psd(nfft=1024, noverlap=512)"
+UNFUSED = "wav_psd(nfft=1000, noverlap=500)"
+FFT_API = "fft_real/ifft/rfft_split(frames)"
+
+REPLACES = {
+    "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
+    "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
+    "rfft_pow2": "godsp_tpu/ops/pallas_fft.py:1466",
+    "pwelch_power_partials": "godsp_tpu/ops/pallas_pwelch.py:483",
+}
+SOURCES = {
+    "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
+    "ifft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
+    "rfft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
+    "pwelch_power_partials": "godsp_tpu_torch/csrc/pwelch_kernel.cu",
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def snr(got, want) -> float:
+    from godsp_tpu_torch.dsputils import snr_db
+
+    g, w = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t for t in (got, want))
+    return snr_db(g, w)
+
+
+def cplx(planes):
+    return planes[0].double() + 1j * planes[1].double()
+
+
+def golden_pxx() -> np.ndarray:
+    """The 129-bin go-dsp golden (pwelch_test.go:39-46), read from
+    tests/test_spectral.py without importing it (that module imports jax)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_spectral.py")
+    tree = ast.parse(open(path).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "GOLDEN_PXX":
+            return np.asarray(ast.literal_eval(node.value), dtype=np.float64)
+    raise LookupError("GOLDEN_PXX not found in tests/test_spectral.py")
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean device milliseconds of fn over reps launches, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+class KernelRecord:
+    def __init__(self):
+        self.err: dict[str, float] = {}
+        self.times: dict[str, tuple[float, float, str]] = {}
+
+    def check(self, name: str, run, want, what: str) -> None:
+        """Hold a float32 kernel result, run(), against its float64 plain
+        version; run() must launch the kernel."""
+        from godsp_tpu_torch.ops import launch_counts
+
+        before = launch_counts()[name]
+        got = run()
+        if launch_counts()[name] <= before:
+            raise AssertionError(f"{name} {what}: the kernel was not launched")
+        db = snr(got, want)
+        err = float((got.to(want.dtype) - want).abs().max())
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        log(f"  {name:22s} {what:34s} snr {db:7.2f} dB  max_abs_err {err:.3e}")
+        if not db >= SNR_DB:
+            raise AssertionError(f"{name} {what}: {db:.2f} dB < {SNR_DB} dB")
+
+
+def phase_card() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"nvidia-smi: {smi}")
+    name = torch.cuda.get_device_name(0)
+    log(f"torch: {torch.__version__} cuda {torch.version.cuda} device {name} "
+        f"count {torch.cuda.device_count()}")
+    return smi
+
+
+def phase_build() -> None:
+    from godsp_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Kernels off: the plain versions beneath the public entry points run
+    on the card, in the dtype they are given (float64 for the oracles)."""
+    from godsp_tpu_torch import fft
+
+    fft.set_kernels_enabled(False)
+    try:
+        yield
+    finally:
+        fft.set_kernels_enabled(True)
+
+
+def c128(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.complex128)
+
+
+def phase_kernels(rec: KernelRecord, dev) -> None:
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.fft import convolve, fft
+    from godsp_tpu_torch.fft.bluestein import bluestein_fft
+    from godsp_tpu_torch.fft.pow2 import pow2_convolve
+    from godsp_tpu_torch.ops import cuda_fft, cuda_pwelch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32)
+
+    log("kernels vs their float64 plain versions on the card:")
+    for n in (1024, 256, 4096, 16384):
+        rows = PLANE // n
+        xr, xi = rand(rows, n), rand(rows, n)
+        xr64, xi64 = xr.double(), xi.double()
+        shape = f"N={n} x {rows}"
+        rec.check("fft_pow2", lambda: cplx(cuda_fft.fft_pow2(xr, xi)),
+                  cplx(cuda_fft.fft_pow2_plain(xr64, xi64)), f"forward {shape}")
+        rec.check("fft_pow2", lambda: cplx(cuda_fft.fft_pow2(xr, None)),
+                  cplx(cuda_fft.fft_pow2_plain(xr64, None)), f"real input {shape}")
+        rec.check("ifft_pow2", lambda: cplx(cuda_fft.ifft_pow2(xr, xi, 1.0 / n)),
+                  cplx(cuda_fft.ifft_pow2_plain(xr64, xi64, 1.0 / n)), f"inverse 1/N {shape}")
+        if n == 1024:
+            rec.times["fft_pow2"] = (
+                time_ms(lambda: cuda_fft.fft_pow2(xr, xi)),
+                time_ms(lambda: cuda_fft.fft_pow2_plain(xr, xi)), shape)
+            rec.times["ifft_pow2"] = (
+                time_ms(lambda: cuda_fft.ifft_pow2(xr, xi, 1.0 / n)),
+                time_ms(lambda: cuda_fft.ifft_pow2_plain(xr, xi, 1.0 / n)), shape)
+        del xr, xi, xr64, xi64
+    # K2 in its chains: Bluestein (forward K1, product, inverse K2) and convolve.
+    for n in (1000, 1331):
+        z = torch.complex(rand(512, n), rand(512, n))
+        with plain_route():
+            want = bluestein_fft(c128(z))
+        rec.check("ifft_pow2", lambda: fft(z), want, f"Bluestein fft N={n} x 512")
+    a = torch.complex(rand(256, 4096), rand(256, 4096))
+    b = torch.complex(rand(256, 4096), rand(256, 4096))
+    with plain_route():
+        want = pow2_convolve(c128(a), c128(b), scale=1.0 / 4096)
+    rec.check("ifft_pow2", lambda: convolve(a, b), want, "convolve N=4096 x 256")
+    for n in (1024, 8192):
+        rows = PLANE // n
+        xr = rand(rows, n)
+        shape = f"N={n} x {rows}"
+        rec.check("rfft_pow2", lambda: cplx(cuda_fft.rfft_pow2(xr)),
+                  cplx(cuda_fft.rfft_pow2_plain(xr.double())), f"one-sided {shape}")
+        if n == 1024:
+            rec.times["rfft_pow2"] = (time_ms(lambda: cuda_fft.rfft_pow2(xr)),
+                                      time_ms(lambda: cuda_fft.rfft_pow2_plain(xr)), shape)
+        del xr
+    # K4 at the streaming chunk (256 segments + halo), the whole recording,
+    # hop 160, pad 2048 > nfft, and a ragged last tile (5001 segments at 10
+    # a tile) with a partial mask.
+    whole = (FS * SECONDS - 1024) // 512 + 1  # segments of the whole recording
+    for nfft, stride, pad, S, keep in (
+        (1024, 512, 1024, 256, 256),
+        (1024, 512, 1024, whole, whole),
+        (1024, 160, 1024, 4096, 4096),
+        (1024, 512, 2048, 4096, 4096),
+        (1024, 512, 1024, 5001, 4990),
+    ):
+        L = (S - 1) * stride + nfft
+        ext = rand(1, L) + 0.5
+        mask = (torch.arange(S, device=dev) < keep).float()[None]
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        what = f"nfft {nfft} hop {stride} pad {pad} S {S} keep {keep}"
+        want = cuda_pwelch.pwelch_power_partials_plain(ext.double(), mask.double(), w.double(),
+                                                       nfft, stride, pad, bt)
+        rec.check("pwelch_power_partials",
+                  lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride, pad=pad),
+                  want, what)
+        if S == 256:
+            rec.times["pwelch_power_partials"] = (
+                time_ms(lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride,
+                                                                  pad=pad)),
+                time_ms(lambda: cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft,
+                                                                        stride, pad, bt)),
+                what)
+
+
+def write_recording(path: str) -> int:
+    """Seeded sine mix + noise, 10 min of 44.1 kHz PCM16 mono."""
+    from godsp_tpu_torch import wav
+
+    n = FS * SECONDS
+    rng = np.random.default_rng(2024)
+    block = 1 << 20
+    with wav.WavWriter(path, FS, channels=1, float32=False) as w:
+        for i in range(0, n, block):
+            t = np.arange(i, min(i + block, n)) / FS
+            x = (0.4 * np.sin(2 * np.pi * 440.0 * t) + 0.2 * np.sin(2 * np.pi * 3150.0 * t)
+                 + 0.05 * np.sin(2 * np.pi * 11025.0 * t) + 0.1 * rng.normal(size=t.size))
+            w.write(x)
+    return n
+
+
+def oracle_pxx(samples: np.ndarray, opts, dev) -> np.ndarray:
+    """float64 Pxx of the decoded samples on the card: Welch's frames
+    (pwelch.go:104-136) over the plain transforms beneath the public entry
+    points."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.dsputils import is_power_of_2, zero_pad
+    from godsp_tpu_torch.fft import four_step_fft
+    from godsp_tpu_torch.fft.bluestein import bluestein_fft
+    from godsp_tpu_torch.spectral import segment
+
+    nfft, wf, pad, noverlap, scaling = opts.resolved()
+    fft_len, lp = max(pad, nfft), pad // 2 + 1
+    x = torch.from_numpy(samples).to(dev, torch.float64)
+    frames = zero_pad(segment(x, nfft, noverlap), fft_len)
+    frames = frames * window.window_table(wf, fft_len, device=dev)
+    z = c128(frames)
+    del x, frames
+    with plain_route():
+        spec = (four_step_fft(z) if is_power_of_2(fft_len) else bluestein_fft(z))[..., :lp]
+    p = (spec.real * spec.real + spec.imag * spec.imag).mean(dim=-2)
+    p[1 : lp - 1] *= 2.0
+    w_nfft = window.window_table(wf, nfft, device=dev)
+    norm = torch.sum(w_nfft * w_nfft) * (FS if scaling else 1.0)
+    return (p / norm).cpu().numpy()
+
+
+def counted(label: str, run, steps: dict) -> tuple[object, float]:
+    """run() as one step of the counted session; its launches go to steps[label]."""
+    from godsp_tpu_torch.ops import launch_counts
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = launch_counts()
+    steps[label] = {k: after[k] - before[k] for k in after}
+    log(f"  step {label}: {wall:.3f} s, launches {steps[label]}")
+    return out, wall
+
+
+def phase_main_path(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
+    from godsp_tpu_torch import fft, spectral, wav
+    from godsp_tpu_torch.fft import four_step_fft
+    from godsp_tpu_torch.models import wav_psd
+    from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "recording.wav")
+        t0 = time.perf_counter()
+        n = write_recording(path)
+        log(f"main path: wrote {n} samples ({os.path.getsize(path)} bytes) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        r = wav.read_wav(path)
+        try:
+            decoded = r.read_floats(r.samples)
+        finally:
+            r.close()
+
+        fused_o = spectral.PwelchOptions(**WELCH)
+        unfused_o = spectral.PwelchOptions(**WELCH_UNFUSED)
+        frames = torch.from_numpy(decoded[: (n // 1024) * 1024].reshape(-1, 1024)).to(dev)
+
+        # A first call pays one-time costs (twiddle tables, allocator);
+        # the counted session below is warm.
+        t0 = time.perf_counter()
+        wav_psd(path, fused_o, device=dev)
+        log(f"  wav_psd nfft 1024/512 first call: {time.perf_counter() - t0:.3f} s")
+
+        steps: dict[str, dict[str, int]] = {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res, wall = counted(FUSED, lambda: wav_psd(path, fused_o, device=dev), steps)
+        res_u, wall_u = counted(UNFUSED, lambda: wav_psd(path, unfused_o, device=dev), steps)
+        def spectra():
+            spec = fft.fft_real(frames)
+            return spec, fft.ifft(spec), fft.rfft_split(frames)
+
+        (spec, back, (yr, yi)), _ = counted(FFT_API, spectra, steps)
+        counts = launch_counts()
+
+    log(f"  wav_psd nfft 1024/512 (fused): {res.metrics_json}")
+    log(f"  wav_psd nfft 1024/512 wall {wall:.3f} s, {n / wall / 1e6:.3f} Msamples/s")
+    log(f"  wav_psd nfft 1000/500 (unfused): {res_u.metrics_json}")
+    log(f"  wav_psd nfft 1000/500 wall {wall_u:.3f} s, {n / wall_u / 1e6:.3f} Msamples/s")
+    log(f"  launches in the main path: {counts}")
+    chunks = json.loads(res.metrics_json)["chunks"]
+    if steps[FUSED] != {**{k: 0 for k in counts}, "pwelch_power_partials": chunks}:
+        raise AssertionError(f"fused wav_psd launched {steps[FUSED]} for {chunks} chunks")
+    for label, names in ((UNFUSED, ("fft_pow2", "ifft_pow2")),
+                         (FFT_API, ("fft_pow2", "ifft_pow2", "rfft_pow2"))):
+        for name in names:
+            if steps[label][name] <= 0:
+                raise AssertionError(f"{label} did not launch {name}")
+
+    for label, r, o in (("fused", res, fused_o), ("unfused", res_u, unfused_o)):
+        want = oracle_pxx(decoded, o, dev)
+        if r.pxx.shape != want.shape or not np.all(np.isfinite(r.pxx)):
+            raise AssertionError(f"wav_psd {label}: bad Pxx {r.pxx.shape}")
+        db = snr(r.pxx, want)
+        log(f"  wav_psd {label} Pxx vs float64 oracle: {db:.2f} dB over {r.pxx.size} bins")
+        if not db >= SNR_DB:
+            raise AssertionError(f"wav_psd {label}: {db:.2f} dB < {SNR_DB} dB")
+
+    want_spec = four_step_fft(c128(frames))
+    checks = (
+        ("fft_real", spec, want_spec),
+        ("ifft(fft_real)", back, frames.double()),
+        ("rfft_split", torch.complex(yr, yi), want_spec[:, :513]),
+    )
+    for label, got, want in checks:
+        db = snr(got, want)
+        log(f"  {label} on {tuple(frames.shape)}: {db:.2f} dB")
+        if not db >= SNR_DB:
+            raise AssertionError(f"{label}: {db:.2f} dB < {SNR_DB} dB")
+
+    # The golden is a check, run after the session's counts were read.
+    golden, _ = spectral.pwelch(torch.arange(100, dtype=torch.float32, device=dev), 2.0)
+    db = snr(golden, golden_pxx())
+    log(f"  129-bin golden through pwelch on the card: {db:.2f} dB")
+    if golden.shape != (129,) or not db >= SNR_DB:
+        raise AssertionError(f"golden: {db:.2f} dB < {SNR_DB} dB")
+    return counts, steps
+
+
+def main() -> int:
+    smi = phase_card()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    import godsp_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    dev = torch.device("cuda", 0)
+    phase_build()
+    rec = KernelRecord()
+    phase_kernels(rec, dev)
+    counts, steps = phase_main_path(dev)
+
+    kernels = []
+    for name in REPLACES:
+        ms, plain_ms, shape = rec.times[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=counts[name], max_abs_err=rec.err[name], ms=ms, plain_ms=plain_ms,
+            shape=shape,
+            launched_by={label: c[name] for label, c in steps.items() if c[name]},
+        ))
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the main path")
+        log(f"time {name:22s} {shape:40s} kernel {ms:.4f} ms  plain(f32) {plain_ms:.4f} ms  "
+            f"[{smi}]")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""godsp_tpu_torch — the PyTorch/CUDA port of godsp_tpu for NVIDIA Hopper.
+
+Same public names and semantics as godsp_tpu (go-dsp's quirks
+included); plain tensor code is PyTorch, and every TPU kernel on the
+ported path is a hand-written CUDA kernel for sm_90a (godsp_tpu_torch/csrc,
+built at first use).  It never imports jax.
+
+Packages:
+  dsputils  — L0 primitives: conversion, padding, segmentation, compare
+  window    — symmetric window tapers
+  fft       — FFT/IFFT (1-D/2-D, real/complex, split planes), convolution
+  spectral  — Welch PSD
+  wav       — RIFF/WAVE streaming ingest
+  native    — C++ host decode and stream buffer (shared source)
+  ops       — the CUDA kernels and their plain versions
+  parallel  — streaming Welch PSD with checkpoint/resume
+  models    — wav_psd, the end-to-end pipeline
+"""
+
+__version__ = "0.1.0"
+
+from godsp_tpu_torch import dsputils, fft, spectral, wav, window  # noqa: F401
+
+__all__ = ["dsputils", "fft", "spectral", "wav", "window", "__version__"]

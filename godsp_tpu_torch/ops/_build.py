@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels (godsp_tpu_torch/csrc).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/libgodsp_cuda_<hash>.so csrc/*.cu
+
+The build runs at first use, never at import, so the package imports on
+a machine without nvcc.  The library lands in the package's git-ignored
+_build/ directory, keyed by a hash of every .cu/.cuh source, so a
+changed source builds anew and an unchanged one loads at once.  Any
+build or load failure raises: there is no fallback route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["build_seconds", "check", "library"]
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = 0.0  # wall seconds of the last nvcc run in this process
+
+
+def _sources() -> list[pathlib.Path]:
+    """Every CUDA source of the library, in a stable order."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _declare(lib) -> None:
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.gdsp_fft_pow2.argtypes = [p, p, p, p, p, i, i, i64, f, p]
+    lib.gdsp_fft_pow2.restype = i
+    lib.gdsp_pwelch_partials.argtypes = [
+        p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
+    ]
+    lib.gdsp_pwelch_partials.restype = i
+
+
+def library():
+    """The loaded kernel library, built from the sources on first call."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        h = hashlib.sha256()
+        for s in srcs:
+            h.update(s.name.encode())
+            h.update(s.read_bytes())
+        so = BUILD_DIR / f"libgodsp_cuda_{h.hexdigest()[:16]}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-I", str(CSRC), "-o", str(tmp),
+                *[str(s) for s in srcs if s.suffix == ".cu"],
+            ]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+                )
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        _declare(lib)
+        _lib = lib
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (its cudaGetLastError())."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
