@@ -13,7 +13,9 @@ final line):
      pwelch_power_partials) against its plain PyTorch version run in
      float64 on the card, at main-path shapes: SNR >= 120 dB, and each
      launch count must rise; times kernel and plain version (float32)
-     with CUDA events;
+     with CUDA events.  The STFT kernels (K5 stft_complex / stft_power /
+     stft_mel, K6 istft_overlap_add) are held the same way at the shapes
+     of phase 5, and at an odd hop with pad > nfft;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -29,7 +31,24 @@ final line):
      float64 oracle of the same decoded samples built on the card from
      the plain transforms (>= 120 dB), and the 129-bin golden goes
      through the public pwelch;
-  5. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  5. the STFT family on the same recording, after one warm-up pass, as
+     one counted session of its own (counts zeroed before, read after):
+       - spectrogram_from_wav at nfft 1024 / hop 512 (K5 power once);
+       - stft of the decoded samples at nfft 1024 / hop 256 (K5 complex
+         once: 103,356 frames x 513 bins);
+       - mel_spectrogram, 80 mels at nfft 1024 / hop 256 (K5 mel once);
+       - spectra_to_wav of that STFT in chunks of 4096 frames (K6 once a
+         chunk);
+       - griffin_lim of the first 60 s of its magnitude, 32 iterations,
+         momentum 0.99 (K6 33 times, K5 complex 32 times);
+     then each result is held against a float64 oracle built on the card
+     from the plain functions (>= 120 dB; the written WAV over the whole
+     signal and over its interior, see check_synthesis), the
+     istft(stft(x)) round trip is held to x over the interior
+     [nfft, L - nfft), and Griffin-Lim is held to its float64 plain route
+     at n_iter 0 (>= 120 dB) and at n_iter 32 by spectral convergence
+     (within 0.5 dB); prints each step's wall and Msamples/s;
+  6. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -60,17 +79,37 @@ FUSED = "wav_psd(nfft=1024, noverlap=512)"
 UNFUSED = "wav_psd(nfft=1000, noverlap=500)"
 FFT_API = "fft_real/ifft/rfft_split(frames)"
 
+# Steps of the counted STFT-family session (phase 5).
+NFFT = 1024
+SPECGRAM = "spectrogram_from_wav(nfft=1024, hop=512)"
+STFT = "stft(nfft=1024, hop=256)"
+MEL = "mel_spectrogram(n_mels=80, nfft=1024, hop=256)"
+SYNTH = "spectra_to_wav(chunks of 4096 frames)"
+GRIFFIN = "griffin_lim(60 s, n_iter=32, momentum=0.99)"
+CHUNK = 4096  # frames per spectra_to_wav chunk
+GL_ITERS = 32
+GL_SECONDS = 60
+GL_SC_DB = 0.5  # kernel vs float64 spectral convergence, dB apart at most
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
     "rfft_pow2": "godsp_tpu/ops/pallas_fft.py:1466",
     "pwelch_power_partials": "godsp_tpu/ops/pallas_pwelch.py:483",
+    "stft_complex": "godsp_tpu/ops/pallas_stft.py:150",
+    "stft_power": "godsp_tpu/ops/pallas_stft.py:150",
+    "stft_mel": "godsp_tpu/ops/pallas_stft.py:150",
+    "istft_overlap_add": "godsp_tpu/ops/pallas_istft.py:167",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
     "ifft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
     "rfft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
     "pwelch_power_partials": "godsp_tpu_torch/csrc/pwelch_kernel.cu",
+    "stft_complex": "godsp_tpu_torch/csrc/stft_kernel.cu",
+    "stft_power": "godsp_tpu_torch/csrc/stft_kernel.cu",
+    "stft_mel": "godsp_tpu_torch/csrc/stft_kernel.cu",
+    "istft_overlap_add": "godsp_tpu_torch/csrc/istft_kernel.cu",
 }
 
 
@@ -259,6 +298,55 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
                 what)
 
 
+def phase_stft_kernels(rec: KernelRecord, dev) -> None:
+    """K5 in its three modes and K6 against their float64 plain versions,
+    at the shapes of phase 5, plus an odd hop with pad > nfft."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.models import mel_filterbank
+    from godsp_tpu_torch.ops import cuda_istft, cuda_stft
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = FS * SECONDS
+    x = torch.rand(n, generator=g, device=dev)  # [0, 1], like the decoded PCM16 samples
+    x64 = x.double()
+    fb = mel_filterbank(80, NFFT, FS, device=dev, dtype=torch.float32)
+    # The three modes on the whole recording's length, then complex at an
+    # odd hop with pad > nfft on its first 2^22 samples.
+    for out, hop, pad, L in (("complex", 256, NFFT, n), ("power", 512, NFFT, n),
+                             ("mel", 256, NFFT, n), ("complex", 160, 2048, min(n, 1 << 22))):
+        w = torch.nn.functional.pad(window.window_table("hann", NFFT, device=dev), (0, pad - NFFT))
+        F = (L - NFFT) // hop + 1
+        name = f"stft_{out}"
+        kernel, mel_fb = getattr(cuda_stft, name), ((fb,) if out == "mel" else ())
+        xs, xs64 = x[:L], x64[:L]
+        shape = f"nfft {NFFT} hop {hop} pad {pad} x {F} frames"
+        want = cuda_stft.stft_pallas_plain(xs64, w, NFFT, hop, F, pad, out, fb.double())
+        rec.check(name, lambda: kernel(xs, w.float(), NFFT, hop, F, *mel_fb, pad=pad), want, shape)
+        del want
+        if name not in rec.times:  # time the first shape of each mode
+            rec.times[name] = (
+                time_ms(lambda: kernel(xs, w.float(), NFFT, hop, F, *mel_fb, pad=pad)),
+                time_ms(lambda: cuda_stft.stft_pallas_plain(xs, w.float(), NFFT, hop, F, pad, out,
+                                                            fb)),
+                shape)
+    # K6 at a spectra_to_wav chunk, at the Griffin-Lim shape (60 s), and at
+    # an odd hop with pad > nfft.
+    w = window.window_table("hann", NFFT, device=dev)
+    for F, hop, pad in ((CHUNK, 256, NFFT), ((FS * GL_SECONDS - NFFT) // 256 + 1, 256, NFFT),
+                        (CHUNK, 160, 2048)):
+        spec = torch.complex(torch.randn(F, pad // 2 + 1, generator=g, device=dev),
+                             torch.randn(F, pad // 2 + 1, generator=g, device=dev))
+        shape = f"nfft {NFFT} hop {hop} pad {pad} x {F} frames"
+        want = cuda_istft.istft_overlap_add_plain(c128(spec), w, NFFT, hop)
+        rec.check("istft_overlap_add",
+                  lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop), want, shape)
+        if F == CHUNK and hop == 256:
+            rec.times["istft_overlap_add"] = (
+                time_ms(lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop)),
+                time_ms(lambda: cuda_istft.istft_overlap_add_plain(spec, w.float(), NFFT, hop)),
+                shape)
+
+
 def write_recording(path: str) -> int:
     """Seeded sine mix + noise, 10 min of 44.1 kHz PCM16 mono."""
     from godsp_tpu_torch import wav
@@ -316,45 +404,45 @@ def counted(label: str, run, steps: dict) -> tuple[object, float]:
     return out, wall
 
 
-def phase_main_path(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
-    from godsp_tpu_torch import fft, spectral, wav
+def read_decoded(path: str) -> np.ndarray:
+    from godsp_tpu_torch import wav
+
+    r = wav.read_wav(path)
+    try:
+        return r.read_floats(r.samples)
+    finally:
+        r.close()
+
+
+def phase_main_path(dev, path: str) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
+    from godsp_tpu_torch import fft, spectral
     from godsp_tpu_torch.fft import four_step_fft
     from godsp_tpu_torch.models import wav_psd
     from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "recording.wav")
-        t0 = time.perf_counter()
-        n = write_recording(path)
-        log(f"main path: wrote {n} samples ({os.path.getsize(path)} bytes) in "
-            f"{time.perf_counter() - t0:.2f} s")
-        r = wav.read_wav(path)
-        try:
-            decoded = r.read_floats(r.samples)
-        finally:
-            r.close()
+    decoded = read_decoded(path)
+    n = decoded.size
+    fused_o = spectral.PwelchOptions(**WELCH)
+    unfused_o = spectral.PwelchOptions(**WELCH_UNFUSED)
+    frames = torch.from_numpy(decoded[: (n // 1024) * 1024].reshape(-1, 1024)).to(dev)
 
-        fused_o = spectral.PwelchOptions(**WELCH)
-        unfused_o = spectral.PwelchOptions(**WELCH_UNFUSED)
-        frames = torch.from_numpy(decoded[: (n // 1024) * 1024].reshape(-1, 1024)).to(dev)
+    # A first call pays one-time costs (twiddle tables, allocator);
+    # the counted session below is warm.
+    t0 = time.perf_counter()
+    wav_psd(path, fused_o, device=dev)
+    log(f"  wav_psd nfft 1024/512 first call: {time.perf_counter() - t0:.3f} s")
 
-        # A first call pays one-time costs (twiddle tables, allocator);
-        # the counted session below is warm.
-        t0 = time.perf_counter()
-        wav_psd(path, fused_o, device=dev)
-        log(f"  wav_psd nfft 1024/512 first call: {time.perf_counter() - t0:.3f} s")
+    steps: dict[str, dict[str, int]] = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res, wall = counted(FUSED, lambda: wav_psd(path, fused_o, device=dev), steps)
+    res_u, wall_u = counted(UNFUSED, lambda: wav_psd(path, unfused_o, device=dev), steps)
+    def spectra():
+        spec = fft.fft_real(frames)
+        return spec, fft.ifft(spec), fft.rfft_split(frames)
 
-        steps: dict[str, dict[str, int]] = {}
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        res, wall = counted(FUSED, lambda: wav_psd(path, fused_o, device=dev), steps)
-        res_u, wall_u = counted(UNFUSED, lambda: wav_psd(path, unfused_o, device=dev), steps)
-        def spectra():
-            spec = fft.fft_real(frames)
-            return spec, fft.ifft(spec), fft.rfft_split(frames)
-
-        (spec, back, (yr, yi)), _ = counted(FFT_API, spectra, steps)
-        counts = launch_counts()
+    (spec, back, (yr, yi)), _ = counted(FFT_API, spectra, steps)
+    counts = launch_counts()
 
     log(f"  wav_psd nfft 1024/512 (fused): {res.metrics_json}")
     log(f"  wav_psd nfft 1024/512 wall {wall:.3f} s, {n / wall / 1e6:.3f} Msamples/s")
@@ -400,6 +488,142 @@ def phase_main_path(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     return counts, steps
 
 
+def check_db(label: str, got, want) -> float:
+    db = snr(got, want)
+    log(f"  {label}: {db:.2f} dB")
+    if not db >= SNR_DB:
+        raise AssertionError(f"{label}: {db:.2f} dB < {SNR_DB} dB")
+    return db
+
+
+def check_synthesis(label: str, got: np.ndarray, want: torch.Tensor) -> None:
+    """Hold a float32 synthesis to its float64 oracle over the whole signal
+    and over its interior [nfft, L - nfft).  The first and last
+    nfft - hop samples divide by a NOLA sum of Hann's near-zero ends
+    (w[1]^2 ~ 1e-10 at nfft 1024), which scales float32 rounding by as
+    much; the interior shows the synthesis apart from that."""
+    want = want.cpu().numpy()
+    check_db(f"{label}, whole signal", got, want)
+    check_db(f"{label}, interior", got[NFFT:-NFFT], want[NFFT:-NFFT])
+
+
+def expect_launches(label: str, steps: dict, want: dict[str, int]) -> None:
+    got = steps[label]
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{label} launched {got}, expected {full}")
+
+
+def phase_stft_family(dev, path: str) -> dict[str, dict[str, int]]:
+    """The STFT family at real size, as one counted session (phase 5)."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.models import (griffin_lim, istft, mel_filterbank, mel_spectrogram,
+                                        spectra_to_wav, spectrogram_from_wav, stft)
+    from godsp_tpu_torch.models._stft_impl import _nola_norm
+    from godsp_tpu_torch.models.griffin import _gl_loop
+    from godsp_tpu_torch.ops import cuda_istft, cuda_stft, launch_counts, reset_launch_counts
+
+    decoded = read_decoded(path)
+    n = decoded.size
+    x = torch.from_numpy(decoded).to(dev)
+    synth = os.path.join(os.path.dirname(path), "synthesis.wav")
+    F = (n - NFFT) // 256 + 1
+    L = (F - 1) * 256 + NFFT
+    F60 = (FS * GL_SECONDS - NFFT) // 256 + 1
+    L60 = (F60 - 1) * 256 + NFFT
+    n_chunks = -(-F // CHUNK)
+
+    def session(step):
+        """The five steps; step(label, fn) runs each and returns its result."""
+        sg, _, _ = step(SPECGRAM, lambda: spectrogram_from_wav(path, nfft=NFFT, hop=512,
+                                                               device=dev))
+        S = step(STFT, lambda: stft(x, NFFT, hop=256))
+        M = step(MEL, lambda: mel_spectrogram(x, FS, nfft=NFFT, hop=256, n_mels=80))
+        written = step(SYNTH, lambda: spectra_to_wav(
+            (S[i : i + CHUNK] for i in range(0, F, CHUNK)), synth, FS, NFFT, hop=256))
+        y_gl = step(GRIFFIN, lambda: griffin_lim(S[:F60].abs(), NFFT, hop=256, n_iter=GL_ITERS,
+                                                 momentum=0.99))
+        return sg, S, M, written, y_gl
+
+    # A first pass pays one-time costs (filterbank and band tables,
+    # allocator); the counted session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"STFT family: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    sg, S, M, written, y_gl = session(step)
+    counts = launch_counts()
+
+    log(f"  launches in the STFT-family session: {counts}")
+    expect_launches(SPECGRAM, steps, {"stft_power": 1})
+    expect_launches(STFT, steps, {"stft_complex": 1})
+    expect_launches(MEL, steps, {"stft_mel": 1})
+    expect_launches(SYNTH, steps, {"istft_overlap_add": n_chunks})
+    expect_launches(GRIFFIN, steps, {"istft_overlap_add": GL_ITERS + 1, "stft_complex": GL_ITERS})
+    for label, samples in ((SPECGRAM, n), (STFT, n), (MEL, n), (SYNTH, written),
+                           (GRIFFIN, L60)):
+        log(f"  {label}: wall {walls[label]:.3f} s, {samples / walls[label] / 1e6:.3f} Msamples/s")
+    log(f"  {GRIFFIN}: {walls[GRIFFIN] / GL_ITERS * 1e3:.3f} ms per iteration")
+
+    # Checks, after the counts were read: float64 oracles on the card from
+    # the plain functions on the same decoded samples.
+    x64 = x.double()
+    w64 = window.window_table("hann", NFFT, device=dev)
+    shapes = [tuple(t.shape) for t in (sg, S, M, y_gl)]
+    if shapes != [((n - NFFT) // 512 + 1, NFFT // 2 + 1), (F, NFFT // 2 + 1), (F, 80), (L60,)]:
+        raise AssertionError(f"shapes of spectrogram, stft, mel, griffin_lim: {shapes}")
+    check_db("spectrogram_from_wav vs float64 oracle", sg,
+             cuda_stft.stft_pallas_plain(x64, w64, NFFT, 512, sg.shape[0], out="power"))
+    check_db("stft vs float64 oracle", S, cuda_stft.stft_pallas_plain(x64, w64, NFFT, 256, F))
+    fb64 = mel_filterbank(80, NFFT, FS, device=dev, dtype=torch.float64)
+    check_db("mel_spectrogram vs float64 oracle", M,
+             cuda_stft.stft_pallas_plain(x64, w64, NFFT, 256, F, out="mel", fb=fb64))
+    got = read_decoded(synth)
+    if written != L or got.shape != (L,) or not np.all(np.isfinite(got)):
+        raise AssertionError(f"spectra_to_wav wrote {written} samples, read {got.shape}, want {L}")
+    want = cuda_istft.istft_overlap_add_plain(c128(S), w64, NFFT, 256) / _nola_norm(w64, F, 256, L)
+    check_synthesis("spectra_to_wav WAV vs float64 istft of the same spectra", got, want)
+    del want
+    y = istft(S, NFFT, hop=256)
+    log(f"  istft(stft(x)) vs x over [{NFFT}, {L - NFFT}):")
+    check_db("    round trip, interior", y[NFFT:-NFFT], x64[NFFT : L - NFFT])
+
+    # Griffin-Lim: float32 kernels against the float64 plain route.
+    mag = S[:F60].abs()
+    mag64 = mag.double()
+
+    def fwd64(s):
+        return cuda_stft.stft_pallas_plain(s, w64, NFFT, 256, F60)
+
+    def ola64(s):
+        return cuda_istft.istft_overlap_add_plain(s, w64, NFFT, 256)
+
+    def convergence(y):
+        return float(torch.linalg.vector_norm(fwd64(y.double()).abs() - mag64)
+                     / torch.linalg.vector_norm(mag64))
+
+    y0 = griffin_lim(mag, NFFT, hop=256, n_iter=0)
+    want0 = _gl_loop(mag64, w64, 256, L60, 0, 0.99, fwd64, ola64)
+    check_db("griffin_lim n_iter 0 vs float64 plain route", y0, want0)
+    y64 = _gl_loop(mag64, w64, 256, L60, GL_ITERS, 0.99, fwd64, ola64)
+    sc, sc64 = convergence(y_gl), convergence(y64)
+    sc_db, sc64_db = 20 * np.log10(sc), 20 * np.log10(sc64)
+    log(f"  griffin_lim n_iter {GL_ITERS}: spectral convergence kernel {sc:.6f} ({sc_db:.3f} dB), "
+        f"float64 plain route {sc64:.6f} ({sc64_db:.3f} dB)")
+    if not (np.isfinite(sc_db) and abs(sc_db - sc64_db) <= GL_SC_DB):
+        raise AssertionError(f"griffin_lim: {sc_db:.3f} dB vs {sc64_db:.3f} dB, > {GL_SC_DB} dB")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -410,18 +634,27 @@ def main() -> int:
     phase_build()
     rec = KernelRecord()
     phase_kernels(rec, dev)
-    counts, steps = phase_main_path(dev)
+    phase_stft_kernels(rec, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "recording.wav")
+        t0 = time.perf_counter()
+        n = write_recording(path)
+        log(f"main path: wrote {n} samples ({os.path.getsize(path)} bytes) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        _, steps = phase_main_path(dev, path)
+        stft_steps = phase_stft_family(dev, path)
+    steps.update(stft_steps)  # each wrapper's launches come from its own session
 
     kernels = []
     for name in REPLACES:
         ms, plain_ms, shape = rec.times[name]
+        launched_by = {label: c[name] for label, c in steps.items() if c[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=counts[name], max_abs_err=rec.err[name], ms=ms, plain_ms=plain_ms,
-            shape=shape,
-            launched_by={label: c[name] for label, c in steps.items() if c[name]},
+            launches=sum(launched_by.values()), max_abs_err=rec.err[name], ms=ms,
+            plain_ms=plain_ms, shape=shape, launched_by=launched_by,
         ))
-        if counts[name] <= 0:
+        if not launched_by:
             raise AssertionError(f"{name} was not launched by the main path")
         log(f"time {name:22s} {shape:40s} kernel {ms:.4f} ms  plain(f32) {plain_ms:.4f} ms  "
             f"[{smi}]")

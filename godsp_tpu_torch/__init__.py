@@ -14,7 +14,8 @@ Packages:
   native    — C++ host decode and stream buffer (shared source)
   ops       — the CUDA kernels and their plain versions
   parallel  — streaming Welch PSD with checkpoint/resume
-  models    — wav_psd, the end-to-end pipeline
+  models    — wav_psd, and the STFT family: stft/istft/spectrogram and
+              their streaming forms, mel, Griffin-Lim, WAV <-> spectra
 """
 
 __version__ = "0.1.0"

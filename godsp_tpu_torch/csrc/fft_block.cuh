@@ -1,6 +1,6 @@
-// Block-level power-of-2 FFT in shared memory: the body of both kernels
+// Block-level power-of-2 FFT in shared memory: the body of every kernel
 // of this library (fft_pow2_kernel, which serves fft_pow2, ifft_pow2 and
-// rfft_pow2, and pwelch_partials_kernel).
+// rfft_pow2; pwelch_partials_kernel; stft_kernel; istft_kernel).
 //
 // A block holds `rows` transforms of n complex float32 values in dynamic
 // shared memory (n <= 16384, 128 KB a row).  The loader writes each row
@@ -55,6 +55,19 @@ inline int block_threads(long long butterflies) {
   long long t = butterflies < 512 ? butterflies : 512;
   t = (t + 31) / 32 * 32;
   return static_cast<int>(t);
+}
+
+// A grid of x blocks per row over `rows` rows (rows > 0), spread over
+// grid.y and grid.z: one launch serves more rows than grid.y's 65535.
+// The last z slice may overshoot, so a kernel reads its row with
+// block_row() and returns at once when it is past the last row.
+inline dim3 row_grid(unsigned x, long long rows) {
+  const long long y = rows < 65535 ? rows : 65535;
+  return dim3(x, static_cast<unsigned>(y), static_cast<unsigned>((rows + y - 1) / y));
+}
+
+__device__ __forceinline__ long long block_row() {
+  return blockIdx.y + static_cast<long long>(gridDim.y) * blockIdx.z;
 }
 
 // Allow more than 48 KB of dynamic shared memory where a launch needs it.

@@ -1,8 +1,9 @@
 // Fused Welch-periodogram partial sums for Hopper (sm_90a).
 //
 // Replaces godsp_tpu/ops/pallas_pwelch.py: pwelch_power_partials (inner
-// kernel _pwelch_kernel).  Grid: (tiles, rows).  A block walks its tile's
-// segments s in order; for each segment with mask[s] != 0 it
+// kernel _pwelch_kernel).  Grid: (tiles, rows), the rows spread over y
+// and z (row_grid).  A block walks its tile's segments s in order; for
+// each segment with mask[s] != 0 it
 //   * loads ext[s*stride : s*stride + nfft] (the overlap is re-read
 //     through L2, never materialized as frames in device memory),
 //   * multiplies by w[:nfft] and zero-extends to pad,
@@ -30,15 +31,16 @@ namespace {
 __global__ void pwelch_partials_kernel(const float* __restrict__ ext,
                                        const float* __restrict__ mask,
                                        const float* __restrict__ w, float* __restrict__ out,
-                                       const float2* __restrict__ tw, long long L_ext,
-                                       long long S, int nfft, int stride, int log2pad, int bt,
-                                       int n_tiles) {
+                                       const float2* __restrict__ tw, long long rows,
+                                       long long L_ext, long long S, int nfft, int stride,
+                                       int log2pad, int bt, int n_tiles) {
   extern __shared__ float2 s[];
+  const long long row = gdsp::block_row();
+  if (row >= rows) return;
   const int pad = 1 << log2pad;
   const int lp = (pad >> 1) + 1;
   float* acc = reinterpret_cast<float*>(s + pad);
   const int tile = blockIdx.x;
-  const long long row = blockIdx.y;
   const float* x = ext + row * L_ext;
   const float* m = mask + row * S;
 
@@ -81,10 +83,10 @@ int gdsp_pwelch_partials(const float* ext, const float* mask, const float* w, fl
   const size_t smem = static_cast<size_t>(pad) * sizeof(float2) + static_cast<size_t>(lp) * 4;
   cudaError_t e = gdsp::allow_smem(pwelch_partials_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(rows));
+  const dim3 grid = gdsp::row_grid(static_cast<unsigned>(n_tiles), rows);
   const int threads = gdsp::block_threads(pad >> 1);
   pwelch_partials_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ext, mask, w, out, tw, L_ext, S, nfft, stride, log2pad, bt, n_tiles);
+      ext, mask, w, out, tw, rows, L_ext, S, nfft, stride, log2pad, bt, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,41 +2,55 @@
 
   cuda_fft     — K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2 (batched pow-2 FFT)
   cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum)
+  cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
+  cuda_istft   — K6 istft_overlap_add (fused inverse FFT->window->overlap-add)
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
-(ops/_build.py).  reset_launch_counts() zeroes every wrapper's count.
+(ops/_build.py).  launch_counts() reads every wrapper's count and
+reset_launch_counts() zeroes them.
 """
 
-from godsp_tpu_torch.ops import cuda_fft, cuda_pwelch
+from godsp_tpu_torch.ops import cuda_fft, cuda_istft, cuda_pwelch, cuda_stft
 from godsp_tpu_torch.ops.cuda_fft import fft_pow2, ifft_pow2, rfft_pow2, supported_size
+from godsp_tpu_torch.ops.cuda_istft import istft_overlap_add, istft_supported
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
     pwelch_power_partials,
     pwelch_power_sum,
 )
+from godsp_tpu_torch.ops.cuda_stft import stft_complex, stft_mel, stft_power
 
 __all__ = [
     "cuda_fft",
+    "cuda_istft",
     "cuda_pwelch",
+    "cuda_stft",
     "fft_pow2",
     "fused_supported",
     "ifft_pow2",
+    "istft_overlap_add",
+    "istft_supported",
     "launch_counts",
     "pwelch_power_partials",
     "pwelch_power_sum",
     "reset_launch_counts",
     "rfft_pow2",
+    "stft_complex",
+    "stft_mel",
+    "stft_power",
     "supported_size",
 ]
+
+_COUNTS = (cuda_fft.launches, cuda_pwelch.launches, cuda_stft.launches, cuda_istft.launches)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**cuda_fft.launches, **cuda_pwelch.launches}
+    return {k: v for d in _COUNTS for k, v in d.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
-    for d in (cuda_fft.launches, cuda_pwelch.launches):
+    for d in _COUNTS:
         for k in d:
             d[k] = 0

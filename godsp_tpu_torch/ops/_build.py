@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (godsp_tpu_torch/csrc).
 
 The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes:
+interface, loaded with ctypes: one nvcc per source, all started
+together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libgodsp_cuda_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <tmp>/<name>.o   (each)
+    nvcc -shared -o _build/libgodsp_cuda_<hash>.so <tmp>/*.o
 
 The build runs at first use, never at import, so the package imports on
 a machine without nvcc.  The library lands in the package's git-ignored
@@ -21,6 +23,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -61,6 +64,40 @@ def _declare(lib) -> None:
         p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
     ]
     lib.gdsp_pwelch_partials.restype = i
+    lib.gdsp_stft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i64, i, i, i, p]
+    lib.gdsp_stft.restype = i
+    lib.gdsp_istft_ola.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i64, f, p]
+    lib.gdsp_istft_ola.restype = i
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of any that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)} ({p.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _compile(srcs: list[pathlib.Path], so: pathlib.Path) -> None:
+    """One nvcc per .cu source, all started together, then one link into so.
+    Objects and the unlinked library live in a temporary directory beside
+    so, removed whether the build succeeds or fails."""
+    cus = [s for s in srcs if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=so.parent) as objdir:
+        objs = [os.path.join(objdir, f"{s.stem}.o") for s in cus]
+        _run_all([
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-I", str(CSRC), "-c", str(s), "-o", o]
+            for s, o in zip(cus, objs)
+        ])
+        tmp = os.path.join(objdir, so.name)
+        _run_all([[_nvcc(), "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
 
 
 def library():
@@ -77,21 +114,9 @@ def library():
         so = BUILD_DIR / f"libgodsp_cuda_{h.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-I", str(CSRC), "-o", str(tmp),
-                *[str(s) for s in srcs if s.suffix == ".cu"],
-            ]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            _compile(srcs, so)
             build_seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-                )
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         _lib = lib

@@ -119,8 +119,6 @@ def pwelch_power_partials(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor
     for name, t in (("ext", ext), ("mask", mask), ("w", w)):
         if t.dtype != torch.float32 or t.device != ext.device:
             raise TypeError(f"pwelch_power_partials: {name} must be float32 on {ext.device}")
-    if rows > 65535:
-        raise ValueError("pwelch_power_partials: at most 65535 rows")
     out = torch.empty(*lead, n_tiles, lp, dtype=torch.float32, device=ext.device)
     if S == 0 or rows == 0:
         return out

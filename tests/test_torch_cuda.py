@@ -7,7 +7,9 @@ runs on its own, past tests/conftest.py (which imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
-and its plain version in float64 on the same inputs.
+(K1-K6) and its plain version in float64 on the same inputs, and between
+the public entry points on the card and the CPU in float64 (a synthesized
+signal over its interior, away from the NOLA-divided ends).
 """
 
 import ast
@@ -17,10 +19,18 @@ import numpy as np
 import pytest
 import torch
 
-from godsp_tpu_torch import dsputils, fft, spectral, wav, window
+from godsp_tpu_torch import dsputils, fft, models, spectral, wav, window
 from godsp_tpu_torch.fft.bluestein import bluestein_fft
 from godsp_tpu_torch.models import wav_psd
-from godsp_tpu_torch.ops import cuda_fft, cuda_pwelch, reset_launch_counts
+from godsp_tpu_torch.ops import (
+    _build,
+    cuda_fft,
+    cuda_istft,
+    cuda_pwelch,
+    cuda_stft,
+    launch_counts,
+    reset_launch_counts,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +141,150 @@ def test_wav_psd_on_card(tmp_path, cuda):
     chunks = int(got.metrics_json.split('"chunks": ')[1].split(",")[0])
     assert cuda_pwelch.launches["pwelch_power_partials"] == chunks
     assert dsputils.snr_db(got.pxx, want.pxx) >= SNR_CARD_DB
+
+
+def _hann(nfft, pad, dev):
+    return torch.nn.functional.pad(window.window_table("hann", nfft, device=dev), (0, pad - nfft))
+
+
+@pytest.mark.parametrize("out,nfft,hop,pad", [
+    ("complex", 1024, 256, 1024), ("complex", 1024, 160, 2048), ("complex", 256, 256, 16384),
+    ("complex", 2, 1, 2), ("power", 1024, 512, 1024), ("power", 500, 333, 512),
+    ("mel", 1024, 256, 1024), ("mel", 400, 160, 512),
+])
+def test_k5_on_card(cuda, out, nfft, hop, pad):
+    rng = np.random.default_rng(nfft + hop + pad)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 20000))).to(cuda)
+    F = (20000 - nfft) // hop + 1
+    w = _hann(nfft, pad, cuda)
+    fb = models.mel_filterbank(40, pad, 16000.0, device=cuda) if out == "mel" else None
+    extra = (fb.float(),) if out == "mel" else ()
+    got = getattr(cuda_stft, f"stft_{out}")(x.float(), w.float(), nfft, hop, F, *extra, pad=pad)
+    want = cuda_stft.stft_pallas_plain(x, w, nfft, hop, F, pad, out, fb)
+    assert got.shape == want.shape
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("nfft,hop,pad,onesided", [
+    (1024, 256, 1024, True), (1024, 160, 2048, True), (384, 128, 512, False), (256, 1, 256, True),
+    (16384, 4096, 16384, True),  # the span in shared memory: 224 KB a block
+    (16384, 1024, 16384, True),  # the span past shared memory: accumulated in the output row
+])
+def test_k6_on_card(cuda, nfft, hop, pad, onesided):
+    rng = np.random.default_rng(nfft + hop)
+    F, bins = 40 if nfft > 1024 else 600, pad // 2 + 1 if onesided else pad
+    spec = torch.from_numpy(rng.normal(size=(2, F, bins)) + 1j * rng.normal(size=(2, F, bins)))
+    spec = spec.to(cuda)
+    w = window.window_table("hamming", nfft, device=cuda)
+    got = cuda_istft.istft_overlap_add(spec.to(torch.complex64), w.float(), nfft, hop, onesided)
+    want = cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop, onesided)
+    assert got.shape == want.shape == (2, (F - 1) * hop + nfft)
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("F,rows,bt", [(50, 1, 3), (2500, 2, 10), (20000, 2, 64)])
+def test_k6_tile_stitch_at_the_tail_bound(cuda, F, rows, bt):
+    """Tiles of bt frames, from bt*hop just above nfft - hop (3 * 300 >= 724:
+    each tail reaches only the next tile) to the 64-frame cap."""
+    nfft, hop = 1024, 300
+    assert cuda_istft.tile_frames(F, rows, nfft, hop) == bt
+    rng = np.random.default_rng(F)
+    shape = (rows, F, 513)
+    spec = torch.from_numpy(rng.normal(size=shape) + 1j * rng.normal(size=shape)).to(cuda)
+    w = window.window_table("hann", nfft, device=cuda)
+    want = cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop)
+    got = cuda_istft.istft_overlap_add(spec.to(torch.complex64), w.float(), nfft, hop)
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+def test_more_rows_than_grid_y(cuda):
+    """70,000 short rows, past grid.y's 65535: K4, K5 and K6 each serve them
+    in one launch, as do the public entry points."""
+    rows, nfft, hop, F = 70_000, 32, 16, 7
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(rows, (F - 1) * hop + nfft))).to(cuda)
+    xf = x.float()
+    w = window.window_table("hann", nfft, device=cuda)
+    fb = models.mel_filterbank(8, nfft, 16000.0, device=cuda)
+    reset_launch_counts()
+    for out, extra in (("complex", ()), ("power", ()), ("mel", (fb.float(),))):
+        got = getattr(cuda_stft, f"stft_{out}")(xf, w.float(), nfft, hop, F, *extra)
+        want = cuda_stft.stft_pallas_plain(x, w, nfft, hop, F, nfft, out, fb)
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, out
+    spec = cuda_stft.stft_pallas_plain(x, w, nfft, hop, F)
+    got = cuda_istft.istft_overlap_add(spec.to(torch.complex64), w.float(), nfft, hop)
+    want = cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop)
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    mask = torch.ones(rows, F, dtype=torch.float64, device=cuda)
+    got = cuda_pwelch.pwelch_power_partials(xf, mask.float(), w.float(), nfft, hop)
+    want = cuda_pwelch.pwelch_power_partials_plain(x, mask, w, nfft, hop, nfft,
+                                                   cuda_pwelch.segs_per_tile(F, rows))
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    s = models.stft(xf, nfft, hop=hop)
+    assert dsputils.snr_db(_np(s), _np(models.stft(x.cpu(), nfft, hop=hop))) >= SNR_CARD_DB
+    y = models.istft(s, nfft, hop=hop)
+    ref = models.istft(s.cpu().to(torch.complex128), nfft, hop=hop)
+    assert y.shape == ref.shape == x.shape
+    assert dsputils.snr_db(_np(y)[:, nfft:-nfft], _np(ref)[:, nfft:-nfft]) >= SNR_CARD_DB
+    m = models.mel_spectrogram(xf, 16000.0, nfft=nfft, hop=hop, n_mels=8)
+    want = models.mel_spectrogram(x.cpu(), 16000.0, nfft=nfft, hop=hop, n_mels=8)
+    assert dsputils.snr_db(_np(m), _np(want)) >= SNR_CARD_DB
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "stft_complex": 2,
+                               "stft_power": 1, "stft_mel": 2, "istft_overlap_add": 2,
+                               "pwelch_power_partials": 1}
+
+
+def test_stft_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
+    def broken():
+        raise RuntimeError("nvcc failed: simulated")
+
+    monkeypatch.setattr(_build, "library", broken)
+    x = torch.rand(8192, device=cuda)
+    w = window.window_table("hann", 1024, device=cuda, dtype=torch.float32)
+    fb = models.mel_filterbank(80, 1024, 44100.0, device=cuda)
+    spec = torch.ones(13, 513, dtype=torch.complex64, device=cuda)
+    for call in (
+        lambda: cuda_stft.stft_complex(x, w, 1024, 256, 29),
+        lambda: cuda_stft.stft_power(x, w, 1024, 256, 29),
+        lambda: cuda_stft.stft_mel(x, w, 1024, 256, 29, fb),
+        lambda: cuda_istft.istft_overlap_add(spec, w, 1024, 256),
+        lambda: models.stft(x, 1024, hop=256),
+        lambda: models.spectrogram(x, 1024, hop=256),
+        lambda: models.mel_spectrogram(x, 44100.0),
+        lambda: models.istft(spec, 1024, hop=256),
+    ):
+        with pytest.raises(RuntimeError, match="simulated"):
+            call()
+
+
+def test_stft_family_on_card(cuda, tmp_path):
+    """The public entry points on the card against the CPU in float64, and
+    each reaches its kernel."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=50000)
+    xc = torch.from_numpy(x).to(cuda)
+    reset_launch_counts()
+    s = models.stft(xc, 1024, hop=256)
+    assert s.dtype == torch.complex64
+    assert dsputils.snr_db(_np(s), _np(models.stft(x, 1024, hop=256))) >= SNR_CARD_DB
+    p = models.spectrogram(xc, 1024, hop=160, pad=2048)
+    assert dsputils.snr_db(_np(p), _np(models.spectrogram(x, 1024, hop=160, pad=2048))) >= 120
+    m = models.mel_spectrogram(xc, 44100.0, nfft=1024, hop=256, n_mels=80)
+    want = models.mel_spectrogram(x, 44100.0, nfft=1024, hop=256, n_mels=80)
+    assert dsputils.snr_db(_np(m), _np(want)) >= SNR_CARD_DB
+    y = models.istft(s, 1024, hop=256)
+    ref = models.istft(s.cpu().to(torch.complex128), 1024, hop=256)
+    assert dsputils.snr_db(_np(y)[1024:-1024], _np(ref)[1024:-1024]) >= SNR_CARD_DB
+    blocks = list(models.stream_istft([s[:40], s[40:100], s[100:]], 1024, hop=256))
+    assert dsputils.snr_db(_np(torch.cat(blocks))[1024:-1024], _np(ref)[1024:-1024]) >= 120
+    g = models.griffin_lim(s.abs(), 1024, hop=256, n_iter=0)
+    gref = models.griffin_lim(s.abs().cpu().double(), 1024, hop=256, n_iter=0)
+    assert dsputils.snr_db(_np(g), _np(gref)) >= SNR_CARD_DB
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "stft_complex": 1,
+                               "stft_power": 1, "stft_mel": 1, "istft_overlap_add": 1 + 3 + 1}
+    path = str(tmp_path / "synth.wav")
+    n = models.spectra_to_wav([s[:100], s[100:]], path, 44100, 1024, hop=256)
+    r = wav.read_wav(path)
+    assert n == r.samples == y.shape[-1]
+    back = r.read_floats(r.samples)
+    assert dsputils.snr_db(back[1024:-1024], _np(ref)[1024:-1024]) >= SNR_CARD_DB

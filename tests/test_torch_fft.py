@@ -17,7 +17,7 @@ from godsp_tpu import dsputils as jdsp
 from godsp_tpu import fft as jfft
 from godsp_tpu import window as jwin
 from godsp_tpu_torch import _dtypes, dsputils, fft, window
-from godsp_tpu_torch.ops import cuda_fft
+from godsp_tpu_torch.ops import _build, cuda_fft
 from test_fft import FFT2_TESTS, FFT_TESTS
 
 SNR_KERNEL_DB = 100.0  # plain version vs the interpret-mode JAX kernel (f32)
@@ -253,3 +253,31 @@ def test_twiddle_table_is_float64_rounded_once():
     np.testing.assert_array_equal(tab[:, 1], want.imag.astype(np.float32))
     inv = _np(cuda_fft.twiddle_table(16384, True, torch.device("cpu")))
     np.testing.assert_array_equal(inv[:, 1], -tab[:, 1])
+
+
+# A stand-in for nvcc: touches the file after -o, or fails.
+_FAKE_NVCC = {
+    "ok": '#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n',
+    "fails": "#!/bin/sh\necho simulated >&2\nexit 1\n",
+}
+
+
+@pytest.mark.parametrize("nvcc", sorted(_FAKE_NVCC))
+def test_build_leaves_only_the_library(tmp_path, monkeypatch, nvcc):
+    """One compile per source, one link; the objects go whether the build
+    succeeds or fails."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(_FAKE_NVCC[nvcc])
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    out = tmp_path / "build"
+    out.mkdir()
+    so = out / "libtest.so"
+    srcs = [tmp_path / "a.cu", tmp_path / "b.cu", tmp_path / "c.cuh"]
+    if nvcc == "ok":
+        _build._compile(srcs, so)
+        assert [f.name for f in out.iterdir()] == ["libtest.so"]
+    else:
+        with pytest.raises(RuntimeError, match="simulated"):
+            _build._compile(srcs, so)
+        assert not list(out.iterdir())
