@@ -12,10 +12,15 @@ final line):
   3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K4
      pwelch_power_partials) against its plain PyTorch version run in
      float64 on the card, at main-path shapes: SNR >= 120 dB, and each
-     launch count must rise; times kernel and plain version (float32)
-     with CUDA events.  The STFT kernels (K5 stft_complex / stft_power /
-     stft_mel, K6 istft_overlap_add) are held the same way at the shapes
-     of phase 5, and at an odd hop with pad > nfft;
+     launch count must rise; times kernel, plain version (float32) and,
+     where one PyTorch call computes the same function, that call
+     (library_ms, a yardstick the port never calls) with CUDA events,
+     beside the bound: the larger of the bytes the function must move
+     over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
+     H100 SXM's published peaks).  The STFT kernels (K5 stft_complex /
+     stft_power / stft_mel, K6 istft_overlap_add) are held the same way
+     at the shapes of phase 5, and at an odd hop with pad > nfft; K8
+     outer_dft_split at every shape phase 6 gives it;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -48,7 +53,22 @@ final line):
      [nfft, L - nfft), and Griffin-Lim is held to its float64 plain route
      at n_iter 0 (>= 120 dB) and at n_iter 32 by spectral convergence
      (within 0.5 dB); prints each step's wall and Msamples/s;
-  6. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  6. the FFT surface at full size, after one warm-up pass, as one counted
+     session of its own, every step through the public entry points:
+       - fft of 16 x 2^20 complex64 (the reference's 2^20 benchmark
+         transform, fft_test.go:262-280, batched to 2^24 points): K8
+         once, K1 once;
+       - ifft of one 2^24-point signal: K8 once, K2 once;
+       - fft of one 2^28-point signal, the top of the large plan (two K8
+         calls, K1 once);
+       - hilbert of the decoded recording as host data with no device
+         (it lands on the card): Bluestein at pad 2^26, twice;
+       - fftn of a 256 x 256 x 256 Matrix built from host data (BASELINE
+         config 3): K1 once per axis;
+     then each result is held against a float64 oracle built on the card
+     from the plain functions (>= 120 dB), and each step's wall and
+     Msamples/s is printed beside torch.fft's at the same shape;
+  7. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -74,6 +94,8 @@ SECONDS = 600
 WELCH = dict(nfft=1024, noverlap=512)
 WELCH_UNFUSED = dict(nfft=1000, noverlap=500)
 PLANE = 1 << 24  # points per plane in the FFT kernel checks
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks (700 W)
+FP32_FLOPS = 67e12  # float32 outside the tensor cores
 # Steps of the counted main-path session (phase 4).
 FUSED = "wav_psd(nfft=1024, noverlap=512)"
 UNFUSED = "wav_psd(nfft=1000, noverlap=500)"
@@ -91,6 +113,14 @@ GL_ITERS = 32
 GL_SECONDS = 60
 GL_SC_DB = 0.5  # kernel vs float64 spectral convergence, dB apart at most
 
+# Steps of the counted FFT-surface session (phase 6), and their sizes.
+B20, N20, N24, N28, CUBE = 16, 1 << 20, 1 << 24, 1 << 28, 256
+FFT20 = "fft(16 x 2^20 complex64)"
+IFFT24 = "ifft(2^24)"
+FFT28 = "fft(2^28)"
+HILBERT = "hilbert(recording, 26,460,000, host data)"
+FFTN = "fftn(Matrix 256^3, host data)"
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
@@ -100,6 +130,7 @@ REPLACES = {
     "stft_power": "godsp_tpu/ops/pallas_stft.py:150",
     "stft_mel": "godsp_tpu/ops/pallas_stft.py:150",
     "istft_overlap_add": "godsp_tpu/ops/pallas_istft.py:167",
+    "outer_dft_split": "godsp_tpu/ops/pallas_outer.py:245",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -110,6 +141,7 @@ SOURCES = {
     "stft_power": "godsp_tpu_torch/csrc/stft_kernel.cu",
     "stft_mel": "godsp_tpu_torch/csrc/stft_kernel.cu",
     "istft_overlap_add": "godsp_tpu_torch/csrc/istft_kernel.cu",
+    "outer_dft_split": "godsp_tpu_torch/csrc/outer_kernel.cu",
 }
 
 
@@ -153,10 +185,32 @@ def time_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over HBM bandwidth or
+    float32 operations over the peak rate, whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def fft_flops(points: int, n: int) -> float:
+    """Radix-2 complex FFT operations over `points` points in rows of n."""
+    return 5.0 * points * np.log2(n)
+
+
 class KernelRecord:
     def __init__(self):
         self.err: dict[str, float] = {}
-        self.times: dict[str, tuple[float, float, str]] = {}
+        self.times: dict[str, dict] = {}
+
+    def time(self, name: str, shape: str, kernel, plain, library, nbytes: float,
+             flops: float) -> None:
+        """Time the kernel, its plain version and (when not None) the one
+        PyTorch call computing the same function; the bound comes from
+        the bytes and operations of these inputs."""
+        b, by = bound_ms(nbytes, flops)
+        self.times[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                                library_ms=None if library is None else time_ms(library),
+                                bound_ms=b, bound_by=by, shape=shape)
 
     def check(self, name: str, run, want, what: str) -> None:
         """Hold a float32 kernel result, run(), against its float64 plain
@@ -239,12 +293,15 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
         rec.check("ifft_pow2", lambda: cplx(cuda_fft.ifft_pow2(xr, xi, 1.0 / n)),
                   cplx(cuda_fft.ifft_pow2_plain(xr64, xi64, 1.0 / n)), f"inverse 1/N {shape}")
         if n == 1024:
-            rec.times["fft_pow2"] = (
-                time_ms(lambda: cuda_fft.fft_pow2(xr, xi)),
-                time_ms(lambda: cuda_fft.fft_pow2_plain(xr, xi)), shape)
-            rec.times["ifft_pow2"] = (
-                time_ms(lambda: cuda_fft.ifft_pow2(xr, xi, 1.0 / n)),
-                time_ms(lambda: cuda_fft.ifft_pow2_plain(xr, xi, 1.0 / n)), shape)
+            z = torch.complex(xr, xi)
+            moved = 16.0 * rows * n  # two float32 planes read, two written
+            rec.time("fft_pow2", shape, lambda: cuda_fft.fft_pow2(xr, xi),
+                     lambda: cuda_fft.fft_pow2_plain(xr, xi), lambda: torch.fft.fft(z),
+                     moved, fft_flops(rows * n, n))
+            rec.time("ifft_pow2", shape, lambda: cuda_fft.ifft_pow2(xr, xi, 1.0 / n),
+                     lambda: cuda_fft.ifft_pow2_plain(xr, xi, 1.0 / n),
+                     lambda: torch.fft.ifft(z), moved, fft_flops(rows * n, n) + 2.0 * rows * n)
+            del z
         del xr, xi, xr64, xi64
     # K2 in its chains: Bluestein (forward K1, product, inverse K2) and convolve.
     for n in (1000, 1331):
@@ -264,8 +321,9 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
         rec.check("rfft_pow2", lambda: cplx(cuda_fft.rfft_pow2(xr)),
                   cplx(cuda_fft.rfft_pow2_plain(xr.double())), f"one-sided {shape}")
         if n == 1024:
-            rec.times["rfft_pow2"] = (time_ms(lambda: cuda_fft.rfft_pow2(xr)),
-                                      time_ms(lambda: cuda_fft.rfft_pow2_plain(xr)), shape)
+            rec.time("rfft_pow2", shape, lambda: cuda_fft.rfft_pow2(xr),
+                     lambda: cuda_fft.rfft_pow2_plain(xr), lambda: torch.fft.rfft(xr),
+                     4.0 * rows * n + 8.0 * rows * (n // 2 + 1), fft_flops(rows * n, n))
         del xr
     # K4 at the streaming chunk (256 segments + halo), the whole recording,
     # hop 160, pad 2048 > nfft, and a ragged last tile (5001 segments at 10
@@ -290,12 +348,15 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
                   lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride, pad=pad),
                   want, what)
         if S == 256:
-            rec.times["pwelch_power_partials"] = (
-                time_ms(lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride,
-                                                                  pad=pad)),
-                time_ms(lambda: cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft,
-                                                                        stride, pad, bt)),
-                what)
+            # No one PyTorch call frames, windows, transforms and sums.
+            tiles = -(-S // bt)
+            rec.time("pwelch_power_partials", what,
+                     lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride,
+                                                               pad=pad),
+                     lambda: cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft,
+                                                                     stride, pad, bt),
+                     None, 4.0 * (L + S + pad + tiles * (pad // 2 + 1)),
+                     keep * (nfft + fft_flops(pad, pad) + 3.0 * (pad // 2 + 1)))
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
@@ -324,11 +385,22 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
         rec.check(name, lambda: kernel(xs, w.float(), NFFT, hop, F, *mel_fb, pad=pad), want, shape)
         del want
         if name not in rec.times:  # time the first shape of each mode
-            rec.times[name] = (
-                time_ms(lambda: kernel(xs, w.float(), NFFT, hop, F, *mel_fb, pad=pad)),
-                time_ms(lambda: cuda_stft.stft_pallas_plain(xs, w.float(), NFFT, hop, F, pad, out,
-                                                            fb)),
-                shape)
+            lp = pad // 2 + 1
+            band = cuda_stft.mel_band(fb)
+            band_bins = float((band[:, 1] - band[:, 0] + 1).clamp(min=0).sum())
+            out_bytes = {"complex": 8.0 * lp, "power": 4.0 * lp, "mel": 4.0 * fb.shape[0]}[out]
+            flops = F * (NFFT + fft_flops(pad, pad)
+                         + {"complex": 0.0, "power": 3.0 * lp, "mel": 3.0 * lp + 2.0 * band_bins}[out])
+            wn = w[:NFFT].float()
+            # torch.stft computes the complex mode (bins x frames); no one
+            # call computes the power or mel spectra.
+            library = (lambda: torch.stft(xs, NFFT, hop_length=hop, window=wn, center=False,
+                                          return_complex=True)) if out == "complex" else None
+            rec.time(name, shape, lambda: kernel(xs, w.float(), NFFT, hop, F, *mel_fb, pad=pad),
+                     lambda: cuda_stft.stft_pallas_plain(xs, w.float(), NFFT, hop, F, pad, out,
+                                                         fb),
+                     library, 4.0 * (L + pad) + F * out_bytes
+                     + (4.0 * fb.numel() if out == "mel" else 0.0), flops)
     # K6 at a spectra_to_wav chunk, at the Griffin-Lim shape (60 s), and at
     # an odd hop with pad > nfft.
     w = window.window_table("hann", NFFT, device=dev)
@@ -341,10 +413,54 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
         rec.check("istft_overlap_add",
                   lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop), want, shape)
         if F == CHUNK and hop == 256:
-            rec.times["istft_overlap_add"] = (
-                time_ms(lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop)),
-                time_ms(lambda: cuda_istft.istft_overlap_add_plain(spec, w.float(), NFFT, hop)),
-                shape)
+            # torch.istft also divides by the window-energy sum: not the same function.
+            rec.time("istft_overlap_add", shape,
+                     lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop),
+                     lambda: cuda_istft.istft_overlap_add_plain(spec, w.float(), NFFT, hop),
+                     None, 8.0 * spec.numel() + 4.0 * NFFT + 4.0 * ((F - 1) * hop + NFFT),
+                     F * (fft_flops(pad, pad) + 2.0 * NFFT))
+
+
+def k8_shapes(n: int, batch: int = 1) -> list[tuple[int, int, int]]:
+    """The (batch, m, n3) views the large plan hands K8 for one N-point
+    transform of `batch` rows: one call, or two above m = MAX_ROWS."""
+    from godsp_tpu_torch.fft import large
+
+    m, n3 = large._plan(n)
+    if m <= large._MAX_ROWS:
+        return [(batch, m, n3)]
+    g, m2 = large._balanced(m)
+    return [(batch, g, m2 * n3), (batch * g, m2, n3)]
+
+
+def phase_outer_kernel(rec: KernelRecord, dev) -> None:
+    """K8 against its float64 plain version at every shape phase 6 gives
+    it (the 2^28 plan's two calls whole), timed at 2^24."""
+    from godsp_tpu_torch.dsputils import next_power_of_2
+    from godsp_tpu_torch.ops import cuda_outer
+
+    pad = next_power_of_2(2 * FS * SECONDS - 1)  # hilbert's Bluestein pad, 2^26
+    cases = ([(s, False) for s in k8_shapes(N20, B20)]
+             + [(s, True) for s in k8_shapes(N24)]
+             + [(s, False) for s in k8_shapes(N28)]
+             + [(s, inv) for s in k8_shapes(pad) for inv in (False, True)])
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (b, m, n3), inverse in cases:
+        xr = torch.randn(b, m, n3, generator=g, device=dev)
+        xi = torch.randn(b, m, n3, generator=g, device=dev)
+        shape = f"{b} x ({m}, {n3}) {'inverse' if inverse else 'forward'}"
+        want = cplx(cuda_outer.outer_dft_split_plain(xr.double(), xi.double(), m, 1, inverse))
+        rec.check("outer_dft_split",
+                  lambda: cplx(cuda_outer.outer_dft_split(xr, xi, m, 1, inverse)), want, shape)
+        del want
+        if (b, m, n3) == k8_shapes(N24)[0] and "outer_dft_split" not in rec.times:
+            # No one PyTorch call computes a twiddled column DFT.
+            points = b * m * n3
+            rec.time("outer_dft_split", shape,
+                     lambda: cuda_outer.outer_dft_split(xr, xi, m, 1, inverse),
+                     lambda: cuda_outer.outer_dft_split_plain(xr, xi, m, 1, inverse),
+                     None, 16.0 * points, fft_flops(points, m) + 12.0 * points)
+        del xr, xi
 
 
 def write_recording(path: str) -> int:
@@ -624,6 +740,114 @@ def phase_stft_family(dev, path: str) -> dict[str, dict[str, int]]:
     return steps
 
 
+def oracle_hilbert(x64: torch.Tensor) -> torch.Tensor:
+    """float64 analytic signal on the card from the plain functions beneath
+    the public hilbert: Bluestein forward, the one-sided weights, and the
+    index-reversed Bluestein inverse (fft.go:35-52)."""
+    from godsp_tpu_torch.fft.bluestein import bluestein_fft
+
+    n = x64.shape[-1]
+    h = torch.zeros(n, dtype=torch.float64, device=x64.device)
+    h[0] = 1.0
+    h[1 : (n + 1) // 2] = 2.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+    with plain_route():
+        z = bluestein_fft(c128(x64)) * h
+        return bluestein_fft(torch.roll(torch.flip(z, dims=(-1,)), 1, dims=-1)) / n
+
+
+def phase_fft_surface(dev, path: str) -> dict[str, dict[str, int]]:
+    """The FFT surface at full size, as one counted session (phase 6)."""
+    from godsp_tpu_torch import dsputils, fft
+    from godsp_tpu_torch.fft import four_step_fft
+    from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    decoded = read_decoded(path)  # host data: hilbert gets no device
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def crand(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=dev),
+                             torch.randn(*shape, generator=g, device=dev))
+
+    x20, y24, x28 = crand(B20, N20), crand(N24), crand(N28)
+    rng = np.random.default_rng(256)
+    n3d = CUBE ** 3
+    cube = dsputils.make_matrix(rng.normal(size=n3d) + 1j * rng.normal(size=n3d), [CUBE] * 3)
+
+    def session(step):
+        """The five steps; step(label, fn) runs each and returns its result."""
+        a = step(FFT20, lambda: fft.fft(x20))
+        b = step(IFFT24, lambda: fft.ifft(y24))
+        c = step(FFT28, lambda: fft.fft(x28))
+        h = step(HILBERT, lambda: fft.hilbert(decoded))
+        m = step(FFTN, lambda: fft.fftn(cube))
+        return a, b, c, h, m
+
+    # A first pass pays one-time costs (twiddle and chirp tables,
+    # allocator); the counted session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"FFT surface: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    y20, z24, y28, an, spec3 = session(step)
+    counts = launch_counts()
+
+    log(f"  launches in the FFT-surface session: {counts}")
+    expect_launches(FFT20, steps, {"outer_dft_split": 1, "fft_pow2": 1})
+    expect_launches(IFFT24, steps, {"outer_dft_split": 1, "ifft_pow2": 1})
+    expect_launches(FFT28, steps, {"outer_dft_split": 2, "fft_pow2": 1})
+    expect_launches(HILBERT, steps, {"outer_dft_split": 8, "fft_pow2": 2, "ifft_pow2": 2})
+    expect_launches(FFTN, steps, {"fft_pow2": 3})
+    if an.device.type != dev.type:
+        raise AssertionError(f"hilbert of host data ran on {an.device}, not the card")
+    if not isinstance(spec3, dsputils.Matrix) or spec3.dimensions() != [CUBE] * 3:
+        raise AssertionError(f"fftn of a Matrix returned {spec3!r}")
+
+    # Beside torch.fft (cuFFT) at the same shapes: device time, CUDA events.
+    xdec = torch.from_numpy(decoded).to(dev)
+    cube_dev = torch.from_numpy(cube.array).to(dev, torch.complex64)
+    yardsticks = {
+        FFT20: (x20.numel(), lambda: fft.fft(x20), lambda: torch.fft.fft(x20)),
+        IFFT24: (y24.numel(), lambda: fft.ifft(y24), lambda: torch.fft.ifft(y24)),
+        FFT28: (x28.numel(), lambda: fft.fft(x28), lambda: torch.fft.fft(x28)),
+        HILBERT: (decoded.size, lambda: fft.hilbert(xdec), lambda: torch.fft.fft(xdec)),
+        FFTN: (n3d, lambda: fft.fftn(cube_dev), lambda: torch.fft.fftn(cube_dev)),
+    }
+    for label, (samples, ours, lib) in yardsticks.items():
+        ms, lib_ms = time_ms(ours, reps=5), time_ms(lib, reps=5)
+        log(f"  {label}: wall {walls[label]:.4f} s, {samples / walls[label] / 1e6:.1f} "
+            f"Msamples/s; device {ms:.3f} ms ({samples / ms / 1e3:.1f} Msamples/s) on a "
+            f"device tensor, torch.fft {lib_ms:.3f} ms")
+    del xdec, cube_dev
+
+    # Checks, after the counts were read: float64 oracles on the card from
+    # the plain functions.
+    check_db(f"{FFT20} vs float64 four-step", y20, four_step_fft(c128(x20)))
+    check_db(f"{IFFT24} vs float64 four-step", z24,
+             four_step_fft(c128(y24), inverse=True) / N24)
+    del y20, z24
+    want = four_step_fft(c128(x28))
+    check_db(f"{FFT28} vs float64 four-step", y28, want)
+    del want, y28
+    check_db(f"{HILBERT} vs float64 Bluestein oracle", an,
+             oracle_hilbert(torch.from_numpy(decoded).to(dev, torch.float64)))
+    want = torch.from_numpy(cube.array).to(dev)
+    for axis in range(3):
+        want = four_step_fft(want.movedim(axis, -1)).movedim(-1, axis)
+    check_db(f"{FFTN} vs float64 four-step per axis", spec3.array, want)
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -635,6 +859,7 @@ def main() -> int:
     rec = KernelRecord()
     phase_kernels(rec, dev)
     phase_stft_kernels(rec, dev)
+    phase_outer_kernel(rec, dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "recording.wav")
         t0 = time.perf_counter()
@@ -643,21 +868,28 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s")
         _, steps = phase_main_path(dev, path)
         stft_steps = phase_stft_family(dev, path)
-    steps.update(stft_steps)  # each wrapper's launches come from its own session
+        fft_steps = phase_fft_surface(dev, path)
+    # Each wrapper's launches come from the counted sessions, each read
+    # right after it ran.
+    steps.update(stft_steps)
+    steps.update(fft_steps)
 
     kernels = []
     for name in REPLACES:
-        ms, plain_ms, shape = rec.times[name]
+        t = rec.times[name]
         launched_by = {label: c[name] for label, c in steps.items() if c[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(launched_by.values()), max_abs_err=rec.err[name], ms=ms,
-            plain_ms=plain_ms, shape=shape, launched_by=launched_by,
+            launches=sum(launched_by.values()), max_abs_err=rec.err[name], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"], launched_by=launched_by,
         ))
         if not launched_by:
             raise AssertionError(f"{name} was not launched by the main path")
-        log(f"time {name:22s} {shape:40s} kernel {ms:.4f} ms  plain(f32) {plain_ms:.4f} ms  "
-            f"[{smi}]")
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"time {name:22s} {t['shape']:40s} kernel {t['ms']:.4f} ms  plain(f32) "
+            f"{t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  "
+            f"library {lib}  [{smi}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

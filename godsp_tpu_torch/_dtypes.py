@@ -12,7 +12,11 @@ entry points (fft/four_step.py, the *_plain versions in ops/).
 
 There is no put/to_host: the split-plane transfer workaround was a TPU
 transport issue.  Functions on tensors run on the tensor's device; host
-data (numpy, lists) becomes a CPU tensor unless a device is given.
+data (numpy, lists, paths, Matrix) lands on the device the caller names,
+else on default_device(): the card ("cuda") unless
+set_default_device("cpu") says otherwise, as godsp_tpu puts host data on
+its default device.  With the default at "cuda" and no card, host input
+raises; nothing falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -25,9 +29,38 @@ __all__ = [
     "as_real_array",
     "as_tensor",
     "complex_for",
+    "default_device",
     "np_float_for",
+    "resolve_device",
+    "set_default_device",
     "working_float",
 ]
+
+_default_device = torch.device("cuda")
+
+
+def default_device() -> torch.device:
+    """Where host data goes when no device is named (default: "cuda")."""
+    return _default_device
+
+
+def set_default_device(device) -> None:
+    """Set default_device(): "cpu" for CPU runs and tests, "cuda" for the card."""
+    global _default_device
+    _default_device = torch.device(device)
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or default_device() when None.  Raises RuntimeError for
+    a CUDA device on a machine without one, rather than computing on the
+    CPU."""
+    dev = default_device() if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: godsp_tpu_torch puts host data on the card by "
+            "default; pass device='cpu' or call set_default_device('cpu')"
+        )
+    return dev
 
 
 def working_float(device) -> torch.dtype:
@@ -48,10 +81,11 @@ def complex_for(dtype: torch.dtype) -> torch.dtype:
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
-    """x as a tensor; host data lands on `device` (default: the CPU)."""
+    """x as a tensor: a tensor stays on its device unless `device` is
+    given; host data lands on `device` (default: default_device())."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
-    return torch.as_tensor(np.asarray(x), device=device)
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
 
 
 def _cuda_cast(x: torch.Tensor) -> torch.Tensor:

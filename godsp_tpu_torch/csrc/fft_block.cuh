@@ -1,6 +1,7 @@
 // Block-level power-of-2 FFT in shared memory: the body of every kernel
 // of this library (fft_pow2_kernel, which serves fft_pow2, ifft_pow2 and
-// rfft_pow2; pwelch_partials_kernel; stft_kernel; istft_kernel).
+// rfft_pow2; pwelch_partials_kernel; stft_kernel; istft_kernel;
+// outer_dft_kernel, whose rows are columns of its tile).
 //
 // A block holds `rows` transforms of n complex float32 values in dynamic
 // shared memory (n <= 16384, 128 KB a row).  The loader writes each row
@@ -22,11 +23,12 @@ __device__ __forceinline__ unsigned bit_reverse(unsigned k, int log2n) {
   return __brev(k) >> (32 - log2n);
 }
 
-// In-place radix-2 DIT over `rows` consecutive rows of n values in s[],
-// each already in bit-reversed order.  Every thread of the block must
-// call it; the caller synchronizes after the loads.  Ends synchronized.
+// In-place radix-2 DIT over `rows` rows of n values in s[], row r at
+// s[r * row_stride], each already in bit-reversed order.  Every thread of
+// the block must call it; the caller synchronizes after the loads.  Ends
+// synchronized.
 __device__ __forceinline__ void block_fft_rows(float2* s, int rows, int n, int log2n,
-                                               const float2* __restrict__ tw) {
+                                               const float2* __restrict__ tw, int row_stride) {
   const int half = n >> 1;
   const int butterflies = rows * half;
   for (int lg = 1; lg <= log2n; ++lg) {
@@ -36,7 +38,7 @@ __device__ __forceinline__ void block_fft_rows(float2* s, int rows, int n, int l
       const int row = b >> (log2n - 1);
       const int j = b & (half - 1);
       const int pos = j & (h - 1);
-      const int i0 = row * n + ((j >> (lg - 1)) << lg) + pos;
+      const int i0 = row * row_stride + ((j >> (lg - 1)) << lg) + pos;
       const int i1 = i0 + h;
       const float2 w = __ldg(&tw[pos << tw_shift]);
       const float2 a = s[i0];
@@ -47,6 +49,12 @@ __device__ __forceinline__ void block_fft_rows(float2* s, int rows, int n, int l
     }
     __syncthreads();
   }
+}
+
+// The same over `rows` consecutive rows (row_stride = n).
+__device__ __forceinline__ void block_fft_rows(float2* s, int rows, int n, int log2n,
+                                               const float2* __restrict__ tw) {
+  block_fft_rows(s, rows, n, log2n, tw, n);
 }
 
 // Threads per block for `butterflies` butterflies a stage: a multiple of

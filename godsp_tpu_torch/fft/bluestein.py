@@ -30,7 +30,8 @@ def _chirp_tables_f64(n: int) -> tuple[np.ndarray, np.ndarray]:
     """(w, fft_b): chirp w[i] = exp(+i*pi*i^2/n) and the FFT of the symmetric
     chirp filter b at la = next_pow2(2n-1) (bluestein.go:44-58, :78-87)."""
     la = next_power_of_2(2 * n - 1)
-    isq_mod = np.array([(i * i) % (2 * n) for i in range(n)], dtype=np.float64)
+    i = np.arange(n, dtype=np.int64)
+    isq_mod = ((i * i) % (2 * n)).astype(np.float64)  # i^2 < 2^63: exact
     ang = np.pi * isq_mod / n
     w = np.cos(ang) + 1j * np.sin(ang)
     b = np.zeros(la, dtype=np.complex128)

@@ -10,11 +10,12 @@ Port of godsp_tpu/fft/core.py (reference fft/fft.go).  Semantics kept:
   * fft_real returns the FULL N-bin spectrum of a real input
     (fft.go:25-27);
   * ValueError where the reference panics (Convolve unequal lengths
-    fft.go:56-58; FFT2 empty/ragged fft.go:125-134).
+    fft.go:56-58; FFT2 empty/ragged fft.go:125-134);
+  * fftn/ifftn over a Matrix or tensor: one batched 1-D pass per axis in
+    place of the reference's per-lane odometer (fft.go:157-224).
 
 Everything batches over leading axes and runs on the input's device;
-host input becomes a CPU tensor.  fftn/ifftn and Matrix wait for the
-next FFT slice.
+host input (numpy, lists, a Matrix's array) goes to default_device().
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from godsp_tpu_torch._dtypes import as_complex_array, as_real_array, as_tensor
+from godsp_tpu_torch.dsputils.matrix import Matrix
 from godsp_tpu_torch.dsputils.utils import is_power_of_2
 from godsp_tpu_torch.fft.bluestein import bluestein_fft
 from godsp_tpu_torch.fft.pow2 import kernel_route, pow2_convolve, pow2_fft
@@ -33,10 +35,12 @@ __all__ = [
     "fft2",
     "fft2_real",
     "fft_real",
+    "fftn",
     "ifft",
     "ifft2",
     "ifft2_real",
     "ifft_real",
+    "ifftn",
 ]
 
 
@@ -73,14 +77,15 @@ def ifft(x, axis: int = -1) -> torch.Tensor:
 
 def fft_real(x, axis: int = -1) -> torch.Tensor:
     """FFT of real input; returns the full N-bin complex spectrum
-    (fft.go:25-27).  On CUDA, power-of-2 sizes take the kernel's
-    real-input mode (one plane read)."""
+    (fft.go:25-27).  On CUDA, power-of-2 sizes up to 16384 take the
+    kernel's real-input mode (one plane read); larger ones the complex
+    large plan, as godsp_tpu's _fft_real_jit does."""
     x = as_tensor(x)
     if x.dtype.is_complex:
         return fft(x, axis)
     x = as_real_array(x).movedim(axis, -1)
     n = x.shape[-1]
-    if n > 1 and is_power_of_2(n) and kernel_route(x):
+    if cuda_fft.supported_size(n) and kernel_route(x):
         yr, yi = cuda_fft.fft_pow2(x, None)
         return torch.complex(yr, yi).movedim(-1, axis)
     return fft(x, -1).movedim(-1, axis)
@@ -147,3 +152,25 @@ def fft2_real(x) -> torch.Tensor:
 def ifft2_real(x) -> torch.Tensor:
     """2-D inverse DFT of real input (fft.go:114-116)."""
     return ifft2(x)
+
+
+def _fftn_impl(m, inverse: bool):
+    is_matrix = isinstance(m, Matrix)
+    arr = as_complex_array(m.array if is_matrix else m)
+    op = ifft if inverse else fft
+    for axis in range(arr.dim()):
+        arr = op(arr, axis=axis)
+    if is_matrix:
+        return Matrix.from_array(arr.cpu().numpy())
+    return arr
+
+
+def fftn(m):
+    """N-D forward DFT over a Matrix or array (fft.go:157-159).  A Matrix
+    comes back as a (host) Matrix; its array runs on default_device()."""
+    return _fftn_impl(m, inverse=False)
+
+
+def ifftn(m):
+    """N-D inverse DFT over a Matrix or array (fft.go:162-164)."""
+    return _fftn_impl(m, inverse=True)

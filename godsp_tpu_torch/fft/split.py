@@ -1,10 +1,10 @@
 """Split-complex public FFT: (re, im) planes in, planes out.
 
 Port of godsp_tpu/fft/split.py.  On CUDA, float32 planes of power-of-2
-length run the kernels directly (K1 fft_pow2, K2 ifft_pow2, K3
-rfft_pow2 in ops/cuda_fft.py), with the inverse's 1/N folded into the
-kernel's store; everything else goes through the complex dispatch
-(fft/core.py).  The
+length up to 16384 run the kernels directly (K1 fft_pow2, K2 ifft_pow2,
+K3 rfft_pow2 in ops/cuda_fft.py), with the inverse's 1/N folded into the
+kernel's store; everything else, the large plan included, goes through
+the complex dispatch (fft/core.py).  The
 public layouts are natural bin order and, for rfft_split, numpy's rfft
 layout (bins 0..N/2).
 """
@@ -14,7 +14,6 @@ from __future__ import annotations
 import torch
 
 from godsp_tpu_torch._dtypes import as_real_array
-from godsp_tpu_torch.dsputils.utils import is_power_of_2
 from godsp_tpu_torch.fft.pow2 import kernel_route
 from godsp_tpu_torch.ops import cuda_fft
 
@@ -24,7 +23,7 @@ __all__ = ["fft_split", "ifft_split", "rfft_split"]
 def _dispatch(xr, xi, inverse: bool, scale: float):
     """xi may be None (real input): the kernel then reads one plane only."""
     n = xr.shape[-1]
-    if is_power_of_2(n) and kernel_route(xr):
+    if cuda_fft.supported_size(n) and kernel_route(xr):
         if inverse:
             return cuda_fft.ifft_pow2(xr, xi, scale=scale)
         return cuda_fft.fft_pow2(xr, xi, scale=scale)
@@ -79,7 +78,7 @@ def rfft_split(xr):
     n = xr.shape[-1]
     if n <= 1:
         return xr, torch.zeros_like(xr)
-    if is_power_of_2(n) and kernel_route(xr):
+    if cuda_fft.supported_size(n) and kernel_route(xr):
         return cuda_fft.rfft_pow2(xr)
     yr, yi = fft_split(xr, None)
     return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]

@@ -28,7 +28,13 @@ import numpy as np
 import torch
 
 from godsp_tpu_torch import window as win
-from godsp_tpu_torch._dtypes import as_complex_array, as_real_array, as_tensor, working_float
+from godsp_tpu_torch._dtypes import (
+    as_complex_array,
+    as_real_array,
+    as_tensor,
+    resolve_device,
+    working_float,
+)
 from godsp_tpu_torch.dsputils.utils import zero_pad
 from godsp_tpu_torch.fft.core import fft_real, ifft
 from godsp_tpu_torch.fft.pow2 import kernels_enabled
@@ -334,7 +340,7 @@ class StreamingISTFT:
     each chunk boundary is carried on the chunks' device, never
     re-normalized twice.  Every chunk needs F_k*hop >= nfft - hop so a
     spill reaches only its immediate successor.  Host chunks go to
-    `device` (default: the CPU).
+    `device` (default: default_device()).
     """
 
     def __init__(
@@ -400,7 +406,7 @@ class StreamingISTFT:
             raise RuntimeError("flush() called twice")
         self._flushed = True
         if self._carry is None:
-            dev = torch.device("cpu" if self.device is None else self.device)
+            dev = resolve_device(self.device)
             return torch.zeros(0, dtype=working_float(dev), device=dev)
         if self.nfft == self.hop:
             return torch.zeros_like(self._carry)

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from godsp_tpu_torch._dtypes import as_real_array, working_float
+from godsp_tpu_torch._dtypes import as_real_array, as_tensor, resolve_device, working_float
 from godsp_tpu_torch.fft.four_step import _tf32_off
 from godsp_tpu_torch.models._stft_impl import (
     WindowSpec,
@@ -90,9 +90,10 @@ def mel_filterbank(
 ) -> torch.Tensor:
     """(n_mels, nfft//2 + 1) triangular mel filterbank (HTK mel scale;
     norm="slaney" area-normalizes each filter), on `device` in `dtype`
-    (default: the device's working float)."""
+    (default: the device's working float).  device=None means
+    default_device()."""
     fb = _filterbank_np(*_params(n_mels, nfft, fs, fmin, fmax, norm))
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve_device(device)
     return torch.from_numpy(fb.copy()).to(device=dev, dtype=dtype or working_float(dev))
 
 
@@ -146,7 +147,8 @@ def stream_mel(
     device=None,
 ):
     """Streaming mel front end: sample blocks in, (..., F_k, n_mels) mel
-    (or log-mel) blocks out, computed on `device` (default: the CPU).
+    (or log-mel) blocks out, computed on `device` (host blocks go there,
+    default: default_device(); tensors stay on theirs).
 
     The (< nfft)-sample tail behind each block's last frame start is
     carried on the host (models._stft_impl._StreamingFramer), so the
@@ -161,6 +163,6 @@ def stream_mel(
         seg = framer.push(block)
         if seg is not None:
             yield mel_spectrogram(
-                torch.as_tensor(seg, device=device), fs, nfft, hop_r, n_mels, window, fmin,
+                as_tensor(seg, device), fs, nfft, hop_r, n_mels, window, fmin,
                 fmax, norm, log=log, eps=eps,
             )

@@ -21,9 +21,9 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
-import torch
 
 from godsp_tpu_torch import wav as wavmod
+from godsp_tpu_torch._dtypes import as_tensor
 from godsp_tpu_torch.parallel.streaming import StreamingPwelch
 from godsp_tpu_torch.spectral._pwelch_impl import PwelchOptions
 
@@ -49,7 +49,8 @@ def wav_psd(
     segs_per_chunk_shard: int = 256,
     device=None,
 ) -> WavPsdResult:
-    """Welch PSD of a WAV file/stream, streamed block by block to `device`.
+    """Welch PSD of a WAV file/stream, streamed block by block to `device`
+    (default: default_device(), the card).
 
     src: path, bytes, or binary stream.  fs is taken from the WAV header.
     The signal never fully materializes on the host; checkpointing makes
@@ -93,8 +94,8 @@ def spectrogram_from_wav(
     """(spectrogram, freqs, frame_times) of a WAV file.
 
     Reads up to max_samples (default: all) into one batch on `device`
-    (default: the CPU); for hours-long inputs use wav_psd's streaming
-    path instead.  freqs and frame_times are numpy arrays.
+    (default: default_device(), the card); for hours-long inputs use
+    wav_psd's streaming path instead.  freqs and frame_times are numpy arrays.
     """
     from godsp_tpu_torch.models._stft_impl import spectrogram
 
@@ -106,7 +107,7 @@ def spectrogram_from_wav(
         if isinstance(src, str):
             w.close()  # the reader opened this file
     hop = hop or nfft // 2
-    x = torch.as_tensor(np.require(x, requirements="W"), device=device)  # float32 files read-only
+    x = as_tensor(np.require(x, requirements="W"), device)  # float32 files read-only
     s = spectrogram(x, nfft, hop, window, scale=scale)
     freqs = np.arange(nfft // 2 + 1) * (w.sample_rate / nfft)
     n_frames = (n - nfft) // hop + 1

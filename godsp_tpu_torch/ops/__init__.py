@@ -4,15 +4,17 @@
   cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum)
   cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
   cuda_istft   — K6 istft_overlap_add (fused inverse FFT->window->overlap-add)
+  cuda_outer   — K8 outer_dft_split (the giant-N FFT's outer levels + twiddles)
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
 reset_launch_counts() zeroes them.
 """
 
-from godsp_tpu_torch.ops import cuda_fft, cuda_istft, cuda_pwelch, cuda_stft
+from godsp_tpu_torch.ops import cuda_fft, cuda_istft, cuda_outer, cuda_pwelch, cuda_stft
 from godsp_tpu_torch.ops.cuda_fft import fft_pow2, ifft_pow2, rfft_pow2, supported_size
 from godsp_tpu_torch.ops.cuda_istft import istft_overlap_add, istft_supported
+from godsp_tpu_torch.ops.cuda_outer import outer_dft_split, outer_supported
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
     pwelch_power_partials,
@@ -23,6 +25,7 @@ from godsp_tpu_torch.ops.cuda_stft import stft_complex, stft_mel, stft_power
 __all__ = [
     "cuda_fft",
     "cuda_istft",
+    "cuda_outer",
     "cuda_pwelch",
     "cuda_stft",
     "fft_pow2",
@@ -31,6 +34,8 @@ __all__ = [
     "istft_overlap_add",
     "istft_supported",
     "launch_counts",
+    "outer_dft_split",
+    "outer_supported",
     "pwelch_power_partials",
     "pwelch_power_sum",
     "reset_launch_counts",
@@ -41,7 +46,13 @@ __all__ = [
     "supported_size",
 ]
 
-_COUNTS = (cuda_fft.launches, cuda_pwelch.launches, cuda_stft.launches, cuda_istft.launches)
+_COUNTS = (
+    cuda_fft.launches,
+    cuda_pwelch.launches,
+    cuda_stft.launches,
+    cuda_istft.launches,
+    cuda_outer.launches,
+)
 
 
 def launch_counts() -> dict[str, int]:

@@ -68,6 +68,8 @@ def _declare(lib) -> None:
     lib.gdsp_stft.restype = i
     lib.gdsp_istft_ola.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i64, f, p]
     lib.gdsp_istft_ola.restype = i
+    lib.gdsp_outer_dft.argtypes = [p, p, p, p, p, p, p, i, i, i64, i64, i, p]
+    lib.gdsp_outer_dft.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from godsp_tpu_torch import window as win
-from godsp_tpu_torch._dtypes import np_float_for, working_float
+from godsp_tpu_torch._dtypes import np_float_for, resolve_device, working_float
 from godsp_tpu_torch.native import StreamBuffer
 from godsp_tpu_torch.parallel._pwelch_sharded_impl import partial_step, resolve_geometry
 from godsp_tpu_torch.spectral._pwelch_impl import PwelchOptions
@@ -108,7 +108,7 @@ class StreamingPwelch:
             )
         self.fs = float(fs)
         self.options = options or PwelchOptions()
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         (
             self.nfft,
             self._wf,

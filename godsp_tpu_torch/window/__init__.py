@@ -16,6 +16,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from godsp_tpu_torch._dtypes import resolve_device
+
 __all__ = [
     "rectangular",
     "hamming",
@@ -90,11 +92,12 @@ def _kaiser_table(beta: float, L: int) -> np.ndarray:
 
 def _make(name: str) -> Callable[[int], torch.Tensor]:
     def w(L: int) -> torch.Tensor:
-        return torch.from_numpy(_table(name, L).copy())
+        return torch.from_numpy(_table(name, L).copy()).to(resolve_device())
 
     w.__name__ = name
     w.__qualname__ = name
-    w.__doc__ = f"L-point symmetric {name} window (window/window.go), float64 on the CPU."
+    w.__doc__ = (f"L-point symmetric {name} window (window/window.go), float64 on "
+                 "default_device().")
     return w
 
 
@@ -114,7 +117,7 @@ def kaiser(beta: float) -> Callable[[int], torch.Tensor]:
     """
 
     def w(L: int) -> torch.Tensor:
-        return torch.from_numpy(_kaiser_table(float(beta), L).copy())
+        return torch.from_numpy(_kaiser_table(float(beta), L).copy()).to(resolve_device())
 
     w.__name__ = f"kaiser_{beta}"
     w.__doc__ = f"L-point symmetric Kaiser window, beta={beta}."
@@ -147,6 +150,8 @@ def window_table_np(window, L: int) -> np.ndarray:
 
 
 def window_table(window, L: int, device=None, dtype=torch.float64) -> torch.Tensor:
-    """Resolve a window (name or callable) to an L-point tensor on `device`."""
-    return torch.from_numpy(window_table_np(window, L).copy()).to(device=device, dtype=dtype)
+    """Resolve a window (name or callable) to an L-point tensor on `device`
+    (default: default_device())."""
+    return torch.from_numpy(window_table_np(window, L).copy()).to(device=resolve_device(device),
+                                                                   dtype=dtype)
 

@@ -7,7 +7,7 @@ runs on its own, past tests/conftest.py (which imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
-(K1-K6) and its plain version in float64 on the same inputs, and between
+(K1-K6, K8) and its plain version in float64 on the same inputs, and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends).
 """
@@ -19,13 +19,24 @@ import numpy as np
 import pytest
 import torch
 
-from godsp_tpu_torch import dsputils, fft, models, spectral, wav, window
+from godsp_tpu_torch import (
+    default_device,
+    dsputils,
+    fft,
+    models,
+    set_default_device,
+    spectral,
+    wav,
+    window,
+)
 from godsp_tpu_torch.fft.bluestein import bluestein_fft
+from godsp_tpu_torch.fft.pow2 import pow2_convolve
 from godsp_tpu_torch.models import wav_psd
 from godsp_tpu_torch.ops import (
     _build,
     cuda_fft,
     cuda_istft,
+    cuda_outer,
     cuda_pwelch,
     cuda_stft,
     launch_counts,
@@ -48,6 +59,16 @@ def _golden_pxx():
         if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "GOLDEN_PXX":
             return np.asarray(ast.literal_eval(node.value))
     raise LookupError("GOLDEN_PXX")
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_the_card():
+    """The port's default: host data goes to the card (CPU references here
+    ask for the CPU with CPU tensors or device="cpu")."""
+    old = default_device()
+    set_default_device("cuda")
+    yield
+    set_default_device(old)
 
 
 @pytest.fixture
@@ -75,8 +96,9 @@ def test_k1_k2_k3_on_card(cuda, n):
 
 
 def test_cuda_dispatch_rules(cuda):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        fft.fft(torch.ones(2, 1 << 15, dtype=torch.complex64, device=cuda))
+    big = torch.ones(1, dtype=torch.complex64, device=cuda).expand(1 << 29)  # no 4 GB buffer
+    with pytest.raises(NotImplementedError, match="2\\^28"):
+        fft.fft(big)
     with pytest.raises(TypeError):
         cuda_fft.fft_pow2(torch.ones(2, 256, dtype=torch.float64, device=cuda), None)
     y = torch.ones(8, dtype=torch.complex128, device=cuda)
@@ -123,8 +145,10 @@ def test_pwelch_on_card(cuda):
     rng = np.random.default_rng(1)
     x = rng.normal(size=50000)
     o = spectral.PwelchOptions(nfft=1024, noverlap=512)
-    got = _np(spectral.pwelch(torch.from_numpy(x).to(cuda), 1.0, o)[0])
-    assert dsputils.snr_db(got, _np(spectral.pwelch(x, 1.0, o)[0])) >= SNR_CARD_DB
+    got = spectral.pwelch(x, 1.0, o)[0]  # host data, no device: the card
+    assert got.is_cuda
+    want = spectral.pwelch(torch.from_numpy(x), 1.0, o)[0]
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
 
 
 def test_wav_psd_on_card(tmp_path, cuda):
@@ -135,7 +159,7 @@ def test_wav_psd_on_card(tmp_path, cuda):
     with wav.WavWriter(path, 44100, float32=False) as w:
         w.write(x)
     o = spectral.PwelchOptions(nfft=1024, noverlap=512)
-    want = wav_psd(path, o)  # CPU float64
+    want = wav_psd(path, o, device="cpu")  # float64
     reset_launch_counts()
     got = wav_psd(path, o, device=cuda)
     chunks = int(got.metrics_json.split('"chunks": ')[1].split(",")[0])
@@ -261,8 +285,8 @@ def test_stft_family_on_card(cuda, tmp_path):
     """The public entry points on the card against the CPU in float64, and
     each reaches its kernel."""
     rng = np.random.default_rng(11)
-    x = rng.normal(size=50000)
-    xc = torch.from_numpy(x).to(cuda)
+    x = torch.from_numpy(rng.normal(size=50000))  # the CPU float64 reference's input
+    xc = x.to(cuda)
     reset_launch_counts()
     s = models.stft(xc, 1024, hop=256)
     assert s.dtype == torch.complex64
@@ -288,3 +312,95 @@ def test_stft_family_on_card(cuda, tmp_path):
     assert n == r.samples == y.shape[-1]
     back = r.read_floats(r.samples)
     assert dsputils.snr_db(back[1024:-1024], _np(ref)[1024:-1024]) >= SNR_CARD_DB
+
+
+def _crandn(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.complex(torch.randn(*shape, generator=g, device=dev, dtype=torch.float64),
+                         torch.randn(*shape, generator=g, device=dev, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,d1,d2,n3", [
+    (4, 128, 1, 8192),  # fft of 4 x 2^20: one call
+    (1, 1024, 1, 16384),  # 2^24
+    (1, 2048, 1, 16384),  # 2^25, the largest one-call m
+    (1, 64, 1, 1 << 20),  # 2^26, two calls: the first ...
+    (64, 64, 1, 16384),  # ... and the second
+    (2, 4, 4, 256),  # godsp_tpu's two-level row order
+    (3, 8, 2, 1000),  # a ragged last column tile
+])
+def test_k8_on_card(cuda, b, d1, d2, n3, inverse):
+    x = _crandn(cuda, b, d1 * d2, n3, seed=d1 + n3)
+    before = launch_counts()["outer_dft_split"]
+    got = cuda_outer.outer_dft_split(x.real.float(), x.imag.float(), d1, d2, inverse)
+    assert launch_counts()["outer_dft_split"] == before + 1
+    want = cuda_outer.outer_dft_split_plain(x.real.contiguous(), x.imag.contiguous(), d1, d2,
+                                            inverse)
+    g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
+    assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB
+
+
+def _oracle(fn):
+    fft.set_kernels_enabled(False)
+    try:
+        return fn()
+    finally:
+        fft.set_kernels_enabled(True)
+
+
+@pytest.mark.parametrize("shape", [(1 << 15,), (4, 1 << 20), (1 << 24,)],
+                         ids=["2^15", "4x2^20", "2^24"])
+def test_large_fft_on_card(cuda, shape):
+    n = shape[-1]
+    x = _crandn(cuda, *shape, seed=n)
+    reset_launch_counts()
+    y = fft.fft(x.to(torch.complex64))
+    assert launch_counts()["outer_dft_split"] >= 1 and launch_counts()["fft_pow2"] == 1
+    assert y.dtype == torch.complex64 and y.shape == x.shape
+    assert dsputils.snr_db(_np(y), _np(fft.four_step_fft(x))) >= SNR_CARD_DB
+    z = fft.ifft(y)
+    assert launch_counts()["ifft_pow2"] == 1
+    assert dsputils.snr_db(_np(z), _np(x)) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("n", [10000, 100_003])
+def test_bluestein_over_the_large_plan_on_card(cuda, n):
+    x = _crandn(cuda, 2, n, seed=n)
+    reset_launch_counts()
+    got = fft.fft(x.to(torch.complex64))
+    assert launch_counts()["outer_dft_split"] == 2 and launch_counts()["ifft_pow2"] == 1
+    want = _oracle(lambda: bluestein_fft(x))
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+def test_convolve_2_17_on_card(cuda):
+    n = 1 << 17
+    a, b = _crandn(cuda, 2, n, seed=1), _crandn(cuda, 2, n, seed=2)
+    reset_launch_counts()
+    got = fft.convolve(a.to(torch.complex64), b.to(torch.complex64))
+    assert launch_counts()["outer_dft_split"] == 3
+    want = _oracle(lambda: pow2_convolve(a, b, scale=1.0 / n))
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+def test_fftn_of_a_matrix_on_card(cuda):
+    rng = np.random.default_rng(64)
+    flat = rng.normal(size=64 ** 3) + 1j * rng.normal(size=64 ** 3)
+    m = dsputils.make_matrix(flat, [64, 64, 64])  # host data, no device: the card
+    reset_launch_counts()
+    got = fft.fftn(m)
+    assert launch_counts()["fft_pow2"] == 3
+    assert isinstance(got, dsputils.Matrix)
+    assert dsputils.snr_db(got.array, np.fft.fftn(m.array)) >= SNR_CARD_DB
+
+
+def test_pwelch_over_the_large_plan_on_card(cuda):
+    rng = np.random.default_rng(32768)
+    x = torch.from_numpy(rng.normal(size=400_000))
+    o = spectral.PwelchOptions(nfft=32768, noverlap=16384)
+    reset_launch_counts()
+    got = spectral.pwelch(x.to(cuda), 1000.0, o)[0]
+    assert launch_counts()["outer_dft_split"] >= 1
+    want = spectral.pwelch(x, 1000.0, o)[0]  # the CPU in float64
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB

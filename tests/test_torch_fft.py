@@ -16,11 +16,20 @@ import torch
 from godsp_tpu import dsputils as jdsp
 from godsp_tpu import fft as jfft
 from godsp_tpu import window as jwin
-from godsp_tpu_torch import _dtypes, dsputils, fft, window
+from godsp_tpu_torch import _dtypes, default_device, dsputils, fft, set_default_device, window
 from godsp_tpu_torch.ops import _build, cuda_fft
 from test_fft import FFT2_TESTS, FFT_TESTS
 
 SNR_KERNEL_DB = 100.0  # plain version vs the interpret-mode JAX kernel (f32)
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _np(t):

@@ -16,11 +16,25 @@ import sys
 import pytest
 
 import godsp_tpu_torch
+from godsp_tpu_torch import default_device, set_default_device
 from test_lint import _element_is_implicit_concat
 
 PKG = pathlib.Path(godsp_tpu_torch.__file__).parent
 REPO = PKG.parent
-FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+FILES = sorted(PKG.rglob("*.py")) + [
+    REPO / "chip_smoke.py",
+    REPO / "tests" / "test_torch_cuda.py",
+    REPO / "tools" / "probe_torch_fft_profile.py",
+]
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _forbidden(mod: str) -> bool:

@@ -13,8 +13,17 @@ import pytest
 import torch
 
 from godsp_tpu import models as jmodels
-from godsp_tpu_torch import dsputils, models
+from godsp_tpu_torch import default_device, dsputils, models, set_default_device
 from godsp_tpu_torch.ops import cuda_stft
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _np(t):

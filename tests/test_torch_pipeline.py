@@ -20,12 +20,21 @@ from godsp_tpu import wav as jwav
 from godsp_tpu.models.pipeline import wav_psd as jwav_psd
 from godsp_tpu.parallel.mesh import MeshConfig, make_mesh
 from godsp_tpu.parallel.streaming import StreamingPwelch as JStreamingPwelch
-from godsp_tpu_torch import dsputils, native, spectral, wav
+from godsp_tpu_torch import default_device, dsputils, native, set_default_device, spectral, wav
 from godsp_tpu_torch.models import wav_psd
 from godsp_tpu_torch.parallel import StreamingPwelch, stream_pwelch
 
 FS = 8000.0
 OPTS = dict(nfft=256, noverlap=128)
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _np(t):

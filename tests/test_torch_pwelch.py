@@ -17,13 +17,22 @@ from godsp_tpu import spectral as jspec
 from godsp_tpu import window as jwin
 from godsp_tpu.parallel import _pwelch_sharded_impl as jsharded
 from godsp_tpu.parallel.mesh import MeshConfig, make_mesh
-from godsp_tpu_torch import dsputils, spectral, window
+from godsp_tpu_torch import default_device, dsputils, set_default_device, spectral, window
 from godsp_tpu_torch.ops import cuda_pwelch
 from godsp_tpu_torch.parallel import _pwelch_sharded_impl as sharded
 from godsp_tpu_torch.spectral import _pwelch_impl
 from test_spectral import GOLDEN_PXX
 
 SNR_KERNEL_DB = 100.0
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _np(t):

@@ -21,11 +21,20 @@ import torch
 
 from godsp_tpu import models as jmodels
 from godsp_tpu import window as jwin
-from godsp_tpu_torch import dsputils, models, wav
+from godsp_tpu_torch import default_device, dsputils, models, set_default_device, wav
 from godsp_tpu_torch.models import _stft_impl, griffin, mel
 from godsp_tpu_torch.ops import cuda_istft, cuda_pwelch, cuda_stft
 
 SNR_KERNEL_DB = 100.0
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _np(t):
