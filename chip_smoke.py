@@ -10,8 +10,8 @@ final line):
      power limit and torch's device name;
   2. builds the CUDA kernels from godsp_tpu_torch/csrc (nvcc, sm_90a);
   3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K4
-     pwelch_power_partials) against its plain PyTorch version run in
-     float64 on the card, at main-path shapes: SNR >= 120 dB, and each
+     pwelch_power_partials, K7 csd_power_partials) against its plain
+     PyTorch version run in float64 on the card, at main-path shapes: SNR >= 120 dB, and each
      launch count must rise; times kernel, plain version (float32) and,
      where one PyTorch call computes the same function, that call
      (library_ms, a yardstick the port never calls) with CUDA events,
@@ -20,7 +20,9 @@ final line):
      H100 SXM's published peaks).  The STFT kernels (K5 stft_complex /
      stft_power / stft_mel, K6 istft_overlap_add) are held the same way
      at the shapes of phase 5, and at an odd hop with pad > nfft; K8
-     outer_dft_split at every shape phase 6 gives it;
+     outer_dft_split at every shape phase 6 gives it; K7 at phase 7's
+     shape (the whole recording at 1024/512), at the speech hop 160
+     with nfft 1000 and pad 1024, and at pad 16384;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -68,7 +70,30 @@ final line):
      then each result is held against a float64 oracle built on the card
      from the plain functions (>= 120 dB), and each step's wall and
      Msamples/s is printed beside torch.fft's at the same shape;
-  7. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  7. the scipy-convention spectra and the cross-spectra on a seeded
+     10-minute 44.1 kHz PCM16 STEREO recording (channel 0 is phase 4's
+     mix, channel 1 is 0.7 x channel 0 delayed by 37 samples plus
+     independent noise), decoded with read_wav and split into (L, 2),
+     after one warm-up pass, as one counted session:
+       - welch of both channels (axis 0) at 1024/512 without detrend (K4
+         once), with the default constant detrend and with the median
+         (the unfused route: K1 once each);
+       - welch_csd and welch_coherence of the two channels (K7 once; K4
+         twice and K7 once);
+       - csd and coherence in the reference's conventions at nfft 1024,
+         noverlap 864, the speech hop 160 (K7 once; K7 once, K4 twice);
+       - spectrogram_scipy of channel 0 (K5 power once);
+       - stream_welch over read_wav(...).blocks(2^20) of the mono
+         recording (K4 once a chunk);
+       - lombscargle of 65,536 seeded uneven times x 2,048 frequencies
+         (no kernel: float32 trig and row sums);
+     then the scipy-convention results are held against scipy.signal in
+     float64 on the host on the same decoded samples, csd/coherence
+     against a float64 oracle of the reference formula built on the card
+     from the plain functions (all >= 120 dB), and lombscargle against
+     its own float64 run on the CPU at the bound lomb_bound_db states;
+     prints each step's wall and Msamples/s;
+  8. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -121,6 +146,20 @@ FFT28 = "fft(2^28)"
 HILBERT = "hilbert(recording, 26,460,000, host data)"
 FFTN = "fftn(Matrix 256^3, host data)"
 
+# Steps of the counted scipy-spectra session (phase 7), and their sizes.
+W_FUSED = "welch(stereo, 1024/512, detrend=False, axis=0)"
+W_CONST = "welch(stereo, 1024/512, detrend='constant', axis=0)"
+W_MEDIAN = "welch(stereo, 1024/512, average='median', detrend=False)"
+W_CSD = "welch_csd(ch0, ch1, nperseg=1024, detrend=False)"
+W_COH = "welch_coherence(ch0, ch1, nperseg=1024, detrend=False)"
+CSD160 = "csd(ch0, ch1, nfft=1024, noverlap=864)"
+COH160 = "coherence(ch0, ch1, nfft=1024, noverlap=864)"
+SPEC_SCIPY = "spectrogram_scipy(ch0, nperseg=1024, detrend=False)"
+STREAM_WELCH = "stream_welch(mono, blocks of 2^20, nperseg=1024)"
+LOMB = "lombscargle(65,536 uneven times x 2,048 frequencies)"
+LOMB_N, LOMB_F, LOMB_FMAX = 1 << 16, 2048, 1000.0  # samples over 1 s, frequencies to 1 kHz
+DELAY = 37  # samples between the stereo channels
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
@@ -131,6 +170,7 @@ REPLACES = {
     "stft_mel": "godsp_tpu/ops/pallas_stft.py:150",
     "istft_overlap_add": "godsp_tpu/ops/pallas_istft.py:167",
     "outer_dft_split": "godsp_tpu/ops/pallas_outer.py:245",
+    "csd_power_partials": "godsp_tpu/ops/pallas_csd.py:84",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -142,6 +182,7 @@ SOURCES = {
     "stft_mel": "godsp_tpu_torch/csrc/stft_kernel.cu",
     "istft_overlap_add": "godsp_tpu_torch/csrc/istft_kernel.cu",
     "outer_dft_split": "godsp_tpu_torch/csrc/outer_kernel.cu",
+    "csd_power_partials": "godsp_tpu_torch/csrc/csd_kernel.cu",
 }
 
 
@@ -195,6 +236,12 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 def fft_flops(points: int, n: int) -> float:
     """Radix-2 complex FFT operations over `points` points in rows of n."""
     return 5.0 * points * np.log2(n)
+
+
+def rfft_flops(points: int, n: int) -> float:
+    """FFT operations of real input (or real output) over `points` points
+    in rows of n: half a complex transform's."""
+    return 2.5 * points * np.log2(n)
 
 
 class KernelRecord:
@@ -323,7 +370,7 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
         if n == 1024:
             rec.time("rfft_pow2", shape, lambda: cuda_fft.rfft_pow2(xr),
                      lambda: cuda_fft.rfft_pow2_plain(xr), lambda: torch.fft.rfft(xr),
-                     4.0 * rows * n + 8.0 * rows * (n // 2 + 1), fft_flops(rows * n, n))
+                     4.0 * rows * n + 8.0 * rows * (n // 2 + 1), rfft_flops(rows * n, n))
         del xr
     # K4 at the streaming chunk (256 segments + halo), the whole recording,
     # hop 160, pad 2048 > nfft, and a ragged last tile (5001 segments at 10
@@ -356,7 +403,7 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
                      lambda: cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft,
                                                                      stride, pad, bt),
                      None, 4.0 * (L + S + pad + tiles * (pad // 2 + 1)),
-                     keep * (nfft + fft_flops(pad, pad) + 3.0 * (pad // 2 + 1)))
+                     keep * (nfft + rfft_flops(pad, pad) + 3.0 * (pad // 2 + 1)))
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
@@ -368,7 +415,7 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
 
     g = torch.Generator(device=dev).manual_seed(1)
     n = FS * SECONDS
-    x = torch.rand(n, generator=g, device=dev)  # [0, 1], like the decoded PCM16 samples
+    x = torch.rand(n, generator=g, device=dev) * 2 - 1  # [-1, 1), zero-mean like decoded PCM16
     x64 = x.double()
     fb = mel_filterbank(80, NFFT, FS, device=dev, dtype=torch.float32)
     # The three modes on the whole recording's length, then complex at an
@@ -389,7 +436,7 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
             band = cuda_stft.mel_band(fb)
             band_bins = float((band[:, 1] - band[:, 0] + 1).clamp(min=0).sum())
             out_bytes = {"complex": 8.0 * lp, "power": 4.0 * lp, "mel": 4.0 * fb.shape[0]}[out]
-            flops = F * (NFFT + fft_flops(pad, pad)
+            flops = F * (NFFT + rfft_flops(pad, pad)
                          + {"complex": 0.0, "power": 3.0 * lp, "mel": 3.0 * lp + 2.0 * band_bins}[out])
             wn = w[:NFFT].float()
             # torch.stft computes the complex mode (bins x frames); no one
@@ -418,7 +465,7 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
                      lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop),
                      lambda: cuda_istft.istft_overlap_add_plain(spec, w.float(), NFFT, hop),
                      None, 8.0 * spec.numel() + 4.0 * NFFT + 4.0 * ((F - 1) * hop + NFFT),
-                     F * (fft_flops(pad, pad) + 2.0 * NFFT))
+                     F * (rfft_flops(pad, pad) + 2.0 * NFFT))
 
 
 def k8_shapes(n: int, batch: int = 1) -> list[tuple[int, int, int]]:
@@ -463,19 +510,67 @@ def phase_outer_kernel(rec: KernelRecord, dev) -> None:
         del xr, xi
 
 
-def write_recording(path: str) -> int:
-    """Seeded sine mix + noise, 10 min of 44.1 kHz PCM16 mono."""
+def phase_csd_kernel(rec: KernelRecord, dev) -> None:
+    """K7 against its float64 plain version: at phase 7's shape (the whole
+    recording at 1024/512, timed there), the speech hop 160 with nfft 1000
+    and pad 1024, and pad 16384 (one shared buffer, the X_k in registers)."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import cuda_csd, cuda_pwelch
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    whole = (FS * SECONDS - 1024) // 512 + 1
+    for nfft, stride, pad, S in ((1024, 512, 1024, whole), (1000, 160, 1024, 4096),
+                                 (16384, 8192, 16384, 512)):
+        L = (S - 1) * stride + nfft
+        x = torch.rand(L, generator=g, device=dev) * 2 - 1  # [-1, 1), zero-mean like decoded PCM16
+        y = 0.7 * torch.roll(x, DELAY) + 0.1 * torch.randn(L, generator=g, device=dev)
+        keep = S - 3
+        mask = (torch.arange(S, device=dev) < keep).float()
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        what = f"nfft {nfft} hop {stride} pad {pad} S {S} keep {keep}"
+        want = cplx(cuda_csd.csd_power_partials_plain(x.double(), y.double(), mask.double(),
+                                                      w.double(), nfft, stride, pad, bt))
+        rec.check("csd_power_partials",
+                  lambda: cplx(cuda_csd.csd_power_partials(x, y, mask, w, nfft, stride, pad=pad)),
+                  want, what)
+        del want
+        if S == whole:
+            # No one PyTorch call frames two signals and sums their cross power.
+            lp, tiles = pad // 2 + 1, -(-S // bt)
+            rec.time("csd_power_partials", what,
+                     lambda: cuda_csd.csd_power_partials(x, y, mask, w, nfft, stride, pad=pad),
+                     lambda: cuda_csd.csd_power_partials_plain(x, y, mask, w, nfft, stride,
+                                                               pad, bt),
+                     None, 4.0 * (2 * L + S + pad + 2 * tiles * lp),
+                     keep * (2.0 * (nfft + rfft_flops(pad, pad)) + 8.0 * lp))
+        del x, y
+
+
+def write_recording(path: str, stereo_path: str | None = None) -> int:
+    """Seeded sine mix + noise, 10 min of 44.1 kHz PCM16 mono; with
+    stereo_path also the stereo twin: channel 0 the same mix, channel 1
+    0.7 x channel 0 delayed by DELAY samples plus independent noise."""
     from godsp_tpu_torch import wav
 
     n = FS * SECONDS
     rng = np.random.default_rng(2024)
+    rng1 = np.random.default_rng(2025)
     block = 1 << 20
-    with wav.WavWriter(path, FS, channels=1, float32=False) as w:
+    prev = np.zeros(DELAY)
+    with contextlib.ExitStack() as stack:
+        w = stack.enter_context(wav.WavWriter(path, FS, channels=1, float32=False))
+        w2 = (stack.enter_context(wav.WavWriter(stereo_path, FS, channels=2, float32=False))
+              if stereo_path else None)
         for i in range(0, n, block):
             t = np.arange(i, min(i + block, n)) / FS
             x = (0.4 * np.sin(2 * np.pi * 440.0 * t) + 0.2 * np.sin(2 * np.pi * 3150.0 * t)
                  + 0.05 * np.sin(2 * np.pi * 11025.0 * t) + 0.1 * rng.normal(size=t.size))
             w.write(x)
+            if w2 is not None:
+                delayed = np.concatenate([prev, x])[: x.size]
+                prev = x[-DELAY:]
+                w2.write(np.stack([x, 0.7 * delayed + 0.1 * rng1.normal(size=x.size)]))
     return n
 
 
@@ -848,6 +943,165 @@ def phase_fft_surface(dev, path: str) -> dict[str, dict[str, int]]:
     return steps
 
 
+def oracle_csd(x64: torch.Tensor, y64: torch.Tensor, opts) -> torch.Tensor:
+    """float64 Pxy of the reference's csd on the card: frames, zero pad to
+    pad, the symmetric pad-length window, the plain transforms, the mean
+    of conj(X) Y, doubling of [1:lp-1] and the NFFT-window norm
+    (pwelch.go:104-136 over two signals)."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.dsputils import zero_pad
+    from godsp_tpu_torch.fft import four_step_fft
+    from godsp_tpu_torch.spectral import segment
+
+    nfft, wf, pad, noverlap, scaling = opts.resolved()
+    dev = x64.device
+    lp = pad // 2 + 1
+    w = window.window_table(wf, pad, device=dev)
+    acc = torch.zeros(lp, dtype=torch.complex128, device=dev)
+    frames_x, frames_y = segment(x64, nfft, noverlap), segment(y64, nfft, noverlap)
+    nsegs = frames_x.shape[-2]
+    with plain_route():
+        for i in range(0, nsegs, 1 << 15):  # blocks of segments: bounded memory
+            X = four_step_fft(c128(zero_pad(frames_x[i : i + (1 << 15)], pad) * w))[..., :lp]
+            Y = four_step_fft(c128(zero_pad(frames_y[i : i + (1 << 15)], pad) * w))[..., :lp]
+            acc += (torch.conj(X) * Y).sum(dim=-2)
+    acc = acc / nsegs
+    acc[1 : lp - 1] *= 2.0
+    w_nfft = window.window_table(wf, nfft, device=dev)
+    return acc / (torch.sum(w_nfft * w_nfft) * (FS if scaling else 1.0))
+
+
+def lomb_bound_db(t: np.ndarray, freqs: np.ndarray) -> float:
+    """The SNR lombscargle's float32 run must reach against float64.
+
+    Each float32 phase w*t carries at most four roundings of relative size
+    u = 2^-24 (t, w, their product, and the subtraction of tau), so its
+    error is at most 4 u max|w t| radians; sin and cos pass it on
+    unscaled, and the power, a ratio of quadratic forms in them, moves by
+    about that relative amount.  The row sums add log2(n) u, far below.
+    So 20 log10(1 / (4 u max|w t|))."""
+    return float(-20.0 * np.log10(4.0 * 2.0 ** -24 * np.max(np.abs(freqs)) * np.max(np.abs(t))))
+
+
+def phase_scipy_spectra(dev, mono_path: str, stereo_path: str) -> dict[str, dict[str, int]]:
+    """The scipy-convention spectra and the cross-spectra at real size, as
+    one counted session (phase 7)."""
+    import scipy.signal as ss
+
+    from godsp_tpu_torch import parallel, spectral, wav
+    from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    decoded = read_decoded(stereo_path).reshape(-1, 2)  # interleaved frames -> (L, 2)
+    n = decoded.shape[0]
+    x = torch.from_numpy(decoded).to(dev)
+    ch0, ch1 = x[:, 0], x[:, 1]
+    o160 = spectral.PwelchOptions(nfft=1024, noverlap=864)
+    rng = np.random.default_rng(65536)
+    t_l = np.sort(rng.uniform(0.0, 1.0, LOMB_N))
+    y_l = 0.5 + np.sin(2 * np.pi * 97.0 * t_l) + 0.3 * rng.normal(size=LOMB_N)
+    f_l = np.linspace(2 * np.pi, 2 * np.pi * LOMB_FMAX, LOMB_F)
+    t_d, y_d, f_d = (torch.from_numpy(a).to(dev) for a in (t_l, y_l, f_l))
+    kw = dict(fs=FS, nperseg=1024, detrend=False)
+
+    def session(step):
+        """The ten steps; step(label, fn) runs each and returns its result."""
+        r = {}
+        r[W_FUSED] = step(W_FUSED, lambda: spectral.welch(x, FS, nperseg=1024, noverlap=512,
+                                                          detrend=False, axis=0)[1])
+        r[W_CONST] = step(W_CONST, lambda: spectral.welch(x, FS, nperseg=1024, noverlap=512,
+                                                          axis=0)[1])
+        r[W_MEDIAN] = step(W_MEDIAN, lambda: spectral.welch(x, FS, nperseg=1024, noverlap=512,
+                                                            average="median", detrend=False,
+                                                            axis=0)[1])
+        r[W_CSD] = step(W_CSD, lambda: spectral.welch_csd(ch0, ch1, **kw)[1])
+        r[W_COH] = step(W_COH, lambda: spectral.welch_coherence(ch0, ch1, **kw)[1])
+        r[CSD160] = step(CSD160, lambda: spectral.csd(ch0, ch1, FS, o160)[0])
+        r[COH160] = step(COH160, lambda: spectral.coherence(ch0, ch1, FS, o160)[0])
+        r[SPEC_SCIPY] = step(SPEC_SCIPY, lambda: spectral.spectrogram_scipy(ch0, **kw)[2])
+        r[STREAM_WELCH] = step(STREAM_WELCH, lambda: parallel.stream_welch(
+            wav.read_wav(mono_path).blocks(1 << 20), FS, nperseg=1024, device=dev)[1])
+        r[LOMB] = step(LOMB, lambda: spectral.lombscargle(t_d, y_d, f_d))
+        return r
+
+    # A first pass pays one-time costs (twiddle tables, allocator); the
+    # counted session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"scipy spectra: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    r = session(step)
+    counts = launch_counts()
+
+    log(f"  launches in the scipy-spectra session: {counts}")
+    chunk, halo = 256 * 512, 512  # StreamingPwelch's default chunk at hop 512
+    full = (n - halo) // chunk
+    chunks = full + (1 if n - full * chunk >= 1024 else 0)
+    expect_launches(W_FUSED, steps, {"pwelch_power_partials": 1})
+    expect_launches(W_CONST, steps, {"fft_pow2": 1})
+    expect_launches(W_MEDIAN, steps, {"fft_pow2": 1})
+    expect_launches(W_CSD, steps, {"csd_power_partials": 1})
+    expect_launches(W_COH, steps, {"pwelch_power_partials": 2, "csd_power_partials": 1})
+    expect_launches(CSD160, steps, {"csd_power_partials": 1})
+    expect_launches(COH160, steps, {"csd_power_partials": 1, "pwelch_power_partials": 2})
+    expect_launches(SPEC_SCIPY, steps, {"stft_power": 1})
+    expect_launches(STREAM_WELCH, steps, {"pwelch_power_partials": chunks})
+    expect_launches(LOMB, steps, {})
+    for label in walls:
+        samples = {W_FUSED: 2 * n, W_CONST: 2 * n, W_MEDIAN: 2 * n, W_CSD: 2 * n, W_COH: 2 * n,
+                   CSD160: 2 * n, COH160: 2 * n, SPEC_SCIPY: n, STREAM_WELCH: n,
+                   LOMB: LOMB_N}[label]
+        log(f"  {label}: wall {walls[label]:.4f} s, {samples / walls[label] / 1e6:.3f} "
+            f"Msamples/s")
+    log(f"  {LOMB}: {LOMB_N * LOMB_F / walls[LOMB] / 1e9:.3f} G(time, frequency) pairs/s")
+
+    # Checks, after the counts were read.  scipy.signal in float64 on the
+    # host, on the same decoded samples.
+    x64 = decoded.astype(np.float64)
+    a64, b64 = x64[:, 0], x64[:, 1]
+    mono = read_decoded(mono_path).astype(np.float64)
+    want = {
+        W_FUSED: ss.welch(x64, FS, nperseg=1024, noverlap=512, detrend=False, axis=0)[1],
+        W_CONST: ss.welch(x64, FS, nperseg=1024, noverlap=512, axis=0)[1],
+        W_MEDIAN: ss.welch(x64, FS, nperseg=1024, noverlap=512, average="median",
+                           detrend=False, axis=0)[1],
+        W_CSD: ss.csd(a64, b64, **kw)[1],
+        W_COH: ss.coherence(a64, b64, **kw)[1],
+        SPEC_SCIPY: ss.spectrogram(a64, **kw)[2],
+        STREAM_WELCH: ss.welch(mono, FS, nperseg=1024, detrend=False)[1],
+    }
+    for label, ref in want.items():
+        got = r[label]
+        if tuple(got.shape) != ref.shape:
+            raise AssertionError(f"{label}: shape {tuple(got.shape)}, scipy {ref.shape}")
+        check_db(f"{label} vs scipy.signal float64", got, ref)
+    del want
+    # The reference-convention cross-spectra: float64 on the card.
+    c0, c1 = ch0.double(), ch1.double()
+    pxy = oracle_csd(c0, c1, o160)
+    pxx, pyy = oracle_csd(c0, c0, o160).real, oracle_csd(c1, c1, o160).real
+    check_db(f"{CSD160} vs float64 oracle", r[CSD160], pxy)
+    check_db(f"{COH160} vs float64 oracle", r[COH160], (pxy.real**2 + pxy.imag**2) / (pxx * pyy))
+    # lombscargle: float32 on the card against its own float64 run on the CPU.
+    want_l = spectral.lombscargle(torch.from_numpy(t_l), torch.from_numpy(y_l),
+                                  torch.from_numpy(f_l))
+    bound = lomb_bound_db(t_l, f_l)
+    db = snr(r[LOMB], want_l)
+    log(f"  {LOMB} vs its float64 CPU run: {db:.2f} dB (bound {bound:.2f} dB, max|w t| "
+        f"{np.max(f_l) * np.max(t_l):.1f} rad)")
+    if r[LOMB].shape != (LOMB_F,) or not db >= bound:
+        raise AssertionError(f"lombscargle: {db:.2f} dB < {bound:.2f} dB")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -860,19 +1114,23 @@ def main() -> int:
     phase_kernels(rec, dev)
     phase_stft_kernels(rec, dev)
     phase_outer_kernel(rec, dev)
+    phase_csd_kernel(rec, dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "recording.wav")
+        stereo = os.path.join(tmp, "stereo.wav")
         t0 = time.perf_counter()
-        n = write_recording(path)
-        log(f"main path: wrote {n} samples ({os.path.getsize(path)} bytes) in "
-            f"{time.perf_counter() - t0:.2f} s")
+        n = write_recording(path, stereo)
+        log(f"main path: wrote {n} samples ({os.path.getsize(path)} bytes) and their stereo "
+            f"twin ({os.path.getsize(stereo)} bytes) in {time.perf_counter() - t0:.2f} s")
         _, steps = phase_main_path(dev, path)
         stft_steps = phase_stft_family(dev, path)
         fft_steps = phase_fft_surface(dev, path)
+        welch_steps = phase_scipy_spectra(dev, path, stereo)
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
     steps.update(fft_steps)
+    steps.update(welch_steps)
 
     kernels = []
     for name in REPLACES:

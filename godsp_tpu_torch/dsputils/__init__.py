@@ -1,8 +1,7 @@
-"""L0 primitives: predicates, padding, comparison, the N-D Matrix.
+"""L0 primitives: conversion, padding, segmentation, detrend,
+comparison, the N-D Matrix.
 
-PyTorch counterpart of the part of godsp_tpu.dsputils (reference
-dsputils/) that the ported slices use.  Detrend and to_complex_2 wait
-for later slices.
+PyTorch counterpart of godsp_tpu.dsputils (reference dsputils/).
 """
 
 from godsp_tpu_torch.dsputils.compare import (
@@ -21,12 +20,24 @@ from godsp_tpu_torch.dsputils.matrix import (
     make_matrix,
     make_matrix_2,
 )
-from godsp_tpu_torch.dsputils.utils import is_power_of_2, next_power_of_2, zero_pad
+from godsp_tpu_torch.dsputils.utils import (
+    detrend,
+    is_power_of_2,
+    next_power_of_2,
+    segment,
+    segment_bounds,
+    to_complex,
+    to_complex_2,
+    zero_pad,
+    zero_pad_2,
+    zero_pad_f,
+)
 
 __all__ = [
     "CLOSE_FACTOR",
     "Matrix",
     "complex_equal",
+    "detrend",
     "float_equal",
     "is_power_of_2",
     "make_empty_matrix",
@@ -37,6 +48,12 @@ __all__ = [
     "pretty_close_2",
     "pretty_close_2f",
     "pretty_close_c",
+    "segment",
+    "segment_bounds",
     "snr_db",
+    "to_complex",
+    "to_complex_2",
     "zero_pad",
+    "zero_pad_2",
+    "zero_pad_f",
 ]

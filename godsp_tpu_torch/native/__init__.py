@@ -1,9 +1,10 @@
-"""ctypes bindings for the native host ops (godsp_tpu/native/godsp_native.cpp).
+"""ctypes bindings for the native host ops (native/godsp_native.cpp).
 
-The port shares godsp_tpu's C++ source, read by path (importing
-godsp_tpu.native would import jax), and compiles it with g++ at first
-use into the port's git-ignored _build/ directory, keyed by a hash of
-the source — never beside the source.  Every entry point keeps the same
+The C++ source is the port's own copy of godsp_tpu's (same C ABI),
+kept beside this module and outside csrc/ (which holds the CUDA
+sources that ops/_build.py hashes and compiles).  It compiles with g++
+at first use into the port's git-ignored _build/ directory, keyed by a
+hash of the source — never beside the source.  Every entry point keeps the same
 pure-numpy fallback as godsp_tpu/native/__init__.py, so the package
 works without a toolchain; `available()` says which is active.  These
 ops feed the host side only (WAV decode, stream buffering).
@@ -31,7 +32,7 @@ __all__ = [
 log = logging.getLogger("godsp_tpu_torch.native")
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SRC = _PKG.parent / "godsp_tpu" / "native" / "godsp_native.cpp"
+_SRC = pathlib.Path(__file__).resolve().parent / "godsp_native.cpp"
 _BUILD = _PKG / "_build"
 
 _lock = threading.Lock()

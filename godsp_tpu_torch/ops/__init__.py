@@ -2,6 +2,7 @@
 
   cuda_fft     — K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2 (batched pow-2 FFT)
   cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum)
+  cuda_csd     — K7 csd_power_partials (the same for two signals, conj(X)Y->sum)
   cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
   cuda_istft   — K6 istft_overlap_add (fused inverse FFT->window->overlap-add)
   cuda_outer   — K8 outer_dft_split (the giant-N FFT's outer levels + twiddles)
@@ -11,7 +12,8 @@ Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 reset_launch_counts() zeroes them.
 """
 
-from godsp_tpu_torch.ops import cuda_fft, cuda_istft, cuda_outer, cuda_pwelch, cuda_stft
+from godsp_tpu_torch.ops import cuda_csd, cuda_fft, cuda_istft, cuda_outer, cuda_pwelch, cuda_stft
+from godsp_tpu_torch.ops.cuda_csd import csd_power_partials, csd_power_sum
 from godsp_tpu_torch.ops.cuda_fft import fft_pow2, ifft_pow2, rfft_pow2, supported_size
 from godsp_tpu_torch.ops.cuda_istft import istft_overlap_add, istft_supported
 from godsp_tpu_torch.ops.cuda_outer import outer_dft_split, outer_supported
@@ -23,6 +25,9 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 from godsp_tpu_torch.ops.cuda_stft import stft_complex, stft_mel, stft_power
 
 __all__ = [
+    "csd_power_partials",
+    "csd_power_sum",
+    "cuda_csd",
     "cuda_fft",
     "cuda_istft",
     "cuda_outer",
@@ -49,6 +54,7 @@ __all__ = [
 _COUNTS = (
     cuda_fft.launches,
     cuda_pwelch.launches,
+    cuda_csd.launches,
     cuda_stft.launches,
     cuda_istft.launches,
     cuda_outer.launches,

@@ -64,6 +64,10 @@ def _declare(lib) -> None:
         p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
     ]
     lib.gdsp_pwelch_partials.restype = i
+    lib.gdsp_csd_partials.argtypes = [
+        p, p, p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
+    ]
+    lib.gdsp_csd_partials.restype = i
     lib.gdsp_stft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i64, i, i, i, p]
     lib.gdsp_stft.restype = i
     lib.gdsp_istft_ola.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i64, f, p]

@@ -13,6 +13,10 @@ per-chunk segments is the reference's global segmentation
 ((L-nfft)/stride+1, spectral.go:26-33); the remainder is zero-padded to
 one chunk with its incomplete segments masked.
 
+stream_welch drives the same accumulator with scipy.signal.welch's
+conventions (periodic window, nperseg/noverlap/nfft, density or spectrum
+scaling).
+
 A device mesh is not accepted yet: sharded streaming is ROADMAP queue 1
 item 10.
 """
@@ -34,8 +38,9 @@ from godsp_tpu_torch._dtypes import np_float_for, resolve_device, working_float
 from godsp_tpu_torch.native import StreamBuffer
 from godsp_tpu_torch.parallel._pwelch_sharded_impl import partial_step, resolve_geometry
 from godsp_tpu_torch.spectral._pwelch_impl import PwelchOptions
+from godsp_tpu_torch.spectral._welch_impl import _periodic_table_np
 
-__all__ = ["StreamingMetrics", "StreamingPwelch", "stream_pwelch"]
+__all__ = ["StreamingMetrics", "StreamingPwelch", "stream_pwelch", "stream_welch"]
 
 log = logging.getLogger("godsp_tpu_torch.streaming")
 
@@ -303,3 +308,50 @@ def stream_pwelch(
     for b in blocks:
         sp.update(b)
     return sp.finalize()
+
+
+def stream_welch(
+    blocks: Iterable[np.ndarray],
+    fs: float = 1.0,
+    window="hann",
+    nperseg: int = 256,
+    noverlap: int | None = None,
+    nfft: int | None = None,
+    scaling: str = "density",
+    mesh=None,
+    **kwargs,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Streaming Welch PSD with scipy.signal.welch conventions (periodic
+    windows, nperseg/noverlap/nfft vocabulary, density or spectrum
+    scaling, mean average, no detrend): returns (freqs, Pxx) as float64
+    numpy after consuming an iterable of sample blocks through
+    StreamingPwelch (the fused kernel once per chunk on CUDA).
+
+    The nperseg-length PERIODIC window is zero-extended on demand, so
+    the driver's pad-length-window slot reproduces scipy's
+    window-then-zero-pad semantics for nfft > nperseg while the
+    sum(w^2) normalization keeps the nperseg table — exactly scipy's
+    scaling.  The reference's doubling stops short of the last bin; for
+    odd nfft scipy doubles it too, and that bin is doubled here."""
+    if scaling not in ("density", "spectrum"):
+        raise ValueError("scaling must be 'density' or 'spectrum'")
+    nperseg = int(nperseg)
+    noverlap = nperseg // 2 if noverlap is None else int(noverlap)
+    nfft = nperseg if nfft is None else int(nfft)
+    if nfft < nperseg:
+        raise ValueError("nfft must be >= nperseg")
+    wt = _periodic_table_np(window, nperseg)
+
+    def wf(L: int) -> np.ndarray:
+        out = np.zeros(L)
+        out[: min(L, nperseg)] = wt[: min(L, nperseg)]
+        return out
+
+    opts = PwelchOptions(nfft=nperseg, window=wf, pad=nfft, noverlap=noverlap)
+    pxx, freqs = stream_pwelch(blocks, fs, opts, mesh, **kwargs)
+    pxx = np.asarray(pxx).copy()
+    if nfft % 2:  # scipy doubles every non-DC bin for odd lengths
+        pxx[..., -1] *= 2.0
+    if scaling == "spectrum":
+        pxx *= float(fs) * float(np.sum(wt * wt)) / float(np.sum(wt)) ** 2
+    return np.asarray(freqs), pxx

@@ -5,7 +5,8 @@ reference (plus Blackman-Harris, Nuttall and Kaiser), with identical
 endpoint conventions and the L == 1 -> [1] special case.  Tables are
 built host-side in float64 (matching the Go math) once per (window, L)
 and cached; window_table moves one to the device and dtype asked for.
-The scipy catalogue (godsp_tpu/window/extended.py) waits for a later slice.
+The scipy catalogue and get_window live in window/extended.py, the
+scipy.signal.windows namespace in window/windows.py.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import torch
 from godsp_tpu_torch._dtypes import resolve_device
 
 __all__ = [
+    "extended",
+    "windows",
+    "get_window",
     "rectangular",
     "hamming",
     "hann",
@@ -154,4 +158,10 @@ def window_table(window, L: int, device=None, dtype=torch.float64) -> torch.Tens
     (default: default_device())."""
     return torch.from_numpy(window_table_np(window, L).copy()).to(device=resolve_device(device),
                                                                    dtype=dtype)
+
+
+# Extended scipy-compatible window family (full catalogue + dispatcher).
+from godsp_tpu_torch.window import extended  # noqa: E402
+from godsp_tpu_torch.window.extended import get_window  # noqa: E402
+from godsp_tpu_torch.window import windows  # noqa: E402  (scipy-style namespace)
 

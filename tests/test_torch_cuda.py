@@ -7,7 +7,7 @@ runs on its own, past tests/conftest.py (which imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
-(K1-K6, K8) and its plain version in float64 on the same inputs, and between
+(K1-K8) and its plain version in float64 on the same inputs, and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends).
 """
@@ -34,6 +34,7 @@ from godsp_tpu_torch.fft.pow2 import pow2_convolve
 from godsp_tpu_torch.models import wav_psd
 from godsp_tpu_torch.ops import (
     _build,
+    cuda_csd,
     cuda_fft,
     cuda_istft,
     cuda_outer,
@@ -136,6 +137,28 @@ def test_k4_on_card(cuda, nfft, stride, pad):
     want = cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft, stride, pad,
                                                    cuda_pwelch.segs_per_tile(S, 2))
     assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("nfft,stride,pad", [(1024, 512, 1024), (1000, 160, 1024),
+                                             (1024, 156, 2048), (256, 256, 16384)])
+def test_k7_on_card(cuda, nfft, stride, pad):
+    """K7 at phase 7's geometry, the speech hop with pad > nfft, an odd
+    stride, and pad 16384 (the shared-memory limit: one buffer, the X_k
+    in registers)."""
+    rng = np.random.default_rng(pad + stride)
+    S = 301
+    ext_x = torch.from_numpy(rng.normal(size=(2, (S - 1) * stride + nfft))).to(cuda)
+    ext_y = 0.3 * ext_x + torch.from_numpy(rng.normal(size=ext_x.shape)).to(cuda)
+    mask = torch.from_numpy((np.arange(S) < S - 7).astype(np.float64)).to(cuda).expand(2, S)
+    w = window.window_table("hann", pad, device=cuda)
+    before = launch_counts()["csd_power_partials"]
+    re, im = cuda_csd.csd_power_partials(ext_x.float(), ext_y.float(), mask.float(), w.float(),
+                                         nfft, stride, pad=pad)
+    assert launch_counts()["csd_power_partials"] == before + 1
+    wre, wim = cuda_csd.csd_power_partials_plain(ext_x, ext_y, mask, w, nfft, stride, pad,
+                                                 cuda_pwelch.segs_per_tile(S, 2))
+    got = torch.complex(re, im).to(torch.complex128)
+    assert dsputils.snr_db(_np(got), _np(torch.complex(wre, wim))) >= SNR_CARD_DB
 
 
 def test_pwelch_on_card(cuda):
@@ -244,6 +267,12 @@ def test_more_rows_than_grid_y(cuda):
     want = cuda_pwelch.pwelch_power_partials_plain(x, mask, w, nfft, hop, nfft,
                                                    cuda_pwelch.segs_per_tile(F, rows))
     assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    y = torch.flip(x, dims=(0,))
+    got = torch.complex(*cuda_csd.csd_power_partials(xf, y.float(), mask.float(), w.float(),
+                                                     nfft, hop))
+    want = torch.complex(*cuda_csd.csd_power_partials_plain(x, y, mask, w, nfft, hop, nfft,
+                                                            cuda_pwelch.segs_per_tile(F, rows)))
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
     s = models.stft(xf, nfft, hop=hop)
     assert dsputils.snr_db(_np(s), _np(models.stft(x.cpu(), nfft, hop=hop))) >= SNR_CARD_DB
     y = models.istft(s, nfft, hop=hop)
@@ -255,7 +284,7 @@ def test_more_rows_than_grid_y(cuda):
     assert dsputils.snr_db(_np(m), _np(want)) >= SNR_CARD_DB
     assert launch_counts() == {**{k: 0 for k in launch_counts()}, "stft_complex": 2,
                                "stft_power": 1, "stft_mel": 2, "istft_overlap_add": 2,
-                               "pwelch_power_partials": 1}
+                               "pwelch_power_partials": 1, "csd_power_partials": 1}
 
 
 def test_stft_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
@@ -279,6 +308,65 @@ def test_stft_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="simulated"):
             call()
+
+
+def test_csd_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
+    def broken():
+        raise RuntimeError("nvcc failed: simulated")
+
+    monkeypatch.setattr(_build, "library", broken)
+    x = torch.rand(8192, device=cuda)
+    w = window.window_table("hann", 1024, device=cuda, dtype=torch.float32)
+    mask = torch.ones(15, device=cuda)
+    for call in (
+        lambda: cuda_csd.csd_power_partials(x, x, mask, w, 1024, 512),
+        lambda: cuda_csd.csd_power_sum(x, x, w, 1024, 512, 15),
+        lambda: spectral.csd(x, x, 1.0, spectral.PwelchOptions(nfft=1024, noverlap=512)),
+        lambda: spectral.welch_csd(x, x, nperseg=1024, detrend=False),
+    ):
+        with pytest.raises(RuntimeError, match="simulated"):
+            call()
+
+
+def test_csd_at_stride_156_launches_k7_and_no_fft(cuda):
+    rng = np.random.default_rng(156)
+    x, y = (torch.from_numpy(rng.normal(size=40000)).to(cuda) for _ in range(2))
+    for o in (spectral.PwelchOptions(nfft=256, noverlap=100),
+              spectral.PwelchOptions(nfft=1000, noverlap=840, pad=1024)):
+        reset_launch_counts()
+        spectral.csd(x, y, 1.0, o)
+        assert launch_counts() == {**{k: 0 for k in launch_counts()}, "csd_power_partials": 1}
+
+
+def test_scipy_spectra_on_card(cuda):
+    """welch, welch_csd, welch_coherence, spectrogram_scipy and csd on the
+    card against the CPU in float64, each through its kernel."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(2, 60000)))  # the CPU float64 reference's input
+    y = 0.7 * torch.roll(x, 37, dims=-1) + torch.from_numpy(rng.normal(size=x.shape))
+    xc, yc = x.to(cuda), y.to(cuda)
+    kw = dict(fs=44100.0, nperseg=1024, detrend=False)
+    steps = (
+        (lambda a, b: spectral.welch(a, **kw)[1], {"pwelch_power_partials": 1}),
+        (lambda a, b: spectral.welch_csd(a, b, **kw)[1], {"csd_power_partials": 1}),
+        (lambda a, b: spectral.welch_coherence(a, b, **kw)[1],
+         {"pwelch_power_partials": 2, "csd_power_partials": 1}),
+        (lambda a, b: spectral.spectrogram_scipy(a, **kw)[2], {"stft_power": 1}),
+        (lambda a, b: spectral.csd(a, b, 2.0, spectral.PwelchOptions(nfft=1024, noverlap=864))[0],
+         {"csd_power_partials": 1}),
+        (lambda a, b: spectral.coherence(a, b, 2.0, spectral.PwelchOptions(nfft=1024,
+                                                                           noverlap=864))[0],
+         {"csd_power_partials": 1, "pwelch_power_partials": 2}),
+    )
+    for fn, launched in steps:
+        reset_launch_counts()
+        got = fn(xc, yc)
+        assert launch_counts() == {**{k: 0 for k in launch_counts()}, **launched}
+        assert got.is_cuda and got.dtype in (torch.float32, torch.complex64)
+        assert dsputils.snr_db(_np(got), _np(fn(x, y))) >= SNR_CARD_DB
+    got = spectral.welch(xc, **{**kw, "detrend": "constant"})[1]
+    assert dsputils.snr_db(_np(got), _np(spectral.welch(x, **{**kw, "detrend": "constant"})[1])) \
+        >= SNR_CARD_DB
 
 
 def test_stft_family_on_card(cuda, tmp_path):

@@ -67,6 +67,39 @@ def test_import_pulls_in_no_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_native_source_lies_in_the_port():
+    from godsp_tpu_torch import native
+
+    assert native._SRC.is_file()
+    assert PKG in native._SRC.resolve().parents
+
+
+def _jax_package_path_parts(tree: ast.AST) -> list[str]:
+    """String constants that name the JAX package's directory as a path
+    part: "godsp_tpu" itself, or a "godsp_tpu/..." path."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            v = node.value
+            if v == "godsp_tpu" or (v.startswith("godsp_tpu/") and "\n" not in v
+                                    and " " not in v):
+                found.append(v)
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_the_jax_package(path):
+    """No module of the port builds a path into godsp_tpu/ (it keeps its
+    own copy of what it needs); prose in docstrings may name files there."""
+    assert not _jax_package_path_parts(ast.parse(path.read_text())), path
+
+
+def test_path_scan_catches_a_path_into_the_jax_package():
+    src = '_SRC = _PKG.parent / "godsp_tpu" / "native" / "godsp_native.cpp"\n'
+    assert _jax_package_path_parts(ast.parse(src)) == ["godsp_tpu"]
+    assert _jax_package_path_parts(ast.parse('p = "godsp_tpu/native/x.cpp"\n'))
+
+
 def test_no_implicit_str_concat_in_collections():
     offenders = []
     for path in FILES:
