@@ -22,7 +22,11 @@ final line):
      at the shapes of phase 5, and at an odd hop with pad > nfft; K8
      outer_dft_split at every shape phase 6 gives it; K7 at phase 7's
      shape (the whole recording at 1024/512), at the speech hop 160
-     with nfft 1000 and pad 1024, and at pad 16384;
+     with nfft 1000 and pad 1024, and at pad 16384; K10 ring_halo at
+     phase 8's chunk shape (exactly equal to its plain version) and K11
+     pwelch_power_partials_halo at three shapes (one shard of phase 8's
+     chunk reading its neighbour's head, the last shard reading an
+     injected tail, and hop 160 with nfft 1000 and pad 1024);
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -93,7 +97,26 @@ final line):
      from the plain functions (all >= 120 dB), and lombscargle against
      its own float64 run on the CPU at the bound lomb_bound_db states;
      prints each step's wall and Msamples/s;
-  8. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  8. the mesh-sharded paths at real size on meshes of eight shards that
+     all sit on the card (eight shards on one card measure the overhead
+     of sharding, not scaling), after one warm-up pass, as one counted
+     session: wav_psd over a (dp=1, sp=8) mesh (the default ppermute
+     halo: K4 once a shard a chunk); stream_pwelch over read_wav blocks
+     with halo_impl ("pallas", False) (K10 once a chunk, K4 once a shard a
+     chunk) and ("fused", False) (K11 once a shard a chunk, nothing
+     else); pwelch_sharded of the decoded recording cut to 26,456,064
+     samples under the three routes; the stereo recording through
+     StreamingPwelch(channels=2) on a (dp=2, sp=4) mesh, fused route;
+     spectrogram_sharded at 1024/256 (K5 power once a shard);
+     istft_sharded of the port's stft of the cut recording, 103,336
+     frames (K6 once a shard); fft_sharded of one 2^24-point complex64
+     signal (local 2^21: K8 and K1 once a shard), then its inverse (K8
+     and K2 once a shard); each result is then held against a float64
+     oracle built on the card from the plain functions (>= 120 dB) and
+     against the same entry without a mesh on the card (>= 120 dB, the
+     measured agreement printed), and the streams' walls and Msamples/s
+     are printed beside the one-device runs;
+  9. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -160,6 +183,20 @@ LOMB = "lombscargle(65,536 uneven times x 2,048 frequencies)"
 LOMB_N, LOMB_F, LOMB_FMAX = 1 << 16, 2048, 1000.0  # samples over 1 s, frequencies to 1 kHz
 DELAY = 37  # samples between the stereo channels
 
+# Steps of the counted mesh session (phase 8), on meshes of eight shards
+# that all sit on the card.
+SP, SEGS = 8, 256  # shards on "sp"; StreamingPwelch's default segments a shard a chunk
+M_WAV = "mesh: wav_psd(1024/512, sp=8, ppermute)"
+M_PALLAS = "mesh: stream_pwelch(blocks of 2^20, sp=8, pallas)"
+M_FUSED = "mesh: stream_pwelch(blocks of 2^20, sp=8, fused)"
+M_SHARDED = {r: f"mesh: pwelch_sharded(26,456,064, sp=8, {r})"
+             for r in ("ppermute", "pallas", "fused")}
+M_STEREO = "mesh: StreamingPwelch(stereo, channels=2, dp=2 x sp=4, fused)"
+M_SPEC = "mesh: spectrogram_sharded(1024/256, sp=8)"
+M_ISTFT = "mesh: istft_sharded(103,336 frames, 1024/256, sp=8)"
+M_FFT = "mesh: fft_sharded(2^24 complex64, sp=8)"
+M_IFFT = "mesh: fft_sharded(inverse=True) / 2^24"
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
@@ -171,6 +208,8 @@ REPLACES = {
     "istft_overlap_add": "godsp_tpu/ops/pallas_istft.py:167",
     "outer_dft_split": "godsp_tpu/ops/pallas_outer.py:245",
     "csd_power_partials": "godsp_tpu/ops/pallas_csd.py:84",
+    "ring_halo": "godsp_tpu/parallel/halo.py:63",
+    "pwelch_power_partials_halo": "godsp_tpu/parallel/fused_halo.py:129",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -183,6 +222,8 @@ SOURCES = {
     "istft_overlap_add": "godsp_tpu_torch/csrc/istft_kernel.cu",
     "outer_dft_split": "godsp_tpu_torch/csrc/outer_kernel.cu",
     "csd_power_partials": "godsp_tpu_torch/csrc/csd_kernel.cu",
+    "ring_halo": "godsp_tpu_torch/csrc/halo_kernel.cu",
+    "pwelch_power_partials_halo": "godsp_tpu_torch/csrc/pwelch_kernel.cu",
 }
 
 
@@ -384,7 +425,7 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
         (1024, 512, 1024, 5001, 4990),
     ):
         L = (S - 1) * stride + nfft
-        ext = rand(1, L) + 0.5
+        ext = torch.rand(1, L, generator=g, device=dev) * 2 - 1  # [-1, 1), zero-mean like PCM16
         mask = (torch.arange(S, device=dev) < keep).float()[None]
         w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
         bt = cuda_pwelch.segs_per_tile(S, 1)
@@ -545,6 +586,69 @@ def phase_csd_kernel(rec: KernelRecord, dev) -> None:
                      None, 4.0 * (2 * L + S + pad + 2 * tiles * lp),
                      keep * (2.0 * (nfft + rfft_flops(pad, pad)) + 8.0 * lp))
         del x, y
+
+
+def phase_halo_kernels(rec: KernelRecord, dev) -> None:
+    """K10 at phase 8's chunk shape, equal to its plain version, and K11
+    against its float64 plain version at three shapes, timed at the first."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import cuda_fused_halo, cuda_halo, cuda_pwelch, launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    # A StreamingPwelch chunk of phase 8 on the card: 8 blocks of 256 x 512
+    # samples, views of the chunk + halo buffer (row stride 8 x 131,072 + 512).
+    block, halo = SEGS * 512, 512
+    ext = torch.rand(1, SP * block + halo, generator=g, device=dev) * 2 - 1
+    blocks = list(ext[:, : SP * block].chunk(SP, dim=-1))
+    shape = f"{SP} blocks x 1 row x {block}, halo {halo}"
+    before = launch_counts()["ring_halo"]
+    got = cuda_halo.ring_halo(blocks, halo)
+    if launch_counts()["ring_halo"] != before + 1:
+        raise AssertionError("ring_halo: not one launch for the ring")
+    want = cuda_halo.ring_halo_plain(blocks, halo)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("ring_halo: differs from its plain version")
+    rec.err["ring_halo"] = 0.0
+    log(f"  {'ring_halo':22s} {shape:34s} equal to its plain version (torch.equal)")
+    stacked = torch.stack([b for b in blocks])
+    rec.time("ring_halo", shape, lambda: cuda_halo.ring_halo(blocks, halo),
+             lambda: torch.stack(cuda_halo.ring_halo_plain(blocks, halo)),
+             lambda: torch.roll(stacked[..., :halo], -1, 0), 8.0 * SP * halo, 0.0)
+    del ext, blocks, stacked
+    # K11: one shard of phase 8's chunk and its neighbour's head (views of
+    # one signal), the last shard with an injected tail, and hop 160 with
+    # nfft 1000 and pad 1024 (an 840-sample halo).
+    for nfft, stride, pad, last in ((1024, 512, 1024, False), (1024, 512, 1024, True),
+                                    (1000, 160, 1024, False)):
+        S = SEGS
+        L = S * stride
+        sig = torch.rand(1, 2 * L, generator=g, device=dev) * 2 - 1
+        x, src = sig[:, :L], sig[:, L:]
+        if last:
+            src = torch.rand(1, nfft - stride, generator=g, device=dev) * 2 - 1
+        keep = S - 3 if last else S
+        mask = (torch.arange(S, device=dev) < keep).float()
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        what = (f"nfft {nfft} hop {stride} pad {pad} S {S} "
+                f"{'tail' if last else 'neighbour'} {nfft - stride}")
+        want = cuda_fused_halo.pwelch_power_partials_halo_plain(
+            x.double(), src.double(), mask.double(), w.double(), nfft, stride, pad, bt)
+        rec.check("pwelch_power_partials_halo",
+                  lambda: cuda_fused_halo.pwelch_power_partials_halo(x, src, mask, w, nfft, stride,
+                                                                     pad=pad),
+                  want, what)
+        if "pwelch_power_partials_halo" not in rec.times:
+            # No one PyTorch call frames, windows, transforms and sums.
+            H, tiles, lp = nfft - stride, -(-S // bt), pad // 2 + 1
+            rec.time("pwelch_power_partials_halo", what,
+                     lambda: cuda_fused_halo.pwelch_power_partials_halo(x, src, mask, w, nfft,
+                                                                        stride, pad=pad),
+                     lambda: cuda_fused_halo.pwelch_power_partials_halo_plain(
+                         x, src, mask, w, nfft, stride, pad, bt),
+                     None, 4.0 * (L + H + S + pad + tiles * lp),
+                     keep * (nfft + rfft_flops(pad, pad) + 3.0 * lp))
+        del sig, want
 
 
 def write_recording(path: str, stereo_path: str | None = None) -> int:
@@ -1102,6 +1206,161 @@ def phase_scipy_spectra(dev, mono_path: str, stereo_path: str) -> dict[str, dict
     return steps
 
 
+def stream_chunks(n: int, chunk: int, halo: int, nfft: int) -> int:
+    """Chunks StreamingPwelch runs over n samples: the full ones (each
+    with its halo buffered) and the zero-padded remainder."""
+    full = (n - halo) // chunk
+    return full + (1 if n - full * chunk >= nfft else 0)
+
+
+def phase_mesh(dev, path: str, stereo_path: str) -> dict[str, dict[str, int]]:
+    """The mesh-sharded paths at real size, as one counted session (phase 8)."""
+    from godsp_tpu_torch import fft, models, parallel, spectral, wav, window
+    from godsp_tpu_torch.fft import four_step_fft
+    from godsp_tpu_torch.models._stft_impl import _nola_norm
+    from godsp_tpu_torch.ops import cuda_istft, cuda_stft, launch_counts, reset_launch_counts
+
+    mesh8 = parallel.make_mesh(parallel.MeshConfig(dp=1, sp=SP), devices=[dev] * SP)
+    mesh24 = parallel.make_mesh(parallel.MeshConfig(dp=2, sp=4), devices=[dev] * 8)
+    if not (mesh8.one_device and mesh24.one_device):
+        raise AssertionError("phase 8 meshes must sit on the one card")
+    o = spectral.PwelchOptions(**WELCH)
+    decoded = read_decoded(path)
+    n = decoded.size
+    cut = n // (SP * 512) * (SP * 512)
+    x = torch.from_numpy(decoded[:cut]).to(dev)
+    spec = models.stft(x, NFFT, hop=256)  # the input of the istft step, outside the session
+    F8 = spec.shape[0] // SP * SP
+    spec = spec[:F8]
+    g = torch.Generator(device=dev).manual_seed(8)
+    z = torch.complex(torch.randn(N24, generator=g, device=dev),
+                      torch.randn(N24, generator=g, device=dev))
+
+    def stereo_stream(mesh):
+        sp = parallel.StreamingPwelch(FS, o, mesh, channels=2, halo_impl=("fused", False),
+                                      device=None if mesh is not None else dev)
+        for b in wav.read_wav(stereo_path).blocks(1 << 20):
+            sp.update(b.reshape(-1, 2).T)
+        return sp.finalize()[0]
+
+    def stream(route, mesh):
+        blocks = wav.read_wav(path).blocks(1 << 20)
+        if mesh is None:
+            return parallel.stream_pwelch(blocks, FS, o, device=dev)[0]
+        return parallel.stream_pwelch(blocks, FS, o, mesh, halo_impl=(route, False))[0]
+
+    def session(step):
+        """The twelve steps; step(label, fn) runs each and returns its result."""
+        r = {M_WAV: step(M_WAV, lambda: models.wav_psd(path, o, mesh8).pxx),
+             M_PALLAS: step(M_PALLAS, lambda: stream("pallas", mesh8)),
+             M_FUSED: step(M_FUSED, lambda: stream("fused", mesh8))}
+        for route, label in M_SHARDED.items():
+            r[label] = step(label, lambda: parallel.pwelch_sharded(
+                x, FS, o, mesh8, halo_impl=(route, False))[0])
+        r[M_STEREO] = step(M_STEREO, lambda: stereo_stream(mesh24))
+        r[M_SPEC] = step(M_SPEC, lambda: parallel.spectrogram_sharded(x, mesh8, NFFT, 256))
+        r[M_ISTFT] = step(M_ISTFT, lambda: parallel.istft_sharded(spec, mesh8, NFFT, 256))
+        r[M_FFT] = step(M_FFT, lambda: parallel.fft_sharded(z, mesh8))
+        r[M_IFFT] = step(M_IFFT, lambda: parallel.fft_sharded(r[M_FFT], mesh8, inverse=True)
+                         / N24)
+        return r
+
+    # A first pass pays one-time costs (twiddle tables, allocator); the
+    # counted session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"mesh paths: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    r = session(step)
+    counts = launch_counts()
+    log(f"  launches in the mesh session: {counts}")
+
+    mono = stream_chunks(n, SP * SEGS * 512, 512, 1024)
+    two = stream_chunks(n, 4 * SEGS * 512, 512, 1024)
+    k4, k10, k11 = "pwelch_power_partials", "ring_halo", "pwelch_power_partials_halo"
+    expect_launches(M_WAV, steps, {k4: SP * mono})
+    expect_launches(M_PALLAS, steps, {k10: mono, k4: SP * mono})
+    expect_launches(M_FUSED, steps, {k11: SP * mono})
+    expect_launches(M_SHARDED["ppermute"], steps, {k4: SP})
+    expect_launches(M_SHARDED["pallas"], steps, {k10: 1, k4: SP})
+    expect_launches(M_SHARDED["fused"], steps, {k11: SP})
+    expect_launches(M_STEREO, steps, {k11: 8 * two})
+    expect_launches(M_SPEC, steps, {"stft_power": SP})
+    expect_launches(M_ISTFT, steps, {"istft_overlap_add": SP})
+    expect_launches(M_FFT, steps, {"outer_dft_split": SP, "fft_pow2": SP})
+    expect_launches(M_IFFT, steps, {"outer_dft_split": SP, "ifft_pow2": SP})
+    log(f"  chunks: {mono} of {SP * SEGS * 512} samples (sp=8), {two} of {4 * SEGS * 512} "
+        "(dp=2 x sp=4)")
+
+    # The same entries without a mesh on the card: walls beside the
+    # sharded ones, and the results the sharded ones must agree with.
+    one = {}
+    one_walls = {}
+    for label, fn in ((M_WAV, lambda: models.wav_psd(path, o, device=dev).pxx),
+                      (M_PALLAS, lambda: stream(None, None)),
+                      (M_STEREO, lambda: stereo_stream(None)),
+                      (M_SHARDED["ppermute"], lambda: spectral.pwelch(x, FS, o)[0]),
+                      (M_SPEC, lambda: models.spectrogram(x, NFFT, 256)),
+                      (M_ISTFT, lambda: models.istft(spec, NFFT, 256)[: F8 * 256]),
+                      (M_FFT, lambda: fft.fft(z)),
+                      (M_IFFT, lambda: fft.ifft(r[M_FFT]))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one[label] = fn()
+        torch.cuda.synchronize()
+        one_walls[label] = time.perf_counter() - t0
+    one[M_FUSED] = one[M_PALLAS]
+    one_walls[M_FUSED] = one_walls[M_PALLAS]
+    for route in ("pallas", "fused"):
+        one[M_SHARDED[route]] = one[M_SHARDED["ppermute"]]
+        one_walls[M_SHARDED[route]] = one_walls[M_SHARDED["ppermute"]]
+    samples = {M_WAV: n, M_PALLAS: n, M_FUSED: n, M_STEREO: 2 * n, M_SPEC: cut,
+               M_ISTFT: F8 * 256, M_FFT: N24, M_IFFT: N24, **{v: cut for v in M_SHARDED.values()}}
+    log("  eight shards on one card measure the overhead of sharding, not scaling:")
+    for label in r:
+        log(f"  {label}: wall {walls[label]:.4f} s, {samples[label] / walls[label] / 1e6:.3f} "
+            f"Msamples/s; one device {one_walls[label]:.4f} s, "
+            f"{samples[label] / one_walls[label] / 1e6:.3f} Msamples/s")
+
+    # Checks, after the counts were read: float64 oracles on the card from
+    # the plain functions, then the one-device results.
+    st = read_decoded(stereo_path).reshape(-1, 2)
+    pxx_mono, pxx_cut = oracle_pxx(decoded, o, dev), oracle_pxx(decoded[:cut], o, dev)
+    pxx_st = np.stack([oracle_pxx(np.ascontiguousarray(st[:, c]), o, dev) for c in range(2)])
+    x64 = x.double()
+    w64 = window.window_table("hann", NFFT, device=dev)
+    with plain_route():
+        z64 = c128(z)
+        Z64 = four_step_fft(z64)
+    oracles = {M_WAV: pxx_mono, M_PALLAS: pxx_mono, M_FUSED: pxx_mono, M_STEREO: pxx_st,
+               **{v: pxx_cut for v in M_SHARDED.values()},
+               M_SPEC: cuda_stft.stft_pallas_plain(x64, w64, NFFT, 256, (cut - NFFT) // 256 + 1,
+                                                   out="power"),
+               M_FFT: Z64, M_IFFT: z64}
+    for label, want in oracles.items():
+        got = r[label]
+        if tuple(got.shape) != tuple(want.shape):
+            raise AssertionError(f"{label}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+        check_db(f"{label} vs float64 oracle", got, want)
+    del oracles
+    want = (cuda_istft.istft_overlap_add_plain(c128(spec), w64, NFFT, 256)
+            / _nola_norm(w64, F8, 256, (F8 - 1) * 256 + NFFT))[: F8 * 256]
+    check_synthesis(f"{M_ISTFT} vs float64 istft", r[M_ISTFT].cpu().numpy(), want)
+    del want
+    worst = min(check_db(f"{label} vs one device", r[label], one[label]) for label in r)
+    log(f"  sharded vs one device on the card: >= {worst:.2f} dB over every step")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1115,6 +1374,7 @@ def main() -> int:
     phase_stft_kernels(rec, dev)
     phase_outer_kernel(rec, dev)
     phase_csd_kernel(rec, dev)
+    phase_halo_kernels(rec, dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "recording.wav")
         stereo = os.path.join(tmp, "stereo.wav")
@@ -1126,11 +1386,13 @@ def main() -> int:
         stft_steps = phase_stft_family(dev, path)
         fft_steps = phase_fft_surface(dev, path)
         welch_steps = phase_scipy_spectra(dev, path, stereo)
+        mesh_steps = phase_mesh(dev, path, stereo)
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
     steps.update(fft_steps)
     steps.update(welch_steps)
+    steps.update(mesh_steps)
 
     kernels = []
     for name in REPLACES:

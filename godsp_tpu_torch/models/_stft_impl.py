@@ -300,7 +300,7 @@ def spectrogram(
     return p
 
 
-def _settle_ola_block(own, spill_in, first: bool, w, nfft: int, hop: int, F: int):
+def _settle_ola_block(own, spill_in, first: bool, w, nfft: int, hop: int, F: int, out=None):
     """NOLA-normalize a block of F frames' un-normalized OLA whose head
     may receive a predecessor's spill.
 
@@ -310,7 +310,9 @@ def _settle_ola_block(own, spill_in, first: bool, w, nfft: int, hop: int, F: int
     norm tail is added and boundary normalization is exactly the one-shot
     pattern.  The norm tail is block-size-invariant given F*hop >=
     nfft-hop (the caller's validation), which is what lets streaming
-    chunks share this arithmetic.
+    chunks and mesh shards (parallel/stft_sharded.py) share this
+    arithmetic.  out: where to write the result (a slice of a larger
+    signal), else a new tensor.
     """
     H = nfft - hop
     own_len = F * hop
@@ -319,7 +321,7 @@ def _settle_ola_block(own, spill_in, first: bool, w, nfft: int, hop: int, F: int
     if H > 0 and not first:
         own[..., :H] += spill_in
         norm = torch.cat([norm[:H] + norm_loc[own_len:], norm[H:]])
-    return own / torch.clamp_min(norm, torch.finfo(w.dtype).tiny)
+    return torch.div(own, torch.clamp_min(norm, torch.finfo(w.dtype).tiny), out=out)
 
 
 def _coda_finalize(carry, w, F: int, hop: int):

@@ -6,15 +6,29 @@
   cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
   cuda_istft   — K6 istft_overlap_add (fused inverse FFT->window->overlap-add)
   cuda_outer   — K8 outer_dft_split (the giant-N FFT's outer levels + twiddles)
+  cuda_halo    — K10 ring_halo (the sharded Welch's overlap halo, one launch a ring)
+  cuda_fused_halo — K11 pwelch_power_partials_halo (K4 reading the right
+                 neighbour shard's head past its block's end)
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
 reset_launch_counts() zeroes them.
 """
 
-from godsp_tpu_torch.ops import cuda_csd, cuda_fft, cuda_istft, cuda_outer, cuda_pwelch, cuda_stft
+from godsp_tpu_torch.ops import (
+    cuda_csd,
+    cuda_fft,
+    cuda_fused_halo,
+    cuda_halo,
+    cuda_istft,
+    cuda_outer,
+    cuda_pwelch,
+    cuda_stft,
+)
 from godsp_tpu_torch.ops.cuda_csd import csd_power_partials, csd_power_sum
 from godsp_tpu_torch.ops.cuda_fft import fft_pow2, ifft_pow2, rfft_pow2, supported_size
+from godsp_tpu_torch.ops.cuda_fused_halo import pwelch_power_partials_halo
+from godsp_tpu_torch.ops.cuda_halo import ring_halo
 from godsp_tpu_torch.ops.cuda_istft import istft_overlap_add, istft_supported
 from godsp_tpu_torch.ops.cuda_outer import outer_dft_split, outer_supported
 from godsp_tpu_torch.ops.cuda_pwelch import (
@@ -29,6 +43,8 @@ __all__ = [
     "csd_power_sum",
     "cuda_csd",
     "cuda_fft",
+    "cuda_fused_halo",
+    "cuda_halo",
     "cuda_istft",
     "cuda_outer",
     "cuda_pwelch",
@@ -42,9 +58,11 @@ __all__ = [
     "outer_dft_split",
     "outer_supported",
     "pwelch_power_partials",
+    "pwelch_power_partials_halo",
     "pwelch_power_sum",
     "reset_launch_counts",
     "rfft_pow2",
+    "ring_halo",
     "stft_complex",
     "stft_mel",
     "stft_power",
@@ -58,6 +76,8 @@ _COUNTS = (
     cuda_stft.launches,
     cuda_istft.launches,
     cuda_outer.launches,
+    cuda_halo.launches,
+    cuda_fused_halo.launches,
 )
 
 

@@ -64,6 +64,14 @@ def _declare(lib) -> None:
         p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
     ]
     lib.gdsp_pwelch_partials.restype = i
+    lib.gdsp_pwelch_partials_halo.argtypes = [
+        p, i64, i64, p, i64, i64, p, i64, p, p, p, i64, i64, i, i, i, i, i, p,
+    ]
+    lib.gdsp_pwelch_partials_halo.restype = i
+    lib.gdsp_ring_halo.argtypes = [p, p, i, i, i, p, i64, i, i, p]
+    lib.gdsp_ring_halo.restype = i
+    lib.gdsp_enable_peer.argtypes = [i, i]
+    lib.gdsp_enable_peer.restype = i
     lib.gdsp_csd_partials.argtypes = [
         p, p, p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
     ]

@@ -88,7 +88,9 @@ def mel_band(fb: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).to(torch.int32)
 
 
-def _launch(x, w, nfft, stride, total_segs, pad, out, fb=None, band=None):
+def _launch(x, w, nfft, stride, total_segs, pad, out, fb=None, band=None, into=None):
+    """Run K5 in mode `out`; into: a contiguous tensor of the result's
+    shape and dtype on x's device to write (a slice of a larger output)."""
     name = f"stft_{out}"
     pad = pad or nfft
     if not fused_supported(nfft, pad, stride):
@@ -100,7 +102,8 @@ def _launch(x, w, nfft, stride, total_segs, pad, out, fb=None, band=None):
     if out == "mel" and (fb is None or fb.dim() != 2 or fb.shape[1] != pad // 2 + 1):
         raise ValueError(f"out='mel' requires fb of shape (n_mels, {pad // 2 + 1})")
     if not x.is_cuda:
-        return stft_pallas_plain(x, w, nfft, stride, total_segs, pad, out, fb)
+        res = stft_pallas_plain(x, w, nfft, stride, total_segs, pad, out, fb)
+        return res if into is None else into.copy_(res)
     tensors = (("x", x), ("w", w)) + ((("fb", fb),) if out == "mel" else ())
     for label, t in tensors:
         if t.dtype != torch.float32 or t.device != x.device:
@@ -115,9 +118,16 @@ def _launch(x, w, nfft, stride, total_segs, pad, out, fb=None, band=None):
                          f"{(total_segs - 1) * stride + nfft} samples, got {L}")
     lp = pad // 2 + 1
     width = fb.shape[0] if out == "mel" else lp
-    res = torch.empty(*lead, total_segs, width,
-                      dtype=torch.complex64 if out == "complex" else torch.float32,
-                      device=x.device)
+    shape = (*lead, total_segs, width)
+    dtype = torch.complex64 if out == "complex" else torch.float32
+    if into is None:
+        res = torch.empty(shape, dtype=dtype, device=x.device)
+    elif (into.shape != shape or into.dtype != dtype or into.device != x.device
+          or not into.is_contiguous()):
+        raise ValueError(f"{name}: into must be a contiguous {dtype} tensor of shape {shape} "
+                         f"on {x.device}")
+    else:
+        res = into
     if total_segs == 0 or rows == 0:
         return res
     x2 = x.reshape(rows, L).contiguous()
@@ -146,9 +156,10 @@ def stft_complex(x: torch.Tensor, w: torch.Tensor, nfft: int, stride: int, total
 
 
 def stft_power(x: torch.Tensor, w: torch.Tensor, nfft: int, stride: int, total_segs: int,
-               pad: int | None = None) -> torch.Tensor:
-    """K5, power mode: (..., total_segs, pad//2 + 1) float32 |X|^2."""
-    return _launch(x, w, nfft, stride, total_segs, pad, "power")
+               pad: int | None = None, into: torch.Tensor | None = None) -> torch.Tensor:
+    """K5, power mode: (..., total_segs, pad//2 + 1) float32 |X|^2, written
+    into `into` when given (a contiguous slice of a larger output)."""
+    return _launch(x, w, nfft, stride, total_segs, pad, "power", into=into)
 
 
 def stft_mel(x: torch.Tensor, w: torch.Tensor, nfft: int, stride: int, total_segs: int,

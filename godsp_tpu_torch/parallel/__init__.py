@@ -1,12 +1,24 @@
-"""Streaming Welch PSD on one device, in the reference's conventions
-(stream_pwelch) and scipy's (stream_welch); the mesh-sharded paths wait
-for ROADMAP queue 1 item 10."""
+"""Device meshes and the sharded paths: sharded and streaming Welch PSD,
+the sharded spectrogram/ISTFT and the tensor-parallel FFT.
 
+Port of godsp_tpu/parallel: data parallelism over channels ("dp"),
+sequence parallelism over the time axis ("sp") with the overlap halo
+passed by a plain ring shift, the ring-halo kernel K10 or inside the
+Welch kernel K11, and a psum of the partial periodograms.  One
+controller drives a (dp, sp) grid of torch devices (parallel/mesh.py),
+which may repeat a device.
+"""
+
+from godsp_tpu_torch.ops.cuda_halo import ring_halo
+from godsp_tpu_torch.parallel._fft_sharded_impl import fft_sharded
 from godsp_tpu_torch.parallel._pwelch_sharded_impl import (
     partial_periodogram,
-    partial_step,
+    pwelch_sharded,
     resolve_geometry,
+    sharded_partial_step,
 )
+from godsp_tpu_torch.parallel.mesh import Mesh, MeshConfig, make_mesh
+from godsp_tpu_torch.parallel.stft_sharded import istft_sharded, spectrogram_sharded
 from godsp_tpu_torch.parallel.streaming import (
     StreamingMetrics,
     StreamingPwelch,
@@ -15,11 +27,19 @@ from godsp_tpu_torch.parallel.streaming import (
 )
 
 __all__ = [
+    "Mesh",
+    "MeshConfig",
     "StreamingMetrics",
     "StreamingPwelch",
+    "fft_sharded",
+    "istft_sharded",
+    "make_mesh",
     "partial_periodogram",
-    "partial_step",
+    "pwelch_sharded",
     "resolve_geometry",
+    "ring_halo",
+    "sharded_partial_step",
+    "spectrogram_sharded",
     "stream_pwelch",
     "stream_welch",
 ]

@@ -1,12 +1,16 @@
-"""Streaming Welch PSD on one device, with checkpoint/resume.
+"""Streaming Welch PSD, sharded over a device mesh, with checkpoint/resume.
 
-Port of godsp_tpu/parallel/streaming.py at one device: time blocks
-stream from the host (e.g. wav.Wav.blocks), each full chunk plus its
-halo goes to the device as one buffer, partial_step reduces it to a
-periodogram sum (the fused kernel on CUDA), and a Neumaier-compensated
-accumulator on the device folds the chunks together.  The state is
-snapshotted under godsp_tpu's npz keys, so a stream checkpointed by
-either package resumes in the other.
+Port of godsp_tpu/parallel/streaming.py: time blocks stream from the host
+(e.g. wav.Wav.blocks), each full chunk plus its halo goes to the mesh's
+first device as one buffer, sharded_partial_step reduces it to a
+periodogram sum (halo exchange by the chosen route, one kernel per shard
+on CUDA, psum over "sp" in shard order), and a Neumaier-compensated
+accumulator on that device folds the chunks together.  Without a mesh
+the stream runs on one device (a 1 x 1 mesh).  A chunk is n_sp *
+segs_per_chunk_shard * stride samples; the last shard's halo is the head
+of the next chunk (the tail).  Channels split over the mesh's "dp" axis.
+The state is snapshotted under godsp_tpu's npz keys, so a stream
+checkpointed by either package resumes in the other.
 
 Exactness: a chunk's halo is the head of the next chunk, so the union of
 per-chunk segments is the reference's global segmentation
@@ -16,9 +20,6 @@ one chunk with its incomplete segments masked.
 stream_welch drives the same accumulator with scipy.signal.welch's
 conventions (periodic window, nperseg/noverlap/nfft, density or spectrum
 scaling).
-
-A device mesh is not accepted yet: sharded streaming is ROADMAP queue 1
-item 10.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 from godsp_tpu_torch import window as win
 from godsp_tpu_torch._dtypes import np_float_for, resolve_device, working_float
 from godsp_tpu_torch.native import StreamBuffer
-from godsp_tpu_torch.parallel._pwelch_sharded_impl import partial_step, resolve_geometry
+from godsp_tpu_torch.parallel._pwelch_sharded_impl import resolve_geometry, sharded_partial_step
+from godsp_tpu_torch.parallel.mesh import Mesh, canonical_device
 from godsp_tpu_torch.spectral._pwelch_impl import PwelchOptions
 from godsp_tpu_torch.spectral._welch_impl import _periodic_table_np
 
@@ -81,18 +83,22 @@ class StreamingMetrics:
 
 
 class StreamingPwelch:
-    """Accumulates a Welch PSD over a sample stream on one device.
+    """Accumulates a Welch PSD over a sample stream, sharded over a mesh.
 
     Usage:
-        sp = StreamingPwelch(fs, options, device="cuda")
+        sp = StreamingPwelch(fs, options, mesh, segs_per_chunk_shard=256)
         for block in wav.blocks(1 << 20):
             sp.update(block)
         pxx, freqs = sp.finalize()
 
-    update() buffers on the host and runs one device step per full chunk
-    (segs_per_chunk_shard * stride samples, plus the noverlap-sample halo
-    that update() peeks from the following data).  channels > 1 takes
-    (channels, n) blocks and returns (channels, lp) Pxx.
+    update() buffers on the host and runs one sharded step per full chunk
+    (n_sp * segs_per_chunk_shard * stride samples, plus the
+    noverlap-sample halo that update() peeks from the following data).
+    mesh None runs on `device` alone (default: default_device()); with a
+    mesh, device is None or the mesh's first device.  halo_impl picks the
+    halo route ("ppermute", "pallas" or "fused"; see
+    _pwelch_sharded_impl).  channels > 1 takes (channels, n) blocks,
+    returns (channels, lp) Pxx, and splits the channels over "dp".
     """
 
     def __init__(
@@ -104,16 +110,19 @@ class StreamingPwelch:
         checkpoint_path: Optional[str] = None,
         checkpoint_every_chunks: int = 0,
         channels: int = 1,
+        halo_impl: tuple = ("ppermute", False),
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not supported yet: sharded streaming is "
-                "ROADMAP queue 1 item 10"
-            )
         self.fs = float(fs)
         self.options = options or PwelchOptions()
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = Mesh([[resolve_device(device)]])
+        elif not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a godsp_tpu_torch.parallel.Mesh, got {type(mesh)}")
+        elif device is not None and canonical_device(device) != mesh.first:
+            raise ValueError(f"device {device} is not the mesh's first device {mesh.first}")
+        self.mesh = mesh
+        self.device = mesh.first
         (
             self.nfft,
             self._wf,
@@ -124,17 +133,24 @@ class StreamingPwelch:
             self.stride,
             self.lp,
         ) = resolve_geometry(self.options)
+        self.n_sp = self.mesh.shape["sp"]
         self.channels = int(channels)
         if self.channels < 1:
             raise ValueError("channels must be >= 1")
-        self.segs_per_shard = int(segs_per_chunk_shard)
-        self.chunk_len = self.segs_per_shard * self.stride
-        self.halo = max(self.nfft - self.stride, 0)
-        if self.halo > self.chunk_len:
+        n_dp = self.mesh.shape["dp"]
+        if n_dp > 1 and self.channels % n_dp != 0:
             raise ValueError(
-                f"chunk ({self.chunk_len}) must hold the {self.halo}-sample "
-                "overlap halo; raise segs_per_chunk_shard"
+                f"channels ({self.channels}) must divide over the dp axis ({n_dp})"
             )
+        self.segs_per_shard = int(segs_per_chunk_shard)
+        self.chunk_len = self.n_sp * self.segs_per_shard * self.stride
+        self.halo = max(self.nfft - self.stride, 0)
+        if self.halo > self.segs_per_shard * self.stride:
+            raise ValueError(
+                f"per-shard block ({self.segs_per_shard * self.stride}) must hold "
+                f"the {self.halo}-sample overlap halo; raise segs_per_chunk_shard"
+            )
+        self._halo_impl = tuple(halo_impl)
 
         self._fdt = working_float(self.device)
         self._np_float = np_float_for(self.device)
@@ -236,7 +252,7 @@ class StreamingPwelch:
         # A chunk is processable once its tail halo is also buffered.
         while len(self._bufs[0]) >= self.chunk_len + self.halo:
             ext = np.stack([b.peek(self.chunk_len + self.halo) for b in self._bufs])
-            self._process(ext, total_segs=self.segs_per_shard)
+            self._process(ext, total_segs=self.n_sp * self.segs_per_shard)
             for b in self._bufs:
                 b.consume(self.chunk_len)
             self._consumed += self.chunk_len
@@ -255,9 +271,10 @@ class StreamingPwelch:
         if self._acc_s is None:
             self._acc_s = torch.zeros(self.channels, self.lp, dtype=self._fdt, device=self.device)
             self._acc_c = torch.zeros_like(self._acc_s)
-        p, _count = partial_step(
+        p, _count = sharded_partial_step(
             ext_dev[..., : self.chunk_len], ext_dev[..., self.chunk_len:], self._w_pad,
-            self.nfft, self.fft_len, self.stride, self.segs_per_shard, self.lp, total_segs,
+            self.mesh, self.nfft, self.fft_len, self.stride, self.segs_per_shard, self.lp,
+            total_segs, halo_impl=self._halo_impl,
         )
         self._acc_s, self._acc_c = _neumaier_add(self._acc_s, self._acc_c, p)
         # The masked count is deterministic (== total_segs): no readback.
@@ -303,7 +320,8 @@ def stream_pwelch(
     device=None,
     **kwargs,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """One-call streaming Pwelch over an iterable of sample blocks."""
+    """One-call streaming Pwelch over an iterable of sample blocks, sharded
+    over mesh (or on `device` alone when mesh is None)."""
     sp = StreamingPwelch(fs, options, mesh, device=device, **kwargs)
     for b in blocks:
         sp.update(b)

@@ -7,7 +7,7 @@ runs on its own, past tests/conftest.py (which imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
-(K1-K8) and its plain version in float64 on the same inputs, and between
+(K1-K11) and its plain version in float64 on the same inputs, and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends).
 """
@@ -24,6 +24,7 @@ from godsp_tpu_torch import (
     dsputils,
     fft,
     models,
+    parallel,
     set_default_device,
     spectral,
     wav,
@@ -36,6 +37,8 @@ from godsp_tpu_torch.ops import (
     _build,
     cuda_csd,
     cuda_fft,
+    cuda_fused_halo,
+    cuda_halo,
     cuda_istft,
     cuda_outer,
     cuda_pwelch,
@@ -492,3 +495,88 @@ def test_pwelch_over_the_large_plan_on_card(cuda):
     assert launch_counts()["outer_dft_split"] >= 1
     want = spectral.pwelch(x, 1000.0, o)[0]  # the CPU in float64
     assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+# ---------------------------------------------------------------- the mesh paths (K10, K11)
+
+
+def _card_mesh(dev, dp=1, sp=8):
+    return parallel.make_mesh(parallel.MeshConfig(dp=dp, sp=sp), devices=[dev] * (dp * sp))
+
+
+@pytest.mark.parametrize("shape,n_sp,halo", [((8 * 512,), 8, 96), ((3, 4 * 256), 4, 128),
+                                             ((2, 8 * 130), 8, 7)],
+                         ids=["single_row", "batched_rows", "unaligned"])
+def test_k10_on_card(cuda, shape, n_sp, halo):
+    x = torch.from_numpy(np.random.default_rng(n_sp).normal(size=shape)).float().to(cuda)
+    blocks = list(x.chunk(n_sp, dim=-1))  # views with the signal's row stride
+    reset_launch_counts()
+    got = cuda_halo.ring_halo(blocks, halo)
+    assert launch_counts()["ring_halo"] == 1
+    for g, w in zip(got, cuda_halo.ring_halo_plain(blocks, halo)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nfft,stride,pad,last", [(1024, 512, 1024, False),
+                                                  (1024, 512, 1024, True),
+                                                  (1000, 160, 1024, False)],
+                         ids=["neighbour", "tail", "hop160"])
+def test_k11_on_card(cuda, nfft, stride, pad, last):
+    rng = np.random.default_rng(stride)
+    S, rows = 96, 2
+    sig = torch.from_numpy(rng.normal(size=(rows, 3 * S * stride))).to(cuda)
+    x, nxt = sig[:, S * stride : 2 * S * stride], sig[:, 2 * S * stride :]  # row-strided views
+    src = torch.from_numpy(rng.normal(size=(rows, nfft - stride))).to(cuda) if last else nxt
+    mask = (torch.arange(S, device=cuda) < S - 3).double()
+    w = window.window_table("hann", pad, device=cuda)
+    reset_launch_counts()
+    got = cuda_fused_halo.pwelch_power_partials_halo(x.float(), src.float(), mask.float(),
+                                                     w.float(), nfft, stride, pad=pad)
+    assert launch_counts()["pwelch_power_partials_halo"] == 1
+    want = cuda_fused_halo.pwelch_power_partials_halo_plain(
+        x, src, mask, w, nfft, stride, pad, cuda_pwelch.segs_per_tile(S, rows))
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("route", ["ppermute", "pallas", "fused"])
+def test_pwelch_sharded_on_card(cuda, route):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(2, 8 * 512 * 64)))
+    o = spectral.PwelchOptions(nfft=1024, noverlap=512)
+    reset_launch_counts()
+    got, _ = parallel.pwelch_sharded(x.to(cuda), 2.0, o, _card_mesh(cuda),
+                                     halo_impl=(route, False))
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = {"ppermute": {"pwelch_power_partials": 8},
+            "pallas": {"pwelch_power_partials": 8, "ring_halo": 1},
+            "fused": {"pwelch_power_partials_halo": 8}}[route]
+    assert counts == want
+    ref = spectral.pwelch(x, 2.0, o)[0]  # the CPU in float64
+    assert got.device.type == "cuda" and dsputils.snr_db(_np(got), _np(ref)) >= SNR_CARD_DB
+
+
+def test_sharded_stream_and_stft_on_card(cuda):
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=300_000)
+    o = spectral.PwelchOptions(nfft=1024, noverlap=512)
+    blocks = [x[i : i + 65536] for i in range(0, x.size, 65536)]
+    ref = _np(spectral.pwelch(torch.from_numpy(x), 2.0, o)[0])
+    for route in ("ppermute", "pallas", "fused"):
+        got, _ = parallel.stream_pwelch(blocks, 2.0, o, _card_mesh(cuda), segs_per_chunk_shard=16,
+                                        halo_impl=(route, False))
+        assert dsputils.snr_db(got, ref) >= SNR_CARD_DB
+    mesh = _card_mesh(cuda)
+    xs = torch.from_numpy(x[: 8 * 256 * 140])
+    reset_launch_counts()
+    sg = parallel.spectrogram_sharded(xs.to(cuda), mesh, 1024, 256)
+    assert launch_counts()["stft_power"] == 8
+    assert dsputils.snr_db(_np(sg), _np(models.spectrogram(xs, 1024, 256))) >= SNR_CARD_DB
+    s = models.stft(xs, 1024, 256)[: 8 * 130]
+    reset_launch_counts()
+    y = parallel.istft_sharded(s.to(cuda), mesh, 1024, 256)
+    assert launch_counts()["istft_overlap_add"] == 8
+    want = models.istft(s, 1024, 256)[: 8 * 130 * 256]
+    assert dsputils.snr_db(_np(y)[1024:], _np(want)[1024:]) >= SNR_CARD_DB
+    z = torch.from_numpy(rng.normal(size=1 << 18) + 1j * rng.normal(size=1 << 18))
+    Z = parallel.fft_sharded(z.to(cuda), mesh)
+    assert dsputils.snr_db(_np(Z), np.fft.fft(_np(z))) >= SNR_CARD_DB

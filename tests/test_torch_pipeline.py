@@ -149,7 +149,8 @@ def test_stream_multichannel_and_pad_lt_nfft(mesh1):
 
 
 def test_stream_rejects_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    """A mesh must be a port Mesh (godsp_tpu's jax Mesh is not one)."""
+    with pytest.raises(TypeError, match="Mesh"):
         StreamingPwelch(FS, mesh=object())
 
 

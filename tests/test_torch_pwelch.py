@@ -20,6 +20,7 @@ from godsp_tpu.parallel.mesh import MeshConfig, make_mesh
 from godsp_tpu_torch import default_device, dsputils, set_default_device, spectral, window
 from godsp_tpu_torch.ops import cuda_pwelch
 from godsp_tpu_torch.parallel import _pwelch_sharded_impl as sharded
+from godsp_tpu_torch.parallel.mesh import Mesh
 from godsp_tpu_torch.spectral import _pwelch_impl
 from test_spectral import GOLDEN_PXX
 
@@ -247,8 +248,10 @@ def test_partial_step_matches_jax_sharded_step(request, fused, case):
     x = rng.normal(size=(1, segs * stride))
     tail = rng.normal(size=(1, nfft - stride))
     w = window.window_table_np(wf, fft_len)
-    p, count = sharded.partial_step(torch.from_numpy(x), torch.from_numpy(tail),
-                                    torch.from_numpy(w), nfft, fft_len, stride, segs, lp, total)
+    p, count = sharded.sharded_partial_step(
+        torch.from_numpy(x), torch.from_numpy(tail), torch.from_numpy(w), Mesh([["cpu"]]), nfft,
+        fft_len, stride, segs, lp, total,
+    )
     mesh = make_mesh(MeshConfig(dp=1, sp=1))
     jp, jcount = jsharded.sharded_partial_step(
         jnp.asarray(x), jnp.asarray(tail), jnp.asarray(w), mesh, nfft, fft_len, stride, segs,

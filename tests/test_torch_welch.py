@@ -279,7 +279,7 @@ def test_validation():
     ):
         with pytest.raises(ValueError):
             call()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         parallel.stream_welch(iter([z]), mesh=object())
     f, p = spectral.welch(np.zeros(0))
     assert f.shape == (0,) and p.shape == (0,)
