@@ -14,10 +14,12 @@ final line):
      PyTorch version run in float64 on the card, at main-path shapes: SNR >= 120 dB, and each
      launch count must rise; times kernel, plain version (float32) and,
      where one PyTorch call computes the same function, that call
-     (library_ms, a yardstick the port never calls) with CUDA events,
-     beside the bound: the larger of the bytes the function must move
-     over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-     H100 SXM's published peaks).  The STFT kernels (K5 stft_complex /
+     (library_ms, a yardstick the port never calls) with CUDA events
+     (utils.metrics.time_ms: after a warm-up, the median of 5 blocks'
+     means of 10 back-to-back calls),
+     beside the bound (utils.metrics.bound_ms): the larger of the bytes
+     the function must move over 3.35 TB/s and its float32 operations
+     over 67 TFLOP/s (the H100 SXM's published peaks).  The STFT kernels (K5 stft_complex /
      stft_power / stft_mel, K6 istft_overlap_add) are held the same way
      at the shapes of phase 5, and at an odd hop with pad > nfft; K8
      outer_dft_split at every shape phase 6 gives it; K7 at phase 7's
@@ -26,7 +28,13 @@ final line):
      phase 8's chunk shape (exactly equal to its plain version) and K11
      pwelch_power_partials_halo at three shapes (one shard of phase 8's
      chunk reading its neighbour's head, the last shard reading an
-     injected tail, and hop 160 with nfft 1000 and pad 1024);
+     injected tail, and hop 160 with nfft 1000 and pad 1024); K4, K10 and
+     K11 at phase 8's chunk shape, and K6 at its timed shape, also get
+     their kernel-only device time from the profiler's events of the
+     kernel (utils.profiling.trace_to), printed beside the events time; K12 copy_split equal to its plain
+     version at 1024 x 16384 and at 7 x 4099 (the scalar tail), and K13
+     gmm_floor against its float64 plain version at 1024 x 16384 and at
+     n = 128, 8192 and 16384 (n1 = 1 .. 128), both timed at 1024 x 16384;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -116,7 +124,13 @@ final line):
      against the same entry without a mesh on the card (>= 120 dB, the
      measured agreement printed), and the streams' walls and Msamples/s
      are printed beside the one-device runs;
-  9. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  9. the port's bench (godsp_tpu_torch/bench.py), its core cells as one
+     counted session: fft1024_precise (K1 with K12 and K13 in the same
+     rep), fft 4096/8192/16384, rfft1024, torch_fft1024, fft_2pow20 and
+     the three pwelch rows; every cell >= 120 dB against its float64
+     oracle, the copy ceiling and gmm floor fractions printed, and the
+     summary line parsed and held to 1,800 characters;
+ 10. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -136,14 +150,15 @@ import time
 import numpy as np
 import torch
 
+from godsp_tpu_torch.utils.metrics import bound_ms, fft_flops, rfft_flops, time_ms
+from godsp_tpu_torch.utils.profiling import trace_to
+
 SNR_DB = 120.0  # every kernel and the main path vs their float64 references
 FS = 44100
 SECONDS = 600
 WELCH = dict(nfft=1024, noverlap=512)
 WELCH_UNFUSED = dict(nfft=1000, noverlap=500)
 PLANE = 1 << 24  # points per plane in the FFT kernel checks
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks (700 W)
-FP32_FLOPS = 67e12  # float32 outside the tensor cores
 # Steps of the counted main-path session (phase 4).
 FUSED = "wav_psd(nfft=1024, noverlap=512)"
 UNFUSED = "wav_psd(nfft=1000, noverlap=500)"
@@ -197,6 +212,9 @@ M_ISTFT = "mesh: istft_sharded(103,336 frames, 1024/256, sp=8)"
 M_FFT = "mesh: fft_sharded(2^24 complex64, sp=8)"
 M_IFFT = "mesh: fft_sharded(inverse=True) / 2^24"
 
+# The counted bench session (phase 9): the port's bench, its core cells.
+BENCH = "bench: core cells (fft1024 + K12/K13 reps, fft sizes, rfft, torch.fft, 2^20, pwelch)"
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
@@ -210,6 +228,8 @@ REPLACES = {
     "csd_power_partials": "godsp_tpu/ops/pallas_csd.py:84",
     "ring_halo": "godsp_tpu/parallel/halo.py:63",
     "pwelch_power_partials_halo": "godsp_tpu/parallel/fused_halo.py:129",
+    "copy_split": "godsp_tpu/utils/metrics.py:245",
+    "gmm_floor": "godsp_tpu/utils/metrics.py:294",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -224,6 +244,8 @@ SOURCES = {
     "csd_power_partials": "godsp_tpu_torch/csrc/csd_kernel.cu",
     "ring_halo": "godsp_tpu_torch/csrc/halo_kernel.cu",
     "pwelch_power_partials_halo": "godsp_tpu_torch/csrc/pwelch_kernel.cu",
+    "copy_split": "godsp_tpu_torch/csrc/metrics_kernels.cu",
+    "gmm_floor": "godsp_tpu_torch/csrc/metrics_kernels.cu",
 }
 
 
@@ -253,38 +275,6 @@ def golden_pxx() -> np.ndarray:
     raise LookupError("GOLDEN_PXX not found in tests/test_spectral.py")
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Mean device milliseconds of fn over reps launches, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time the card could take: bytes over HBM bandwidth or
-    float32 operations over the peak rate, whichever is larger."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def fft_flops(points: int, n: int) -> float:
-    """Radix-2 complex FFT operations over `points` points in rows of n."""
-    return 5.0 * points * np.log2(n)
-
-
-def rfft_flops(points: int, n: int) -> float:
-    """FFT operations of real input (or real output) over `points` points
-    in rows of n: half a complex transform's."""
-    return 2.5 * points * np.log2(n)
-
-
 class KernelRecord:
     def __init__(self):
         self.err: dict[str, float] = {}
@@ -299,6 +289,33 @@ class KernelRecord:
         self.times[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
                                 library_ms=None if library is None else time_ms(library),
                                 bound_ms=b, bound_by=by, shape=shape)
+
+    def device_time(self, name: str, symbol: str, kernel, reps: int = 50) -> None:
+        """The kernel's own device time, ms a call: the profiler's events of
+        the CUDA kernel `symbol` over reps calls of the wrapper, printed
+        beside the events time, which at a small shape also holds the
+        wrapper's host work.  The wrapper's other device work (fills,
+        copies) is listed apart."""
+        kernel()
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp, trace_to(tmp) as prof:
+            for _ in range(reps):
+                kernel()
+        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        own = [e for e in rows if symbol in e.key]
+        t = self.times[name]
+        if not own:
+            t["kernel_device_ms"] = None
+            log(f"  {name:22s} device-only: not measured (no profiler event of {symbol})")
+            return
+        # The mean over the events the profiler kept (it may drop a few).
+        ms = sum(e.self_device_time_total for e in own) / 1e3 / sum(e.count for e in own)
+        t["kernel_device_ms"] = ms
+        log(f"  {name:22s} device-only {ms:.4f} ms a launch (profiler events of {symbol}), "
+            f"events {t['ms']:.4f} ms a call, at {t['shape']}")
+        for e in rows:
+            log(f"    {e.self_device_time_total / 1e3 / reps:.4f} ms x{e.count / reps:g} "
+                f"{e.key[:80]}")
 
     def check(self, name: str, run, want, what: str) -> None:
         """Hold a float32 kernel result, run(), against its float64 plain
@@ -385,10 +402,10 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
             moved = 16.0 * rows * n  # two float32 planes read, two written
             rec.time("fft_pow2", shape, lambda: cuda_fft.fft_pow2(xr, xi),
                      lambda: cuda_fft.fft_pow2_plain(xr, xi), lambda: torch.fft.fft(z),
-                     moved, fft_flops(rows * n, n))
+                     moved, fft_flops(n, rows))
             rec.time("ifft_pow2", shape, lambda: cuda_fft.ifft_pow2(xr, xi, 1.0 / n),
                      lambda: cuda_fft.ifft_pow2_plain(xr, xi, 1.0 / n),
-                     lambda: torch.fft.ifft(z), moved, fft_flops(rows * n, n) + 2.0 * rows * n)
+                     lambda: torch.fft.ifft(z), moved, fft_flops(n, rows) + 2.0 * rows * n)
             del z
         del xr, xi, xr64, xi64
     # K2 in its chains: Bluestein (forward K1, product, inverse K2) and convolve.
@@ -411,7 +428,7 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
         if n == 1024:
             rec.time("rfft_pow2", shape, lambda: cuda_fft.rfft_pow2(xr),
                      lambda: cuda_fft.rfft_pow2_plain(xr), lambda: torch.fft.rfft(xr),
-                     4.0 * rows * n + 8.0 * rows * (n // 2 + 1), rfft_flops(rows * n, n))
+                     4.0 * rows * n + 8.0 * rows * (n // 2 + 1), rfft_flops(n, rows))
         del xr
     # K4 at the streaming chunk (256 segments + halo), the whole recording,
     # hop 160, pad 2048 > nfft, and a ragged last tile (5001 segments at 10
@@ -444,7 +461,10 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
                      lambda: cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft,
                                                                      stride, pad, bt),
                      None, 4.0 * (L + S + pad + tiles * (pad // 2 + 1)),
-                     keep * (nfft + rfft_flops(pad, pad) + 3.0 * (pad // 2 + 1)))
+                     keep * (nfft + rfft_flops(pad) + 3.0 * (pad // 2 + 1)))
+            rec.device_time("pwelch_power_partials", "pwelch_partials_kernel",
+                            lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride,
+                                                                      pad=pad))
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
@@ -477,7 +497,7 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
             band = cuda_stft.mel_band(fb)
             band_bins = float((band[:, 1] - band[:, 0] + 1).clamp(min=0).sum())
             out_bytes = {"complex": 8.0 * lp, "power": 4.0 * lp, "mel": 4.0 * fb.shape[0]}[out]
-            flops = F * (NFFT + rfft_flops(pad, pad)
+            flops = F * (NFFT + rfft_flops(pad)
                          + {"complex": 0.0, "power": 3.0 * lp, "mel": 3.0 * lp + 2.0 * band_bins}[out])
             wn = w[:NFFT].float()
             # torch.stft computes the complex mode (bins x frames); no one
@@ -502,11 +522,14 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
                   lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop), want, shape)
         if F == CHUNK and hop == 256:
             # torch.istft also divides by the window-energy sum: not the same function.
+            wf = w.float()
             rec.time("istft_overlap_add", shape,
-                     lambda: cuda_istft.istft_overlap_add(spec, w.float(), NFFT, hop),
-                     lambda: cuda_istft.istft_overlap_add_plain(spec, w.float(), NFFT, hop),
+                     lambda: cuda_istft.istft_overlap_add(spec, wf, NFFT, hop),
+                     lambda: cuda_istft.istft_overlap_add_plain(spec, wf, NFFT, hop),
                      None, 8.0 * spec.numel() + 4.0 * NFFT + 4.0 * ((F - 1) * hop + NFFT),
-                     F * (rfft_flops(pad, pad) + 2.0 * NFFT))
+                     F * (rfft_flops(pad) + 2.0 * NFFT))
+            rec.device_time("istft_overlap_add", "istft_kernel",
+                            lambda: cuda_istft.istft_overlap_add(spec, wf, NFFT, hop))
 
 
 def k8_shapes(n: int, batch: int = 1) -> list[tuple[int, int, int]]:
@@ -547,7 +570,7 @@ def phase_outer_kernel(rec: KernelRecord, dev) -> None:
             rec.time("outer_dft_split", shape,
                      lambda: cuda_outer.outer_dft_split(xr, xi, m, 1, inverse),
                      lambda: cuda_outer.outer_dft_split_plain(xr, xi, m, 1, inverse),
-                     None, 16.0 * points, fft_flops(points, m) + 12.0 * points)
+                     None, 16.0 * points, fft_flops(m, points // m) + 12.0 * points)
         del xr, xi
 
 
@@ -584,7 +607,7 @@ def phase_csd_kernel(rec: KernelRecord, dev) -> None:
                      lambda: cuda_csd.csd_power_partials_plain(x, y, mask, w, nfft, stride,
                                                                pad, bt),
                      None, 4.0 * (2 * L + S + pad + 2 * tiles * lp),
-                     keep * (2.0 * (nfft + rfft_flops(pad, pad)) + 8.0 * lp))
+                     keep * (2.0 * (nfft + rfft_flops(pad)) + 8.0 * lp))
         del x, y
 
 
@@ -614,6 +637,7 @@ def phase_halo_kernels(rec: KernelRecord, dev) -> None:
     rec.time("ring_halo", shape, lambda: cuda_halo.ring_halo(blocks, halo),
              lambda: torch.stack(cuda_halo.ring_halo_plain(blocks, halo)),
              lambda: torch.roll(stacked[..., :halo], -1, 0), 8.0 * SP * halo, 0.0)
+    rec.device_time("ring_halo", "ring_halo_kernel", lambda: cuda_halo.ring_halo(blocks, halo))
     del ext, blocks, stacked
     # K11: one shard of phase 8's chunk and its neighbour's head (views of
     # one signal), the last shard with an injected tail, and hop 160 with
@@ -647,8 +671,62 @@ def phase_halo_kernels(rec: KernelRecord, dev) -> None:
                      lambda: cuda_fused_halo.pwelch_power_partials_halo_plain(
                          x, src, mask, w, nfft, stride, pad, bt),
                      None, 4.0 * (L + H + S + pad + tiles * lp),
-                     keep * (nfft + rfft_flops(pad, pad) + 3.0 * lp))
+                     keep * (nfft + rfft_flops(pad) + 3.0 * lp))
+            rec.device_time("pwelch_power_partials_halo", "pwelch_partials_kernel",
+                            lambda: cuda_fused_halo.pwelch_power_partials_halo(
+                                x, src, mask, w, nfft, stride, pad=pad))
         del sig, want
+
+
+def phase_metrics_kernels(rec: KernelRecord, dev) -> None:
+    """K12 equal to its plain version at the flagship planes (1024 x 16384)
+    and at an odd point count (the scalar tail); K13 against its float64
+    plain version at 1024 x 16384 and at n = 128, 8192 and 16384 (n1 = 1
+    .. 128), both timed at the flagship planes beside their bound and
+    library yardstick."""
+    from godsp_tpu_torch.ops import cuda_metrics, launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    for b, n in ((PLANE // 1024, 1024), (7, 4099)):
+        xr = torch.randn(b, n, generator=g, device=dev)
+        xi = torch.randn(b, n, generator=g, device=dev)
+        shape = f"{b} x {n}"
+        before = launch_counts()["copy_split"]
+        got = cuda_metrics.copy_split(xr, xi)
+        if launch_counts()["copy_split"] != before + 1:
+            raise AssertionError("copy_split: not one launch")
+        want = cuda_metrics.copy_split_plain(xr, xi)
+        if not all(torch.equal(a, c) for a, c in zip(got, want)):
+            raise AssertionError(f"copy_split {shape}: differs from its plain version")
+        rec.err["copy_split"] = 0.0
+        log(f"  {'copy_split':22s} {shape:34s} equal to its plain version (torch.equal)")
+        if n == 1024:
+            yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+            rec.time("copy_split", shape, lambda: cuda_metrics.copy_split(xr, xi),
+                     lambda: cuda_metrics.copy_split_plain(xr, xi),
+                     lambda: (yr.copy_(xr), yi.copy_(xi)), 16.0 * b * n, 0.0)
+        del xr, xi, got, want
+    for n in (1024, 128, 8192, 16384):
+        b = PLANE // n
+        xr = torch.randn(b, n, generator=g, device=dev)
+        xi = torch.randn(b, n, generator=g, device=dev)
+        shape = f"N={n} x {b} (n1 {n // 128})"
+        want = cplx(cuda_metrics.gmm_floor_plain(xr.double(), xi.double()))
+        rec.check("gmm_floor", lambda: cplx(cuda_metrics.gmm_floor(xr, xi)), want, shape)
+        del want
+        if n == 1024:
+            # torch.matmul of the complex64 slices with the complex64 G:
+            # one call, TF32 off (fault class a).
+            gt = cuda_metrics.gmm_tables(n, dev)
+            G = torch.complex(gt[:, 0], gt[:, 1])
+            z = torch.complex(xr, xi).view(b, n // 128, 128).transpose(0, 1)
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("gmm_floor yardstick: TF32 is on")
+            rec.time("gmm_floor", shape, lambda: cuda_metrics.gmm_floor(xr, xi),
+                     lambda: cuda_metrics.gmm_floor_plain(xr, xi), lambda: torch.matmul(z, G),
+                     16.0 * b * n, 768.0 * b * n)
+            del z, G
+        del xr, xi
 
 
 def write_recording(path: str, stereo_path: str | None = None) -> int:
@@ -717,6 +795,18 @@ def counted(label: str, run, steps: dict) -> tuple[object, float]:
     steps[label] = {k: after[k] - before[k] for k in after}
     log(f"  step {label}: {wall:.3f} s, launches {steps[label]}")
     return out, wall
+
+
+def read_frames(path: str) -> np.ndarray:
+    """All frames of a multichannel recording as (L, channels), through
+    Wav.read_channels."""
+    from godsp_tpu_torch import wav
+
+    r = wav.read_wav(path)
+    try:
+        return np.ascontiguousarray(r.read_channels(r.samples_remaining // r.num_channels).T)
+    finally:
+        r.close()
 
 
 def read_decoded(path: str) -> np.ndarray:
@@ -1095,7 +1185,7 @@ def phase_scipy_spectra(dev, mono_path: str, stereo_path: str) -> dict[str, dict
     from godsp_tpu_torch import parallel, spectral, wav
     from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    decoded = read_decoded(stereo_path).reshape(-1, 2)  # interleaved frames -> (L, 2)
+    decoded = read_frames(stereo_path)  # (L, 2)
     n = decoded.shape[0]
     x = torch.from_numpy(decoded).to(dev)
     ch0, ch1 = x[:, 0], x[:, 1]
@@ -1239,8 +1329,9 @@ def phase_mesh(dev, path: str, stereo_path: str) -> dict[str, dict[str, int]]:
     def stereo_stream(mesh):
         sp = parallel.StreamingPwelch(FS, o, mesh, channels=2, halo_impl=("fused", False),
                                       device=None if mesh is not None else dev)
-        for b in wav.read_wav(stereo_path).blocks(1 << 20):
-            sp.update(b.reshape(-1, 2).T)
+        r = wav.read_wav(stereo_path)
+        while r.samples_remaining > 0:
+            sp.update(r.read_channels(min(1 << 19, r.samples_remaining // 2)))
         return sp.finalize()[0]
 
     def stream(route, mesh):
@@ -1333,7 +1424,7 @@ def phase_mesh(dev, path: str, stereo_path: str) -> dict[str, dict[str, int]]:
 
     # Checks, after the counts were read: float64 oracles on the card from
     # the plain functions, then the one-device results.
-    st = read_decoded(stereo_path).reshape(-1, 2)
+    st = read_frames(stereo_path)
     pxx_mono, pxx_cut = oracle_pxx(decoded, o, dev), oracle_pxx(decoded[:cut], o, dev)
     pxx_st = np.stack([oracle_pxx(np.ascontiguousarray(st[:, c]), o, dev) for c in range(2)])
     x64 = x.double()
@@ -1361,6 +1452,50 @@ def phase_mesh(dev, path: str, stereo_path: str) -> dict[str, dict[str, int]]:
     return steps
 
 
+def phase_bench(dev) -> dict[str, dict[str, int]]:
+    """The port's bench (godsp_tpu_torch/bench.py), its core cells, as one
+    counted session (phase 9): every cell >= 120 dB against its float64
+    oracle, K12 equal and K13 >= 120 dB in the flagship's own check, and a
+    summary line that parses and fits the limit."""
+    from godsp_tpu_torch import bench
+    from godsp_tpu_torch.ops import reset_launch_counts
+
+    steps: dict[str, dict[str, int]] = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res, wall = counted(BENCH, lambda: bench.run(bench.CORE, device=dev, sweeps=False,
+                                                 emit=False), steps)
+    expect = ("fft_pow2", "rfft_pow2", "copy_split", "gmm_floor", "outer_dft_split",
+              "pwelch_power_partials")
+    for name in expect:
+        if steps[BENCH][name] <= 0:
+            raise AssertionError(f"{BENCH} did not launch {name}")
+    if res.get("failed_sections"):
+        raise AssertionError(f"bench sections failed: {res['failed_sections']}")
+    fl = res["fft1024_precise"]
+    log(f"  bench core cells in {wall:.2f} s:")
+    for key, d in res.items():
+        if not isinstance(d, dict) or "wall_s" not in d:
+            continue
+        extra = {k: d[k] for k in ("gbs", "roofline_fraction", "library_wall_s") if k in d}
+        log(f"    {key}: {d['wall_s'] * 1e3:.4f} ms, snr {d.get('snr_db')}, {extra}")
+        if "snr_db" in d and not d["snr_db"] >= SNR_DB:
+            raise AssertionError(f"bench {key}: {d['snr_db']:.2f} dB < {SNR_DB} dB")
+    log(f"    fft1024_precise: copy ceiling {fl['copy_ceiling_gbs']:.1f} GB/s, "
+        f"fraction_of_copy_ceiling {fl['fraction_of_copy_ceiling']:.4f}, "
+        f"fraction_of_gmm_floor {fl['fraction_of_gmm_floor']:.4f}, K13 "
+        f"{fl['gmm_floor_snr_db']:.2f} dB, K12 equal {fl['copy_equal']}")
+    if not (fl["copy_equal"] and fl["gmm_floor_snr_db"] >= SNR_DB):
+        raise AssertionError("bench flagship: K12 not equal or K13 below the bar")
+    line = bench.summary_line(res, torch.cuda.get_device_name(dev))
+    parsed = json.loads(line)
+    log(f"  bench summary line ({len(line)} characters): {line}")
+    if len(line) > bench.SUMMARY_MAX_CHARS or parsed["metric"] != \
+            "fft1024_precise_roofline_fraction":
+        raise AssertionError("bench summary line malformed")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1375,6 +1510,7 @@ def main() -> int:
     phase_outer_kernel(rec, dev)
     phase_csd_kernel(rec, dev)
     phase_halo_kernels(rec, dev)
+    phase_metrics_kernels(rec, dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "recording.wav")
         stereo = os.path.join(tmp, "stereo.wav")
@@ -1387,12 +1523,14 @@ def main() -> int:
         fft_steps = phase_fft_surface(dev, path)
         welch_steps = phase_scipy_spectra(dev, path, stereo)
         mesh_steps = phase_mesh(dev, path, stereo)
+    bench_steps = phase_bench(dev)
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
     steps.update(fft_steps)
     steps.update(welch_steps)
     steps.update(mesh_steps)
+    steps.update(bench_steps)
 
     kernels = []
     for name in REPLACES:
@@ -1403,6 +1541,7 @@ def main() -> int:
             launches=sum(launched_by.values()), max_abs_err=rec.err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], launched_by=launched_by,
+            **({"kernel_device_ms": t["kernel_device_ms"]} if "kernel_device_ms" in t else {}),
         ))
         if not launched_by:
             raise AssertionError(f"{name} was not launched by the main path")

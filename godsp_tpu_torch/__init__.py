@@ -39,3 +39,6 @@ __all__ = [
     "window",
     "__version__",
 ]
+
+# scipy.signal.windows-style namespace (godsp_tpu_torch.windows)
+from godsp_tpu_torch.window import windows  # noqa: E402,F401

@@ -31,6 +31,7 @@ __all__ = [
     "complex_for",
     "default_device",
     "np_float_for",
+    "real_for",
     "resolve_device",
     "set_default_device",
     "working_float",
@@ -78,6 +79,13 @@ def complex_for(dtype: torch.dtype) -> torch.dtype:
     if dtype.is_complex:
         return dtype
     return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def real_for(dtype: torch.dtype) -> torch.dtype:
+    """Real dtype matching the precision of a complex (or real) dtype."""
+    if not dtype.is_complex:
+        return dtype
+    return torch.float64 if dtype == torch.complex128 else torch.float32
 
 
 def as_tensor(x, device=None) -> torch.Tensor:

@@ -27,10 +27,12 @@ from godsp_tpu_torch.dsputils.matrix import Matrix
 from godsp_tpu_torch.dsputils.utils import is_power_of_2
 from godsp_tpu_torch.fft.bluestein import bluestein_fft
 from godsp_tpu_torch.fft.pow2 import kernel_route, pow2_convolve, pow2_fft
+from godsp_tpu_torch.fft.stockham import ensure_radix2_factors
 from godsp_tpu_torch.ops import cuda_fft
 
 __all__ = [
     "convolve",
+    "ensure_radix2_factors",
     "fft",
     "fft2",
     "fft2_real",

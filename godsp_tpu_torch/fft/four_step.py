@@ -21,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["four_step_fft", "dft_matrix", "twiddle_2d"]
+__all__ = ["four_step_fft", "fft_time_major", "dft_matrix", "twiddle_2d"]
 
 # Largest factor solved by one direct DFT-matrix multiply.
 _DIRECT_N = 64
@@ -115,3 +115,12 @@ def four_step_fft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     with _tf32_off() if x.is_cuda else nullcontext():
         y = _fft_tm(t, inverse)
     return y.transpose(0, 1).reshape(*lead, n)
+
+
+def fft_time_major(t: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """DFT over axis 0 of a (N, ...batch) complex tensor; N a power of 2.
+
+    Unnormalized forward transform (inverse conjugates the tables, still
+    unnormalized: the public ifft applies 1/N).
+    """
+    return four_step_fft(t.movedim(0, -1), inverse).movedim(-1, 0)

@@ -12,6 +12,7 @@ fft/_dct_impl.py), models/shorttime.py (ShortTimeFFT), and the
 filtering, design and analysis families (ROADMAP.md queue 1).
 """
 
+from godsp_tpu_torch.dsputils import detrend
 from godsp_tpu_torch.models._stft_impl import (
     StreamingISTFT,
     StreamingSTFT,
@@ -36,6 +37,7 @@ from godsp_tpu_torch.models.pipeline import (
 )
 
 __all__ = [
+    "detrend",
     "StreamingISTFT",
     "StreamingSTFT",
     "WavPsdResult",

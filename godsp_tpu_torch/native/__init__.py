@@ -7,7 +7,7 @@ at first use into the port's git-ignored _build/ directory, keyed by a
 hash of the source — never beside the source.  Every entry point keeps the same
 pure-numpy fallback as godsp_tpu/native/__init__.py, so the package
 works without a toolchain; `available()` says which is active.  These
-ops feed the host side only (WAV decode, stream buffering).
+ops feed the host side only (WAV decode, frame copies, stream buffering).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ __all__ = [
     "available",
     "decode_u8",
     "decode_i16",
+    "frame_signal",
     "StreamBuffer",
 ]
 
@@ -81,6 +82,10 @@ def _load():
         lib.gdsp_decode_u8.restype = None
         lib.gdsp_decode_i16.argtypes = [c_p, c_p, c_i64]
         lib.gdsp_decode_i16.restype = None
+        lib.gdsp_frame_f32.argtypes = [c_p, c_p, c_i64, c_i64, c_i64]
+        lib.gdsp_frame_f32.restype = None
+        lib.gdsp_frame_f64.argtypes = [c_p, c_p, c_i64, c_i64, c_i64]
+        lib.gdsp_frame_f64.restype = None
         lib.gdsp_sbuf_new.argtypes = [c_i64]
         lib.gdsp_sbuf_new.restype = c_p
         lib.gdsp_sbuf_free.argtypes = [c_p]
@@ -128,6 +133,27 @@ def decode_i16(data: np.ndarray) -> np.ndarray:
     return out
 
 
+def frame_signal(x: np.ndarray, nfft: int, stride: int) -> np.ndarray:
+    """Host-side overlapped framing: (nsegs, nfft) copies with
+    nsegs = (len - nfft)//stride + 1 (spectral.go:26-44 semantics)."""
+    x = np.ascontiguousarray(x)
+    if x.ndim != 1:
+        raise ValueError("frame_signal expects a 1-D signal")
+    if stride <= 0:
+        raise ValueError("stride must be positive")
+    nsegs = (x.shape[0] - nfft) // stride + 1
+    if nsegs <= 0:
+        return np.zeros((0, nfft), dtype=x.dtype)
+    lib = _load()
+    if lib is None or x.dtype not in (np.float32, np.float64):
+        idx = np.arange(nsegs)[:, None] * stride + np.arange(nfft)[None, :]
+        return x[idx]
+    out = np.empty((nsegs, nfft), dtype=x.dtype)
+    fn = lib.gdsp_frame_f32 if x.dtype == np.float32 else lib.gdsp_frame_f64
+    fn(_ptr(x), _ptr(out), nsegs, nfft, stride)
+    return out
+
+
 class StreamBuffer:
     """Growable FIFO of samples (native byte ring with compaction; numpy
     fallback).  Backs StreamingPwelch's chunk assembly: push blocks, peek
@@ -142,6 +168,10 @@ class StreamBuffer:
                 raise MemoryError("gdsp_sbuf_new failed")
         else:
             self._buf = np.zeros(0, dtype=self._dt)
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._dt
 
     def __del__(self):
         lib = getattr(self, "_lib", None)

@@ -9,6 +9,8 @@
   cuda_halo    — K10 ring_halo (the sharded Welch's overlap halo, one launch a ring)
   cuda_fused_halo — K11 pwelch_power_partials_halo (K4 reading the right
                  neighbour shard's head past its block's end)
+  cuda_metrics — K12 copy_split (the copy ceiling) and K13 gmm_floor (the
+                 dense G-matmul step of a four-step FFT), the bench's yardsticks
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -21,6 +23,7 @@ from godsp_tpu_torch.ops import (
     cuda_fused_halo,
     cuda_halo,
     cuda_istft,
+    cuda_metrics,
     cuda_outer,
     cuda_pwelch,
     cuda_stft,
@@ -30,6 +33,7 @@ from godsp_tpu_torch.ops.cuda_fft import fft_pow2, ifft_pow2, rfft_pow2, support
 from godsp_tpu_torch.ops.cuda_fused_halo import pwelch_power_partials_halo
 from godsp_tpu_torch.ops.cuda_halo import ring_halo
 from godsp_tpu_torch.ops.cuda_istft import istft_overlap_add, istft_supported
+from godsp_tpu_torch.ops.cuda_metrics import copy_split, gmm_floor
 from godsp_tpu_torch.ops.cuda_outer import outer_dft_split, outer_supported
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
@@ -39,6 +43,7 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 from godsp_tpu_torch.ops.cuda_stft import stft_complex, stft_mel, stft_power
 
 __all__ = [
+    "copy_split",
     "csd_power_partials",
     "csd_power_sum",
     "cuda_csd",
@@ -46,11 +51,13 @@ __all__ = [
     "cuda_fused_halo",
     "cuda_halo",
     "cuda_istft",
+    "cuda_metrics",
     "cuda_outer",
     "cuda_pwelch",
     "cuda_stft",
     "fft_pow2",
     "fused_supported",
+    "gmm_floor",
     "ifft_pow2",
     "istft_overlap_add",
     "istft_supported",
@@ -78,6 +85,7 @@ _COUNTS = (
     cuda_outer.launches,
     cuda_halo.launches,
     cuda_fused_halo.launches,
+    cuda_metrics.launches,
 )
 
 

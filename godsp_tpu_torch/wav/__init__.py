@@ -175,6 +175,18 @@ class Wav:
     def samples_remaining(self) -> int:
         return self._remaining // self._sample_width()
 
+    def read_channels(self, n_frames: int) -> np.ndarray:
+        """Next n_frames deinterleaved frames as (num_channels, n_frames)
+        normalized float32.
+
+        Convenience beyond the reference (whose ReadFloats returns the
+        interleaved stream, wav.go:138-141); pairs with the multichannel
+        streaming Pwelch (parallel.StreamingPwelch(channels=C)).
+        """
+        c = self.header.num_channels
+        flat = self.read_floats(n_frames * c)
+        return np.ascontiguousarray(flat.reshape(n_frames, c).T)
+
     def close(self) -> None:
         """Close the underlying stream."""
         self._r.close()

@@ -17,9 +17,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from godsp_tpu_torch._dtypes import resolve_device
+from godsp_tpu_torch._dtypes import as_tensor, resolve_device
 
 __all__ = [
+    "apply",
     "extended",
     "windows",
     "get_window",
@@ -158,6 +159,18 @@ def window_table(window, L: int, device=None, dtype=torch.float64) -> torch.Tens
     (default: default_device())."""
     return torch.from_numpy(window_table_np(window, L).copy()).to(device=resolve_device(device),
                                                                    dtype=dtype)
+
+
+def apply(x, window) -> torch.Tensor:
+    """Multiply x by the window sized to its trailing axis (window.go:25-29).
+
+    Functional (returns a new tensor) and batched over leading axes,
+    unlike the reference's in-place loop.  A tensor stays on its device;
+    host data goes to default_device().
+    """
+    x = as_tensor(x)
+    w = window_table(window, x.shape[-1], device=x.device, dtype=x.real.dtype)
+    return x * w
 
 
 # Extended scipy-compatible window family (full catalogue + dispatcher).

@@ -7,7 +7,7 @@ runs on its own, past tests/conftest.py (which imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
-(K1-K11) and its plain version in float64 on the same inputs, and between
+(K1-K13) and its plain version in float64 on the same inputs, and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends).
 """
@@ -40,6 +40,7 @@ from godsp_tpu_torch.ops import (
     cuda_fused_halo,
     cuda_halo,
     cuda_istft,
+    cuda_metrics,
     cuda_outer,
     cuda_pwelch,
     cuda_stft,
@@ -580,3 +581,50 @@ def test_sharded_stream_and_stft_on_card(cuda):
     z = torch.from_numpy(rng.normal(size=1 << 18) + 1j * rng.normal(size=1 << 18))
     Z = parallel.fft_sharded(z.to(cuda), mesh)
     assert dsputils.snr_db(_np(Z), np.fft.fft(_np(z))) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("b, n", [(1024, 1024), (7, 4099), (3, 5), (1, 1)])
+def test_k12_on_card(cuda, b, n):
+    """K12 equals its plain version, the float4 body and the scalar tail;
+    one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(b * n)
+    xr = torch.randn(b, n, generator=g, device=cuda)
+    xi = torch.randn(b, n, generator=g, device=cuda)
+    before = launch_counts()["copy_split"]
+    yr, yi = cuda_metrics.copy_split(xr, xi)
+    assert launch_counts()["copy_split"] == before + 1
+    wr, wi = cuda_metrics.copy_split_plain(xr, xi)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+    # A view at an odd offset is copied to an aligned buffer first.
+    yr, yi = cuda_metrics.copy_split(xr.reshape(-1)[1:].reshape(1, -1),
+                                     xi.reshape(-1)[1:].reshape(1, -1))
+    assert torch.equal(yr.reshape(-1), xr.reshape(-1)[1:])
+
+
+@pytest.mark.parametrize("b, n", [(1 << 17, 128), (37, 256), (16384, 1024), (1024, 16384)])
+def test_k13_on_card(cuda, b, n):
+    """K13 against its float64 plain version, >= 120 dB, n1 = 1 .. 128 and
+    a ragged row tile; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    xr = torch.randn(b, n, generator=g, device=cuda)
+    xi = torch.randn(b, n, generator=g, device=cuda)
+    before = launch_counts()["gmm_floor"]
+    yr, yi = cuda_metrics.gmm_floor(xr, xi)
+    assert launch_counts()["gmm_floor"] == before + 1
+    wr, wi = cuda_metrics.gmm_floor_plain(xr.double(), xi.double())
+    got = _np(torch.complex(yr.double(), yi.double()))
+    assert dsputils.snr_db(got, _np(torch.complex(wr, wi))) >= SNR_CARD_DB
+
+
+def test_metrics_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
+    def broken():
+        raise RuntimeError("nvcc failed: simulated")
+
+    monkeypatch.setattr(_build, "library", broken)
+    x = torch.rand(256, 1024, device=cuda)
+    for call in (lambda: cuda_metrics.copy_split(x, x), lambda: cuda_metrics.gmm_floor(x, x)):
+        with pytest.raises(RuntimeError, match="simulated"):
+            call()
+    with pytest.raises(TypeError):
+        cuda_metrics.gmm_floor(x.double(), x.double())
+

@@ -282,3 +282,27 @@ def test_cuda_default_without_a_card_raises(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("n, inverse", [(64, False), (1024, True)])
+def test_fft_time_major_matches_jax(n, inverse):
+    """four_step.fft_time_major: the DFT over axis 0 of (N, ...batch)."""
+    from godsp_tpu.fft.four_step import fft_time_major as jftm
+    from godsp_tpu_torch.fft.four_step import fft_time_major
+
+    rng = np.random.default_rng(n)
+    t = rng.normal(size=(n, 3, 2)) + 1j * rng.normal(size=(n, 3, 2))
+    got = fft_time_major(torch.from_numpy(t), inverse)
+    assert jdsp.pretty_close(got.numpy(), np.asarray(jftm(jnp.asarray(t), inverse)))
+
+
+def test_core_reexports_and_real_for():
+    """fft.core re-exports ensure_radix2_factors (as godsp_tpu's does), and
+    _dtypes.real_for maps a complex dtype to its real precision."""
+    from godsp_tpu_torch import _dtypes
+    from godsp_tpu_torch.fft import core, stockham
+
+    assert core.ensure_radix2_factors is stockham.ensure_radix2_factors
+    assert _dtypes.real_for(torch.complex128) == torch.float64
+    assert _dtypes.real_for(torch.complex64) == torch.float32
+    assert _dtypes.real_for(torch.float32) == torch.float32

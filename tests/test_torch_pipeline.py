@@ -85,6 +85,48 @@ def test_stream_buffer_fifo():
     np.testing.assert_array_equal(b.peek(100), [4, 5, 6, 7, 8, 9, 0, 1, 2])
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stream_buffer_dtype(dtype):
+    assert native.StreamBuffer(capacity=4, dtype=dtype).dtype == np.dtype(dtype)
+    assert jnative.StreamBuffer(capacity=4, dtype=dtype).dtype == np.dtype(dtype)
+
+
+@pytest.mark.parametrize("case", ["float32", "float64", "int16", "short"])
+def test_frame_signal_matches_jax(case):
+    """native.frame_signal: (nsegs, nfft) overlapped copies (spectral.go:26-44),
+    the native op for float32/float64, the numpy fallback otherwise."""
+    x = {"float32": np.arange(100, dtype=np.float32),
+         "float64": np.random.default_rng(4).normal(size=1001),
+         "int16": np.arange(50, dtype=np.int16),
+         "short": np.zeros(5)}[case]
+    got, want = native.frame_signal(x, 16, 8), jnative.frame_signal(x, 16, 8)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("x, stride, match", [(np.zeros((2, 5)), 2, "1-D"),
+                                              (np.zeros(10), 0, "stride")])
+def test_frame_signal_errors(x, stride, match):
+    with pytest.raises(ValueError, match=match):
+        native.frame_signal(x, 4, stride)
+
+
+@pytest.mark.parametrize("channels, reads", [(2, [500]), (2, [2, 4]), (3, [1, 100, 232])])
+def test_wav_read_channels_matches_jax(tmp_path, channels, reads):
+    """Wav.read_channels(n_frames): (channels, n_frames) float32,
+    deinterleaved, streaming across calls (tests/test_wav.py)."""
+    rng = np.random.default_rng(channels)
+    x = rng.normal(scale=0.3, size=(channels, sum(reads))).astype(np.float32)
+    buf = io.BytesIO()
+    wav.write_wav(buf, x, 8000)
+    got, want = wav.read_wav(buf.getvalue()), jwav.read_wav(buf.getvalue())
+    for n in reads:
+        a, b = got.read_channels(n), want.read_channels(n)
+        assert a.shape == (channels, n) and a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    assert got.samples_remaining == 0
+
+
 @pytest.mark.parametrize("kind", ["pcm16", "float32", "pcm16_writer", "pcm8_junk"])
 def test_wav_read_matches_jax(tmp_path, kind):
     rng = np.random.default_rng(3)

@@ -323,6 +323,45 @@ def test_windows_namespace_matches_jax():
         window.get_window("no_such_window", 8)
 
 
+APPLY_CASES = {
+    # window_test.go:78-82: Hamming applied to a rectangular window is the table.
+    "hamming_on_rectangular": (lambda m: m.rectangular(10), lambda m: m.hamming),
+    "by_name": (lambda m: np.ones(5), lambda m: "hann"),
+    "batched": (lambda m: np.ones((3, 5)), lambda m: m.hann),
+    "complex": (lambda m: np.arange(6) + 1j, lambda m: "blackman"),
+}
+
+
+@pytest.mark.parametrize("case", APPLY_CASES)
+def test_window_apply_matches_jax(case):
+    """window.apply (window.go:25-29): x times the window sized to its
+    trailing axis, batched over the leading axes (tests/test_window.py)."""
+    x, w = APPLY_CASES[case]
+    got = window.apply(x(window), w(window))
+    want = np.asarray(jwin.apply(x(jwin), w(jwin)))
+    assert got.shape == want.shape and _close(got.numpy(), want)
+
+
+def test_window_apply_keeps_a_tensor_on_its_device():
+    x = torch.ones(2, 7, dtype=torch.float32)
+    got = window.apply(x, "hann")
+    assert got.device == x.device and got.dtype == torch.float32
+
+
+def test_package_reexports_match_jax():
+    """godsp_tpu_torch.windows (the scipy namespace at package level) and
+    models.detrend, as godsp_tpu has them."""
+    import godsp_tpu
+    import godsp_tpu_torch
+    from godsp_tpu import models as jmodels
+    from godsp_tpu_torch import models
+
+    assert godsp_tpu_torch.windows is window.windows
+    assert _close(godsp_tpu_torch.windows.hann(9), godsp_tpu.windows.hann(9))
+    x = np.arange(12.0) ** 1.5
+    assert _close(models.detrend(torch.from_numpy(x)).numpy(), np.asarray(jmodels.detrend(x)))
+
+
 @pytest.mark.parametrize("kind", ["constant", "linear"])
 def test_detrend_matches_jax(kind):
     rng = np.random.default_rng(6)
