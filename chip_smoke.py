@@ -10,7 +10,8 @@ final line):
      power limit and torch's device name;
   2. builds the CUDA kernels from godsp_tpu_torch/csrc (nvcc, sm_90a);
   3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K4
-     pwelch_power_partials, K7 csd_power_partials) against its plain
+     pwelch_power_partials, K7 csd_power_partials, K9
+     peel_rows_fused_split) against its plain
      PyTorch version run in float64 on the card, at main-path shapes: SNR >= 120 dB, and each
      launch count must rise; times kernel, plain version (float32) and,
      where one PyTorch call computes the same function, that call
@@ -22,7 +23,12 @@ final line):
      over 67 TFLOP/s (the H100 SXM's published peaks).  The STFT kernels (K5 stft_complex /
      stft_power / stft_mel, K6 istft_overlap_add) are held the same way
      at the shapes of phase 5, and at an odd hop with pad > nfft; K8
-     outer_dft_split at every shape phase 6 gives it; K7 at phase 7's
+     outer_dft_split at every shape phase 6 gives it; K9
+     peel_rows_fused_split at the last peel of each fused step of phase 6
+     ((16, 128, 8192) forward, (128, 128, 1024) inverse with 1/2^24) and
+     at (3, 128, 256), each timed beside the separate route it replaces
+     (K8 then K1/K2 rows) and beside torch.fft of the flattened rows
+     (K9 computes that one (128 n3)-point DFT); K7 at phase 7's
      shape (the whole recording at 1024/512), at the speech hop 160
      with nfft 1000 and pad 1024, and at pad 16384; K10 ring_halo at
      phase 8's chunk shape (exactly equal to its plain version) and K11
@@ -81,7 +87,14 @@ final line):
          config 3): K1 once per axis;
      then each result is held against a float64 oracle built on the card
      from the plain functions (>= 120 dB), and each step's wall and
-     Msamples/s is printed beside torch.fft's at the same shape;
+     Msamples/s is printed beside torch.fft's at the same shape; then,
+     with fft.large.set_fuse_rows_enabled(True) (restored in a finally),
+     the first three steps again as a counted sub-session of their own:
+     16 x 2^20 -> K9 once and nothing else, 2^24 inverse -> K8 once and
+     K9 once, 2^28 (which does not fuse) -> two K8 calls and K1 once, its
+     result torch.equal to the unfused run; the others >= 120 dB against
+     the float64 oracle and against the unfused route; the first two
+     steps' device time by kernel under torch.profiler, fused and not;
   7. the scipy-convention spectra and the cross-spectra on a seeded
      10-minute 44.1 kHz PCM16 STEREO recording (channel 0 is phase 4's
      mix, channel 1 is 0.7 x channel 0 delayed by 37 samples plus
@@ -130,7 +143,22 @@ final line):
      the three pwelch rows; every cell >= 120 dB against its float64
      oracle, the copy ceiling and gmm floor fractions printed, and the
      summary line parsed and held to 1,800 characters;
- 10. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 10. the rest of the FFT surface on the same recording, after one warm-up
+     pass, as one counted session: dct (type 2, ortho) of its 1024-point
+     frames (K1 once) and idct of that (K2 once); dctn of a seeded
+     2048 x 2048 image (K1 once per axis); mfcc with 13 coefficients,
+     nfft 1024, hop 256, 80 mels (K5 mel once, then the 80-point DCT as
+     Bluestein at pad 256: K1 and K2 once); zoom_fft of its first 2^20
+     samples, 8192 bins over 0-4 kHz (the chirp filter at pad 2^21: the
+     large plan, K8 twice, K1 and K2 once); fht of 2^16 log-spaced points
+     (rfft and irfft of 2^16: K8 twice, K1 and K2 once); ShortTimeFFT
+     (periodic hann 1024, hop 256) stft (K1 once) and istft (K2 once) of
+     the recording; then each result is held against scipy in float64 on
+     the host on the same float32 inputs, >= 120 dB (mfcc: scipy's ortho
+     DCT-II of a float64 log-mel that the port's own plain functions build
+     on the card, so scipy checks only the DCT step there; mfcc's whole
+     parity comes from tests/test_torch_mel.py against godsp_tpu);
+ 11. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -183,6 +211,23 @@ IFFT24 = "ifft(2^24)"
 FFT28 = "fft(2^28)"
 HILBERT = "hilbert(recording, 26,460,000, host data)"
 FFTN = "fftn(Matrix 256^3, host data)"
+# The counted sub-session of phase 6 with the fused peel + rows route on.
+F_FFT20, F_IFFT24, F_FFT28 = (f"fused: {label}" for label in (FFT20, IFFT24, FFT28))
+# K9 at the last peel of each fused step, and its smallest row (phase 3):
+# (batch, n3, inverse, scale).
+K9_SHAPES = ((B20, N20 // 128, False, 1.0), (128, N24 // 128 // 128, True, 1.0 / N24),
+             (3, 256, False, 1.0))
+
+# Steps of the counted session of the rest of the FFT surface (phase 10).
+DCT = "dct(1024-point frames, type 2, ortho)"
+IDCT = "idct(those spectra, type 2, ortho)"
+DCTN = "dctn(2048 x 2048 image)"
+MFCC = "mfcc(n_mfcc=13, nfft=1024, hop=256, n_mels=80)"
+ZOOM = "zoom_fft(2^20 samples, 8192 bins over 0-4 kHz)"
+FHT = "fht(2^16 log-spaced points, mu 0.5)"
+STFFT = "ShortTimeFFT(hann 1024, hop 256).stft"
+ISTFFT = "ShortTimeFFT(hann 1024, hop 256).istft"
+IMAGE, ZOOM_N, ZOOM_M, ZOOM_BAND, FHT_N = 2048, 1 << 20, 8192, (0.0, 4000.0), 1 << 16
 
 # Steps of the counted scipy-spectra session (phase 7), and their sizes.
 W_FUSED = "welch(stereo, 1024/512, detrend=False, axis=0)"
@@ -225,6 +270,7 @@ REPLACES = {
     "stft_mel": "godsp_tpu/ops/pallas_stft.py:150",
     "istft_overlap_add": "godsp_tpu/ops/pallas_istft.py:167",
     "outer_dft_split": "godsp_tpu/ops/pallas_outer.py:245",
+    "peel_rows_fused_split": "godsp_tpu/ops/pallas_outer.py:412",
     "csd_power_partials": "godsp_tpu/ops/pallas_csd.py:84",
     "ring_halo": "godsp_tpu/parallel/halo.py:63",
     "pwelch_power_partials_halo": "godsp_tpu/parallel/fused_halo.py:129",
@@ -241,6 +287,7 @@ SOURCES = {
     "stft_mel": "godsp_tpu_torch/csrc/stft_kernel.cu",
     "istft_overlap_add": "godsp_tpu_torch/csrc/istft_kernel.cu",
     "outer_dft_split": "godsp_tpu_torch/csrc/outer_kernel.cu",
+    "peel_rows_fused_split": "godsp_tpu_torch/csrc/peel_rows_kernel.cu",
     "csd_power_partials": "godsp_tpu_torch/csrc/csd_kernel.cu",
     "ring_halo": "godsp_tpu_torch/csrc/halo_kernel.cu",
     "pwelch_power_partials_halo": "godsp_tpu_torch/csrc/pwelch_kernel.cu",
@@ -572,6 +619,59 @@ def phase_outer_kernel(rec: KernelRecord, dev) -> None:
                      lambda: cuda_outer.outer_dft_split_plain(xr, xi, m, 1, inverse),
                      None, 16.0 * points, fft_flops(m, points // m) + 12.0 * points)
         del xr, xi
+
+
+def phase_peel_rows_kernel(rec: KernelRecord, dev) -> None:
+    """K9 against its float64 plain version at the last peel of each fused
+    step of phase 6 (16 x 2^20 forward, 2^24 inverse with the ifft's 1/N)
+    and at its smallest row (an odd batch of n3 = 256), each timed beside
+    its plain version, its bound and the separate route it replaces
+    (K8 outer_dft_split(128, 1), then K1/K2 rows)."""
+    from godsp_tpu_torch.ops import cuda_fft, cuda_outer
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    for b, n3, inverse, scale in K9_SHAPES:
+        xr = torch.randn(b, 128, n3, generator=g, device=dev)
+        xi = torch.randn(b, 128, n3, generator=g, device=dev)
+        shape = f"{b} x (128, {n3}) {'inverse' if inverse else 'forward'} scale {scale:.3g}"
+        want = cplx(cuda_outer.peel_rows_fused_split_plain(xr.double(), xi.double(), inverse,
+                                                           scale))
+        rec.check("peel_rows_fused_split",
+                  lambda: cplx(cuda_outer.peel_rows_fused_split(xr, xi, inverse, scale)), want,
+                  shape)
+        del want
+
+        def kernel():
+            return cuda_outer.peel_rows_fused_split(xr, xi, inverse, scale)
+
+        def separate():
+            yr, yi = cuda_outer.outer_dft_split(xr, xi, 128, 1, inverse)
+            if inverse:
+                return cuda_fft.ifft_pow2(yr, yi, scale)
+            return cuda_fft.fft_pow2(yr, yi, scale=scale)
+
+        # K9 is the (128 n3)-point DFT of each batch element read in row
+        # order, bin k1 + 128 k3 stored at [k1, k3]: one torch.fft call on the
+        # flattened rows computes it (the transpose is a view).
+        z = torch.complex(xr, xi).reshape(b, -1)
+        if inverse:
+            def library():
+                return torch.fft.ifft(z, norm="forward") * scale
+        else:
+            def library():
+                return torch.fft.fft(z)
+        # The kernels line keeps the first shape's times.
+        bms, by = bound_ms(16.0 * b * 128 * n3, fft_flops(128 * n3, b))
+        t = dict(ms=time_ms(kernel), separate_route_ms=time_ms(separate),
+                 library_ms=time_ms(library),
+                 plain_ms=time_ms(lambda: cuda_outer.peel_rows_fused_split_plain(
+                     xr, xi, inverse, scale)), bound_ms=bms, bound_by=by, shape=shape)
+        rec.times.setdefault("peel_rows_fused_split", t)
+        log(f"  {'peel_rows_fused_split':22s} {shape}: kernel {t['ms']:.4f} ms, plain(f32) "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+            f"torch.fft {t['library_ms']:.4f} ms; separate route K8 + "
+            f"{'K2' if inverse else 'K1'} {t['separate_route_ms']:.4f} ms")
+        del xr, xi, z
 
 
 def phase_csd_kernel(rec: KernelRecord, dev) -> None:
@@ -1046,10 +1146,32 @@ def oracle_hilbert(x64: torch.Tensor) -> torch.Tensor:
         return bluestein_fft(torch.roll(torch.flip(z, dims=(-1,)), 1, dims=-1)) / n
 
 
+def profile_by_kernel(label: str, fn, reps: int = 10) -> None:
+    """fn's device time a call by kernel name, from torch.profiler's events
+    over reps warm calls (device events only: an aten:: row repeats its
+    kernels' time; the profiler may drop a few events, so the counts a
+    call are printed beside)."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp, trace_to(tmp) as prof:
+        for _ in range(reps):
+            fn()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and not e.key.startswith(("aten::", "Activity Buffer"))]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    log(f"  profile {label}: device {total:.3f} ms a call in "
+        f"{sum(e.count for e in rows) / reps:g} kernel calls")
+    for e in rows[:6]:
+        log(f"    {e.self_device_time_total / 1e3 / reps:9.3f} ms x{e.count / reps:<4g} "
+            f"{e.key[:80]}")
+
+
 def phase_fft_surface(dev, path: str) -> dict[str, dict[str, int]]:
     """The FFT surface at full size, as one counted session (phase 6)."""
     from godsp_tpu_torch import dsputils, fft
-    from godsp_tpu_torch.fft import four_step_fft
+    from godsp_tpu_torch.bench import fused_route
+    from godsp_tpu_torch.fft import four_step_fft, large
     from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
 
     decoded = read_decoded(path)  # host data: hilbert gets no device
@@ -1112,19 +1234,57 @@ def phase_fft_surface(dev, path: str) -> dict[str, dict[str, int]]:
         HILBERT: (decoded.size, lambda: fft.hilbert(xdec), lambda: torch.fft.fft(xdec)),
         FFTN: (n3d, lambda: fft.fftn(cube_dev), lambda: torch.fft.fftn(cube_dev)),
     }
+    device_ms = {}
     for label, (samples, ours, lib) in yardsticks.items():
-        ms, lib_ms = time_ms(ours, reps=5), time_ms(lib, reps=5)
+        ms, lib_ms = device_ms[label] = time_ms(ours, reps=5), time_ms(lib, reps=5)
         log(f"  {label}: wall {walls[label]:.4f} s, {samples / walls[label] / 1e6:.1f} "
             f"Msamples/s; device {ms:.3f} ms ({samples / ms / 1e3:.1f} Msamples/s) on a "
             f"device tensor, torch.fft {lib_ms:.3f} ms")
     del xdec, cube_dev
 
+    # The fused peel + rows route (K9, fft.large.set_fuse_rows_enabled) on
+    # the three giant steps, as a counted sub-session of its own after one
+    # warm-up pass; the switch is restored in a finally.
+    fused_steps = ((F_FFT20, FFT20, lambda: fft.fft(x20)),
+                   (F_IFFT24, IFFT24, lambda: fft.ifft(y24)),
+                   (F_FFT28, FFT28, lambda: fft.fft(x28)))
+    large.set_fuse_rows_enabled(True)
+    try:
+        for _, _, fn in fused_steps:
+            fn()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        f20, f24, f28 = (step(label, fn) for label, _, fn in fused_steps)
+        log(f"  launches in the fused sub-session: {launch_counts()}")
+        fused_ms = {label: time_ms(fn, reps=5) for label, _, fn in fused_steps}
+    finally:
+        large.set_fuse_rows_enabled(False)
+    for label, unfused, fn in fused_steps[:2]:
+        profile_by_kernel(f"{unfused} (unfused)", yardsticks[unfused][1])
+        profile_by_kernel(label, fused_route(fn))
+    expect_launches(F_FFT20, steps, {"peel_rows_fused_split": 1})
+    expect_launches(F_IFFT24, steps, {"outer_dft_split": 1, "peel_rows_fused_split": 1})
+    expect_launches(F_FFT28, steps, {"outer_dft_split": 2, "fft_pow2": 1})
+    for label, unfused, _ in fused_steps:
+        log(f"  {label}: wall {walls[label]:.4f} s (unfused {walls[unfused]:.4f} s); device "
+            f"{fused_ms[label]:.3f} ms (unfused {device_ms[unfused][0]:.3f} ms, torch.fft "
+            f"{device_ms[unfused][1]:.3f} ms)")
+    if not torch.equal(f28, y28):
+        raise AssertionError(f"{F_FFT28}: differs from the unfused run (2^28 does not fuse)")
+    log(f"  {F_FFT28}: torch.equal to the unfused run")
+    del f28
+
     # Checks, after the counts were read: float64 oracles on the card from
-    # the plain functions.
-    check_db(f"{FFT20} vs float64 four-step", y20, four_step_fft(c128(x20)))
-    check_db(f"{IFFT24} vs float64 four-step", z24,
-             four_step_fft(c128(y24), inverse=True) / N24)
-    del y20, z24
+    # the plain functions, and the fused results against the unfused ones.
+    want = four_step_fft(c128(x20))
+    check_db(f"{FFT20} vs float64 four-step", y20, want)
+    check_db(f"{F_FFT20} vs float64 four-step", f20, want)
+    check_db(f"{F_FFT20} vs the unfused route", f20, y20)
+    want = four_step_fft(c128(y24), inverse=True) / N24
+    check_db(f"{IFFT24} vs float64 four-step", z24, want)
+    check_db(f"{F_IFFT24} vs float64 four-step", f24, want)
+    check_db(f"{F_IFFT24} vs the unfused route", f24, z24)
+    del y20, z24, f20, f24, want
     want = four_step_fft(c128(x28))
     check_db(f"{FFT28} vs float64 four-step", y28, want)
     del want, y28
@@ -1452,6 +1612,108 @@ def phase_mesh(dev, path: str, stereo_path: str) -> dict[str, dict[str, int]]:
     return steps
 
 
+def phase_fft_rest(dev, path: str) -> dict[str, dict[str, int]]:
+    """The rest of the FFT surface on the recording, as one counted session
+    (phase 10), each result held against scipy in float64 on the host."""
+    import scipy.fft as sfft
+    import scipy.signal as ss
+
+    from godsp_tpu_torch import fft, models, window
+    from godsp_tpu_torch.ops import cuda_stft, launch_counts, reset_launch_counts
+    from godsp_tpu_torch.window.extended import get_window
+
+    decoded = read_decoded(path)
+    n = decoded.size
+    x = torch.from_numpy(decoded).to(dev)
+    frames = x[: n // NFFT * NFFT].reshape(-1, NFFT)
+    g = torch.Generator(device=dev).manual_seed(10)
+    image = torch.rand(IMAGE, IMAGE, generator=g, device=dev) * 2 - 1
+    seg = x[:ZOOM_N]
+    r = np.logspace(-2, 2, FHT_N)
+    dln = float(np.log(r[1] / r[0]))
+    a = torch.from_numpy(r * np.exp(-r * r / 2)).to(dev, torch.float32)
+    offset = fft.fhtoffset(dln, 0.5)
+    stf = models.ShortTimeFFT(get_window("hann", NFFT), 256, FS)
+
+    def session(step):
+        """The eight steps; step(label, fn) runs each and returns its result."""
+        out = {DCT: step(DCT, lambda: fft.dct(frames, type=2, norm="ortho"))}
+        out[IDCT] = step(IDCT, lambda: fft.idct(out[DCT], type=2, norm="ortho"))
+        out[DCTN] = step(DCTN, lambda: fft.dctn(image))
+        out[MFCC] = step(MFCC, lambda: models.mfcc(x, FS, n_mfcc=13, nfft=NFFT, hop=256,
+                                                   n_mels=80))
+        out[ZOOM] = step(ZOOM, lambda: fft.zoom_fft(seg, ZOOM_BAND, ZOOM_M, fs=FS))
+        out[FHT] = step(FHT, lambda: fft.fht(a, dln, 0.5, offset=offset))
+        out[STFFT] = step(STFFT, lambda: stf.stft(x))
+        out[ISTFFT] = step(ISTFFT, lambda: stf.istft(out[STFFT], k1=n))
+        return out
+
+    # A first pass pays one-time costs (phase, chirp, filterbank and
+    # twiddle tables, allocator); the counted session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"rest of the FFT surface: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    out = session(step)
+    log(f"  launches in the session of the rest of the FFT surface: {launch_counts()}")
+    large_plan = {"outer_dft_split": 2, "fft_pow2": 1, "ifft_pow2": 1}  # forward + inverse
+    expect_launches(DCT, steps, {"fft_pow2": 1})
+    expect_launches(IDCT, steps, {"ifft_pow2": 1})
+    expect_launches(DCTN, steps, {"fft_pow2": 2})
+    # K5 mel for the log-mel; the 80-point DCT is Bluestein at pad 256.
+    expect_launches(MFCC, steps, {"stft_mel": 1, "fft_pow2": 1, "ifft_pow2": 1})
+    expect_launches(ZOOM, steps, large_plan)  # the chirp filter at pad 2^21
+    expect_launches(FHT, steps, large_plan)  # rfft and irfft of 2^16 points
+    expect_launches(STFFT, steps, {"fft_pow2": 1})
+    expect_launches(ISTFFT, steps, {"ifft_pow2": 1})
+    samples = {DCT: frames.numel(), IDCT: frames.numel(), DCTN: IMAGE * IMAGE, MFCC: n,
+               ZOOM: ZOOM_N, FHT: FHT_N, STFFT: n, ISTFFT: n}
+    for label, wall in walls.items():
+        log(f"  {label}: wall {wall:.4f} s, {samples[label] / wall / 1e6:.3f} Msamples/s")
+
+    # Checks, after the counts were read: scipy in float64 on the host, on
+    # the same float32 inputs (each cast to float64).
+    h = {k: v.cpu().numpy().astype(np.float64) for k, v in
+         (("frames", frames), ("image", image), ("seg", seg), ("a", a))}
+    spec = out[DCT].cpu().numpy().astype(np.float64)
+    want = {
+        DCT: sfft.dct(h["frames"], type=2, norm="ortho"),
+        IDCT: sfft.idct(spec, type=2, norm="ortho"),
+        DCTN: sfft.dctn(h["image"]),
+        ZOOM: ss.zoom_fft(h["seg"], list(ZOOM_BAND), ZOOM_M, fs=FS),
+        FHT: sfft.fht(h["a"], dln, 0.5, offset=offset),
+    }
+    del spec
+    # mfcc: scipy's ortho DCT-II of the float64 log-mel from the port's plain
+    # functions on the card (Slaney filters, ln(mel + 1e-10)): scipy checks
+    # the DCT step only; the log-mel's parity is the CPU test's against
+    # godsp_tpu.
+    F = (n - NFFT) // 256 + 1
+    fb64 = models.mel_filterbank(80, NFFT, FS, norm="slaney", device=dev, dtype=torch.float64)
+    w64 = window.window_table("hann", NFFT, device=dev)
+    mel64 = cuda_stft.stft_pallas_plain(x.double(), w64, NFFT, 256, F, out="mel", fb=fb64)
+    want[MFCC] = sfft.dct(torch.log(mel64 + 1e-10).cpu().numpy(), norm="ortho")[:, :13]
+    del mel64
+    ref = ss.ShortTimeFFT(stf.win, 256, FS)
+    want[STFFT] = ref.stft(decoded.astype(np.float64))
+    want[ISTFFT] = ref.istft(out[STFFT].cpu().numpy().astype(np.complex128), k1=n)
+    for label, w in want.items():
+        got = out[label]
+        if tuple(got.shape) != w.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: shape {tuple(got.shape)}, scipy {w.shape}")
+        check_db(f"{label} vs scipy float64", got, w)
+    return steps
+
+
 def phase_bench(dev) -> dict[str, dict[str, int]]:
     """The port's bench (godsp_tpu_torch/bench.py), its core cells, as one
     counted session (phase 9): every cell >= 120 dB against its float64
@@ -1508,6 +1770,7 @@ def main() -> int:
     phase_kernels(rec, dev)
     phase_stft_kernels(rec, dev)
     phase_outer_kernel(rec, dev)
+    phase_peel_rows_kernel(rec, dev)
     phase_csd_kernel(rec, dev)
     phase_halo_kernels(rec, dev)
     phase_metrics_kernels(rec, dev)
@@ -1523,13 +1786,15 @@ def main() -> int:
         fft_steps = phase_fft_surface(dev, path)
         welch_steps = phase_scipy_spectra(dev, path, stereo)
         mesh_steps = phase_mesh(dev, path, stereo)
-    bench_steps = phase_bench(dev)
+        bench_steps = phase_bench(dev)
+        rest_steps = phase_fft_rest(dev, path)
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
     steps.update(fft_steps)
     steps.update(welch_steps)
     steps.update(mesh_steps)
+    steps.update(rest_steps)
     steps.update(bench_steps)
 
     kernels = []
@@ -1541,7 +1806,7 @@ def main() -> int:
             launches=sum(launched_by.values()), max_abs_err=rec.err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], launched_by=launched_by,
-            **({"kernel_device_ms": t["kernel_device_ms"]} if "kernel_device_ms" in t else {}),
+            **{k: t[k] for k in ("kernel_device_ms", "separate_route_ms") if k in t},
         ))
         if not launched_by:
             raise AssertionError(f"{name} was not launched by the main path")

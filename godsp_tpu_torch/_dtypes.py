@@ -93,7 +93,10 @@ def as_tensor(x, device=None) -> torch.Tensor:
     given; host data lands on `device` (default: default_device())."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
-    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+    arr = np.asarray(x)
+    if any(s < 0 for s in arr.strides):  # a reversed view: torch takes no negative strides
+        arr = arr.copy()
+    return torch.as_tensor(arr, device=resolve_device(device))
 
 
 def _cuda_cast(x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ where one PyTorch call computes the same function, that call's time in
 the same session (`library_wall_s`).  The flagship cell, fft1024_precise
 (K1 at 1024 x 16384), co-measures in each rep K12 at the same planes
 (copy_ceiling_gbs, fraction_of_copy_ceiling) and K13
-(fraction_of_gmm_floor).
+(fraction_of_gmm_floor).  fft_2pow20_fused and fft_2pow24_fused time the
+same transforms on the same inputs as fft_2pow20 and fft_2pow24 with the
+large plan's fused peel + rows route (K9) on; the torch.fft and copy
+chains they report are the unfused cells' own (measured once).
 
 Timing (utils.metrics.time_chain_diff): each cell's op runs in two chains
 of k_lo and k_hi launches between CUDA events; the difference over
@@ -50,6 +53,7 @@ import torch
 
 from godsp_tpu_torch import fft, models, parallel, spectral, window
 from godsp_tpu_torch._dtypes import resolve_device
+from godsp_tpu_torch.fft import large
 from godsp_tpu_torch.ops import cuda_fft, cuda_pwelch
 from godsp_tpu_torch.ops.cuda_metrics import gmm_floor_plain
 from godsp_tpu_torch.parallel._pwelch_sharded_impl import sharded_partial_step
@@ -77,6 +81,20 @@ GMM_NOTE = ("gmm_floor is K13: the twiddled 128-point DFT of every lane slice as
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+def fused_route(fn):
+    """fn run with the large plan's fused peel + rows route on (K9,
+    fft.large.set_fuse_rows_enabled), the switch restored after each call."""
+    def run(*a, **k):
+        was = large._fuse_rows_on
+        large.set_fuse_rows_enabled(True)
+        try:
+            return fn(*a, **k)
+        finally:
+            large.set_fuse_rows_enabled(was)
+
+    return run
 
 
 def med(xs):
@@ -116,6 +134,7 @@ class Bench:
         self.reps: dict[str, list[float]] = {}  # chain -> per-application seconds
         self.chains: dict[str, tuple] = {}  # chain -> (op, k_lo, k_hi, iters)
         self.sections: dict[str, tuple] = {}  # cell -> (chains, builder)
+        self.giants: dict[int, tuple] = {}  # log2 n -> (input, tones, k_lo, k_hi)
         self.t0 = time.perf_counter()
         self._probe = torch.zeros(1, device=self.dev)
         self.b_f = self.rows(16384)
@@ -158,9 +177,13 @@ class Bench:
         self.results[key] = d
         return d
 
-    def sec(self, key: str, chains: list[str], build) -> dict:
+    def sec(self, key: str, chains: list[str], build, shared=()) -> dict:
+        """Measure the cell's chains once and build it.  A chain in `shared`
+        (a yardstick over an input two cells share) is measured only by
+        the first cell that lists it."""
         for c in chains:
-            self.measure(c)
+            if c not in shared or c not in self.reps:
+                self.measure(c)
         self.sections[key] = (chains, build)
         return self.rebuild(key)
 
@@ -335,23 +358,37 @@ class Bench:
         log(f"rfft n=1024 b={b}: {d['wall_s'] * 1e3:.4f} ms {d['gbs']:.0f} GB/s snr={snr:.1f} dB, "
             f"torch.fft.rfft {d['library_wall_s'] * 1e3:.4f} ms")
 
-    def s_2pow20(self) -> None:
-        n = self.points(1 << 20)
-        z = torch.complex(self.randn(n), self.randn(n))
-        snr = snr_db(fft.fft(z), torch.fft.fft(z.to(torch.complex128)))
-        self.chain("fft_2pow20", lambda: fft.fft(z), 32, 256, iters=6)
-        self.chain("torch_2pow20", lambda: torch.fft.fft(z), 32, 256, iters=6)
+    def input_2pow20(self) -> torch.Tensor:
+        """The 2^20 cells' input and torch.fft's chain over it, made once and
+        shared by the unfused and fused cells."""
+        if not hasattr(self, "z_20"):
+            n = self.points(1 << 20)
+            self.z_20 = z = torch.complex(self.randn(n), self.randn(n))
+            self.chain("torch_2pow20", lambda: torch.fft.fft(z), 32, 256, iters=6)
+        return self.z_20
+
+    def s_2pow20(self, fused: bool = False) -> None:
+        z = self.input_2pow20()
+        n = z.shape[-1]
+        key, lib_key = "fft_2pow20_fused" if fused else "fft_2pow20", "torch_2pow20"
+        fwd = fused_route(fft.fft) if fused else fft.fft
+        snr = snr_db(fwd(z), torch.fft.fft(z.to(torch.complex128)))
+        self.chain(key, lambda: fwd(z), 32, 256, iters=6)
 
         def build(meds):
-            per, lib = meds["fft_2pow20"], meds["torch_2pow20"]
+            per, lib = meds[key], meds[lib_key]
             return {"n": n, "wall_s": per, **self.roofline(fft_bytes(n, 1, 8), per),
                     "snr_db": snr, "library_wall_s": lib,
-                    "library_wall_s_reps": list(self.reps["torch_2pow20"]),
+                    "library_wall_s_reps": list(self.reps[lib_key]),
                     "speedup_vs_library": lib / per}
 
-        d = self.sec("fft_2pow20", ["fft_2pow20", "torch_2pow20"], build)
-        log(f"fft 2^{n.bit_length() - 1} single: {d['wall_s'] * 1e3:.4f} ms snr={snr:.1f} dB "
-            f"vs torch.fft {d['library_wall_s'] * 1e3:.4f} ms ({d['speedup_vs_library']:.2f}x)")
+        d = self.sec(key, [key, lib_key], build, shared=[lib_key])
+        log(f"fft 2^{n.bit_length() - 1} single{' (fused route)' if fused else ''}: "
+            f"{d['wall_s'] * 1e3:.4f} ms snr={snr:.1f} dB vs torch.fft "
+            f"{d['library_wall_s'] * 1e3:.4f} ms ({d['speedup_vs_library']:.2f}x)")
+
+    def s_2pow20_fused(self) -> None:
+        self.s_2pow20(fused=True)
 
     def giant_input(self, n: int):
         """Three tones at integer bins, built in float64 on the device with
@@ -367,11 +404,12 @@ class Bench:
         del t
         return z.to(torch.complex64), tones
 
-    def tone_snr(self, z: torch.Tensor, tones) -> float:
-        """fft.fft(z) against the exact tones: the tone bins' errors plus the
-        energy everywhere else (summed in float64), over the tones' energy."""
+    def tone_snr(self, z: torch.Tensor, tones, op=fft.fft) -> float:
+        """op(z) (default fft.fft) against the exact tones: the tone bins'
+        errors plus the energy everywhere else (summed in float64), over the
+        tones' energy."""
         n = z.shape[-1]
-        X = fft.fft(z)
+        X = op(z)
         sig = err = 0.0
         for f, a, ph in tones:
             want = n * a * complex(math.cos(2 * math.pi * ph), math.sin(2 * math.pi * ph))
@@ -384,39 +422,54 @@ class Bench:
         del X
         return 10.0 * math.log10(sig / max(err, 1e-300))
 
-    def giant(self, log2n: int) -> None:
-        n = self.points(1 << log2n)
-        z, tones = self.giant_input(n)
-        snr = self.tone_snr(z, tones)
+    def giant_setup(self, log2n: int):
+        """The 2^log2n cells' multi-tone input and the torch.fft and copy
+        chains over it, made once and shared by the unfused and fused cells."""
+        if log2n not in self.giants:
+            n = self.points(1 << log2n)
+            z, tones = self.giant_input(n)
+            zr, zi = (p.contiguous().reshape(-1, min(8192, n)) for p in (z.real, z.imag))
+            k_lo, k_hi = (2, 8) if log2n <= 24 else (1, 4)
+            self.chain(f"torch_2pow{log2n}", lambda: torch.fft.fft(z), k_lo, k_hi, iters=4)
+            self.chain(f"copy_2pow{log2n}", lambda: copy_split(zr, zi, batch_tile=1), 4, 16,
+                       iters=4)
+            self.giants[log2n] = (z, tones, k_lo, k_hi)
+        return self.giants[log2n]
+
+    def giant(self, log2n: int, fused: bool = False) -> None:
+        z, tones, k_lo, k_hi = self.giant_setup(log2n)
+        n = z.shape[-1]
+        fwd = fused_route(fft.fft) if fused else fft.fft
+        inv = fused_route(fft.ifft) if fused else fft.ifft
+        snr = self.tone_snr(z, tones, fwd)
         rt = None
         if log2n <= 24:
-            rt = snr_db(fft.ifft(fft.fft(z)), z)
-        zr, zi = z.real.contiguous().reshape(-1, min(8192, n)), z.imag.contiguous().reshape(
-            -1, min(8192, n))
+            rt = snr_db(inv(fwd(z)), z)
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()  # the oracle's buffers go before the timing
-        k_lo, k_hi = (2, 8) if log2n <= 24 else (1, 4)
-        key = f"fft_2pow{log2n}"
-        self.chain(key, lambda: fft.fft(z), k_lo, k_hi, iters=4)
-        self.chain(f"torch_2pow{log2n}", lambda: torch.fft.fft(z), k_lo, k_hi, iters=4)
-        self.chain(f"copy_2pow{log2n}", lambda: copy_split(zr, zi, batch_tile=1), 4, 16,
-                   iters=4)
+        key = f"fft_2pow{log2n}{'_fused' if fused else ''}"
+        lib_key, copy_key = f"torch_2pow{log2n}", f"copy_2pow{log2n}"
+        self.chain(key, lambda: fwd(z), k_lo, k_hi, iters=4)
 
         def build(meds):
-            per, lib, cp = meds[key], meds[f"torch_2pow{log2n}"], meds[f"copy_2pow{log2n}"]
+            per, lib, cp = meds[key], meds[lib_key], meds[copy_key]
             return {"n": n, "wall_s": per, **self.roofline(fft_bytes(n, 1, 8), per),
                     "snr_db": snr, "snr_oracle": "exact multi-tone spectrum",
                     "roundtrip_snr_db": rt, "library_wall_s": lib,
                     "copy_pass_s": cp, "copy_passes_equivalent": per / cp}
 
-        d = self.sec(key, [key, f"torch_2pow{log2n}", f"copy_2pow{log2n}"], build)
-        log(f"fft 2^{n.bit_length() - 1} single: {d['wall_s'] * 1e3:.3f} ms = "
+        d = self.sec(key, [key, lib_key, copy_key], build, shared=[lib_key, copy_key])
+        log(f"fft 2^{n.bit_length() - 1} single{' (fused route)' if fused else ''}: "
+            f"{d['wall_s'] * 1e3:.3f} ms = "
             f"{d['copy_passes_equivalent']:.2f} copy passes, snr={snr:.1f} dB (multi-tone)"
             + (f" roundtrip={rt:.1f} dB" if rt is not None else "")
             + f", torch.fft {d['library_wall_s'] * 1e3:.3f} ms")
 
     def s_2pow24(self) -> None:
         self.giant(24)
+
+    def s_2pow24_fused(self) -> None:
+        self.giant(24, fused=True)
 
     def s_2pow28(self) -> None:
         self.giant(28)
@@ -608,7 +661,9 @@ SECTIONS = {
     "public_fft1024": ("s_public", None),
     "rfft1024": ("s_rfft", None),
     "fft_2pow20": ("s_2pow20", None),
+    "fft_2pow20_fused": ("s_2pow20_fused", None),
     "fft_2pow24": ("s_2pow24", None),
+    "fft_2pow24_fused": ("s_2pow24_fused", None),
     "pwelch": ("s_pwelch", None),
     "spectrogram1024_s512": ("s_spectrogram", None),
     "mel_frontend_1024": ("s_mel", None),

@@ -7,9 +7,15 @@ float32 tensors (ops/cuda_fft.py up to 16384 points, the large plan of
 fft/large.py over ops/cuda_outer.py through 2^28), the plain four-step
 version (fft/four_step.py) on the CPU.  Other lengths take Bluestein
 over the same choke point.  stockham_fft is the independent radix-2
-oracle.  czt/zoom_fft, dct/dst and fht wait for a later slice.
+oracle.  The DCT/DST family (fft/_dct_impl.py), the chirp-z and zoom
+FFT (fft/_czt_impl.py, over pow2_circular_filter) and the fast Hankel
+transform (fft/fftlog.py, over rfft/irfft) ride the same dispatch.
+fft.large.set_fuse_rows_enabled selects the fused peel + rows route (K9)
+of the large plan.
 """
 
+from godsp_tpu_torch.fft._czt_impl import CZT, ZoomFFT, czt, czt_points, zoom_fft
+from godsp_tpu_torch.fft._dct_impl import dct, dctn, dst, dstn, idct, idctn, idst, idstn
 from godsp_tpu_torch.fft.bluestein import bluestein_fft
 from godsp_tpu_torch.fft.core import (
     convolve,
@@ -24,6 +30,7 @@ from godsp_tpu_torch.fft.core import (
     ifft_real,
     ifftn,
 )
+from godsp_tpu_torch.fft.fftlog import fht, fhtoffset, ifht
 from godsp_tpu_torch.fft.four_step import four_step_fft
 from godsp_tpu_torch.fft.helpers import (
     fftfreq,
@@ -52,8 +59,16 @@ from godsp_tpu_torch.fft.split import fft_split, ifft_split, rfft_split
 from godsp_tpu_torch.fft.stockham import ensure_radix2_factors, stockham_fft, twiddles
 
 __all__ = [
+    "CZT",
+    "ZoomFFT",
     "bluestein_fft",
     "convolve",
+    "czt",
+    "czt_points",
+    "dct",
+    "dctn",
+    "dst",
+    "dstn",
     "ensure_radix2_factors",
     "fft",
     "fft2",
@@ -63,6 +78,8 @@ __all__ = [
     "fftfreq",
     "fftn",
     "fftshift",
+    "fht",
+    "fhtoffset",
     "four_step_fft",
     "hfft",
     "hfft2",
@@ -72,9 +89,14 @@ __all__ = [
     "ifft2",
     "ifft2_real",
     "ifft_real",
+    "idct",
+    "idctn",
+    "idst",
+    "idstn",
     "ifft_split",
     "ifftn",
     "ifftshift",
+    "ifht",
     "ihfft",
     "ihfft2",
     "ihfftn",
@@ -94,4 +116,5 @@ __all__ = [
     "set_large_min",
     "stockham_fft",
     "twiddles",
+    "zoom_fft",
 ]

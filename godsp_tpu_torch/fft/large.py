@@ -24,15 +24,30 @@ large.py:347-374).  Each K8 call passes the planes once; with the split
 of a complex input into planes, the plan makes four passes over device
 memory at N <= 2^25 (split, K8, rows, fold) and five above.
 
-On the CPU the same plan runs the wrappers' plain versions in the
-input's dtype (the float64 parity mode); the public fft reaches it only
-on CUDA (fft/pow2.py), as godsp_tpu reaches it only on the TPU.  The
+set_fuse_rows_enabled(True) (default off, as in godsp_tpu) selects
+godsp_tpu's fused route where its 128-peel plan ends in a row that K9
+takes: n = 128^k * n3 with n3 in 1024..8192, that is 2^17..2^20 (k = 1)
+and 2^24..2^27 (k = 2) (godsp_tpu large.py:281-333):
+
+    k = 2, head peel, K8 outer_dft_split(128, 1) over (b, 128, n/128)
+    K9 peel_rows_fused_split over (b*128^(k-1), 128, n3): the last peel,
+       its twiddle and the n3-point rows in one pass, `scale` in its store
+    fold: bin k_a + 128 k_b + ... + 128^k k3, the same one permute
+
+so the rows make one pass fewer than the unfused plan.  Other sizes
+(2^15, 2^16, 2^21..2^23, 2^28) take the unfused plan whatever the switch
+says, as in godsp_tpu.
+
+On the CPU the same plans run the wrappers' plain versions in the
+input's dtype (the float64 parity mode); the public fft reaches them only
+on CUDA (fft/pow2.py), as godsp_tpu reaches them only on the TPU.  The
 inverse conjugates every table and applies `scale` in the row kernel's
 store (the public ifft passes 1/N).
 
-godsp_tpu's TPU A/B knobs (set_peel_enabled, set_fuse_rows_enabled,
-set_outer_kernel_enabled) select TPU structure and are not ported;
-fft.set_kernels_enabled covers the kernel A/B.
+godsp_tpu's other TPU A/B knobs (set_peel_enabled,
+set_outer_kernel_enabled) select TPU structure and are not ported: the
+unfused plan above is not the TPU's peel plan.  fft.set_kernels_enabled
+covers the kernel A/B.
 """
 
 from __future__ import annotations
@@ -41,7 +56,13 @@ import torch
 
 from godsp_tpu_torch.ops import cuda_fft, cuda_outer
 
-__all__ = ["fft_large", "fft_large_split", "large_supported", "set_large_min"]
+__all__ = [
+    "fft_large",
+    "fft_large_split",
+    "large_supported",
+    "set_fuse_rows_enabled",
+    "set_large_min",
+]
 
 _KERNEL_MAX = cuda_fft.MAX_N  # 16384: the row kernel's largest row
 _ROW_N = 8192  # rows of the plans up to 2^20
@@ -62,6 +83,17 @@ def set_large_min(n: int) -> None:
     _MIN_N = int(n)
 
 
+# The fused last-peel + row-FFT route (K9); off by default, as in godsp_tpu.
+_fuse_rows_on = False
+
+
+def set_fuse_rows_enabled(on: bool) -> None:
+    """Switch for the fused last peel + row FFT (K9, default off): on, the
+    sizes whose 128-peel plan ends in a K9 row take it."""
+    global _fuse_rows_on
+    _fuse_rows_on = bool(on)
+
+
 def large_supported(n: int) -> bool:
     """Power-of-2 sizes from the large-plan minimum through 2^28 (the
     same set as godsp_tpu's large_supported)."""
@@ -72,6 +104,39 @@ def _plan(n: int) -> tuple[int, int]:
     """n = m * n3: rows of 8192 while m <= 128, else of 16384."""
     n3 = _ROW_N if n <= _ROW_N * 128 else _KERNEL_MAX
     return n // n3, n3
+
+
+def _peel_plan(n: int) -> tuple[int, int] | None:
+    """(k, n3) when n = 128^k * n3 with n3 a row size of 1024..16384,
+    else None (godsp_tpu's _peel_plan, large.py:243-254)."""
+    for k in (1, 2, 3):
+        n3 = n >> (7 * k)
+        if n3 < 1024:
+            return None
+        if n3 <= _KERNEL_MAX and n3 << (7 * k) == n and cuda_fft.supported_size(n3):
+            return k, n3
+    return None
+
+
+def _fused_plan(n: int) -> tuple[int, int] | None:
+    """(k, n3) of the fused route when K9 takes the last peel's rows."""
+    pp = _peel_plan(n)
+    return pp if pp is not None and cuda_outer.peel_rows_supported(pp[1]) else None
+
+
+def _fused(xr, xi, b: int, k: int, n3: int, inverse: bool, scale: float):
+    """k - 1 head peels (K8, d = 128), then K9 over the last peel's rows:
+    (yr, yi, perm), planes of shape (b, 128 x k, n3)."""
+    d, rest = cuda_outer.PEEL, xr.shape[-1]
+    for i in range(k - 1):
+        rows = b * d ** i
+        xr, xi = cuda_outer.outer_dft_split(xr.reshape(rows, d, rest // d),
+                                            xi.reshape(rows, d, rest // d), d, 1, inverse)
+        rest //= d
+    yr, yi = cuda_outer.peel_rows_fused_split(xr.reshape(-1, d, n3), xi.reshape(-1, d, n3),
+                                              inverse, scale)
+    shape = (b, *(d,) * k, n3)
+    return yr.reshape(shape), yi.reshape(shape), (0, *range(k + 1, 0, -1))
 
 
 def _balanced(v: int) -> tuple[int, int]:
@@ -89,8 +154,11 @@ def _transform(xr, xi, inverse: bool, scale: float):
         raise ValueError(f"unsupported large-FFT size: {n} (pow-2 {_MIN_N}..2^28)")
     if xr.shape != xi.shape:
         raise ValueError("re/im planes must have identical shapes")
-    m, n3 = _plan(n)
     b = xr.numel() // n
+    fused = _fused_plan(n) if _fuse_rows_on else None
+    if fused is not None:
+        return _fused(xr, xi, b, *fused, inverse, scale)
+    m, n3 = _plan(n)
     if m <= _MAX_ROWS:
         yr, yi = cuda_outer.outer_dft_split(xr.reshape(b, m, n3), xi.reshape(b, m, n3), m, 1,
                                             inverse)

@@ -1,11 +1,12 @@
-"""Mel-scale features: filterbank and log-mel spectrogram.
+"""Mel-scale features: filterbank, log-mel spectrogram, MFCC.
 
 Port of godsp_tpu/models/mel.py: power spectrogram -> mel filterbank
-contraction -> log.  HTK mel scale (2595 log10(1 + f/700)); triangular
-filters with optional Slaney area normalization.  On a CUDA float32
-input at a supported geometry the whole front end is one kernel (K5's
-mel mode, ops/cuda_stft.py): frames, spectra and the power spectrum never
-reach device memory.  mfcc waits for the DCT (fft/_dct_impl.py).
+contraction -> log -> DCT-II.  HTK mel scale (2595 log10(1 + f/700));
+triangular filters with optional Slaney area normalization.  On a CUDA
+float32 input at a supported geometry the log-mel front end is one
+kernel (K5's mel mode, ops/cuda_stft.py): frames, spectra and the power
+spectrum never reach device memory.  mfcc then takes the ortho DCT-II of
+the log-mel rows over the FFT core (fft/_dct_impl.py).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from godsp_tpu_torch._dtypes import as_real_array, as_tensor, resolve_device, working_float
+from godsp_tpu_torch.fft._dct_impl import dct
 from godsp_tpu_torch.fft.four_step import _tf32_off
 from godsp_tpu_torch.models._stft_impl import (
     WindowSpec,
@@ -27,7 +29,7 @@ from godsp_tpu_torch.models._stft_impl import (
 from godsp_tpu_torch.ops import cuda_stft
 from godsp_tpu_torch.spectral._pwelch_impl import fused_path_eligible
 
-__all__ = ["mel_filterbank", "mel_spectrogram", "stream_mel"]
+__all__ = ["mel_filterbank", "mel_spectrogram", "mfcc", "stream_mel"]
 
 
 def _hz_to_mel(f):
@@ -166,3 +168,24 @@ def stream_mel(
                 as_tensor(seg, device), fs, nfft, hop_r, n_mels, window, fmin,
                 fmax, norm, log=log, eps=eps,
             )
+
+
+def mfcc(
+    x,
+    fs: float,
+    n_mfcc: int = 13,
+    nfft: int = 1024,
+    hop: Optional[int] = None,
+    n_mels: int = 80,
+    window: WindowSpec = None,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+) -> torch.Tensor:
+    """(..., frames, n_mfcc) mel-frequency cepstral coefficients: the ortho
+    DCT-II of the log-mel spectrogram (Slaney-normalized filters), its
+    first n_mfcc terms."""
+    if n_mfcc > n_mels:
+        raise ValueError("n_mfcc must be <= n_mels")
+    logmel = mel_spectrogram(x, fs, nfft, hop, n_mels, window, fmin, fmax, norm="slaney",
+                             log=True)
+    return dct(logmel, norm="ortho")[..., :n_mfcc]

@@ -6,6 +6,8 @@
   cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
   cuda_istft   — K6 istft_overlap_add (fused inverse FFT->window->overlap-add)
   cuda_outer   — K8 outer_dft_split (the giant-N FFT's outer levels + twiddles)
+                 and K9 peel_rows_fused_split (its last 128-point peel fused
+                 with the row FFT, the route of fft.large.set_fuse_rows_enabled)
   cuda_halo    — K10 ring_halo (the sharded Welch's overlap halo, one launch a ring)
   cuda_fused_halo — K11 pwelch_power_partials_halo (K4 reading the right
                  neighbour shard's head past its block's end)
@@ -34,7 +36,12 @@ from godsp_tpu_torch.ops.cuda_fused_halo import pwelch_power_partials_halo
 from godsp_tpu_torch.ops.cuda_halo import ring_halo
 from godsp_tpu_torch.ops.cuda_istft import istft_overlap_add, istft_supported
 from godsp_tpu_torch.ops.cuda_metrics import copy_split, gmm_floor
-from godsp_tpu_torch.ops.cuda_outer import outer_dft_split, outer_supported
+from godsp_tpu_torch.ops.cuda_outer import (
+    outer_dft_split,
+    outer_supported,
+    peel_rows_fused_split,
+    peel_rows_supported,
+)
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
     pwelch_power_partials,
@@ -64,6 +71,8 @@ __all__ = [
     "launch_counts",
     "outer_dft_split",
     "outer_supported",
+    "peel_rows_fused_split",
+    "peel_rows_supported",
     "pwelch_power_partials",
     "pwelch_power_partials_halo",
     "pwelch_power_sum",

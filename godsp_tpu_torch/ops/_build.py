@@ -82,6 +82,8 @@ def _declare(lib) -> None:
     lib.gdsp_istft_ola.restype = i
     lib.gdsp_outer_dft.argtypes = [p, p, p, p, p, p, p, i, i, i64, i64, i, p]
     lib.gdsp_outer_dft.restype = i
+    lib.gdsp_peel_rows.argtypes = [p, p, p, p, p, p, p, p, i, i64, i, f, p]
+    lib.gdsp_peel_rows.restype = i
     lib.gdsp_copy_split.argtypes = [p, p, p, p, i64, p]
     lib.gdsp_copy_split.restype = i
     lib.gdsp_gmm_floor.argtypes = [p, p, p, p, p, i64, i, i, p]

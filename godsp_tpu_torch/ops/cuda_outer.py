@@ -1,9 +1,11 @@
-"""Outer DFT levels of the giant-N FFT plan for Hopper, with their plain version.
+"""Outer DFT levels of the giant-N FFT plan for Hopper, with their plain versions.
 
 Counterpart of godsp_tpu/ops/pallas_outer.py.
 
   K8 outer_dft_split(xr, xi, d1, d2, inverse)
      replaces pallas_outer.py: outer_dft_split (_outer_kernel)
+  K9 peel_rows_fused_split(xr, xi, inverse, scale)
+     replaces pallas_outer.py: peel_rows_fused_split (_peel_rows_kernel)
 
 For a length-N transform viewed as (..., m, n3) float32 planes, m = d1*d2
 rows and N = m*n3, the result's row k1*d2 + k2, column t holds
@@ -24,6 +26,19 @@ twiddle, in the input's dtype; the tables are built in float64 with the
 exponents reduced in exact integer arithmetic.  It is the float64
 oracle on the card (TF32 off around its matmuls).
 
+K9 fuses the last 128-point peel of the large plan with the row FFT: for
+(..., 128, n3) planes, n3 a power of 2 in 256..8192 (godsp_tpu's
+peel_rows_supported), row k1 of the result is
+
+    scale * sum_t W_n3^{k3 t} W_{128 n3}^{k1 t} sum_i x[i, t] W_128^{k1 i},
+
+outer_dft_split(d1=128, d2=1) followed by the n3-point row FFT, in one
+pass over device memory (csrc/peel_rows_kernel.cu).  Its rows are in
+natural bin order, where godsp_tpu stores digit order, and `scale` (the
+public ifft's 1/N) is applied in its store.  Its plain version is
+godsp_tpu's form: the dense F(128) contraction and the (128, n3) twiddle
+of K8's plain version, then the plain row FFT, in the input's dtype.
+
 A wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -38,26 +53,38 @@ import torch
 
 from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix
 from godsp_tpu_torch.ops import _build
-from godsp_tpu_torch.ops.cuda_fft import twiddle_table
+from godsp_tpu_torch.ops.cuda_fft import fft_pow2_plain, twiddle_table
 
 __all__ = [
     "MAX_ROWS",
+    "PEEL",
     "launches",
     "outer_dft_split",
     "outer_dft_split_plain",
     "outer_supported",
+    "peel_rows_fused_split",
+    "peel_rows_fused_split_plain",
+    "peel_rows_supported",
 ]
 
 MAX_ROWS = 2048  # m rows x 8 columns of float2 in shared memory: 128 KB a block
+PEEL = 128  # points of K9's fused peel
 
 # Kernel launches by wrapper, counted where each launches its kernel.
-launches = {"outer_dft_split": 0}
+launches = {"outer_dft_split": 0, "peel_rows_fused_split": 0}
 
 
 def outer_supported(d1: int, d2: int, n3: int) -> bool:
     """Row factors d1, d2 >= 1 with m = d1*d2 a power of 2 in 2..MAX_ROWS, any n3 >= 1."""
     m = d1 * d2
     return d1 >= 1 and d2 >= 1 and 2 <= m <= MAX_ROWS and m & (m - 1) == 0 and n3 >= 1
+
+
+def peel_rows_supported(n3: int) -> bool:
+    """Row lengths K9 takes: a power of 2 from 256 to 8192 (godsp_tpu's
+    n3 % 128 == 0 and 2 <= n3 / 128 <= 64, at the pow-2 sizes its plan
+    gives)."""
+    return 256 <= n3 <= 8192 and n3 & (n3 - 1) == 0
 
 
 def _exp_table(n: int, kk: torch.Tensor, tt: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -84,6 +111,13 @@ def _factor_tables(n: int, inverse: bool, device: torch.device):
     return hi.to(device), lo.to(device), lo_bits
 
 
+@lru_cache(maxsize=None)
+def _dft_table(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """(n, 2) float32 table W_n^p, p < n, built in float64 and rounded once."""
+    ang = (2.0 if inverse else -2.0) * np.pi * np.arange(n, dtype=np.float64) / n
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)).to(device)
+
+
 def _check(xr, xi, d1: int, d2: int) -> tuple[int, int]:
     if xr.shape != xi.shape:
         raise ValueError("re/im planes must have identical shapes")
@@ -98,8 +132,17 @@ def _check(xr, xi, d1: int, d2: int) -> tuple[int, int]:
     return rows, n3
 
 
+def _check_peel(xr, xi) -> int:
+    if xr.shape != xi.shape:
+        raise ValueError("re/im planes must have identical shapes")
+    if xr.dim() < 2 or xr.shape[-2] != PEEL or not peel_rows_supported(xr.shape[-1]):
+        raise ValueError(f"unsupported fused peel-rows shape {tuple(xr.shape[-2:])}: "
+                         f"(..., {PEEL}, n3), n3 a power of 2 in 256..8192")
+    return xr.shape[-1]
+
+
 # ---------------------------------------------------------------------------
-# Plain version (any device, any float dtype: the float64 oracle on the card)
+# Plain versions (any device, any float dtype: the float64 oracle on the card)
 # ---------------------------------------------------------------------------
 
 
@@ -168,4 +211,48 @@ def outer_dft_split(xr: torch.Tensor, xi: torch.Tensor, d1: int, d2: int,
         )
     _build.check(rc, "outer_dft_split")
     launches["outer_dft_split"] += 1
+    return yr, yi
+
+
+def peel_rows_fused_split_plain(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
+                                scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 128-point peel and its twiddle as dense contractions (K8's plain
+    version at d1 = 128, d2 = 1), then the plain n3-point row FFT times
+    scale: K9's result, in the input's dtype."""
+    _check_peel(xr, xi)
+    yr, yi = outer_dft_split_plain(xr, xi, PEEL, 1, inverse)
+    return fft_pow2_plain(yr, yi, inverse, scale)
+
+
+def peel_rows_fused_split(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
+                          scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9: the last 128-point peel, its twiddle and the n3-point row FFT of
+    (..., 128, n3) float32 planes in one device-memory pass, times scale;
+    row k1 holds its natural-order bins k3.  inverse conjugates every
+    table."""
+    n3 = _check_peel(xr, xi)
+    if not xr.is_cuda:
+        return peel_rows_fused_split_plain(xr, xi, inverse, scale)
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise TypeError(f"peel_rows_fused_split: the kernel takes float32 planes, got {xr.dtype}")
+    if xi.device != xr.device:
+        raise ValueError("peel_rows_fused_split: re/im planes must be on one device")
+    xr, xi = xr.contiguous(), xi.contiguous()
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    batch = xr.numel() // (PEEL * n3)
+    if batch == 0:
+        return yr, yi
+    dev = xr.device
+    hi, lo, lo_bits = _factor_tables(PEEL * n3, inverse, dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.gdsp_peel_rows(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            _dft_table(PEEL, inverse, dev).data_ptr(), twiddle_table(n3, inverse, dev).data_ptr(),
+            hi.data_ptr(), lo.data_ptr(), n3.bit_length() - 1, batch, lo_bits, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "peel_rows_fused_split")
+    launches["peel_rows_fused_split"] += 1
     return yr, yi

@@ -9,7 +9,8 @@ runs on its own, past tests/conftest.py (which imports jax):
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
 (K1-K13) and its plain version in float64 on the same inputs, and between
 the public entry points on the card and the CPU in float64 (a synthesized
-signal over its interior, away from the NOLA-divided ends).
+signal over its interior, away from the NOLA-divided ends); the fused
+peel + rows route (K9) also against the unfused plan.
 """
 
 import ast
@@ -628,3 +629,120 @@ def test_metrics_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
     with pytest.raises(TypeError):
         cuda_metrics.gmm_floor(x.double(), x.double())
 
+
+
+# ---------------------------------------------------------------- K9, the rest of the FFT surface
+
+
+@pytest.mark.parametrize("b,n3,inverse,scale", [(16, 8192, False, 1.0),
+                                                (128, 1024, True, 2.0 ** -24),
+                                                (3, 256, False, 1.0)],
+                         ids=["16x2^20", "2^24-last-peel", "smallest-row"])
+def test_k9_on_card(cuda, b, n3, inverse, scale):
+    x = _crandn(cuda, b, 128, n3, seed=n3)
+    before = launch_counts()["peel_rows_fused_split"]
+    got = cuda_outer.peel_rows_fused_split(x.real.float(), x.imag.float(), inverse, scale)
+    assert launch_counts()["peel_rows_fused_split"] == before + 1
+    want = cuda_outer.peel_rows_fused_split_plain(x.real.contiguous(), x.imag.contiguous(),
+                                                  inverse, scale)
+    g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
+    assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB
+
+
+def test_k9_batches_past_grid_y(cuda):
+    """65,537 batch elements: the grid spreads them over y and z."""
+    b = 65537
+    xr = torch.randn(b, 128, 256, device=cuda)
+    xi = torch.randn(b, 128, 256, device=cuda)
+    yr, yi = cuda_outer.peel_rows_fused_split(xr, xi)
+    for rows in (slice(0, 2), slice(65534, 65537)):
+        want = cuda_outer.peel_rows_fused_split_plain(xr[rows].double(), xi[rows].double())
+        got = torch.complex(yr[rows], yi[rows]).to(torch.complex128)
+        assert dsputils.snr_db(_np(got), _np(torch.complex(*want))) >= SNR_CARD_DB
+
+
+def test_k9_wrapper_raises(cuda, monkeypatch):
+    x = torch.rand(2, 128, 1024, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_outer.peel_rows_fused_split(x.double(), x.double())
+    with pytest.raises(ValueError):
+        cuda_outer.peel_rows_fused_split(x[:, :64], x[:, :64])
+
+    def broken():
+        raise RuntimeError("nvcc failed: simulated")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_outer.peel_rows_fused_split(x, x)
+
+
+@pytest.mark.parametrize("shape,inverse", [((4, 1 << 20), False), ((1 << 24,), True)],
+                         ids=["4x2^20", "2^24-inverse"])
+def test_fused_route_on_card(cuda, shape, inverse):
+    from godsp_tpu_torch.fft import large
+
+    x = _crandn(cuda, *shape, seed=shape[-1]).to(torch.complex64)
+    op = fft.ifft if inverse else fft.fft
+    unfused = op(x)
+    reset_launch_counts()
+    try:
+        large.set_fuse_rows_enabled(True)
+        got = op(x)
+    finally:
+        large.set_fuse_rows_enabled(False)
+    heads = 0 if shape[-1] == 1 << 20 else 1
+    assert launch_counts()["peel_rows_fused_split"] == 1
+    assert launch_counts()["outer_dft_split"] == heads
+    assert launch_counts()["fft_pow2"] == launch_counts()["ifft_pow2"] == 0
+    want = fft.four_step_fft(x.to(torch.complex128), inverse)
+    if inverse:
+        want = want / shape[-1]
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    assert dsputils.snr_db(_np(got), _np(unfused)) >= SNR_CARD_DB
+
+
+def test_dct_family_on_card(cuda):
+    rng = np.random.default_rng(11)
+    frames = torch.from_numpy(rng.normal(size=(64, 1024)))  # CPU tensors: the float64 references
+    img = torch.from_numpy(rng.normal(size=(128, 96)))
+    reset_launch_counts()
+    y = fft.dct(frames.to(cuda), norm="ortho")
+    assert y.dtype == torch.float32 and launch_counts()["fft_pow2"] == 1
+    for got, want in ((y, fft.dct(frames, norm="ortho")),
+                      (fft.idct(y, norm="ortho"), fft.idct(y.double().cpu(), norm="ortho")),
+                      (fft.dst(frames.to(cuda), 4), fft.dst(frames, 4)),
+                      (fft.dctn(img.to(cuda), 1), fft.dctn(img, 1))):
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+
+
+def test_zoom_fft_and_czt_on_card(cuda):
+    x = torch.from_numpy(np.random.default_rng(12).normal(size=(2, 40000)))
+    reset_launch_counts()
+    got = fft.zoom_fft(x.to(cuda), (50.0, 4000.0), 2048, fs=44100.0)
+    assert launch_counts()["outer_dft_split"] == 2  # the chirp filter at pad 2^16
+    assert got.dtype == torch.complex64
+    want = fft.zoom_fft(x, (50.0, 4000.0), 2048, fs=44100.0)
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    w, a = np.exp(-2j * np.pi * 0.2 / 300), np.exp(0.1j)
+    gc = fft.czt(x[:, :1000].to(cuda), 300, w, a)
+    assert dsputils.snr_db(_np(gc), _np(fft.czt(x[:, :1000], 300, w, a))) >= SNR_CARD_DB
+
+
+def test_shorttime_fft_and_mfcc_on_card(cuda):
+    from godsp_tpu_torch.window.extended import get_window
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(np.sin(2 * np.pi * 0.01 * np.arange(200_000))
+                         + 0.1 * rng.normal(size=200_000))
+    stf = models.ShortTimeFFT(get_window("hann", 1024), 256, 44100.0)
+    reset_launch_counts()
+    S = stf.stft(x.to(cuda))
+    y = stf.istft(S, k1=x.numel())
+    assert launch_counts()["fft_pow2"] == 1 and launch_counts()["ifft_pow2"] == 1
+    assert launch_counts()["stft_complex"] == 0  # the FFT core, not the STFT kernel
+    m = models.mfcc(x.to(cuda), 44100.0, n_mfcc=13, nfft=1024, hop=256)
+    assert launch_counts()["stft_mel"] == 1
+    assert dsputils.snr_db(_np(S), _np(stf.stft(x))) >= SNR_CARD_DB
+    assert dsputils.snr_db(_np(y), _np(x)) >= SNR_CARD_DB
+    assert dsputils.snr_db(_np(m), _np(models.mfcc(x, 44100.0, n_mfcc=13, nfft=1024,
+                                                    hop=256))) >= SNR_CARD_DB

@@ -1,8 +1,16 @@
-"""Parity of godsp_tpu_torch's giant-N FFT (fft/large.py, K8) with godsp_tpu.
+"""Parity of godsp_tpu_torch's giant-N FFT (fft/large.py, K8, K9) with godsp_tpu.
 
 K8's plain version (ops/cuda_outer.py) is held to godsp_tpu's
 outer_dft_split in interpret mode at >= 100 dB in float32, the bound of
-tests/test_pallas.py.  The port's large plan runs on the CPU in float64
+tests/test_pallas.py; K9's plain version to godsp_tpu's
+peel_rows_fused_split in interpret mode, its digit-order rows put in
+natural order, at >= 110 dB in float32 (tests/test_fft.py's bound for
+the peel path).  The fused route (set_fuse_rows_enabled) and the unfused
+plan are held to godsp_tpu's x64 fft_large_split at 1e-8 abs-or-rel: at
+2^17 on random data, at 2^24 on a multi-tone input whose spectrum,
+O(N) at its tones, is compared divided by N (the float64 rounding of a
+2^24-point transform, about N eps log2 N absolute, is above go-dsp's
+1e-8 absolute in the empty bins).  The port's large plan runs on the CPU in float64
 through the wrappers' plain versions and is held to godsp_tpu's
 fft_large_split (x64, with the four-step oracle as its row transform) at
 go-dsp's 1e-8 abs-or-rel bound, and both to numpy at >= 200 dB.  The
@@ -21,7 +29,10 @@ import torch
 from godsp_tpu import fft as jfft
 from godsp_tpu.fft import large as jlarge
 from godsp_tpu.fft.four_step import four_step_fft as jfour_step
+from godsp_tpu.ops import digit_to_natural_bins
 from godsp_tpu.ops.pallas_outer import outer_dft_split as jouter
+from godsp_tpu.ops.pallas_outer import peel_rows_fused_split as jpeel
+from godsp_tpu.ops.pallas_outer import peel_rows_supported as jpeel_supported
 from godsp_tpu_torch import default_device, dsputils, fft, set_default_device
 from godsp_tpu_torch.dsputils import next_power_of_2
 from godsp_tpu_torch.fft import core, large, pow2, split
@@ -92,6 +103,150 @@ def test_k8_rejects_unsupported_plans(args):
     x = torch.zeros(d1 * d2, n3)
     with pytest.raises(ValueError):
         cuda_outer.outer_dft_split(x, x, d1, d2)
+
+
+# ---------------------------------------------------------------- K9
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("b,n3", [(2, 256), (1, 1024)])
+def test_k9_plain_vs_jax_kernel(b, n3, inverse):
+    rng = np.random.default_rng(n3 + inverse)
+    x = _complex(rng, b, 128, n3).astype(np.complex64)
+    jr, ji = jpeel(jnp.asarray(x.real), jnp.asarray(x.imag), inverse=inverse, interpret=True)
+    want = (np.asarray(digit_to_natural_bins(jr, n3))
+            + 1j * np.asarray(digit_to_natural_bins(ji, n3)))
+    before = dict(cuda_outer.launches)
+    yr, yi = cuda_outer.peel_rows_fused_split(torch.from_numpy(x.real.copy()),
+                                              torch.from_numpy(x.imag.copy()), inverse)
+    assert cuda_outer.launches == before  # CPU tensors never launch
+    assert yr.dtype == torch.float32 and yr.shape == x.shape
+    assert dsputils.snr_db(_np(yr) + 1j * _np(yi), want) >= 110.0
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_k9_plain_is_the_sub_transform(inverse):
+    """Row k1 of each (128, n3) element holds scale x bins k1 + 128 k3 of the
+    length-128 n3 DFT of the element read in row order."""
+    n3, scale = 512, 0.25
+    x = _complex(np.random.default_rng(5), 3, 128, n3)
+    yr, yi = cuda_outer.peel_rows_fused_split_plain(torch.from_numpy(x.real),
+                                                    torch.from_numpy(x.imag), inverse, scale)
+    sub = x.reshape(3, -1)
+    spec = np.fft.ifft(sub) * sub.shape[-1] if inverse else np.fft.fft(sub)
+    want = scale * spec.reshape(3, n3, 128).transpose(0, 2, 1)
+    assert yr.dtype == torch.float64
+    assert dsputils.pretty_close(_np(yr) + 1j * _np(yi), want)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (2, 128, 128), (2, 64, 1024), (128, 16384)])
+def test_k9_rejects_unsupported_shapes(shape):
+    x = torch.zeros(shape)
+    with pytest.raises(ValueError):
+        cuda_outer.peel_rows_fused_split(x, x)
+
+
+def test_k9_sizes_match_jax():
+    for n3 in (128, 256, 384, 512, 1024, 8192, 16384, 8192 + 128):
+        if n3 & (n3 - 1) == 0:  # the port's kernel is radix-2: its plan gives pow-2 rows
+            assert cuda_outer.peel_rows_supported(n3) == jpeel_supported(n3), n3
+
+
+def test_the_sizes_that_fuse_match_jax():
+    """The fused route takes exactly the sizes where godsp_tpu fuses: its
+    _peel_plan ends in a row peel_rows_supported takes (arithmetic only)."""
+    fused = []
+    for k in range(15, 29):
+        n = 1 << k
+        pp = jlarge._peel_plan(n)
+        want = None if pp is None or not jpeel_supported(pp[1]) else (len(pp[0]), pp[1])
+        assert large._fused_plan(n) == want, n
+        if want:
+            fused.append(k)
+    assert fused == [17, 18, 19, 20, 24, 25, 26, 27]
+
+
+def _multitone(n, seed):
+    rng = np.random.default_rng(seed)
+    bins = rng.choice(n, size=5, replace=False)
+    amps = rng.normal(size=5) + 1j * rng.normal(size=5)
+    t = np.arange(n, dtype=np.int64)
+    x = np.zeros(n, np.complex128)
+    spec = np.zeros(n, np.complex128)
+    for bq, a in zip(bins, amps):  # each phase reduced exactly, rounded once
+        x += a * np.exp(2j * np.pi * ((int(bq) * t) % n) / n)
+        spec[bq] = a * n
+    return x, spec
+
+
+@pytest.fixture(scope="module")
+def jax_2_24():
+    """godsp_tpu's x64 large plan at 2^24 on a multi-tone input, forward
+    and (of the exact spectrum) inverse, once for the module."""
+    n = 1 << 24
+    x, spec = _multitone(n, 42)
+    out = {}
+    for inverse, src in ((False, x), (True, spec)):
+        jr, ji = jlarge.fft_large_split(jnp.asarray(src.real), jnp.asarray(src.imag),
+                                        inverse=inverse, row_fft=_jax_oracle_row)
+        out[inverse] = np.asarray(jr) + 1j * np.asarray(ji)
+    return x, spec, out
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("n", [1 << 17, 1 << 24], ids=["2^17", "2^24"])
+def test_fused_route_vs_jax(n, fuse, inverse, request, monkeypatch):
+    calls = Counter()
+    for mod, name in ((cuda_outer, "outer_dft_split"), (cuda_outer, "peel_rows_fused_split"),
+                      (cuda_fft, "fft_pow2"), (cuda_fft, "ifft_pow2")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name,
+                            lambda *a, _f=fn, _n=name, **k: calls.update([_n]) or _f(*a, **k))
+    if n == 1 << 24:
+        x, spec, jax_out = request.getfixturevalue("jax_2_24")
+        src, ref = (spec, x * n) if inverse else (x, spec)
+        want = jax_out[inverse]
+    else:
+        src = _complex(np.random.default_rng(n + inverse), 2, n)
+        ref = np.fft.ifft(src) * n if inverse else np.fft.fft(src)
+        jr, ji = jlarge.fft_large_split(jnp.asarray(src.real), jnp.asarray(src.imag),
+                                        inverse=inverse, row_fft=_jax_oracle_row)
+        want = np.asarray(jr) + 1j * np.asarray(ji)
+    try:
+        large.set_fuse_rows_enabled(fuse)
+        yr, yi = large.fft_large_split(torch.from_numpy(src.real.copy()),
+                                       torch.from_numpy(src.imag.copy()), inverse)
+    finally:
+        large.set_fuse_rows_enabled(False)
+    got = _np(yr) + 1j * _np(yi)
+    peels = 1 if n == 1 << 17 else 2
+    rows = "ifft_pow2" if inverse else "fft_pow2"
+    if fuse:
+        assert calls == +Counter({"outer_dft_split": peels - 1, "peel_rows_fused_split": 1})
+    else:
+        assert calls == {"outer_dft_split": 1, rows: 1}
+    assert dsputils.pretty_close(got / n, want / n)
+    assert dsputils.snr_db(got, ref) >= SNR_F64_DB
+
+
+def test_fused_route_keeps_the_other_sizes(monkeypatch):
+    """2^15, 2^16, 2^21 (n3 = 16384: past K9's rows) take the unfused plan
+    whatever the switch says, as in godsp_tpu."""
+    calls = []
+    fn = cuda_outer.peel_rows_fused_split
+    monkeypatch.setattr(cuda_outer, "peel_rows_fused_split",
+                        lambda *a, **k: calls.append(1) or fn(*a, **k))
+    try:
+        large.set_fuse_rows_enabled(True)
+        for k in (15, 16):
+            x = _complex(np.random.default_rng(k), 1, 1 << k)
+            z = large.fft_large(torch.from_numpy(x))
+            assert dsputils.snr_db(_np(z), np.fft.fft(x)) >= SNR_F64_DB
+        assert large._fused_plan(1 << 21) is None and large._fused_plan(1 << 28) is None
+    finally:
+        large.set_fuse_rows_enabled(False)
+    assert calls == []
 
 
 # ---------------------------------------------------------------- the plan

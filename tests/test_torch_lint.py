@@ -1,7 +1,8 @@
 """Lint guards for godsp_tpu_torch, mirroring tests/test_lint.py.
 
 The port must never import jax (nor godsp_tpu, whose __init__ imports
-jax): checked by an AST scan of every module and by importing the
+jax): checked by an AST scan of every module (and of the example twins
+under examples/torch) and by importing the
 package in a fresh interpreter.  Every __all__ name must resolve, and no
 collection may hold an implicit string concatenation.
 """
@@ -21,7 +22,7 @@ from test_lint import _element_is_implicit_concat
 
 PKG = pathlib.Path(godsp_tpu_torch.__file__).parent
 REPO = PKG.parent
-FILES = sorted(PKG.rglob("*.py")) + [
+FILES = sorted(PKG.rglob("*.py")) + sorted((REPO / "examples" / "torch").glob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "tests" / "test_torch_cuda.py",
     REPO / "tools" / "probe_torch_fft_profile.py",

@@ -1,15 +1,17 @@
 """Parity of godsp_tpu_torch's mel front end with godsp_tpu.
 
 mel_filterbank is the same float64 numpy code in both packages and must
-be bitwise equal; mel_spectrogram (log included) and stream_mel are held
-to the JAX package (CPU, x64) at go-dsp's 1e-8 abs-or-rel bound on the
-same seeded inputs.  The fused route (K5's mel mode) is held to it in
+be bitwise equal; mel_spectrogram (log included), stream_mel and mfcc
+are held to the JAX package (CPU, x64) at go-dsp's 1e-8 abs-or-rel bound
+on the same seeded inputs (mfcc also to the ortho DCT-II of the log-mel
+rows, tests/test_models.py's case).  The fused route (K5's mel mode) is held to it in
 tests/test_torch_stft.py's route test and on the card in
 tests/test_torch_cuda.py.
 """
 
 import numpy as np
 import pytest
+import scipy.fft as scipy_fft
 import torch
 
 from godsp_tpu import models as jmodels
@@ -95,3 +97,28 @@ def test_stream_mel_matches_one_shot_and_jax():
     assert dsputils.pretty_close(_np(torch.cat(got, dim=-2)), _np(one_shot))
     with pytest.raises(ValueError, match="hop must be positive"):
         list(models.stream_mel(blocks, 16000.0, 512, 0))
+
+
+@pytest.mark.parametrize("x_shape,kw", [
+    ((8000,), dict(n_mfcc=13, nfft=512, hop=256, n_mels=40)),
+    ((2, 6000), dict(n_mfcc=20, nfft=400, hop=160, n_mels=40, fmin=20.0, fmax=7600.0)),
+], ids=["test_models_case", "bluestein_band_batched"])
+def test_mfcc_matches_jax(x_shape, kw):
+    x = _signal(int(np.prod(x_shape)), 4).reshape(x_shape)
+    got = models.mfcc(x, 16000.0, **kw)
+    want = jmodels.mfcc(x, 16000.0, **kw)
+    frames = (x_shape[-1] - kw["nfft"]) // kw["hop"] + 1
+    assert got.shape == (*x_shape[:-1], frames, kw["n_mfcc"]) == want.shape
+    assert dsputils.pretty_close(_np(got), np.asarray(want))
+    mel_kw = {k: v for k, v in kw.items() if k != "n_mfcc"}
+    logmel = models.mel_spectrogram(x, 16000.0, **mel_kw, norm="slaney", log=True)
+    assert dsputils.pretty_close(
+        _np(got), scipy_fft.dct(_np(logmel), norm="ortho")[..., : kw["n_mfcc"]])
+
+
+def test_mfcc_errors_match_jax():
+    with pytest.raises(ValueError) as want:
+        jmodels.mfcc(np.zeros(4096, np.float32), 8000.0, n_mfcc=90, n_mels=80)
+    with pytest.raises(ValueError) as got:
+        models.mfcc(np.zeros(4096, np.float32), 8000.0, n_mfcc=90, n_mels=80)
+    assert str(got.value) == str(want.value)

@@ -39,7 +39,6 @@ NOT_TO_PORT = {
     ("parallel/_pwelch_sharded_impl.py", "sharded_partial_step(packed_half)"): "Mosaic knob",
     # The large plan's TPU A/B knobs and test hooks.
     ("fft/large.py", "set_peel_enabled"): "large-plan TPU A/B knob",
-    ("fft/large.py", "set_fuse_rows_enabled"): "large-plan TPU A/B knob",
     ("fft/large.py", "set_outer_kernel_enabled"): "large-plan TPU A/B knob",
     ("fft/large.py", "fft_large_split(row_fft)"): "test hook of the TPU kernel",
     ("fft/large.py", "fft_large_split(interpret)"): "test hook of the TPU kernel",
@@ -69,8 +68,6 @@ NOT_TO_PORT = {
 
 # (module, name) -> the ROADMAP queue-1 item that ports it.
 PENDING = {
-    ("models/mel.py", "mfcc"): "queue 1 item 2 (needs fft/_dct_impl.py)",
-    ("models/__init__.py", "mfcc"): "queue 1 item 2 (needs fft/_dct_impl.py)",
     ("fft/pow2.py", "pow2_convolve2"): "queue 1 item 4.6 (conv2d)",
     ("parallel/__init__.py", "init_distributed"): "queue 1 item 6 (more than one card)",
     ("parallel/mesh.py", "init_distributed"): "queue 1 item 6 (more than one card)",
@@ -79,10 +76,6 @@ PENDING = {
 # A name a package __init__ re-exports from one of these godsp_tpu modules
 # is pending with that module's ROADMAP queue-1 item.
 PENDING_MODULES = {
-    "fft/_czt_impl.py": "queue 1 item 2",
-    "fft/_dct_impl.py": "queue 1 item 2",
-    "fft/fftlog.py": "queue 1 item 2",
-    "models/shorttime.py": "queue 1 item 3",
     "models/waveforms.py": "queue 1 item 4.1",
     "models/design.py": "queue 1 item 4.1",
     "models/filter.py": "queue 1 item 4.2",
