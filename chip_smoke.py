@@ -158,7 +158,34 @@ final line):
      DCT-II of a float64 log-mel that the port's own plain functions build
      on the card, so scipy checks only the DCT step there; mfcc's whole
      parity comes from tests/test_torch_mel.py against godsp_tpu);
- 11. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 11. the filtering, design and LTI path on the same recording, after one
+     warm-up pass, as one counted session: sosfilt and sosfiltfilt with
+     butter(8, 4 kHz) in sections and lfilter with butter(4, 1 kHz) in
+     (b, a) form over all 26,460,000 samples (blocked matmuls and
+     log-depth scans in torch, TF32 off: no kernel of this library);
+     fir_filter and fftconvolve(mode="same") with firwin(255, 4 kHz)
+     (full length 26,460,254: pad 2^25, the large plan, K8 three times,
+     K1 twice, K2 once); overlap_save with the same taps (4096-point
+     blocks: K1 twice, K2 once); decimate by 4 (cheby1 8, sosfiltfilt);
+     resample_poly of the first 10 s from 44.1 to 16 kHz (160/441: the
+     zero-stuffed 70,560,000 samples and 8,821 taps at pad 2^27, K8 six
+     times, K1 twice, K2 once); lsim of the analog butter(4, 2 pi 1 kHz)
+     in a frequency-scaled state space (lti_system says why) over the
+     first 44,100 samples, dt = 1/44100, and dlsim of its zoh
+     discretization; each step's wall and Msamples/s printed; then each
+     result held against scipy.signal in float64 on the host on the same
+     float32 input (>= 120 dB);
+ 12. K14a, the fused-Welch floor twins (ops/cuda_probes.py): each held
+     against its plain version on the card (loadonly and frameonly
+     against float64, noframe against the float64 rfft -> |X|^2 ->
+     masked sum, staged against K4 on the same samples and against
+     float64), >= 120 dB, at the probe's geometry (16384 segments, nfft =
+     pad = 1024, hop 512) and at a ragged one; each timed there beside
+     its plain version and bound; then the probe
+     (godsp_tpu_torch.probes.pwfloor.run) at its full geometry as one
+     counted session: loadonly, frameonly, noframe, staged, K4 and K3,
+     each beside K12's copy ceiling of the bytes it reads;
+ 13. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -260,6 +287,22 @@ M_IFFT = "mesh: fft_sharded(inverse=True) / 2^24"
 # The counted bench session (phase 9): the port's bench, its core cells.
 BENCH = "bench: core cells (fft1024 + K12/K13 reps, fft sizes, rfft, torch.fft, 2^20, pwelch)"
 
+# Steps of the counted filtering session (phase 11), and their sizes.
+SOSFILT = "sosfilt(butter(8, 4 kHz) sos, recording)"
+SOSFILTFILT = "sosfiltfilt(butter(8, 4 kHz) sos, recording)"
+LFILTER = "lfilter(butter(4, 1 kHz) b/a, recording)"
+FIR = "fir_filter(recording, firwin(255, 4 kHz))"
+FFTCONV = "fftconvolve(recording, firwin(255, 4 kHz), 'same')"
+OLS = "overlap_save(recording, firwin(255, 4 kHz))"
+DECIMATE = "decimate(recording, 4)"
+RESAMPLE = "resample_poly(first 10 s, 160, 441)"
+LSIM = "lsim(analog butter(4, 2 pi 1 kHz) state space, first 44,100 samples)"
+DLSIM = "dlsim(its zoh discretization, first 44,100 samples)"
+RESAMPLE_N, LSIM_N, FIR_TAPS = FS * 10, FS, 255
+
+# The counted probe session (phase 12): probes.pwfloor at its geometry.
+PWFLOOR = "probes.pwfloor.run (16384 segments, nfft = pad = 1024, hop 512)"
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
@@ -276,6 +319,10 @@ REPLACES = {
     "pwelch_power_partials_halo": "godsp_tpu/parallel/fused_halo.py:129",
     "copy_split": "godsp_tpu/utils/metrics.py:245",
     "gmm_floor": "godsp_tpu/utils/metrics.py:294",
+    "pwfloor_loadonly": "tools/probe_pwfloor.py:189",
+    "pwfloor_frameonly": "tools/probe_pwfloor.py:189",
+    "pwfloor_noframe": "tools/probe_pwfloor.py:264",
+    "pwfloor_staged": "tools/probe_pwfloor.py:229",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -293,6 +340,10 @@ SOURCES = {
     "pwelch_power_partials_halo": "godsp_tpu_torch/csrc/pwelch_kernel.cu",
     "copy_split": "godsp_tpu_torch/csrc/metrics_kernels.cu",
     "gmm_floor": "godsp_tpu_torch/csrc/metrics_kernels.cu",
+    "pwfloor_loadonly": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
+    "pwfloor_frameonly": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
+    "pwfloor_noframe": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
+    "pwfloor_staged": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
 }
 
 
@@ -1758,6 +1809,208 @@ def phase_bench(dev) -> dict[str, dict[str, int]]:
     return steps
 
 
+def lti_system():
+    """The analog butter(4, 2 pi 1 kHz) in state space, frequency-scaled:
+    tf2ss's controllable canonical form carries den's coefficients, up to
+    w0^4 = 1.6e15, and at dt = 1/44100 its matrix exponential is
+    ill-conditioned in float64 itself (the port's Pade-13 and scipy's
+    expm give float64 outputs that agree below 110 dB;
+    tests/test_torch_lti.py).  x = diag(w0^3, w0^2, w0, 1) z is the same
+    system with entries O(w0), where both agree to rounding."""
+    from godsp_tpu_torch.models import butter, tf2ss
+
+    w0 = 2 * np.pi * 1000.0
+    A, B, C, D = tf2ss(*butter(4, w0, analog=True))
+    T = np.diag(w0 ** np.arange(3.0, -1.0, -1.0))
+    Ti = np.linalg.inv(T)
+    return Ti @ A @ T, Ti @ B, C @ T, D
+
+
+def phase_filtering(dev, path: str) -> dict[str, dict[str, int]]:
+    """The filtering, design and LTI path on the recording, as one counted
+    session (phase 11), each result held against scipy.signal in float64
+    on the host on the same float32 input."""
+    import scipy.signal as ss
+
+    from godsp_tpu_torch import models
+    from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    decoded = read_decoded(path)
+    n = decoded.size
+    x = torch.from_numpy(decoded).to(dev)
+    sos = models.butter(8, 4000, fs=FS, output="sos")
+    b, a = models.butter(4, 1000, fs=FS)
+    taps = models.firwin(FIR_TAPS, 4000 / (FS / 2))
+    sysc = lti_system()
+    dt = 1.0 / FS
+    sysd = models.cont2discrete(sysc, dt, "zoh")
+    u = decoded[:LSIM_N].astype(np.float64)
+    t = np.arange(LSIM_N) * dt
+
+    def session(step):
+        """The ten steps; step(label, fn) runs each and returns its result."""
+        return {
+            SOSFILT: step(SOSFILT, lambda: models.sosfilt(sos, x)),
+            SOSFILTFILT: step(SOSFILTFILT, lambda: models.sosfiltfilt(sos, x)),
+            LFILTER: step(LFILTER, lambda: models.lfilter(b, a, x)),
+            FIR: step(FIR, lambda: models.fir_filter(x, taps)),
+            FFTCONV: step(FFTCONV, lambda: models.fftconvolve(x, taps, mode="same")),
+            OLS: step(OLS, lambda: models.overlap_save(x, taps)),
+            DECIMATE: step(DECIMATE, lambda: models.decimate(x, 4)),
+            RESAMPLE: step(RESAMPLE, lambda: models.resample_poly(x[:RESAMPLE_N], 160, 441)),
+            LSIM: step(LSIM, lambda: models.lsim(sysc, u, t)[1]),
+            DLSIM: step(DLSIM, lambda: models.dlsim(sysd, u)[1][:, 0]),
+        }
+
+    # A first pass pays one-time costs (block and twiddle tables,
+    # allocator); the counted session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"filtering path: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    out = session(step)
+    log(f"  launches in the filtering session: {launch_counts()}")
+    # The IIR and LTI steps are matmuls and scans in torch: no kernel of
+    # this library.  A pad of 2^25 (the recording's full convolution) and
+    # 2^27 (the zero-stuffed 10 s) takes the large plan: K8 once a
+    # transform at 2^25, twice at 2^27; each convolution is two forward
+    # transforms and one inverse.  overlap_save's 4096-point blocks: the
+    # tap spectrum (K1) and one batched circular filter (K1, K2).
+    large25 = {"outer_dft_split": 3, "fft_pow2": 2, "ifft_pow2": 1}
+    for label in (SOSFILT, SOSFILTFILT, LFILTER, DECIMATE, LSIM, DLSIM):
+        expect_launches(label, steps, {})
+    expect_launches(FIR, steps, large25)
+    expect_launches(FFTCONV, steps, large25)
+    expect_launches(OLS, steps, {"fft_pow2": 2, "ifft_pow2": 1})
+    expect_launches(RESAMPLE, steps, {"outer_dft_split": 6, "fft_pow2": 2, "ifft_pow2": 1})
+    samples = {label: n for label in out}
+    samples.update({RESAMPLE: RESAMPLE_N, LSIM: LSIM_N, DLSIM: LSIM_N})
+    for label, wall in walls.items():
+        log(f"  {label}: wall {wall:.4f} s, {samples[label] / wall / 1e6:.3f} Msamples/s")
+
+    # Checks, after the counts were read: scipy in float64 on the host, on
+    # the same float32 input (cast to float64).
+    x64 = decoded.astype(np.float64)
+    full = ss.oaconvolve(x64, taps)
+    want = {
+        SOSFILT: ss.sosfilt(sos, x64),
+        SOSFILTFILT: ss.sosfiltfilt(sos, x64),
+        LFILTER: ss.lfilter(b, a, x64),
+        FIR: full[:n],
+        FFTCONV: full[(FIR_TAPS - 1) // 2 : (FIR_TAPS - 1) // 2 + n],
+        OLS: full[:n],
+        DECIMATE: ss.decimate(x64, 4),
+        RESAMPLE: ss.resample_poly(x64[:RESAMPLE_N], 160, 441),
+        LSIM: ss.lsim(sysc, u, t)[1],
+        DLSIM: ss.dlsim(sysd, u)[1][:, 0],
+    }
+    del full
+    for label, w in want.items():
+        got = out[label]
+        if isinstance(got, torch.Tensor):
+            ok = bool(torch.isfinite(got).all())
+        else:
+            ok = bool(np.all(np.isfinite(got)))
+        if tuple(got.shape) != w.shape or not ok:
+            raise AssertionError(f"{label}: shape {tuple(got.shape)}, scipy {w.shape}")
+        check_db(f"{label} vs scipy float64", got, w)
+    return steps
+
+
+def phase_probe_kernels(rec: KernelRecord, dev) -> None:
+    """K14a, the fused-Welch floor twins, against their plain versions on
+    the card at the probe's geometry (16384 segments, nfft = pad = 1024,
+    hop 512) and at a ragged one (nfft 1000, hop 160, pad 1024, 5001
+    segments of which 4990 count; noframe at pad 2048): loadonly and
+    frameonly against their float64 plain versions, noframe against the
+    float64 rfft -> |X|^2 -> masked sum, staged against K4 on the same
+    samples and against the float64 plain version; each timed at the
+    probe's geometry beside its plain version and bound (no one PyTorch
+    call computes any twin's function)."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.ops import cuda_pwelch
+    from godsp_tpu_torch.probes import pwfloor
+
+    x = pwfloor.inputs(dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    S, bins = 5001, 513
+    ext = torch.rand(1, (S - 1) * 160 + 1000, generator=g, device=dev) * 2 - 1
+    mask = (torch.arange(S, device=dev) < 4990).float()[None]
+    w = window.window_table("hann", 1024, device=dev, dtype=torch.float32)
+    frames = torch.rand(1, S, 2048, generator=g, device=dev) * 2 - 1
+    w2 = window.window_table("hann", 2048, device=dev, dtype=torch.float32)
+    cases = (("probe geometry", x["ext"], x["mask"], x["w"], x["frames"], x["w"], 1024, 512),
+             ("nfft 1000 hop 160 pad 1024, 4990 of 5001", ext, mask, w, frames * mask[..., None],
+              w2, 1000, 160))
+    for what, e, m, ww, fr, wf, nfft, hop in cases:
+        e64, m64, w64 = e.double(), m.double(), ww.double()
+        bt = cuda_pwelch.segs_per_tile(m.shape[-1], 1)
+        rec.check("pwfloor_loadonly", lambda: cp.pwfloor_loadonly(e, m, ww, nfft, hop, 1024),
+                  cp.pwfloor_loadonly_plain(e64, m64, w64, nfft, hop, 1024, bt), what)
+        rec.check("pwfloor_frameonly", lambda: cp.pwfloor_frameonly(e, m, ww, nfft, hop, 1024),
+                  cp.pwfloor_frameonly_plain(e64, m64, w64, nfft, hop, 1024, bt), what)
+        rec.check("pwfloor_noframe", lambda: cp.pwfloor_noframe(fr, m, wf),
+                  cp.pwfloor_noframe_plain(fr.double(), m64, wf.double(), bt),
+                  f"{what}, pad {fr.shape[-1]}")
+        st_bt = cp.staged_segs_per_tile(m.shape[-1], 1, nfft, hop, 1024)
+        k4 = cuda_pwelch.pwelch_power_partials(e, m, ww, nfft, hop, pad=1024)
+        if st_bt != bt:
+            raise AssertionError(f"staged tiles {st_bt} differ from K4's {bt}")
+        rec.check("pwfloor_staged", lambda: cp.pwfloor_staged(e, m, ww, nfft, hop, 1024),
+                  k4.double(), f"{what}, against K4")
+        rec.check("pwfloor_staged", lambda: cp.pwfloor_staged(e, m, ww, nfft, hop, 1024),
+                  cp.pwfloor_staged_plain(e64, m64, w64, nfft, hop, 1024, bt),
+                  f"{what}, float64 plain")
+        same = torch.equal(cp.pwfloor_staged(e, m, ww, nfft, hop, 1024), k4)
+        log(f"  {'pwfloor_staged':22s} {what}: torch.equal to K4: {same}")
+        del k4
+    shape = "16384 segments, nfft = pad = 1024, hop 512"
+    for name, (op, read, nbytes, flops) in pwfloor.ops(x).items():
+        if name in ("full", "rfft"):
+            continue  # K4 and K3: timed in phase 3
+        e, m, ww, fr = x["ext"], x["mask"], x["w"], x["frames"]
+        bt = cuda_pwelch.segs_per_tile(m.shape[-1], 1)
+        plain = {
+            "loadonly": lambda: cp.pwfloor_loadonly_plain(e, m, ww, 1024, 512, 1024, bt),
+            "frameonly": lambda: cp.pwfloor_frameonly_plain(e, m, ww, 1024, 512, 1024, bt),
+            "noframe": lambda: cp.pwfloor_noframe_plain(fr, m, ww, bt),
+            "staged": lambda: cp.pwfloor_staged_plain(e, m, ww, 1024, 512, 1024, bt),
+        }[name]
+        # No one PyTorch call frames, windows, (transforms) and sums a tile.
+        rec.time(f"pwfloor_{name}", shape, op, plain, None, nbytes, flops)
+
+
+def phase_probe_run(dev) -> dict[str, dict[str, int]]:
+    """probes.pwfloor at its full geometry as one counted session
+    (phase 12): every twin, K4, K3 and K12 launched."""
+    from godsp_tpu_torch.ops import reset_launch_counts
+    from godsp_tpu_torch.probes import pwfloor
+
+    steps: dict[str, dict[str, int]] = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rows, wall = counted(PWFLOOR, lambda: pwfloor.run(dev, emit=log), steps)
+    log(f"  probes.pwfloor: {wall:.2f} s")
+    launched = ("pwfloor_loadonly", "pwfloor_frameonly", "pwfloor_noframe", "pwfloor_staged",
+                "pwelch_power_partials", "rfft_pow2", "copy_split")
+    for name, c in steps[PWFLOOR].items():
+        if (c > 0) != (name in launched):
+            raise AssertionError(f"{PWFLOOR}: {name} launched {c} times")
+    if sorted(rows) != sorted(pwfloor.ROWS):
+        raise AssertionError(f"pwfloor rows {sorted(rows)}")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1788,6 +2041,9 @@ def main() -> int:
         mesh_steps = phase_mesh(dev, path, stereo)
         bench_steps = phase_bench(dev)
         rest_steps = phase_fft_rest(dev, path)
+        filter_steps = phase_filtering(dev, path)
+    phase_probe_kernels(rec, dev)
+    probe_steps = phase_probe_run(dev)
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
@@ -1796,6 +2052,8 @@ def main() -> int:
     steps.update(mesh_steps)
     steps.update(rest_steps)
     steps.update(bench_steps)
+    steps.update(filter_steps)
+    steps.update(probe_steps)
 
     kernels = []
     for name in REPLACES:

@@ -13,6 +13,9 @@
                  neighbour shard's head past its block's end)
   cuda_metrics — K12 copy_split (the copy ceiling) and K13 gmm_floor (the
                  dense G-matmul step of a four-step FFT), the bench's yardsticks
+  cuda_probes  — K14a pwfloor_loadonly / _frameonly / _noframe / _staged, the
+                 fused-Welch floor twins (K4's body with one part changed),
+                 driven by godsp_tpu_torch.probes.pwfloor
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -27,6 +30,7 @@ from godsp_tpu_torch.ops import (
     cuda_istft,
     cuda_metrics,
     cuda_outer,
+    cuda_probes,
     cuda_pwelch,
     cuda_stft,
 )
@@ -41,6 +45,12 @@ from godsp_tpu_torch.ops.cuda_outer import (
     outer_supported,
     peel_rows_fused_split,
     peel_rows_supported,
+)
+from godsp_tpu_torch.ops.cuda_probes import (
+    pwfloor_frameonly,
+    pwfloor_loadonly,
+    pwfloor_noframe,
+    pwfloor_staged,
 )
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
@@ -60,6 +70,7 @@ __all__ = [
     "cuda_istft",
     "cuda_metrics",
     "cuda_outer",
+    "cuda_probes",
     "cuda_pwelch",
     "cuda_stft",
     "fft_pow2",
@@ -76,6 +87,10 @@ __all__ = [
     "pwelch_power_partials",
     "pwelch_power_partials_halo",
     "pwelch_power_sum",
+    "pwfloor_frameonly",
+    "pwfloor_loadonly",
+    "pwfloor_noframe",
+    "pwfloor_staged",
     "reset_launch_counts",
     "rfft_pow2",
     "ring_halo",
@@ -95,6 +110,7 @@ _COUNTS = (
     cuda_halo.launches,
     cuda_fused_halo.launches,
     cuda_metrics.launches,
+    cuda_probes.launches,
 )
 
 

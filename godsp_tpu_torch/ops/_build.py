@@ -88,6 +88,14 @@ def _declare(lib) -> None:
     lib.gdsp_copy_split.restype = i
     lib.gdsp_gmm_floor.argtypes = [p, p, p, p, p, i64, i, i, p]
     lib.gdsp_gmm_floor.restype = i
+    lib.gdsp_pwfloor_loadonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+    lib.gdsp_pwfloor_loadonly.restype = i
+    lib.gdsp_pwfloor_frameonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+    lib.gdsp_pwfloor_frameonly.restype = i
+    lib.gdsp_pwfloor_noframe.argtypes = [p, p, p, p, p, i64, i64, i, i, i, p]
+    lib.gdsp_pwfloor_noframe.restype = i
+    lib.gdsp_pwfloor_staged.argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+    lib.gdsp_pwfloor_staged.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -43,6 +43,7 @@ from godsp_tpu_torch.ops import (
     cuda_istft,
     cuda_metrics,
     cuda_outer,
+    cuda_probes,
     cuda_pwelch,
     cuda_stft,
     launch_counts,
@@ -746,3 +747,136 @@ def test_shorttime_fft_and_mfcc_on_card(cuda):
     assert dsputils.snr_db(_np(y), _np(x)) >= SNR_CARD_DB
     assert dsputils.snr_db(_np(m), _np(models.mfcc(x, 44100.0, n_mfcc=13, nfft=1024,
                                                     hop=256))) >= SNR_CARD_DB
+
+
+# ---------------------------------------------------------------- K14a twins
+
+
+@pytest.mark.parametrize("nfft,hop,pad,S,keep", [(1024, 512, 1024, 2048, 2048),
+                                                 (1000, 160, 1024, 3001, 2990)])
+def test_pwfloor_twins_on_card(cuda, nfft, hop, pad, S, keep):
+    rng = np.random.default_rng(S)
+    ext = torch.from_numpy(rng.uniform(-1, 1, size=(2, (S - 1) * hop + nfft))).to(cuda)
+    mask = torch.from_numpy((np.arange(S) < keep) * np.ones((2, 1))).to(cuda)
+    w = window.window_table("hann", pad, device=cuda)
+    frames = torch.from_numpy(rng.uniform(-1, 1, size=(2, S, pad))).to(cuda)
+    bt = cuda_pwelch.segs_per_tile(S, 2)
+    f32 = [t.float() for t in (ext, mask, w, frames)]
+    reset_launch_counts()
+    cases = (
+        (cuda_probes.pwfloor_loadonly(*f32[:3], nfft, hop, pad),
+         cuda_probes.pwfloor_loadonly_plain(ext, mask, w, nfft, hop, pad, bt)),
+        (cuda_probes.pwfloor_frameonly(*f32[:3], nfft, hop, pad),
+         cuda_probes.pwfloor_frameonly_plain(ext, mask, w, nfft, hop, pad, bt)),
+        (cuda_probes.pwfloor_noframe(f32[3], f32[1], f32[2]),
+         cuda_probes.pwfloor_noframe_plain(frames, mask, w, bt)),
+        (cuda_probes.pwfloor_staged(*f32[:3], nfft, hop, pad),
+         cuda_probes.pwfloor_staged_plain(ext, mask, w, nfft, hop, pad, bt)),
+    )
+    for got, want in cases:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    assert all(launch_counts()[f"pwfloor_{v}"] == 1
+               for v in ("loadonly", "frameonly", "noframe", "staged"))
+    k4 = cuda_pwelch.pwelch_power_partials(*f32[:3], nfft, hop, pad=pad)
+    assert torch.equal(cases[3][0], k4)  # the same frames, FFT and sums as K4
+
+
+def test_pwfloor_staged_tile_fits_shared_memory(cuda):
+    x = torch.randn(1, 200 * 512 + 1024, device=cuda)
+    mask = torch.ones(1, 201, device=cuda)
+    w = window.window_table("hann", 1024, device=cuda, dtype=torch.float32)
+    assert cuda_probes._staged_max_bt(1024, 512, 1024) < 201
+    with pytest.raises(ValueError):
+        cuda_probes.pwfloor_staged(x, mask, w, 1024, 512, bt=201)
+
+
+# ---------------------------------------------------- filtering and LTI
+
+
+def _recording(n, seed=2024):
+    """Sines and noise at 44.1 kHz, quantized like PCM16, float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 44100.0
+    x = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 3150 * t)
+         + 0.1 * rng.normal(size=n))
+    return (np.round(x * 32767) / 32767).astype(np.float32)
+
+
+def test_iir_on_card_vs_scipy(cuda):
+    import scipy.signal as ss
+
+    x = _recording(1 << 20)
+    x64 = x.astype(np.float64)
+    sos = models.butter(8, 4000, fs=44100, output="sos")
+    b, a = models.butter(4, 1000, fs=44100)
+    xt = torch.from_numpy(x).to(cuda)
+    for got, want in ((models.sosfilt(sos, xt), ss.sosfilt(sos, x64)),
+                      (models.sosfiltfilt(sos, xt), ss.sosfiltfilt(sos, x64)),
+                      (models.lfilter(b, a, xt), ss.lfilter(b, a, x64)),
+                      (models.decimate(xt, 4), ss.decimate(x64, 4))):
+        assert got.is_cuda and got.dtype == torch.float32
+        assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+
+
+def _scaled_butter_ss():
+    w0 = 2 * np.pi * 1000.0
+    A, B, C, D = models.tf2ss(*models.butter(4, w0, analog=True))
+    T = np.diag(w0 ** np.arange(3.0, -1.0, -1.0))
+    Ti = np.linalg.inv(T)
+    return Ti @ A @ T, Ti @ B, C @ T, D
+
+
+def test_lsim_dlsim_on_card_vs_scipy(cuda):
+    import scipy.signal as ss
+
+    sysc = _scaled_butter_ss()
+    u = _recording(44100).astype(np.float64)
+    t = np.arange(u.size) / 44100.0
+    got = models.lsim(sysc, u, t)[1]
+    assert dsputils.snr_db(got, ss.lsim(sysc, u, t)[1]) >= SNR_CARD_DB
+    sysd = models.cont2discrete(sysc, 1 / 44100.0, "zoh")
+    got = models.dlsim(sysd, u)[1]
+    assert dsputils.snr_db(got, ss.dlsim(sysd, u)[1]) >= SNR_CARD_DB
+
+
+def test_scans_keep_tf32_off(cuda):
+    """TF32 on globally must not reach the IIR or LTI matmuls; the flags
+    come back as the caller set them."""
+    import scipy.signal as ss
+
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = _recording(1 << 18)
+        b, a = models.butter(4, 1000, fs=44100)
+        got = models.lfilter(b, a, torch.from_numpy(x).to(cuda))
+        assert dsputils.snr_db(_np(got), ss.lfilter(b, a, x.astype(np.float64))) >= SNR_CARD_DB
+        sysc = _scaled_butter_ss()
+        u = x[:20000].astype(np.float64)
+        t = np.arange(u.size) / 44100.0
+        assert dsputils.snr_db(models.lsim(sysc, u, t)[1], ss.lsim(sysc, u, t)[1]) >= SNR_CARD_DB
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def test_fir_and_resampling_on_card_vs_scipy(cuda):
+    import scipy.signal as ss
+
+    x = _recording(300_000)
+    x64 = x.astype(np.float64)
+    xt = torch.from_numpy(x).to(cuda)
+    taps = models.firwin(255, 4000 / 22050)
+    reset_launch_counts()
+    y = models.fir_filter(xt, taps)  # pad 2^19: the large plan
+    assert launch_counts()["outer_dft_split"] == 3
+    full = ss.oaconvolve(x64, taps)
+    for got, want in ((y, full[: x.size]),
+                      (models.fftconvolve(xt, taps, mode="same"), full[127 : 127 + x.size]),
+                      (models.overlap_save(xt, taps), full[: x.size]),
+                      (models.resample_poly(xt[:44100], 160, 441),
+                       ss.resample_poly(x64[:44100], 160, 441)),
+                      (models.upfirdn(taps, xt[:5000], 3, 2), ss.upfirdn(taps, x64[:5000], 3, 2))):
+        assert got.is_cuda and got.dtype == torch.float32
+        assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB

@@ -66,7 +66,8 @@ def _num(text, pattern):
 def test_every_example_has_a_twin():
     names = {p.stem for p in TWINS}
     assert names == {"fft_basics", "pwelch_wav", "distributed_pwelch", "long_stream_benchmark",
-                     "large_fft_and_hilbert", "synthesis_tour", "audio_frontend"}
+                     "large_fft_and_hilbert", "synthesis_tour", "audio_frontend",
+                     "filtering_tour"}
     for name in names:
         assert (REPO / "examples" / f"{name}.py").is_file()
 
@@ -125,3 +126,17 @@ def test_audio_frontend(runs):
     out = runs["audio_frontend"]["stdout"]
     assert "48000 samples @ 16000 Hz" in out
     assert "log-mel: (184, 80)" in out and "mfcc:    (184, 13)" in out
+
+
+def test_filtering_tour(runs):
+    """The tour's float32 signal runs in float32 on the CPU: the figures of
+    examples/filtering_tour.py under godsp_tpu."""
+    out = runs["filtering_tour"]["stdout"]
+    assert abs(_num(out, r"FIR-101:\s+440 Hz\s+([+-][\d.]+) dB")) < 0.5
+    assert _num(out, r"FIR-101:.*1800 Hz ([+-][\d.]+) dB") < -50.0
+    assert _num(out, r"butter-6:.*1800 Hz ([+-][\d.]+) dB") < -30.0
+    assert "group delay 0 samples" in out
+    assert _num(out, r"chunked == one-shot: ([\d.e+-]+)") < 1e-5
+    assert "8000 -> 44100 -> 8000 samples" in out
+    assert _num(out, r"round-trip err ([\d.]+)") < 0.1
+    assert _num(out, r"440 Hz tone correlation ([\d.]+)") > 0.99

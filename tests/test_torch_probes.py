@@ -1,0 +1,160 @@
+"""K14a, the fused-Welch floor twins (ops/cuda_probes.py), and their probe
+script (probes/pwfloor.py) on the CPU.
+
+Each twin's plain version is held against its Pallas counterpart in
+tools/probe_pwfloor.py (build_variant(v, "parallel", interpret=True)),
+which is loaded by path with PWFLOOR_SEGS=512 set before the load (the
+file is only read): the same float32 samples, 512 segments, nfft = pad
+= 1024, hop 512, 256 segments a tile.  The TPU twins write packed-half
+rows (pad/2 + 128 lanes); rfft_packed_to_natural maps them to the
+natural bins 0..pad/2.  Bound: >= 100 dB between the float64 plain
+version and the float32 interpret-mode kernel, as for the other kernels.
+The wrappers take their plain versions for CPU tensors; the probe runs
+its six rows through them at a cut size.
+"""
+
+import importlib.util
+import os
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from godsp_tpu.ops.pallas_fft import rfft_packed_to_natural
+from godsp_tpu_torch import default_device, dsputils, set_default_device, window
+from godsp_tpu_torch.ops import cuda_probes, cuda_pwelch
+from godsp_tpu_torch.probes import pwfloor
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SNR_DB = 100.0
+
+
+@pytest.fixture(autouse=True)
+def _host_data_on_cpu():
+    """Host data goes to the CPU here; the port's default device is the card."""
+    old = default_device()
+    set_default_device("cpu")
+    yield
+    set_default_device(old)
+
+
+@pytest.fixture(scope="module")
+def tpu_probe():
+    """tools/probe_pwfloor.py at 512 segments, loaded by path."""
+    old = os.environ.get("PWFLOOR_SEGS")
+    os.environ["PWFLOOR_SEGS"] = "512"
+    try:
+        spec = importlib.util.spec_from_file_location("probe_pwfloor_512",
+                                                      REPO / "tools" / "probe_pwfloor.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        if old is None:
+            os.environ.pop("PWFLOOR_SEGS")
+        else:
+            os.environ["PWFLOOR_SEGS"] = old
+    assert mod.SEGS == 512 and mod.NFFT == 1024 and mod.STRIDE == 512
+    rng = np.random.default_rng(0)
+    ext = (rng.normal(size=mod.L) * 0.1).astype(np.float32)
+    frames = (rng.normal(size=(mod.SEGS, mod.NFFT)) * 0.1).astype(np.float32)
+    return mod, ext, frames
+
+
+def _natural(rows, pad):
+    """Packed-half rows (..., pad/2 + 128) -> natural bins (..., pad/2 + 1)."""
+    p = np.asarray(rows, np.float64)
+    nh = pad // 2
+    return np.asarray(rfft_packed_to_natural(p[..., :nh], np.zeros_like(p[..., :nh]),
+                                             p[..., nh:])[0])
+
+
+@pytest.mark.parametrize("variant", ["loadonly", "frameonly", "noframe", "staged"])
+def test_twin_plain_matches_the_tpu_twin(tpu_probe, variant):
+    mod, ext, frames = tpu_probe
+    nfft, hop, bt = mod.NFFT, mod.STRIDE, mod.BT
+    e = torch.from_numpy(ext.astype(np.float64))
+    f = torch.from_numpy(frames.astype(np.float64))
+    mask = torch.ones(mod.SEGS, dtype=torch.float64)
+    w = torch.from_numpy(window.window_table_np("hann", nfft))
+    tpu_variant = "full2d" if variant == "staged" else variant
+    out = np.asarray(mod.build_variant(tpu_variant, "parallel", interpret=True)(
+        frames if variant == "noframe" else ext))
+    if variant == "loadonly":
+        got = cuda_probes.pwfloor_loadonly(e, mask, w, nfft, hop, bt=bt)
+        want = out[:, 0, 0]
+    elif variant == "frameonly":
+        got = cuda_probes.pwfloor_frameonly(e, mask, w, nfft, hop, bt=bt)
+        want = out[:, 0, :]
+    elif variant == "noframe":
+        got = cuda_probes.pwfloor_noframe(f, mask, w, bt=bt)
+        want = _natural(out[:, 0, :], nfft)
+    else:
+        got = cuda_probes.pwfloor_staged_plain(e, mask, w, nfft, hop, nfft, bt)
+        want = _natural(out[:, 0, :], nfft)
+        full = _natural(np.asarray(mod.build_variant("full", "parallel", interpret=True)(ext)),
+                        nfft)
+        assert dsputils.snr_db(got.numpy(), full) >= SNR_DB
+    assert got.shape == want.shape
+    assert dsputils.snr_db(got.numpy(), want) >= SNR_DB
+
+
+@pytest.mark.parametrize("nfft,hop,pad,S,keep", [(1024, 512, 1024, 100, 100),
+                                                 (100, 30, 128, 77, 70)])
+def test_twins_agree_with_k4_and_each_other(nfft, hop, pad, S, keep):
+    """On any geometry: staged is K4's function; frameonly's time-domain
+    sums transform to K4's power only through the FFT, so its total is the
+    masked sum of windowed samples; loadonly sums what a tile reads."""
+    rng = np.random.default_rng(S)
+    ext = torch.from_numpy(rng.normal(size=(2, (S - 1) * hop + nfft + 5)))
+    mask = torch.from_numpy((np.arange(S) < keep) * np.ones((2, 1)))
+    w = torch.from_numpy(window.window_table_np("hann", pad))
+    bt = cuda_pwelch.segs_per_tile(S, 2)
+    staged = cuda_probes.pwfloor_staged(ext, mask, w, nfft, hop, pad)
+    assert torch.equal(staged, cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, hop, pad))
+    frames = ext[..., : (S - 1) * hop + nfft].unfold(-1, nfft, hop) * w[:nfft]
+    fo = cuda_probes.pwfloor_frameonly(ext, mask, w, nfft, hop, pad)
+    assert fo.shape == (2, -(-S // bt), pad)
+    assert torch.allclose(fo.sum(dim=(-2, -1)), (frames * mask[..., None]).sum(dim=(-2, -1)))
+    lo = cuda_probes.pwfloor_loadonly(ext, mask, w, nfft, hop, pad)
+    starts = torch.arange(0, S, bt)
+    ends = torch.clamp(starts + bt - 1, max=S - 1) * hop + nfft
+    for t, (s0, s1) in enumerate(zip(starts.tolist(), ends.tolist())):
+        want = ext[:, s0 * hop : s1].sum(-1) + mask[:, s0 : s0 + bt].sum(-1) + w.sum()
+        assert torch.allclose(lo[:, t], want)
+    nf = cuda_probes.pwfloor_noframe(torch.nn.functional.pad(frames, (0, pad - nfft)), mask,
+                                     torch.ones(pad, dtype=torch.float64))
+    assert torch.allclose(nf, staged)
+
+
+def test_staged_caps_its_tile_to_shared_memory():
+    assert cuda_probes.staged_segs_per_tile(16384, 1, 1024, 512, 1024) == \
+        cuda_pwelch.segs_per_tile(16384, 1)
+    big = cuda_probes._staged_max_bt(1024, 512, 1024)
+    assert (big - 1) * 512 + 1024 <= (232448 - 8 * 1024 - 4 * 513) // 4
+    assert cuda_probes.staged_segs_per_tile(10**7, 1, 1024, 512, 1024) == 64  # K4's cap
+    assert cuda_probes.staged_segs_per_tile(10**7, 1, 16384, 8192, 16384) == 1
+    with pytest.raises(ValueError):
+        cuda_probes.pwfloor_staged(torch.zeros(1, 10**6), torch.ones(1, 1000),
+                                   torch.ones(1024), 1024, 512, bt=big + 1)
+
+
+def test_probe_rows_on_the_cpu():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        rows = pwfloor.run("cpu", segs=32, emit=lambda s: None)
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(rows) == sorted(pwfloor.ROWS)
+    L = 31 * pwfloor.STRIDE + pwfloor.NFFT
+    assert rows["loadonly"]["bytes_read"] == 4.0 * L
+    assert rows["noframe"]["bytes_read"] == 4.0 * 32 * pwfloor.NFFT
+    for r in rows.values():
+        assert r["ms"] > 0 and r["ceiling_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+
+
+def test_probe_main_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert pwfloor.main() == 1

@@ -76,13 +76,6 @@ PENDING = {
 # A name a package __init__ re-exports from one of these godsp_tpu modules
 # is pending with that module's ROADMAP queue-1 item.
 PENDING_MODULES = {
-    "models/waveforms.py": "queue 1 item 4.1",
-    "models/design.py": "queue 1 item 4.1",
-    "models/filter.py": "queue 1 item 4.2",
-    "models/iir.py": "queue 1 item 4.3",
-    "models/_resample_impl.py": "queue 1 item 4.4",
-    "models/fir_design.py": "queue 1 item 4.4",
-    "models/_lti_impl.py": "queue 1 item 4.5",
     "models/savgol.py": "queue 1 item 4.6",
     "models/wavelets.py": "queue 1 item 4.6",
     "models/peaks.py": "queue 1 item 4.6",
