@@ -185,7 +185,30 @@ final line):
      (godsp_tpu_torch.probes.pwfloor.run) at its full geometry as one
      counted session: loadonly, frameonly, noframe, staged, K4 and K3,
      each beside K12's copy ceiling of the bytes it reads;
- 13. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 13. the signal toolkit at full width on the same recording and a seeded
+     2048 x 2048 float32 image (three plane waves plus noise), after one
+     warm-up pass, as one counted session: savgol_filter(101, 3) of all
+     26,460,000 samples in interp and mirror mode (pad 2^25: the large
+     plan), cwt of the first 10 s over ricker widths 1..64 (nfft 2^19,
+     batch 64), find_peaks (host work), find_peaks_cwt of the first 1 s
+     over widths 1..32, convolve2d/correlate2d/boundary='symm' with a
+     31 x 31 Gaussian (pad 4096^2: K1 over rows and columns of both
+     operands, K2 over both axes), wiener, medfilt2d, hilbert2, sepfir2d
+     with 31-tap rows and columns, cspline2d, spline_filter, and the 1-D
+     splines of the first 10 s (Bluestein at 2^20); exact launch counts a
+     step (TOOLKIT_LAUNCHES); each result held against scipy in float64 on
+     the host (cwt: per-row np.convolve; the splines, sepfir2d and
+     find_peaks_cwt: the port's own float64 route on the host, as scipy
+     truncates its splines) at >= 120 dB, medfilt2d and find_peaks equal,
+     wiener at its derived float32 bound (wiener_bound_db);
+ 14. K14b fac_dft and K14c slicestore/concatstore/gmm_concat
+     (ops/cuda_probes.py) against their plain versions on the card at
+     16384 x 1024 and at 1001 x 2048 (fac_dft and gmm_concat >= 120 dB
+     against float64, gmm_concat torch.equal to K13, the copies
+     torch.equal to their input), each timed at 16384 x 1024 beside its
+     plain version, bound and library call; then probes.facdft.run and
+     probes.store.run as two counted sessions;
+ 15. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -303,6 +326,46 @@ RESAMPLE_N, LSIM_N, FIR_TAPS = FS * 10, FS, 255
 # The counted probe session (phase 12): probes.pwfloor at its geometry.
 PWFLOOR = "probes.pwfloor.run (16384 segments, nfft = pad = 1024, hop 512)"
 
+# Steps of the counted toolkit session (phase 13), and their sizes.
+SG_INTERP = "savgol_filter(recording, 101, 3, interp)"
+SG_MIRROR = "savgol_filter(recording, 101, 3, mirror)"
+CWT = "cwt(first 10 s, ricker, widths 1..64)"
+PEAKS = "find_peaks(recording, height 0.75, distance 441, prominence 0.5, wlen 441)"
+PEAKS_CWT = "find_peaks_cwt(first 1 s, widths 1..32)"
+CONV2 = "convolve2d(image, 31 x 31 gaussian, same)"
+CORR2 = "correlate2d(image, 31 x 31 gaussian, valid)"
+CONV2_SYMM = "convolve2d(image, 31 x 31 gaussian, same, boundary=symm)"
+WIENER2 = "wiener(image, 5)"
+MEDFILT2 = "medfilt2d(image, 5)"
+HILBERT2 = "hilbert2(image)"
+SEPFIR = "sepfir2d(image, 31-tap rows, 31-tap columns)"
+CSPLINE2 = "cspline2d(image)"
+SPLINE_FILTER = "spline_filter(image, 5.0)"
+CSPLINE1 = "cspline1d(first 10 s)"
+CSPLINE1_EVAL = "cspline1d_eval(those coefficients, 441,000 points)"
+SYMIIR1 = "symiirorder1(first 10 s, c0 0.25, z1 0.5)"
+SYMIIR2 = "symiirorder2(first 10 s, r 0.5, omega pi/8)"
+TK_IMAGE, TK_SECONDS, TK_WIDTHS, TK_PEAK_WIDTHS, TK_TAPS = 2048, 10, 64, 32, 31
+
+# The counted lane-probe sessions (phase 14): probes.facdft and probes.store.
+FACDFT = "probes.facdft.run (16384 x 1024)"
+STORE = "probes.store.run (16384 x 1024)"
+LANE_B, LANE_N = 16384, 1024
+# Phase 13's exact launches a step (worked out on the CPU with the wrappers
+# counting and kernel_route patched; see the phase's comments).
+_LARGE_CONV = {"outer_dft_split": 3, "fft_pow2": 2, "ifft_pow2": 1}
+_CONV2 = {"fft_pow2": 4, "ifft_pow2": 2}
+_BLUESTEIN_DCT = {"outer_dft_split": 4, "fft_pow2": 2, "ifft_pow2": 2}
+TOOLKIT_LAUNCHES = {
+    SG_INTERP: _LARGE_CONV, SG_MIRROR: _LARGE_CONV, CWT: _LARGE_CONV, PEAKS: {},
+    PEAKS_CWT: _LARGE_CONV, CONV2: _CONV2, CORR2: _CONV2, CONV2_SYMM: _CONV2,
+    WIENER2: {"fft_pow2": 8, "ifft_pow2": 4}, MEDFILT2: {},
+    HILBERT2: {"fft_pow2": 2, "ifft_pow2": 2}, SEPFIR: _CONV2,
+    CSPLINE2: {"fft_pow2": 2, "ifft_pow2": 2}, SPLINE_FILTER: {"fft_pow2": 6, "ifft_pow2": 4},
+    CSPLINE1: _BLUESTEIN_DCT, CSPLINE1_EVAL: {}, SYMIIR1: _BLUESTEIN_DCT,
+    SYMIIR2: _BLUESTEIN_DCT,
+}
+
 REPLACES = {
     "fft_pow2": "godsp_tpu/ops/pallas_fft.py:1125",
     "ifft_pow2": "godsp_tpu/ops/pallas_fft.py:1268",
@@ -323,6 +386,10 @@ REPLACES = {
     "pwfloor_frameonly": "tools/probe_pwfloor.py:189",
     "pwfloor_noframe": "tools/probe_pwfloor.py:264",
     "pwfloor_staged": "tools/probe_pwfloor.py:229",
+    "fac_dft": "tools/probe_facdft.py:175",
+    "slicestore": "tools/probe_store.py:53",
+    "concatstore": "tools/probe_store.py:53",
+    "gmm_concat": "tools/probe_store.py:53",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -344,6 +411,10 @@ SOURCES = {
     "pwfloor_frameonly": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
     "pwfloor_noframe": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
     "pwfloor_staged": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
+    "fac_dft": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
+    "slicestore": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
+    "concatstore": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
+    "gmm_concat": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
 }
 
 
@@ -2011,6 +2082,282 @@ def phase_probe_run(dev) -> dict[str, dict[str, int]]:
     return steps
 
 
+def toolkit_image(dev) -> torch.Tensor:
+    """A seeded 2048 x 2048 float32 image on the card: a smooth field of
+    three plane waves plus N(0, 0.1^2) noise."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    yy, xx = torch.meshgrid(torch.arange(TK_IMAGE, device=dev, dtype=torch.float64),
+                            torch.arange(TK_IMAGE, device=dev, dtype=torch.float64), indexing="ij")
+    field = (torch.sin(2 * np.pi * xx / 317.0) * torch.cos(2 * np.pi * yy / 211.0)
+             + 0.5 * torch.sin(2 * np.pi * (xx + yy) / 701.0))
+    noise = torch.randn(TK_IMAGE, TK_IMAGE, generator=g, device=dev)
+    return (field.float() + 0.1 * noise).contiguous()
+
+
+def gauss_taps(n: int, sigma: float) -> np.ndarray:
+    t = np.exp(-0.5 * ((np.arange(n) - (n - 1) / 2) / sigma) ** 2)
+    return t / t.sum()
+
+
+def host_float64(run):
+    """run() with host data going to the CPU: the port's own float64 plain
+    route on the host, the reference where scipy truncates (splines) or
+    has no counterpart."""
+    from godsp_tpu_torch import default_device, set_default_device
+
+    old = default_device()
+    set_default_device("cpu")
+    try:
+        return run()
+    finally:
+        set_default_device(old)
+
+
+def wiener_bound_db(im: np.ndarray, size: int, pad_points: int) -> float:
+    """The SNR wiener's float32 run must reach against float64.
+
+    wiener's local variance v = s2 - m^2 (s2 and m the box means of im^2
+    and im) cancels where the local mean is large beside the spread.  Each
+    box mean comes from a forward and an inverse FFT over log2(pad_points)
+    radix-2 levels, each level adding at most u = 2^-24 relative rms error
+    in quadrature, so each carries eps = u sqrt(2 log2(pad_points)) times
+    its magnitude.  Then |dv| <= eps (s2 + 2 m^2), and where v > noise
+    the output m + (im - m)(1 - noise / v) moves by |im - m| noise / v^2
+    |dv|; elsewhere it is m, off by eps |m|.  So 20 log10(rms(out) /
+    rms(that error)), from the float64 moments on the host."""
+    import scipy.signal as ss
+
+    ones = np.ones((size, size))
+    m = ss.correlate(im, ones, "same") / ones.size
+    s2 = ss.correlate(im * im, ones, "same") / ones.size
+    v = np.maximum(s2 - m * m, 0.0)
+    noise = v.mean()
+    out = ss.wiener(im, size)
+    eps = 2.0 ** -24 * np.sqrt(2.0 * np.log2(pad_points))
+    err = np.where(v > noise, np.abs(im - m) * noise / np.maximum(v, noise) ** 2
+                   * eps * (s2 + 2 * m * m), eps * np.abs(m))
+    return float(20.0 * np.log10(np.sqrt(np.mean(out**2)) / np.sqrt(np.mean(err**2))))
+
+
+def phase_toolkit(dev, path: str) -> dict[str, dict[str, int]]:
+    """The signal toolkit at full width, as one counted session (phase 13):
+    the recording's samples and a 2048^2 image through savgol, wavelets,
+    peaks, the 2-D filters and the splines; each result held against its
+    float64 reference on the host."""
+    import scipy.signal as ss
+
+    from godsp_tpu_torch import models
+    from godsp_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    decoded = read_decoded(path)
+    n = decoded.size
+    x = torch.from_numpy(decoded).to(dev)
+    seg_n = FS * TK_SECONDS
+    seg = x[:seg_n]
+    image = toolkit_image(dev)
+    gauss = np.outer(gauss_taps(TK_TAPS, 5.0), gauss_taps(TK_TAPS, 5.0))
+    hrow, hcol = gauss_taps(TK_TAPS, 4.0), gauss_taps(TK_TAPS, 7.0)
+    widths = np.arange(1, TK_WIDTHS + 1)
+    peak_widths = np.arange(1, TK_PEAK_WIDTHS + 1)
+    peak_kw = dict(height=0.75, distance=441, prominence=0.5, wlen=441)
+    # float32 points, the card's working type, so both sides evaluate at them
+    newx = np.linspace(-100.0, seg_n + 100.0, seg_n).astype(np.float32)
+
+    def session(step):
+        """The eighteen steps; step(label, fn) runs each and returns its result."""
+        out = {
+            SG_INTERP: step(SG_INTERP, lambda: models.savgol_filter(x, 101, 3)),
+            SG_MIRROR: step(SG_MIRROR, lambda: models.savgol_filter(x, 101, 3, mode="mirror")),
+            CWT: step(CWT, lambda: models.cwt(seg, models.ricker, widths)),
+            PEAKS: step(PEAKS, lambda: models.find_peaks(x, **peak_kw)[0]),
+            PEAKS_CWT: step(PEAKS_CWT, lambda: models.find_peaks_cwt(decoded[:FS], peak_widths)),
+            CONV2: step(CONV2, lambda: models.convolve2d(image, gauss, "same")),
+            CORR2: step(CORR2, lambda: models.correlate2d(image, gauss, "valid")),
+            CONV2_SYMM: step(CONV2_SYMM, lambda: models.convolve2d(image, gauss, "same",
+                                                                   boundary="symm")),
+            WIENER2: step(WIENER2, lambda: models.wiener(image, 5)),
+            MEDFILT2: step(MEDFILT2, lambda: models.medfilt2d(image, 5)),
+            HILBERT2: step(HILBERT2, lambda: models.hilbert2(image)),
+            SEPFIR: step(SEPFIR, lambda: models.sepfir2d(image, hrow, hcol)),
+            CSPLINE2: step(CSPLINE2, lambda: models.cspline2d(image)),
+            SPLINE_FILTER: step(SPLINE_FILTER, lambda: models.spline_filter(image, 5.0)),
+            CSPLINE1: step(CSPLINE1, lambda: models.cspline1d(seg)),
+        }
+        out[CSPLINE1_EVAL] = step(CSPLINE1_EVAL, lambda: models.cspline1d_eval(out[CSPLINE1],
+                                                                              newx))
+        out[SYMIIR1] = step(SYMIIR1, lambda: models.symiirorder1(seg, 0.25, 0.5))
+        out[SYMIIR2] = step(SYMIIR2, lambda: models.symiirorder2(seg, 0.5, np.pi / 8))
+        return out
+
+    # A first pass pays one-time costs (tables, allocator); the counted
+    # session below is warm.
+    t0 = time.perf_counter()
+    session(lambda label, fn: fn())
+    torch.cuda.synchronize()
+    log(f"toolkit path: first pass {time.perf_counter() - t0:.3f} s")
+
+    steps: dict[str, dict[str, int]] = {}
+    walls: dict[str, float] = {}
+
+    def step(label, fn):
+        out, walls[label] = counted(label, fn, steps)
+        return out
+
+    reset_launch_counts()
+    out = session(step)
+    log(f"  launches in the toolkit session: {launch_counts()}")
+    # savgol over the recording: pad 2^25, the large plan (K8 once a
+    # transform, two forward and one inverse).  cwt: the signal and the
+    # 64-row bank at 2^19 forward, the bank inverse (the large plan); so
+    # find_peaks_cwt's 32-row bank at 2^16.  find_peaks is host work.
+    # medfilt2d and cspline1d_eval are torch sorts and gathers.  A 2-D
+    # convolution at 4096^2 is K1 over rows and columns of both
+    # operands and K2 over both axes; wiener is two of them; hilbert2 a
+    # 2048^2 fft2 and ifft2; sepfir2d's symmetric pad gives 2078 + 30:
+    # 4096^2 again.  cspline2d is a DCT round trip a pass (K1, K2) over
+    # 2048 points; spline_filter adds a 3 x 3 sepfir2d (pad 4096^2).  The
+    # 1-D splines of 441,000 samples are Bluestein at 2^20 (the large plan),
+    # once for the DCT's FFT and once for the inverse's.
+    for label, want in TOOLKIT_LAUNCHES.items():
+        expect_launches(label, steps, want)
+    for label, wall in walls.items():
+        if label in (SG_INTERP, SG_MIRROR, PEAKS):
+            rate = f"{n / wall / 1e6:.3f} Msamples/s"
+        elif label in (CWT, CSPLINE1, CSPLINE1_EVAL, SYMIIR1, SYMIIR2):
+            rate = f"{seg_n / wall / 1e6:.3f} Msamples/s"
+        elif label == PEAKS_CWT:
+            rate = f"{FS / wall / 1e6:.3f} Msamples/s"
+        else:
+            rate = f"{TK_IMAGE * TK_IMAGE / wall / 1e6:.3f} Mpixels/s"
+        log(f"  {label}: wall {wall:.4f} s, {rate}")
+
+    # Checks, after the counts were read: float64 references on the host on
+    # the same float32 inputs.
+    x64 = decoded.astype(np.float64)
+    s64 = x64[:seg_n]
+    im64 = image.double().cpu().numpy()
+    for label, mode in ((SG_INTERP, "interp"), (SG_MIRROR, "mirror")):
+        check_db(f"{label} vs scipy float64", out[label], ss.savgol_filter(x64, 101, 3, mode=mode))
+    cwt_ref = np.stack([np.convolve(s64, models.ricker(int(min(10 * w, seg_n)), w)[::-1], "same")
+                        for w in widths])
+    check_db(f"{CWT} vs float64 per-row np.convolve", out[CWT], cwt_ref)
+    del cwt_ref
+    want_peaks = ss.find_peaks(x64, **peak_kw)[0]
+    if not np.array_equal(out[PEAKS], want_peaks):
+        raise AssertionError(f"{PEAKS}: {out[PEAKS].size} peaks, scipy {want_peaks.size}")
+    log(f"  {PEAKS}: {want_peaks.size} peaks, equal to scipy's")
+    want_cwt = host_float64(lambda: models.find_peaks_cwt(s64[:FS], peak_widths))
+    if not np.array_equal(out[PEAKS_CWT], want_cwt):
+        raise AssertionError(f"{PEAKS_CWT}: {out[PEAKS_CWT].tolist()} against the float64 "
+                             f"route's {want_cwt.tolist()}")
+    log(f"  {PEAKS_CWT}: {want_cwt.size} peaks, equal to the float64 route's")
+    check_db(f"{CONV2} vs scipy float64", out[CONV2], ss.convolve2d(im64, gauss, "same"))
+    check_db(f"{CORR2} vs scipy float64", out[CORR2], ss.correlate2d(im64, gauss, "valid"))
+    check_db(f"{CONV2_SYMM} vs scipy float64", out[CONV2_SYMM],
+             ss.convolve2d(im64, gauss, "same", boundary="symm"))
+    want = ss.wiener(im64, 5)
+    bound = wiener_bound_db(im64, 5, 4096 * 4096)
+    db = snr(out[WIENER2], want)
+    log(f"  {WIENER2} vs scipy float64: {db:.2f} dB (its float32 bound {bound:.2f} dB)")
+    if not db >= bound:
+        raise AssertionError(f"{WIENER2}: {db:.2f} dB < its bound {bound:.2f} dB")
+    if not np.array_equal(out[MEDFILT2].cpu().numpy(), ss.medfilt2d(image.cpu().numpy(), 5)):
+        raise AssertionError(f"{MEDFILT2}: differs from scipy's on the same float32 values")
+    log(f"  {MEDFILT2}: equal to scipy's on the same float32 values")
+    check_db(f"{HILBERT2} vs scipy float64", out[HILBERT2], ss.hilbert2(im64))
+    check_db(f"{SEPFIR} vs float64 plain route", out[SEPFIR],
+             host_float64(lambda: models.sepfir2d(im64, hrow, hcol)))
+    check_db(f"{CSPLINE2} vs float64 plain route", out[CSPLINE2],
+             host_float64(lambda: models.cspline2d(im64)))
+    check_db(f"{SPLINE_FILTER} vs float64 plain route", out[SPLINE_FILTER],
+             host_float64(lambda: models.spline_filter(im64, 5.0)))
+    check_db(f"{CSPLINE1} vs scipy float64", out[CSPLINE1], ss.cspline1d(s64))
+    cj = out[CSPLINE1].double().cpu().numpy()
+    check_db(f"{CSPLINE1_EVAL} vs scipy float64 (same coefficients)", out[CSPLINE1_EVAL],
+             ss.cspline1d_eval(cj, newx.astype(np.float64)))
+    check_db(f"{SYMIIR1} vs float64 plain route", out[SYMIIR1],
+             host_float64(lambda: models.symiirorder1(s64, 0.25, 0.5)))
+    check_db(f"{SYMIIR2} vs float64 plain route", out[SYMIIR2],
+             host_float64(lambda: models.symiirorder2(s64, 0.5, np.pi / 8)))
+    return steps
+
+
+def phase_lane_kernels(rec: KernelRecord, dev) -> None:
+    """K14b and K14c against their plain versions on the card at the probes'
+    shape (16384 x 1024) and at a ragged one (1001 rows, not a multiple of
+    any row tile, of 2048 points): fac_dft and gmm_concat against the
+    float64 plain version (>= 120 dB; gmm_concat also torch.equal to K13),
+    slicestore and concatstore torch.equal to their input; each timed at
+    16384 x 1024 beside its plain version, bound and library call (copy_
+    for the copies, torch.matmul of the complex64 slices with K13's G,
+    TF32 off, for the DFTs)."""
+    from godsp_tpu_torch.ops import cuda_metrics, cuda_probes, launch_counts
+    from godsp_tpu_torch.probes._common import complex_matmul, lane_planes
+
+    for b, n in ((LANE_B, LANE_N), (1001, 2048)):
+        xr, xi = lane_planes(dev, b, n, seed=14)
+        shape = f"{b} x {n}"
+        want = cplx(cuda_metrics.gmm_floor_plain(xr.double(), xi.double()))
+        rec.check("fac_dft", lambda: cplx(cuda_probes.fac_dft(xr, xi)), want, shape)
+        rec.check("gmm_concat", lambda: cplx(cuda_probes.gmm_concat(xr, xi)), want, shape)
+        k13 = cuda_metrics.gmm_floor(xr, xi)
+        got = cuda_probes.gmm_concat(xr, xi)
+        if not (torch.equal(got[0], k13[0]) and torch.equal(got[1], k13[1])):
+            raise AssertionError(f"gmm_concat {shape}: not equal to K13's result")
+        log(f"  {'gmm_concat':22s} {shape:34s} torch.equal to K13")
+        del want, k13, got
+        for name in ("slicestore", "concatstore"):
+            before = launch_counts()[name]
+            got = getattr(cuda_probes, name)(xr, xi)
+            if launch_counts()[name] != before + 1:
+                raise AssertionError(f"{name}: not one launch")
+            if not (torch.equal(got[0], xr) and torch.equal(got[1], xi)):
+                raise AssertionError(f"{name} {shape}: differs from its input")
+            rec.err[name] = 0.0
+            log(f"  {name:22s} {shape:34s} equal to its input (torch.equal)")
+        if (b, n) != (LANE_B, LANE_N):
+            continue
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+        matmul = complex_matmul(xr, xi)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("lane yardstick: TF32 is on")
+        pts = float(b * n)
+        for name, plain, lib, ops in (
+                ("fac_dft", cuda_probes.fac_dft_plain, matmul, 204.0),
+                ("gmm_concat", cuda_metrics.gmm_floor_plain, matmul, 768.0),
+                ("slicestore", cuda_metrics.copy_split_plain,
+                 lambda: (yr.copy_(xr), yi.copy_(xi)), 0.0),
+                ("concatstore", cuda_metrics.copy_split_plain,
+                 lambda: (yr.copy_(xr), yi.copy_(xi)), 0.0)):
+            fn = getattr(cuda_probes, name)
+            rec.time(name, shape, lambda fn=fn: fn(xr, xi), lambda p=plain: p(xr, xi), lib,
+                     16.0 * pts, ops * pts)
+        del xr, xi, yr, yi, matmul
+
+
+def phase_lane_probes(dev) -> dict[str, dict[str, int]]:
+    """probes.facdft and probes.store at their full shape as two counted
+    sessions (phase 14)."""
+    from godsp_tpu_torch.ops import reset_launch_counts
+    from godsp_tpu_torch.probes import facdft, store
+
+    steps: dict[str, dict[str, int]] = {}
+    for label, probe, launched in (
+            (FACDFT, facdft, ("fac_dft", "gmm_floor", "copy_split")),
+            (STORE, store, ("slicestore", "concatstore", "gmm_concat", "gmm_floor",
+                            "copy_split"))):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rows, wall = counted(label, lambda p=probe: p.run(dev, emit=log), steps)
+        log(f"  {label}: {wall:.2f} s")
+        for name, c in steps[label].items():
+            if (c > 0) != (name in launched):
+                raise AssertionError(f"{label}: {name} launched {c} times")
+        if sorted(k for k in rows if k != "check") != sorted(probe.ROWS):
+            raise AssertionError(f"{label} rows {sorted(rows)}")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2042,8 +2389,11 @@ def main() -> int:
         bench_steps = phase_bench(dev)
         rest_steps = phase_fft_rest(dev, path)
         filter_steps = phase_filtering(dev, path)
+        toolkit_steps = phase_toolkit(dev, path)
     phase_probe_kernels(rec, dev)
     probe_steps = phase_probe_run(dev)
+    phase_lane_kernels(rec, dev)
+    lane_steps = phase_lane_probes(dev)
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
@@ -2054,6 +2404,8 @@ def main() -> int:
     steps.update(bench_steps)
     steps.update(filter_steps)
     steps.update(probe_steps)
+    steps.update(toolkit_steps)
+    steps.update(lane_steps)
 
     kernels = []
     for name in REPLACES:

@@ -1,0 +1,412 @@
+// K14b and K14c: the lane-DFT probes for Hopper (sm_90a), twins of K13
+// (metrics_kernels.cu: gmm_floor_kernel) and K12 (copy_split_kernel).
+// They run under godsp_tpu_torch/probes/facdft.py and probes/store.py.
+// Every kernel takes two float32 planes (b, n), n = n1 x 128, contiguous
+// and 16-byte aligned, and a block covers a tile of rows by a chunk of up
+// to 1024 columns (eight 128-column slices: a whole row at n = 1024).
+//
+// K14b fac_dft_kernel replaces tools/probe_facdft.py: fac_pallas
+// (_kern_fac).  K13's function, y[128 s + k] = sum_j x[128 s + j] T[s, j]
+// W128^{jk} / 128, factored as 128 = 16 x 8: j = 8 j1 + j2, k = ka + 16 kb,
+//   X[ka + 16 kb] = sum_j2 W8^{j2 kb} W128^{j2 ka} sum_j1 v[8 j1 + j2] W16^{j1 ka},
+// v = x T.  Per point: the outer twiddle (6 operations), 16 complex
+// multiply-adds in the 16-point DFTs (128), the mid twiddle (6) and 8 in
+// the 8-point DFTs (64): 204 float32 operations, against the dense
+// contraction's 768.  Bound on the H100 at 1024 x 16384: 268 MB of
+// traffic, 0.080 ms at 3.35 TB/s, above 3.4e9 operations, 0.051 ms at
+// 67 TFLOP/s: bytes.  Design (simple, right first): a block stages two
+// rows of its chunk in shared memory (16-byte loads, the outer twiddle
+// applied as they land; slices 136 floats apart so that the lanes of a
+// warp hit distinct banks); one thread per (row, slice, j2, half of the
+// ka) holds its 16 inputs in registers and writes 8 mid-twiddled outputs
+// back over them; one thread per (row, slice, ka) then does an 8-point
+// DFT in registers; the block stores whole rows of its chunk (16-byte
+// stores).  The tables (W16 with 1/128 folded in, the mid twiddle, W8,
+// and the outer twiddle T) are built in float64 on the host and rounded
+// once (ops/cuda_probes.py: fac_tables).  The TPU's layout A ((B, 16,
+// 64), j1 in sublanes) was a Mosaic workaround and is not ported: the
+// kernel reads and writes natural (b, n) planes in K13's bin order.
+//
+// K14c, three twins of tools/probe_store.py: _call, which asked on the
+// TPU whether K1's per-slice stores, not its contraction, kept it off
+// K12's copy ceiling:
+//   slicestore_kernel  (_slicestore_kernel): a copy whose block walks
+//     its rows' chunk in 128-column slices, loading and storing one slice
+//     of each row a pass (512 B a row a pass), as K13 stores;
+//   concatstore_kernel (_concatstore_kernel): a copy whose block loads its
+//     rows' chunk slice by slice into shared memory, then stores whole
+//     rows of the chunk (16 B a thread, one row's 4 KB a pass);
+//   gmm_concat_kernel  (_gmm_concat_kernel): K13's contraction, but one
+//     block covers every slice of a 16-row tile: the tile waits in shared
+//     memory (128 KB), each slice's outputs overwrite its inputs there, and
+//     the block stores whole rows at the end.  G[k1] (192 KB a slice, the
+//     three Karatsuba planes of gmm_tables) no longer fits beside the tile,
+//     so it streams through shared memory 32 rows of i2 at a time (48 KB,
+//     from L2: each block reads every slice's G once a tile, where K13
+//     stages one slice's G once for ~500 rows).  Each output is the same
+//     chain of fmaf over i2 = 0..127 as in K13, so the result equals K13's
+//     bit for bit.
+// Bounds on the H100 at 1024 x 16384: the copies 268 MB, 0.080 ms
+// (bytes); gmm_concat K13's 768 x 2^24 = 1.29e10 operations, 0.192 ms.
+// The copies' design keeps K12's bytes and changes only the order of the
+// stores; gmm_concat keeps K13's arithmetic and changes only where its
+// outputs wait and how G arrives.
+
+#include <cuda_runtime.h>
+
+#include "fft_block.cuh"
+
+namespace {
+
+constexpr int kLanes = 128;
+constexpr int kChunk = 1024;  // columns a block: eight slices
+constexpr int kThreads = 256;
+
+// K14b
+constexpr int kFacRows = 2;   // rows a block: 128 threads a row
+constexpr int kSS = 136;      // floats a slice in shared memory
+constexpr int kFacTab = 896;  // w16r, w16i (16 x 16), tmr, tmi (8 x 16), w8r, w8i (8 x 8)
+constexpr int kW16i = 256, kTmr = 512, kTmi = 640, kW8r = 768, kW8i = 832;
+
+// K14c
+constexpr int kStoreRows = 8;  // one warp a row
+constexpr int kGcRows = 16;    // gmm_concat: 2 rows a warp
+constexpr int kPlane = kLanes * kLanes;
+constexpr int kConcatSmem = 2 * kStoreRows * kChunk * sizeof(float);
+constexpr int kGcSteps = 32;   // rows i2 of G[k1] staged a step: 3 planes, 48 KB
+constexpr int kGcSmem = (2 * kGcRows * kChunk + 3 * kGcSteps * kLanes) * sizeof(float);
+
+struct Chunk {
+  int c0, cols, slices;
+};
+
+__device__ __forceinline__ Chunk chunk_of(int n) {
+  Chunk c;
+  c.c0 = blockIdx.x * kChunk;
+  c.cols = n - c.c0 < kChunk ? n - c.c0 : kChunk;
+  c.slices = c.cols / kLanes;
+  return c;
+}
+
+// tab: the kFacTab small tables, then T's real and imaginary planes (n each).
+__global__ void __launch_bounds__(kThreads)
+fac_dft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+               float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tab,
+               long long b, int n) {
+  __shared__ float sw[kFacTab];
+  __shared__ __align__(16) float sr[kFacRows * 8 * kSS];
+  __shared__ __align__(16) float si[kFacRows * 8 * kSS];
+  const Chunk ch = chunk_of(n);
+  const float* twr = tab + kFacTab;
+  const float* twi = twr + n;
+  for (int e = threadIdx.x; e < kFacTab; e += kThreads) sw[e] = __ldg(tab + e);
+
+  const int r = threadIdx.x >> 7;  // row of the tile
+  const int w = threadIdx.x & 127;
+  const int base_r = r * 8 * kSS;
+  const int quads = ch.cols / 4;
+  const long long tiles = (b + kFacRows - 1) / kFacRows;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long r0 = tile * kFacRows;
+    __syncthreads();  // the previous tile's stores are done (and the tables staged)
+    for (int e = threadIdx.x; e < kFacRows * quads; e += kThreads) {
+      const int rr = e / quads, c = 4 * (e % quads);
+      float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
+      if (r0 + rr < b) {
+        const size_t off = static_cast<size_t>(r0 + rr) * n + ch.c0 + c;
+        const float4 ar = __ldg(reinterpret_cast<const float4*>(xr + off));
+        const float4 ai = __ldg(reinterpret_cast<const float4*>(xi + off));
+        const float4 tr = __ldg(reinterpret_cast<const float4*>(twr + ch.c0 + c));
+        const float4 ti = __ldg(reinterpret_cast<const float4*>(twi + ch.c0 + c));
+        vr = make_float4(ar.x * tr.x - ai.x * ti.x, ar.y * tr.y - ai.y * ti.y,
+                         ar.z * tr.z - ai.z * ti.z, ar.w * tr.w - ai.w * ti.w);
+        vi = make_float4(ar.x * ti.x + ai.x * tr.x, ar.y * ti.y + ai.y * tr.y,
+                         ar.z * ti.z + ai.z * tr.z, ar.w * ti.w + ai.w * tr.w);
+      }
+      const int at = rr * 8 * kSS + (c >> 7) * kSS + (c & 127);
+      *reinterpret_cast<float4*>(sr + at) = vr;
+      *reinterpret_cast<float4*>(si + at) = vi;
+    }
+    __syncthreads();
+
+    // Stage 1: thread (r, s, j2, half): the 16-point DFT over j1 of column
+    // j2, outputs ka = 8 half .. 8 half + 7, mid-twiddled, written over the
+    // column's inputs at 8 ka + j2.
+    {
+      const int j2 = w & 7, half = (w >> 3) & 1, s = w >> 4;
+      const bool on = s < ch.slices;
+      const int at = base_r + s * kSS + j2;
+      float ar[16], ai[16];
+      if (on) {
+#pragma unroll
+        for (int j1 = 0; j1 < 16; ++j1) {
+          ar[j1] = sr[at + 8 * j1];
+          ai[j1] = si[at + 8 * j1];
+        }
+      }
+      __syncthreads();
+      if (on) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int ka = 8 * half + q;
+          float ur = 0.f, ui = 0.f;
+#pragma unroll
+          for (int j1 = 0; j1 < 16; ++j1) {
+            const float wr = sw[j1 * 16 + ka], wi = sw[kW16i + j1 * 16 + ka];
+            ur = fmaf(ar[j1], wr, fmaf(-ai[j1], wi, ur));
+            ui = fmaf(ar[j1], wi, fmaf(ai[j1], wr, ui));
+          }
+          const float mr = sw[kTmr + j2 * 16 + ka], mi = sw[kTmi + j2 * 16 + ka];
+          sr[at + 8 * ka] = ur * mr - ui * mi;
+          si[at + 8 * ka] = ur * mi + ui * mr;
+        }
+      }
+      __syncthreads();
+    }
+    // Stage 2: thread (r, s, ka): the 8-point DFT over j2 of row ka, bins
+    // ka + 16 kb, natural order.
+    {
+      const int ka = w & 15, s = w >> 4;
+      const bool on = s < ch.slices;
+      const int at = base_r + s * kSS;
+      float br[8], bi[8];
+      if (on) {
+#pragma unroll
+        for (int j2 = 0; j2 < 8; ++j2) {
+          br[j2] = sr[at + 8 * ka + j2];
+          bi[j2] = si[at + 8 * ka + j2];
+        }
+      }
+      __syncthreads();
+      if (on) {
+#pragma unroll
+        for (int kb = 0; kb < 8; ++kb) {
+          float yr8 = 0.f, yi8 = 0.f;
+#pragma unroll
+          for (int j2 = 0; j2 < 8; ++j2) {
+            const float wr = sw[kW8r + j2 * 8 + kb], wi = sw[kW8i + j2 * 8 + kb];
+            yr8 = fmaf(br[j2], wr, fmaf(-bi[j2], wi, yr8));
+            yi8 = fmaf(br[j2], wi, fmaf(bi[j2], wr, yi8));
+          }
+          sr[at + ka + 16 * kb] = yr8;
+          si[at + ka + 16 * kb] = yi8;
+        }
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < kFacRows * quads; e += kThreads) {
+      const int rr = e / quads, c = 4 * (e % quads);
+      if (r0 + rr >= b) continue;
+      const size_t off = static_cast<size_t>(r0 + rr) * n + ch.c0 + c;
+      const int at = rr * 8 * kSS + (c >> 7) * kSS + (c & 127);
+      *reinterpret_cast<float4*>(yr + off) = *reinterpret_cast<const float4*>(sr + at);
+      *reinterpret_cast<float4*>(yi + off) = *reinterpret_cast<const float4*>(si + at);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+slicestore_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ yr, float* __restrict__ yi, long long b, int n) {
+  const Chunk ch = chunk_of(n);
+  const int lane = threadIdx.x & 31;
+  const long long tiles = (b + kStoreRows - 1) / kStoreRows;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long row = tile * kStoreRows + (threadIdx.x >> 5);
+    if (row >= b) continue;
+    for (int s = 0; s < ch.slices; ++s) {
+      const size_t off = static_cast<size_t>(row) * n + ch.c0 + s * kLanes + 4 * lane;
+      const float4 ar = __ldg(reinterpret_cast<const float4*>(xr + off));
+      const float4 ai = __ldg(reinterpret_cast<const float4*>(xi + off));
+      *reinterpret_cast<float4*>(yr + off) = ar;
+      *reinterpret_cast<float4*>(yi + off) = ai;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+concatstore_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   float* __restrict__ yr, float* __restrict__ yi, long long b, int n) {
+  extern __shared__ float4 smem4[];
+  float* sr = reinterpret_cast<float*>(smem4);
+  float* si = sr + kStoreRows * kChunk;
+  const Chunk ch = chunk_of(n);
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
+  const int quads = ch.cols / 4;
+  const long long tiles = (b + kStoreRows - 1) / kStoreRows;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long r0 = tile * kStoreRows;
+    __syncthreads();  // the previous tile's stores have read shared memory
+    if (r0 + r < b) {
+      for (int s = 0; s < ch.slices; ++s) {
+        const int c = s * kLanes + 4 * lane;
+        const size_t off = static_cast<size_t>(r0 + r) * n + ch.c0 + c;
+        *reinterpret_cast<float4*>(sr + r * kChunk + c) =
+            __ldg(reinterpret_cast<const float4*>(xr + off));
+        *reinterpret_cast<float4*>(si + r * kChunk + c) =
+            __ldg(reinterpret_cast<const float4*>(xi + off));
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kStoreRows * quads; e += kThreads) {
+      const int rr = e / quads, c = 4 * (e % quads);
+      if (r0 + rr >= b) continue;
+      const size_t off = static_cast<size_t>(r0 + rr) * n + ch.c0 + c;
+      *reinterpret_cast<float4*>(yr + off) = *reinterpret_cast<const float4*>(sr + rr * kChunk + c);
+      *reinterpret_cast<float4*>(yi + off) = *reinterpret_cast<const float4*>(si + rr * kChunk + c);
+    }
+  }
+}
+
+// g: K13's (n1, 3, 128, 128) tables, plane p of slice k1 at
+// g + (3 k1 + p) * kPlane, entry [i2][k2].
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_concat_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ g,
+                  long long b, int n) {
+  extern __shared__ float4 smem4[];
+  float* sxr = reinterpret_cast<float*>(smem4);  // kGcRows x kChunk, inputs then outputs
+  float* sxi = sxr + kGcRows * kChunk;
+  float* sg = sxi + kGcRows * kChunk;  // 3 planes x kGcSteps rows of G[k1]
+  const Chunk ch = chunk_of(n);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int quads = ch.cols / 4;
+  const long long tiles = (b + kGcRows - 1) / kGcRows;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long r0 = tile * kGcRows;
+    __syncthreads();  // the previous tile's stores have read shared memory
+    for (int e = threadIdx.x; e < kGcRows * quads; e += kThreads) {
+      const int rr = e / quads, c = 4 * (e % quads);
+      float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
+      if (r0 + rr < b) {
+        const size_t off = static_cast<size_t>(r0 + rr) * n + ch.c0 + c;
+        vr = __ldg(reinterpret_cast<const float4*>(xr + off));
+        vi = __ldg(reinterpret_cast<const float4*>(xi + off));
+      }
+      *reinterpret_cast<float4*>(sxr + rr * kChunk + c) = vr;
+      *reinterpret_cast<float4*>(sxi + rr * kChunk + c) = vi;
+    }
+    for (int s = 0; s < ch.slices; ++s) {
+      const float* gs0 = g + static_cast<size_t>((ch.c0 / kLanes) + s) * 3 * kPlane;
+      float m1[2][4], m2[2][4], m3[2][4];  // [row warp + 8 j][bin lane + 32 q]
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) m1[j][q] = m2[j][q] = m3[j][q] = 0.f;
+      }
+      for (int i0 = 0; i0 < kLanes; i0 += kGcSteps) {
+        __syncthreads();  // the last step's G is read (and the tile is staged)
+        for (int e = threadIdx.x; e < 3 * kGcSteps * kLanes / 4; e += kThreads) {
+          const int p = e / (kGcSteps * kLanes / 4), r = e % (kGcSteps * kLanes / 4);
+          reinterpret_cast<float4*>(sg)[e] =
+              __ldg(reinterpret_cast<const float4*>(gs0 + p * kPlane + i0 * kLanes) + r);
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int ii = 0; ii < kGcSteps; ++ii) {
+          const int i2 = i0 + ii;
+          float ar[2], ai[2], as[2], gr[4], gi[4], gsum[4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            ar[j] = sxr[(warp + 8 * j) * kChunk + s * kLanes + i2];
+            ai[j] = sxi[(warp + 8 * j) * kChunk + s * kLanes + i2];
+            as[j] = ar[j] + ai[j];
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int k = ii * kLanes + lane + 32 * q;
+            gr[q] = sg[k];
+            gi[q] = sg[kGcSteps * kLanes + k];
+            gsum[q] = sg[2 * kGcSteps * kLanes + k];
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              m1[j][q] = fmaf(ar[j], gr[q], m1[j][q]);
+              m2[j][q] = fmaf(ai[j], gi[q], m2[j][q]);
+              m3[j][q] = fmaf(as[j], gsum[q], m3[j][q]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // every warp has read slice s of its rows
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int at = (warp + 8 * j) * kChunk + s * kLanes + lane + 32 * q;
+          sxr[at] = m1[j][q] - m2[j][q];
+          sxi[at] = m3[j][q] - m1[j][q] - m2[j][q];
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kGcRows * quads; e += kThreads) {
+      const int rr = e / quads, c = 4 * (e % quads);
+      if (r0 + rr >= b) continue;
+      const size_t off = static_cast<size_t>(r0 + rr) * n + ch.c0 + c;
+      *reinterpret_cast<float4*>(yr + off) = *reinterpret_cast<const float4*>(sxr + rr * kChunk + c);
+      *reinterpret_cast<float4*>(yi + off) = *reinterpret_cast<const float4*>(sxi + rr * kChunk + c);
+    }
+  }
+}
+
+bool bad_shape(long long b, int n) { return b < 0 || n < kLanes || n % kLanes != 0; }
+
+dim3 tile_grid(int n, long long b, int rows) {
+  const long long tiles = (b + rows - 1) / rows;
+  return dim3((n + kChunk - 1) / kChunk, static_cast<unsigned>(tiles < 65535 ? tiles : 65535));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry: (b, n) float32 planes, n % 128 == 0, every pointer 16-byte
+// aligned.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// shape the kernel does not take.
+
+// K14b: tab = the kFacTab small tables, then T's two planes of n floats.
+int gdsp_fac_dft(const float* xr, const float* xi, float* yr, float* yi, const float* tab,
+                 long long b, int n, void* stream) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  fac_dft_kernel<<<tile_grid(n, b, kFacRows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, yr, yi, tab, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gdsp_slicestore(const float* xr, const float* xi, float* yr, float* yi, long long b, int n,
+                    void* stream) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  slicestore_kernel<<<tile_grid(n, b, kStoreRows), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gdsp_concatstore(const float* xr, const float* xi, float* yr, float* yi, long long b, int n,
+                     void* stream) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  cudaError_t e = gdsp::allow_smem(concatstore_kernel, kConcatSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  concatstore_kernel<<<tile_grid(n, b, kStoreRows), kThreads, kConcatSmem,
+                       static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g: K13's (n / 128, 3, 128, 128) tables.
+int gdsp_gmm_concat(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                    long long b, int n, void* stream) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  cudaError_t e = gdsp::allow_smem(gmm_concat_kernel, kGcSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gmm_concat_kernel<<<tile_grid(n, b, kGcRows), kThreads, kGcSmem,
+                      static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, g, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

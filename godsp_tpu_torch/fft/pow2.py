@@ -1,7 +1,8 @@
 """Power-of-2 FFT dispatcher: the one choke point of every pow-2 transform.
 
-Port of godsp_tpu/fft/pow2.py.  Public fft/ifft, convolve and Bluestein's
-circular filter all pass through here:
+Port of godsp_tpu/fft/pow2.py.  Public fft/ifft, convolve (1-D and, in
+pow2_convolve2, 2-D) and Bluestein's circular filter all pass through
+here:
 
   * a CUDA float32/complex64 tensor launches the Hopper kernels: K1
     fft_pow2 forward and K2 ifft_pow2 for every inverse at N = 2..16384
@@ -29,6 +30,7 @@ __all__ = [
     "kernels_enabled",
     "pow2_circular_filter",
     "pow2_convolve",
+    "pow2_convolve2",
     "pow2_fft",
     "set_kernels_enabled",
 ]
@@ -109,3 +111,22 @@ def pow2_convolve(x: torch.Tensor, y: torch.Tensor, scale: float = 1.0) -> torch
         zr, zi = cuda_fft.ifft_pow2(xr * yr - xi * yi, xr * yi + xi * yr, scale=scale)
         return torch.complex(zr, zi)
     return pow2_fft(pow2_fft(x) * pow2_fft(y), inverse=True, scale=scale)
+
+
+def pow2_convolve2(x: torch.Tensor, y: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """2-D circular convolution scale * IDFT2(DFT2(x) * DFT2(y)) over the
+    two trailing power-of-2 axes, batched (and broadcast) over leading axes.
+
+    Each separable pass goes through pow2_fft, which transforms the
+    trailing axis: on the card K1 forward and K2 inverse at up to 16384
+    points a row, the large plan above.  The column pass takes a
+    transposed contiguous copy, so the product and the first inverse run
+    in (n2, n1) order, and scale folds into the last inverse's store.
+    """
+
+    def fwd2(c: torch.Tensor) -> torch.Tensor:
+        c = pow2_fft(c)
+        return pow2_fft(c.transpose(-1, -2).contiguous())  # (..., n2, n1)
+
+    z = pow2_fft(fwd2(x) * fwd2(y), inverse=True)
+    return pow2_fft(z.transpose(-1, -2).contiguous(), inverse=True, scale=scale)

@@ -15,7 +15,10 @@
                  dense G-matmul step of a four-step FFT), the bench's yardsticks
   cuda_probes  — K14a pwfloor_loadonly / _frameonly / _noframe / _staged, the
                  fused-Welch floor twins (K4's body with one part changed),
-                 driven by godsp_tpu_torch.probes.pwfloor
+                 driven by godsp_tpu_torch.probes.pwfloor; K14b fac_dft (K13's
+                 function factored as 16 x 8) and K14c slicestore,
+                 concatstore, gmm_concat (K12/K13 with other store
+                 patterns), driven by probes.facdft and probes.store
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -47,10 +50,14 @@ from godsp_tpu_torch.ops.cuda_outer import (
     peel_rows_supported,
 )
 from godsp_tpu_torch.ops.cuda_probes import (
+    concatstore,
+    fac_dft,
+    gmm_concat,
     pwfloor_frameonly,
     pwfloor_loadonly,
     pwfloor_noframe,
     pwfloor_staged,
+    slicestore,
 )
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
@@ -60,6 +67,7 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 from godsp_tpu_torch.ops.cuda_stft import stft_complex, stft_mel, stft_power
 
 __all__ = [
+    "concatstore",
     "copy_split",
     "csd_power_partials",
     "csd_power_sum",
@@ -73,8 +81,10 @@ __all__ = [
     "cuda_probes",
     "cuda_pwelch",
     "cuda_stft",
+    "fac_dft",
     "fft_pow2",
     "fused_supported",
+    "gmm_concat",
     "gmm_floor",
     "ifft_pow2",
     "istft_overlap_add",
@@ -94,6 +104,7 @@ __all__ = [
     "reset_launch_counts",
     "rfft_pow2",
     "ring_halo",
+    "slicestore",
     "stft_complex",
     "stft_mel",
     "stft_power",

@@ -96,6 +96,14 @@ def _declare(lib) -> None:
     lib.gdsp_pwfloor_noframe.restype = i
     lib.gdsp_pwfloor_staged.argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
     lib.gdsp_pwfloor_staged.restype = i
+    lib.gdsp_fac_dft.argtypes = [p, p, p, p, p, i64, i, p]
+    lib.gdsp_fac_dft.restype = i
+    lib.gdsp_slicestore.argtypes = [p, p, p, p, i64, i, p]
+    lib.gdsp_slicestore.restype = i
+    lib.gdsp_concatstore.argtypes = [p, p, p, p, i64, i, p]
+    lib.gdsp_concatstore.restype = i
+    lib.gdsp_gmm_concat.argtypes = [p, p, p, p, p, i64, i, p]
+    lib.gdsp_gmm_concat.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -1,4 +1,6 @@
-"""K14a: the fused-Welch floor twins for Hopper, each beside its plain version.
+"""K14a-c: the Hopper probes, each beside its plain version.
+
+K14a: the fused-Welch floor twins.
 
 Counterpart of tools/probe_pwfloor.py's Pallas twins (build_variant),
 which take K4 apart.  Each twin is K4's own body (csrc/pwelch_kernel.cu)
@@ -24,6 +26,32 @@ The TPU twins' packed-half bin layout and their dimension_semantics A/B
 have no counterpart: the bins are in natural order, and a CUDA grid has
 no sequential dimension.
 
+K14b and K14c: the lane-DFT probes, twins of K13 (gmm_floor) and K12
+(copy_split) in csrc/lane_probe_kernels.cu, whose header says what bounds
+them on the H100.  Each takes two float32 planes (b, n), n = n1 x 128,
+and returns natural (b, n) planes in K13's bin order (bin k2 of slice k1
+at column 128 k1 + k2):
+
+  fac_dft(xr, xi)      replaces tools/probe_facdft.py:175 fac_pallas
+      K13's function factored as 128 = 16 x 8 (24 complex multiply-adds a
+      point, not 128); plain version fac_dft_plain, the same factoring in
+      the input's dtype (float64 on the card: the oracle), equal to
+      cuda_metrics.gmm_floor_plain;
+  slicestore(xr, xi)   replaces tools/probe_store.py:53 _call (_slicestore_kernel)
+  concatstore(xr, xi)  replaces _call (_concatstore_kernel)
+      copies: one slice of each row a pass, or the tile staged in shared
+      memory and stored as whole rows; plain version
+      cuda_metrics.copy_split_plain;
+  gmm_concat(xr, xi)   replaces _call (_gmm_concat_kernel)
+      K13's contraction with the outputs of every slice of a row tile
+      stored as whole rows; plain version cuda_metrics.gmm_floor_plain.
+
+The fac tables (W16 with 1/128 folded in, the mid twiddle W128^{j2 ka},
+W8, the outer twiddle T) are built in float64 from the port's
+dft_matrix/twiddle_2d, as tools/probe_facdft.py: _fac_tables builds them,
+and rounded once to float32.  The TPU's layout A ((B, 16, 64), j1 in
+sublanes) was a Mosaic workaround and is not ported.
+
 A wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -31,11 +59,23 @@ CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
+from functools import lru_cache
 
+import numpy as np
 import torch
 
+from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix, twiddle_2d
 from godsp_tpu_torch.ops import _build
 from godsp_tpu_torch.ops.cuda_fft import rfft_pow2_plain, twiddle_table
+from godsp_tpu_torch.ops.cuda_metrics import (
+    LANES,
+    _cuda_planes,
+    copy_split_plain,
+    gmm_floor_plain,
+    gmm_tables,
+)
+from godsp_tpu_torch.ops.cuda_metrics import _check as _check_planes
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
     pwelch_power_partials_plain,
@@ -43,6 +83,11 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 )
 
 __all__ = [
+    "concatstore",
+    "fac_dft",
+    "fac_dft_plain",
+    "fac_tables",
+    "gmm_concat",
     "launches",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
@@ -52,12 +97,14 @@ __all__ = [
     "pwfloor_noframe_plain",
     "pwfloor_staged",
     "pwfloor_staged_plain",
+    "slicestore",
     "staged_segs_per_tile",
 ]
 
 # Kernel launches by wrapper, counted where each launches its kernel.
 launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
-            "pwfloor_staged": 0}
+            "pwfloor_staged": 0, "fac_dft": 0, "slicestore": 0, "concatstore": 0,
+            "gmm_concat": 0}
 
 _SMEM_BYTES = 232448  # shared memory a block may use on the H100 (227 KB)
 
@@ -240,3 +287,114 @@ def pwfloor_staged(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft:
                    ext.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
                    twiddle_table(pad, False, ext.device).data_ptr(),
                    rows, ext.shape[-1], S, nfft, stride, pad.bit_length() - 1, bt, n_tiles)
+
+
+# ---------------------------------------------------------------------------
+# K14b and K14c: the lane-DFT probes
+# ---------------------------------------------------------------------------
+
+D1, D2 = 16, 8  # 128 = D1 x D2: j = 8 j1 + j2, k = ka + 16 kb
+
+
+def _check_lane_planes(xr: torch.Tensor, xi: torch.Tensor, name: str) -> tuple[int, int]:
+    b, n = _check_planes(xr, xi, name)
+    if n < LANES or n % LANES:
+        raise ValueError(f"{name}: n must be a multiple of {LANES}, got {n}")
+    return b, n
+
+
+@lru_cache(maxsize=None)
+def _fac_host(n: int) -> dict:
+    """complex128 tables: w16 (j1, ka) with 1/128 folded in, tmid (j2, ka)
+    = W128^{j2 ka}, w8 (j2, kb), tw (slice, j) the outer twiddle."""
+    return {"w16": dft_matrix(D1) / LANES, "tmid": twiddle_2d(D2, D1), "w8": dft_matrix(D2),
+            "tw": twiddle_2d(n // LANES, LANES)}
+
+
+def fac_tables(n: int) -> dict[str, np.ndarray]:
+    """K14b's tables for n points, float32 numpy rounded once from float64:
+    w16r/w16i (16, 16), tmr/tmi (8, 16), w8r/w8i (8, 8), twr/twi (n/128, 128)."""
+    out = {}
+    for key, name in (("w16", "w16"), ("tmid", "tm"), ("w8", "w8"), ("tw", "tw")):
+        t = _fac_host(n)[key]
+        out[name + "r"] = np.ascontiguousarray(t.real, np.float32)
+        out[name + "i"] = np.ascontiguousarray(t.imag, np.float32)
+    return out
+
+
+@lru_cache(maxsize=None)
+def _fac_packed(n: int, device: torch.device) -> torch.Tensor:
+    """The kernel's table: w16r, w16i, tmr, tmi, w8r, w8i (896 floats),
+    then T's real and imaginary planes (n each)."""
+    t = fac_tables(n)
+    order = ("w16r", "w16i", "tmr", "tmi", "w8r", "w8i", "twr", "twi")
+    return torch.from_numpy(np.concatenate([t[k].ravel() for k in order])).to(device)
+
+
+def fac_dft_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K14b: the outer twiddle, the 16-point DFTs over
+    j1, the mid twiddle and the 8-point DFTs over j2, in the input's dtype
+    (complex128 for float64 planes)."""
+    b, n = _check_lane_planes(xr, xi, "fac_dft")
+    cdt = torch.complex128 if xr.dtype == torch.float64 else torch.complex64
+    tab = {k: torch.from_numpy(v).to(device=xr.device, dtype=cdt)
+           for k, v in _fac_host(n).items()}
+    n1 = n // LANES
+    v = torch.complex(xr, xi).to(cdt).reshape(b, n1, D1, D2) * tab["tw"].reshape(n1, D1, D2)
+    with _tf32_off() if v.is_cuda else nullcontext():
+        u = torch.einsum("bsij,ia->bsaj", v, tab["w16"]) * tab["tmid"].T
+        y = torch.einsum("bsaj,jk->bska", u, tab["w8"]).reshape(b, n)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def _lane_launch(name: str, fn, xr: torch.Tensor, xi: torch.Tensor, *tables) -> tuple:
+    b, n = xr.shape
+    xr, xi = _cuda_planes(xr, xi, name)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    if b == 0:
+        return yr, yi
+    with torch.cuda.device(xr.device):
+        rc = fn(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                *(t.data_ptr() for t in tables), b, n,
+                torch.cuda.current_stream(xr.device).cuda_stream)
+    _build.check(rc, name)
+    launches[name] += 1
+    return yr, yi
+
+
+def fac_dft(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14b: K13's function (the twiddled 128-point DFT of every slice of
+    two float32 planes (b, n)) computed as 128 = 16 x 8."""
+    _check_lane_planes(xr, xi, "fac_dft")
+    if not xr.is_cuda:
+        return fac_dft_plain(xr, xi)
+    return _lane_launch("fac_dft", _build.library().gdsp_fac_dft, xr, xi,
+                        _fac_packed(xr.shape[1], xr.device))
+
+
+def slicestore(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14c slicestore: (yr, yi) = (xr, xi), stored one 128-column slice of
+    each row a pass."""
+    _check_lane_planes(xr, xi, "slicestore")
+    if not xr.is_cuda:
+        return copy_split_plain(xr, xi)
+    return _lane_launch("slicestore", _build.library().gdsp_slicestore, xr, xi)
+
+
+def concatstore(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14c concatstore: (yr, yi) = (xr, xi), staged in shared memory and
+    stored as whole rows."""
+    _check_lane_planes(xr, xi, "concatstore")
+    if not xr.is_cuda:
+        return copy_split_plain(xr, xi)
+    return _lane_launch("concatstore", _build.library().gdsp_concatstore, xr, xi)
+
+
+def gmm_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14c gmm_concat: K13's contraction, every slice of a row tile stored
+    as whole rows; equal to K13's result."""
+    _check_lane_planes(xr, xi, "gmm_concat")
+    if not xr.is_cuda:
+        return gmm_floor_plain(xr, xi)
+    return _lane_launch("gmm_concat", _build.library().gdsp_gmm_concat, xr, xi,
+                        gmm_tables(xr.shape[1], xr.device))

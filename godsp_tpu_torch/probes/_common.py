@@ -1,0 +1,94 @@
+"""What the probe scripts share: chains of launches for time_chain_diff,
+the card's name and power limit, and the lane probes' inputs, yardstick,
+timing loop and entry point."""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from contextlib import nullcontext
+
+import torch
+
+from godsp_tpu_torch.fft.four_step import _tf32_off
+from godsp_tpu_torch.ops import cuda_metrics
+from godsp_tpu_torch.utils.metrics import bound_ms, time_chain_diff
+
+__all__ = ["card", "chained", "complex_matmul", "lane_main", "lane_planes", "time_lane_rows"]
+
+
+def chained(op):
+    """make_chained(k) for utils.metrics.time_chain_diff: k calls of op()."""
+    def make(k):
+        def chain(_x):
+            out = None
+            for _ in range(k):
+                out = op()
+            return out
+        return chain
+    return make
+
+
+def card() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi: not available"
+
+
+def lane_planes(device, b: int, n: int, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two float32 planes (b, n), N(0, 0.01^2), from a torch.Generator on the device."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(b, n, generator=g, device=device) * 0.01,
+            torch.randn(b, n, generator=g, device=device) * 0.01)
+
+
+def complex_matmul(xr: torch.Tensor, xi: torch.Tensor):
+    """K13's library yardstick: one torch.matmul of the complex64 slices
+    (n1, b, 128) with the complex64 G tables (n1, 128, 128), inputs built
+    once; the caller keeps TF32 off.  Returns the op of no arguments."""
+    b, n = xr.shape
+    gt = cuda_metrics.gmm_tables(n, xr.device)
+    G = torch.complex(gt[:, 0], gt[:, 1])
+    z = torch.complex(xr, xi).view(b, n // 128, 128).transpose(0, 1)
+    return lambda: torch.matmul(z, G)
+
+
+def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit) -> dict:
+    """Each row of ops ({name: (op, library op)}, the copy first) timed
+    with time_chain_diff beside its bound (16 B and ops_per_point[name]
+    float32 operations a point of the (b, n) planes) and its library
+    call, TF32 off on the card; returns {name: {"ms", "bound_ms",
+    "bound_by", "library_ms", "of_copy"}} and emits one line a row."""
+    b, n = xr.shape
+    out = {}
+    with _tf32_off() if xr.is_cuda else nullcontext():
+        for name, (op, lib) in ops.items():
+            bnd, by = bound_ms(16.0 * b * n, ops_per_point[name] * b * n)
+            out[name] = dict(ms=time_chain_diff(chained(op), xr) * 1e3, bound_ms=bnd,
+                             bound_by=by, library_ms=time_chain_diff(chained(lib), xr) * 1e3)
+    copy_ms = out["copy"]["ms"]
+    for name, r in out.items():
+        r["of_copy"] = r["ms"] / copy_ms
+        emit(f"{name:11s} {r['ms']:.4f} ms  ({r['of_copy']:.2f}x the copy)  bound "
+             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library {r['library_ms']:.4f} ms  "
+             f"[{xr.device.type}, {b} x {n}]")
+    return out
+
+
+def lane_main(name: str, run, b: int, n: int) -> int:
+    """A lane probe's entry point: on the card, the card's line, then
+    run("cuda"), then one JSON line {name: rows}; 1 without a card."""
+    if not torch.cuda.is_available():
+        print(f"{name}: needs an NVIDIA GPU (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    print(f"card: {card()}; torch device {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"shape: {b} rows x {n} points, two float32 planes", flush=True)
+    rows = run("cuda", emit=lambda s: print(s, flush=True))
+    print(json.dumps({name: rows}), flush=True)
+    return 0

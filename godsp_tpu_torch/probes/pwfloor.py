@@ -35,7 +35,6 @@ versions at a cut size, for tests; a CPU time is not a device number.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import torch
@@ -43,6 +42,7 @@ import torch
 from godsp_tpu_torch import window
 from godsp_tpu_torch._dtypes import resolve_device
 from godsp_tpu_torch.ops import cuda_fft, cuda_metrics, cuda_probes, cuda_pwelch
+from godsp_tpu_torch.probes._common import card, chained
 from godsp_tpu_torch.utils.metrics import bound_ms, rfft_flops, time_chain_diff
 
 __all__ = ["NFFT", "ROWS", "SEGS", "STRIDE", "inputs", "main", "run"]
@@ -94,17 +94,6 @@ def ops(x: dict) -> dict:
     }
 
 
-def _chained(op):
-    def make(k):
-        def chain(_x):
-            out = None
-            for _ in range(k):
-                out = op()
-            return out
-        return chain
-    return make
-
-
 def _copy_planes(t: torch.Tensor):
     flat = t.reshape(-1)
     half = flat.numel() // 2
@@ -126,8 +115,8 @@ def run(device=None, segs: int | None = None, emit=print) -> dict:
         if key not in ceilings:
             xr, xi = _copy_planes(read)
             ceilings[key] = time_chain_diff(
-                _chained(lambda xr=xr, xi=xi: cuda_metrics.copy_split(xr, xi)), read) * 1e3
-        ms = time_chain_diff(_chained(op), read) * 1e3
+                chained(lambda xr=xr, xi=xi: cuda_metrics.copy_split(xr, xi)), read) * 1e3
+        ms = time_chain_diff(chained(op), read) * 1e3
         b, by = bound_ms(nbytes, flops)
         rows[name] = dict(ms=ms, ns_per_frame=ms * 1e6 / segs, bytes_read=4.0 * read.numel(),
                           ceiling_ms=ceilings[key], bound_ms=b, bound_by=by)
@@ -137,20 +126,11 @@ def run(device=None, segs: int | None = None, emit=print) -> dict:
     return rows
 
 
-def _card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return "nvidia-smi: not available"
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("pwfloor: needs an NVIDIA GPU (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    print(f"card: {_card()}; torch device {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"card: {card()}; torch device {torch.cuda.get_device_name(0)}", flush=True)
     print(f"geometry: nfft = pad = {NFFT}, stride {STRIDE}, {SEGS} segments, "
           f"L = {(SEGS - 1) * STRIDE + NFFT} samples", flush=True)
     rows = run("cuda", emit=lambda s: print(s, flush=True))

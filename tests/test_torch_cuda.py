@@ -7,7 +7,8 @@ runs on its own, past tests/conftest.py (which imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
-(K1-K13) and its plain version in float64 on the same inputs, and between
+(K1-K14) and its plain version in float64 on the same inputs (the K14c
+copies, and gmm_concat against K13, equal), and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends); the fused
 peel + rows route (K9) also against the unfused plan.
@@ -880,3 +881,125 @@ def test_fir_and_resampling_on_card_vs_scipy(cuda):
                       (models.upfirdn(taps, xt[:5000], 3, 2), ss.upfirdn(taps, x64[:5000], 3, 2))):
         assert got.is_cuda and got.dtype == torch.float32
         assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+
+
+def _lane_planes(cuda, b, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(b, n, generator=g, device=cuda), torch.randn(b, n, generator=g, device=cuda)
+
+
+def _c(planes):
+    return _np(planes[0]).astype(np.float64) + 1j * _np(planes[1])
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 2048)])
+def test_k14b_k14c_on_card(cuda, b, n):
+    """fac_dft and gmm_concat against the float64 plain version (>= 120 dB;
+    gmm_concat equal to K13), the store twins equal to their input."""
+    xr, xi = _lane_planes(cuda, b, n, b + n)
+    want = _c(cuda_metrics.gmm_floor_plain(xr.double(), xi.double()))
+    reset_launch_counts()
+    fac = cuda_probes.fac_dft(xr, xi)
+    gc = cuda_probes.gmm_concat(xr, xi)
+    assert dsputils.snr_db(_c(fac), want) >= SNR_CARD_DB
+    assert dsputils.snr_db(_c(fac), _c(cuda_probes.fac_dft_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+    assert dsputils.snr_db(_c(gc), want) >= SNR_CARD_DB
+    k13 = cuda_metrics.gmm_floor(xr, xi)
+    assert torch.equal(gc[0], k13[0]) and torch.equal(gc[1], k13[1])
+    for name in ("slicestore", "concatstore"):
+        got = getattr(cuda_probes, name)(xr, xi)
+        assert torch.equal(got[0], xr) and torch.equal(got[1], xi)
+    counts = launch_counts()
+    assert all(counts[k] == 1 for k in ("fac_dft", "gmm_concat", "slicestore", "concatstore"))
+
+
+def test_lane_wrappers_raise_on_card(cuda):
+    for name in ("fac_dft", "slicestore", "concatstore", "gmm_concat"):
+        fn = getattr(cuda_probes, name)
+        with pytest.raises(TypeError):
+            fn(torch.zeros(4, 256, dtype=torch.float64, device=cuda),
+               torch.zeros(4, 256, dtype=torch.float64, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 200, device=cuda), torch.zeros(4, 200, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256))
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded by path (for wiener_bound_db)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_tests", pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _toolkit_image(n1=256, n2=192):
+    rng = np.random.default_rng(13)
+    yy, xx = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
+    return (np.sin(2 * np.pi * xx / 37.0) * np.cos(2 * np.pi * yy / 23.0)
+            + 0.1 * rng.normal(size=(n1, n2))).astype(np.float32)
+
+
+def test_toolkit_on_card_vs_scipy(cuda):
+    """convolve2d, wiener, cwt, savgol_filter and cspline2d on the card
+    against scipy (or the port's float64 CPU route, for cspline2d) in
+    float64, >= 120 dB; wiener at its derived float32 bound."""
+    import scipy.signal as ss
+
+    im = _toolkit_image()
+    im64 = im.astype(np.float64)
+    imt = torch.from_numpy(im).to(cuda)
+    k = np.outer(np.hanning(11), np.hanning(9))
+    reset_launch_counts()
+    for mode, boundary in (("same", "fill"), ("valid", "fill"), ("full", "symm"),
+                           ("same", "wrap")):
+        got = models.convolve2d(imt, k, mode=mode, boundary=boundary)
+        assert got.is_cuda and got.dtype == torch.float32
+        want = ss.convolve2d(im64, k, mode=mode, boundary=boundary)
+        assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+        got = models.correlate2d(imt, k, mode=mode, boundary=boundary)
+        want = ss.correlate2d(im64, k, mode=mode, boundary=boundary)
+        assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+    assert launch_counts()["fft_pow2"] == 32 and launch_counts()["ifft_pow2"] == 16
+    bound = _chip_smoke().wiener_bound_db(im64, 5, 512 * 256)
+    assert dsputils.snr_db(_np(models.wiener(imt, 5)), ss.wiener(im64, 5)) >= bound
+    x = _recording(50_000)
+    x64 = x.astype(np.float64)
+    xt = torch.from_numpy(x).to(cuda)
+    for mode in ("interp", "mirror", "nearest", "wrap"):
+        got = models.savgol_filter(xt, 101, 3, mode=mode)
+        assert dsputils.snr_db(_np(got), ss.savgol_filter(x64, 101, 3, mode=mode)) >= SNR_CARD_DB
+    widths = np.arange(1, 17)
+    got = models.cwt(xt[:8192], models.ricker, widths)
+    want = np.stack([np.convolve(x64[:8192], models.ricker(10 * w, w)[::-1], "same")
+                     for w in widths])
+    assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+    want = models.cspline2d(torch.from_numpy(im64))  # the float64 route on the CPU
+    assert dsputils.snr_db(_np(models.cspline2d(imt)), _np(want)) >= SNR_CARD_DB
+    assert np.array_equal(_np(models.medfilt2d(imt, 5)), ss.medfilt2d(im, 5))
+
+
+def test_toolkit_keeps_tf32_off(cuda):
+    """TF32 on globally must not reach savgol_filter's edge einsums nor the
+    2-D convolution; the flags come back as the caller set them."""
+    import scipy.signal as ss
+
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = _recording(1 << 16)
+        got = models.savgol_filter(torch.from_numpy(x).to(cuda), 51, 4)
+        want = ss.savgol_filter(x.astype(np.float64), 51, 4)
+        assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+        im = _toolkit_image()
+        k = np.outer(np.hanning(7), np.hanning(7))
+        got = models.convolve2d(torch.from_numpy(im).to(cuda), k, "same", boundary="symm")
+        want = ss.convolve2d(im.astype(np.float64), k, "same", boundary="symm")
+        assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old

@@ -67,7 +67,7 @@ def test_every_example_has_a_twin():
     names = {p.stem for p in TWINS}
     assert names == {"fft_basics", "pwelch_wav", "distributed_pwelch", "long_stream_benchmark",
                      "large_fft_and_hilbert", "synthesis_tour", "audio_frontend",
-                     "filtering_tour"}
+                     "filtering_tour", "signal_toolkit_tour"}
     for name in names:
         assert (REPO / "examples" / f"{name}.py").is_file()
 
@@ -140,3 +140,23 @@ def test_filtering_tour(runs):
     assert "8000 -> 44100 -> 8000 samples" in out
     assert _num(out, r"round-trip err ([\d.]+)") < 0.1
     assert _num(out, r"440 Hz tone correlation ([\d.]+)") > 0.99
+
+
+def test_signal_toolkit_tour(runs):
+    """The tour's float64 host data runs in float64 on the CPU: the figures
+    of examples/signal_toolkit_tour.py under godsp_tpu (the 2-D and
+    Savitzky-Golay steps are the twin's own)."""
+    out = runs["signal_toolkit_tour"]["stdout"]
+    assert "elliptic bandpass: order 4 at wn = [350. 550.] Hz" in out
+    assert _num(out, r"PSD @1800 Hz: [\d.e+-]+ -> ([\d.e+-]+)") < 1e-10
+    assert "remez lowpass: 101 taps -> minimum-phase 51 taps" in out
+    assert abs(_num(out, r"settles to ([\d.]+)") - 1.0) < 1e-3
+    assert abs(_num(out, r"residual rms: ([\d.]+)") - 0.262) < 1e-3
+    assert "chirp ridge: 125 Hz -> 1969 Hz across 253 slices" in out
+    assert "maxima at samples [63, 312]" in out
+    assert "savgol + find_peaks: 10 pulses, first at 201, last at 3800" in out
+    noisy, blur, wien, med = (float(v) for v in re.search(
+        r"noisy / blur / wiener / median: ([\d.]+) / ([\d.]+) / ([\d.]+) / ([\d.]+)",
+        out).groups())
+    assert max(blur, wien, med) < noisy / 2
+    assert _num(out, r"fft parity vs numpy at n=4096: ([\d.e+-]+)") < 1e-10

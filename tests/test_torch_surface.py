@@ -68,20 +68,13 @@ NOT_TO_PORT = {
 
 # (module, name) -> the ROADMAP queue-1 item that ports it.
 PENDING = {
-    ("fft/pow2.py", "pow2_convolve2"): "queue 1 item 4.6 (conv2d)",
     ("parallel/__init__.py", "init_distributed"): "queue 1 item 6 (more than one card)",
     ("parallel/mesh.py", "init_distributed"): "queue 1 item 6 (more than one card)",
 }
 
 # A name a package __init__ re-exports from one of these godsp_tpu modules
 # is pending with that module's ROADMAP queue-1 item.
-PENDING_MODULES = {
-    "models/savgol.py": "queue 1 item 4.6",
-    "models/wavelets.py": "queue 1 item 4.6",
-    "models/peaks.py": "queue 1 item 4.6",
-    "models/conv2d.py": "queue 1 item 4.6",
-    "models/splines.py": "queue 1 item 4.6",
-}
+PENDING_MODULES: dict[str, str] = {}
 
 
 def _module_pairs() -> list[str]:
