@@ -208,7 +208,21 @@ final line):
      torch.equal to their input), each timed at 16384 x 1024 beside its
      plain version, bound and library call; then probes.facdft.run and
      probes.store.run as two counted sessions;
- 15. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 15. K14d, the anatomy twins (ops/cuda_probes.py: half3, slice8_add,
+     reshape_add, bd_tf32, bd_hi, anat_full) against their plain versions
+     on the card at 16384 x 1024 and at 1001 x 2048 through
+     probes.anatomy2.check_numerics, one launch a twin: half3 and the adds
+     torch.equal to their float32 plain versions; bd_hi and anat_full
+     >= 120 dB against float64; bd_tf32 >= 120 dB against its plain
+     version with TF32-rounded operands summed in float64 (its dB against
+     the exact product printed); bd_tf32 with an identity table equal to
+     round_tf32(x) and with a cyclic shift equal to the rolled slices
+     (the mma fragment maps); each timed at 16384 x 1024 beside its plain
+     version, bound and library call;
+ 16. probes.anatomy2.run at its full shape as one counted session: the six
+     twins, copy_split (its copy row) and fft_pow2 (its K1 row) launched,
+     nothing else;
+ 17. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -351,6 +365,9 @@ TK_IMAGE, TK_SECONDS, TK_WIDTHS, TK_PEAK_WIDTHS, TK_TAPS = 2048, 10, 64, 32, 31
 FACDFT = "probes.facdft.run (16384 x 1024)"
 STORE = "probes.store.run (16384 x 1024)"
 LANE_B, LANE_N = 16384, 1024
+# The anatomy twins (phases 15-16): probes.anatomy2.
+ANATOMY = "probes.anatomy2.run (16384 x 1024)"
+ANATOMY_TWINS = ("half3", "slice8_add", "reshape_add", "bd_tf32", "bd_hi", "anat_full")
 # Phase 13's exact launches a step (worked out on the CPU with the wrappers
 # counting and kernel_route patched; see the phase's comments).
 _LARGE_CONV = {"outer_dft_split": 3, "fft_pow2": 2, "ifft_pow2": 1}
@@ -390,6 +407,7 @@ REPLACES = {
     "slicestore": "tools/probe_store.py:53",
     "concatstore": "tools/probe_store.py:53",
     "gmm_concat": "tools/probe_store.py:53",
+    **{name: "tools/probe_anatomy2.py:87" for name in ANATOMY_TWINS},
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -415,6 +433,7 @@ SOURCES = {
     "slicestore": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
     "concatstore": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
     "gmm_concat": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
+    **{name: "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu" for name in ANATOMY_TWINS},
 }
 
 
@@ -2358,6 +2377,91 @@ def phase_lane_probes(dev) -> dict[str, dict[str, int]]:
     return steps
 
 
+def phase_anatomy_kernels(rec: KernelRecord, dev) -> None:
+    """K14d against its plain versions on the card at the probe's shape
+    (16384 x 1024) and at a ragged one (1001 rows, not a multiple of any
+    row tile, of 2048 points) through probes.anatomy2.check_numerics, one
+    launch of each twin; bd_tf32's mma fragment maps with an identity and
+    a cyclic-shift table; then each twin timed at 16384 x 1024 beside its
+    plain version, bound and the library yardstick of probes.anatomy2.ops
+    (none for half3 and anat_full)."""
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.ops import launch_counts
+    from godsp_tpu_torch.probes import anatomy2
+    from godsp_tpu_torch.probes._common import TF32_FLOPS, lane_planes
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    for b, n in ((LANE_B, LANE_N), (1001, 2048)):
+        xr, xi = lane_planes(dev, b, n, seed=15)
+        tw = anatomy2.tw_row(dev, n)
+        shape = f"{b} x {n}"
+        before = launch_counts()
+        res = anatomy2.check_numerics(xr, xi, tw)  # raises where a twin falls short
+        after = launch_counts()
+        once = {name: after[name] - before[name] for name in ANATOMY_TWINS}
+        if set(once.values()) != {1}:
+            raise AssertionError(f"anatomy2.check_numerics {shape}: launches {once}")
+        for name, err in res.pop("max_abs_err").items():
+            rec.err[name] = max(rec.err.get(name, 0.0), err)
+        log(f"  anatomy2.check_numerics {shape:22s} {res}, one launch a twin")
+        eye = torch.eye(128, device=dev)
+        for table, what, want in (
+                (eye, "identity", [cp.round_tf32(v) for v in (xr, xi)]),
+                (torch.roll(eye, 1, dims=1), "cyclic shift",
+                 [torch.roll(cp.round_tf32(v).view(b, -1, 128), 1, dims=2).reshape(b, n)
+                  for v in (xr, xi)])):
+            got = cp.bd_tf32(xr, xi, table)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"bd_tf32 {shape}: the {what} table is not exact")
+            log(f"  {'bd_tf32':22s} {shape:34s} {what} table: torch.equal")
+        del got, want
+        if (b, n) != (LANE_B, LANE_N):
+            continue
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("anatomy yardstick: TF32 is on")
+        lib = {name: pair[1] for name, pair in anatomy2.ops(xr, xi, tw).items()}
+        pts = float(b * n)
+        # bd_tf32, bd_hi and anat_full make their products on the tensor
+        # cores: TF32 operations (512, 2304 a point) at TF32_FLOPS, expressed
+        # at the float32 rate bound_ms divides by.  anat_full's 10 float32
+        # operations a point (the rounds, the row) run on the CUDA cores
+        # beside them and are the smaller time.
+        tc = FP32_FLOPS / TF32_FLOPS
+        for name, plain, library, flops in (
+                ("half3", lambda: cp.half3_plain(xr, xi), None, 6.0 * pts),
+                ("slice8_add", lambda: cp.add_one_plain(xr, xi), lib["slice8"], 2.0 * pts),
+                ("reshape_add", lambda: cp.add_one_plain(xr, xi), lib["reshape"], 2.0 * pts),
+                ("bd_tf32", lambda: cp.bd_tf32_plain(xr, xi, tf32=True), lib["bd1"],
+                 512.0 * pts * tc),
+                ("bd_hi", lambda: cp.bd_hi_plain(xr, xi), lib["bd_hi"], 2304.0 * pts * tc),
+                ("anat_full", lambda: cp.anat_full_plain(xr, xi, tw), None,
+                 max(10.0 * pts, 2304.0 * pts * tc))):
+            fn = getattr(cp, name)
+            args = (xr, xi, tw) if name == "anat_full" else (xr, xi)
+            rec.time(name, shape, lambda fn=fn, args=args: fn(*args), plain, library,
+                     16.0 * pts, flops)
+        del xr, xi, lib
+
+
+def phase_anatomy_probe(dev) -> dict[str, dict[str, int]]:
+    """probes.anatomy2 at its full shape as one counted session (phase 16)."""
+    from godsp_tpu_torch.ops import reset_launch_counts
+    from godsp_tpu_torch.probes import anatomy2
+
+    steps: dict[str, dict[str, int]] = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rows, wall = counted(ANATOMY, lambda: anatomy2.run(dev, emit=log), steps)
+    log(f"  {ANATOMY}: {wall:.2f} s")
+    launched = ANATOMY_TWINS + ("copy_split", "fft_pow2")
+    for name, c in steps[ANATOMY].items():
+        if (c > 0) != (name in launched):
+            raise AssertionError(f"{ANATOMY}: {name} launched {c} times")
+    if sorted(k for k in rows if k != "check") != sorted(anatomy2.ROWS):
+        raise AssertionError(f"anatomy2 rows {sorted(rows)}")
+    return steps
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2394,6 +2498,10 @@ def main() -> int:
     probe_steps = phase_probe_run(dev)
     phase_lane_kernels(rec, dev)
     lane_steps = phase_lane_probes(dev)
+    t0 = time.perf_counter()
+    phase_anatomy_kernels(rec, dev)
+    anatomy_steps = phase_anatomy_probe(dev)
+    log(f"phases 15-16 (K14d): {time.perf_counter() - t0:.1f} s")
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
@@ -2406,6 +2514,7 @@ def main() -> int:
     steps.update(probe_steps)
     steps.update(toolkit_steps)
     steps.update(lane_steps)
+    steps.update(anatomy_steps)
 
     kernels = []
     for name in REPLACES:

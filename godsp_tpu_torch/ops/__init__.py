@@ -18,7 +18,12 @@
                  driven by godsp_tpu_torch.probes.pwfloor; K14b fac_dft (K13's
                  function factored as 16 x 8) and K14c slicestore,
                  concatstore, gmm_concat (K12/K13 with other store
-                 patterns), driven by probes.facdft and probes.store
+                 patterns), driven by probes.facdft and probes.store;
+                 K14d half3, slice8_add, reshape_add, bd_tf32, bd_hi,
+                 anat_full (shared-memory butterfly rounds, sliced and
+                 reshaped adds, a TF32 and a 3xTF32 128-point DFT on the
+                 tensor cores, the fused candidate), driven by
+                 probes.anatomy2
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -50,13 +55,19 @@ from godsp_tpu_torch.ops.cuda_outer import (
     peel_rows_supported,
 )
 from godsp_tpu_torch.ops.cuda_probes import (
+    anat_full,
+    bd_hi,
+    bd_tf32,
     concatstore,
     fac_dft,
     gmm_concat,
+    half3,
     pwfloor_frameonly,
     pwfloor_loadonly,
     pwfloor_noframe,
     pwfloor_staged,
+    reshape_add,
+    slice8_add,
     slicestore,
 )
 from godsp_tpu_torch.ops.cuda_pwelch import (
@@ -67,6 +78,9 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 from godsp_tpu_torch.ops.cuda_stft import stft_complex, stft_mel, stft_power
 
 __all__ = [
+    "anat_full",
+    "bd_hi",
+    "bd_tf32",
     "concatstore",
     "copy_split",
     "csd_power_partials",
@@ -86,6 +100,7 @@ __all__ = [
     "fused_supported",
     "gmm_concat",
     "gmm_floor",
+    "half3",
     "ifft_pow2",
     "istft_overlap_add",
     "istft_supported",
@@ -102,8 +117,10 @@ __all__ = [
     "pwfloor_noframe",
     "pwfloor_staged",
     "reset_launch_counts",
+    "reshape_add",
     "rfft_pow2",
     "ring_halo",
+    "slice8_add",
     "slicestore",
     "stft_complex",
     "stft_mel",

@@ -104,6 +104,14 @@ def _declare(lib) -> None:
     lib.gdsp_concatstore.restype = i
     lib.gdsp_gmm_concat.argtypes = [p, p, p, p, p, i64, i, p]
     lib.gdsp_gmm_concat.restype = i
+    for name in ("gdsp_half3", "gdsp_slice8_add", "gdsp_reshape_add"):
+        getattr(lib, name).argtypes = [p, p, p, p, i64, i, p]
+        getattr(lib, name).restype = i
+    for name in ("gdsp_bd_tf32", "gdsp_bd_hi"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
+        getattr(lib, name).restype = i
+    lib.gdsp_anat_full.argtypes = [p, p, p, p, p, p, i64, i, p]
+    lib.gdsp_anat_full.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -46,6 +46,38 @@ at column 128 k1 + k2):
       K13's contraction with the outputs of every slice of a row tile
       stored as whole rows; plain version cuda_metrics.gmm_floor_plain.
 
+K14d: the anatomy twins of tools/probe_anatomy2.py's run_kernel_variant
+(one pl.pallas_call at :87 over seven bodies), in
+csrc/anatomy_probe_kernels.cu, whose header says what bounds them on the
+H100.  The first body, v0copy, is K12 (cuda_metrics.copy_split).  Each
+takes two float32 planes (b, n), n = n1 x 128:
+
+  half3(xr, xi)        replaces v1half3 (:128): three rounds of
+      a <- [u + v, u - v], u and v the row's halves, both planes, in
+      shared memory; plain version half3_plain (equal in float32);
+  slice8_add(xr, xi)   replaces v2slice8 (:140) and
+  reshape_add(xr, xi)  replaces v3reshape (:148): x + 1, a 128-column
+      slice a pass or one warp a row of the (b n / 128, 128) view; plain
+      version add_one_plain (equal);
+  bd_tf32(xr, xi)      replaces v4bd1 (:176): each plane's 128-point
+      slices times Re F128 in one TF32 pass on the tensor cores (or times
+      `table`, any (128, 128) float32 table); plain version bd_tf32_plain,
+      which with tf32=True rounds both operands as cvt.rna.tf32.f32 does
+      (round_tf32) and sums in the input's dtype;
+  bd_hi(xr, xi)        replaces v5bd_hi (:190): the 128-point DFT of every
+      slice, unscaled, by Karatsuba in 3xTF32 (float32 accuracy); plain
+      version bd_hi_plain, the same Karatsuba in the input's dtype;
+  anat_full(xr, xi, tw) replaces v6full (:203): half3, the row tw
+      (ar = a tw - b tw, ai = a tw + b tw), then bd_hi, in one kernel;
+      plain version anat_full_plain.
+
+bd_tf32 is the port's only TF32 path, on purpose: it measures one
+reduced-precision pass (the TPU's DEFAULT matmul) and changes no TF32
+flag; nothing held to the 120 dB bar goes through it.  bd_hi's tables
+are the big and small TF32 halves of Re F, Im F and Re F + Im F as
+128-entry vectors over j k mod 128, split from float64 on the host
+(hi_tables).
+
 The fac tables (W16 with 1/128 folded in, the mid twiddle W128^{j2 ka},
 W8, the outer twiddle T) are built in float64 from the port's
 dft_matrix/twiddle_2d, as tools/probe_facdft.py: _fac_tables builds them,
@@ -83,11 +115,21 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 )
 
 __all__ = [
+    "add_one_plain",
+    "anat_full",
+    "anat_full_plain",
+    "bd_hi",
+    "bd_hi_plain",
+    "bd_tf32",
+    "bd_tf32_plain",
     "concatstore",
     "fac_dft",
     "fac_dft_plain",
     "fac_tables",
     "gmm_concat",
+    "half3",
+    "half3_plain",
+    "hi_tables",
     "launches",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
@@ -97,6 +139,10 @@ __all__ = [
     "pwfloor_noframe_plain",
     "pwfloor_staged",
     "pwfloor_staged_plain",
+    "re_f128",
+    "reshape_add",
+    "round_tf32",
+    "slice8_add",
     "slicestore",
     "staged_segs_per_tile",
 ]
@@ -104,7 +150,8 @@ __all__ = [
 # Kernel launches by wrapper, counted where each launches its kernel.
 launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "pwfloor_staged": 0, "fac_dft": 0, "slicestore": 0, "concatstore": 0,
-            "gmm_concat": 0}
+            "gmm_concat": 0, "half3": 0, "slice8_add": 0, "reshape_add": 0, "bd_tf32": 0,
+            "bd_hi": 0, "anat_full": 0}
 
 _SMEM_BYTES = 232448  # shared memory a block may use on the H100 (227 KB)
 
@@ -398,3 +445,173 @@ def gmm_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.
         return gmm_floor_plain(xr, xi)
     return _lane_launch("gmm_concat", _build.library().gdsp_gmm_concat, xr, xi,
                         gmm_tables(xr.shape[1], xr.device))
+
+
+# ---------------------------------------------------------------------------
+# K14d: the anatomy twins
+# ---------------------------------------------------------------------------
+
+MAX_STAGED_N = 16384  # widest row half3 and anat_full stage in shared memory
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the float32 bits of x: 10 mantissa bits, round
+    to nearest, ties away from zero; returned in x's dtype (a float64 x is
+    taken as the float32 values it holds)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32).to(x.dtype)
+
+
+
+@lru_cache(maxsize=None)
+def _f128() -> np.ndarray:
+    return dft_matrix(LANES)
+
+
+def re_f128(device=None, dtype=torch.float32) -> torch.Tensor:
+    """Re F128, (128, 128), F[j, k] = exp(-2 pi i j k / 128), unscaled,
+    from float64."""
+    return torch.from_numpy(_f128().real.copy()).to(device=device, dtype=dtype)
+
+
+def hi_tables() -> np.ndarray:
+    """bd_hi's tables, (6, 128) float32: the TF32 big and small halves of
+    Re F, Im F and Re F + Im F over m = j k mod 128 (F[j, k] = F[1, m]),
+    split from float64: big = round_tf32(v), small = round_tf32(v - big)."""
+    w = torch.from_numpy(_f128()[1])
+    rows = []
+    for v in (w.real, w.imag, w.real + w.imag):
+        big = round_tf32(v.float())
+        rows += [big, round_tf32((v - big.double()).float())]
+    return torch.stack(rows).numpy()
+
+
+@lru_cache(maxsize=None)
+def _hi_packed(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(hi_tables().ravel()).to(device)
+
+
+@lru_cache(maxsize=None)
+def _re_f128_on(device: torch.device) -> torch.Tensor:
+    return re_f128(device)
+
+
+def _check_staged(xr: torch.Tensor, xi: torch.Tensor, name: str) -> tuple[int, int]:
+    b, n = _check_lane_planes(xr, xi, name)
+    if n > MAX_STAGED_N:
+        raise ValueError(f"{name}: n must be at most {MAX_STAGED_N}, got {n}")
+    return b, n
+
+
+def _slices(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], x.shape[1] // LANES, LANES)
+
+
+def half3_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Three literal rounds of a <- [u + v, u - v], h = n / 2 each round,
+    both planes, in the input's dtype."""
+    _check_lane_planes(xr, xi, "half3")
+    h = xr.shape[1] // 2
+    for _ in range(3):
+        xr = torch.cat([xr[:, :h] + xr[:, h:], xr[:, :h] - xr[:, h:]], dim=1)
+        xi = torch.cat([xi[:, :h] + xi[:, h:], xi[:, :h] - xi[:, h:]], dim=1)
+    return xr, xi
+
+
+def add_one_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x + 1, both planes, in the input's dtype."""
+    return xr + 1.0, xi + 1.0
+
+
+def bd_tf32_plain(xr: torch.Tensor, xi: torch.Tensor, tf32: bool = False,
+                  table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each plane's 128-point slices times `table` (default Re F128), summed
+    in the input's dtype; tf32 rounds both operands first as
+    cvt.rna.tf32.f32 does (round_tf32: the kernel's function)."""
+    b, n = _check_lane_planes(xr, xi, "bd_tf32")
+    t = re_f128(xr.device, xr.dtype) if table is None else table.to(xr.device, xr.dtype)
+    if tf32:
+        xr, xi, t = round_tf32(xr), round_tf32(xi), round_tf32(t)
+    with _tf32_off() if xr.is_cuda else nullcontext():
+        return tuple((_slices(x) @ t).reshape(b, n) for x in (xr, xi))
+
+
+def bd_hi_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 128-point DFT of every slice, unscaled, by Karatsuba in the
+    input's dtype: m1 = a F_r, m2 = b F_i, m3 = (a + b)(F_r + F_i),
+    yr = m1 - m2, yi = m3 - m1 - m2 (F from float64)."""
+    b, n = _check_lane_planes(xr, xi, "bd_hi")
+    f = _f128()
+    fr, fi, fs = (torch.from_numpy(np.ascontiguousarray(v)).to(xr.device, xr.dtype)
+                  for v in (f.real, f.imag, f.real + f.imag))
+    a, c = _slices(xr), _slices(xi)
+    with _tf32_off() if xr.is_cuda else nullcontext():
+        m1, m2, m3 = a @ fr, c @ fi, (a + c) @ fs
+    return (m1 - m2).reshape(b, n), (m3 - m1 - m2).reshape(b, n)
+
+
+def anat_full_plain(xr: torch.Tensor, xi: torch.Tensor,
+                    tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """half3, then ar = a tw - b tw, ai = a tw + b tw, then bd_hi."""
+    a, c = half3_plain(xr, xi)
+    tw = tw.to(a.dtype)
+    return bd_hi_plain(a * tw - c * tw, a * tw + c * tw)
+
+
+def half3(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14d half3: three shared-memory butterfly rounds of both planes."""
+    _check_staged(xr, xi, "half3")
+    if not xr.is_cuda:
+        return half3_plain(xr, xi)
+    return _lane_launch("half3", _build.library().gdsp_half3, xr, xi)
+
+
+def slice8_add(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14d slice8: x + 1, one 128-column slice of each row a pass."""
+    _check_lane_planes(xr, xi, "slice8_add")
+    if not xr.is_cuda:
+        return add_one_plain(xr, xi)
+    return _lane_launch("slice8_add", _build.library().gdsp_slice8_add, xr, xi)
+
+
+def reshape_add(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14d reshape: x + 1 over the (b n / 128, 128) view, one warp a row."""
+    _check_lane_planes(xr, xi, "reshape_add")
+    if not xr.is_cuda:
+        return add_one_plain(xr, xi)
+    return _lane_launch("reshape_add", _build.library().gdsp_reshape_add, xr, xi)
+
+
+def bd_tf32(xr: torch.Tensor, xi: torch.Tensor,
+            table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14d bd1: each plane's slices times Re F128 (or `table`, (128, 128)
+    float32) in one TF32 pass on the tensor cores."""
+    _check_lane_planes(xr, xi, "bd_tf32")
+    if table is not None and tuple(table.shape) != (LANES, LANES):
+        raise ValueError(f"bd_tf32: table must be ({LANES}, {LANES}), got {tuple(table.shape)}")
+    if not xr.is_cuda:
+        return bd_tf32_plain(xr, xi, tf32=True, table=table)
+    t = _re_f128_on(xr.device) if table is None else _cuda_args("bd_tf32", xr, table)[1]
+    return _lane_launch("bd_tf32", _build.library().gdsp_bd_tf32, xr, xi, t)
+
+
+def bd_hi(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14d bd_hi: the unscaled 128-point DFT of every slice, Karatsuba in
+    3xTF32 on the tensor cores."""
+    _check_lane_planes(xr, xi, "bd_hi")
+    if not xr.is_cuda:
+        return bd_hi_plain(xr, xi)
+    return _lane_launch("bd_hi", _build.library().gdsp_bd_hi, xr, xi, _hi_packed(xr.device))
+
+
+def anat_full(xr: torch.Tensor, xi: torch.Tensor,
+              tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14d full: half3, the row tw, then bd_hi, in one kernel."""
+    _, n = _check_staged(xr, xi, "anat_full")
+    if tuple(tw.shape) != (n,):
+        raise ValueError(f"anat_full: tw must have shape ({n},), got {tuple(tw.shape)}")
+    if not xr.is_cuda:
+        return anat_full_plain(xr, xi, tw)
+    tw = _cuda_args("anat_full", xr, tw)[1]
+    return _lane_launch("anat_full", _build.library().gdsp_anat_full, xr, xi, tw,
+                        _hi_packed(xr.device))

@@ -6,4 +6,7 @@
             python3 -m godsp_tpu_torch.probes.facdft
   store   — the store-pattern twins of K12 and K13 (K14c):
             python3 -m godsp_tpu_torch.probes.store
+  anatomy2 — the data-movement and matrix-unit twins (K14d) beside K12
+            and K1:
+            python3 -m godsp_tpu_torch.probes.anatomy2
 """

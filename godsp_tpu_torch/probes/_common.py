@@ -15,7 +15,10 @@ from godsp_tpu_torch.fft.four_step import _tf32_off
 from godsp_tpu_torch.ops import cuda_metrics
 from godsp_tpu_torch.utils.metrics import bound_ms, time_chain_diff
 
-__all__ = ["card", "chained", "complex_matmul", "lane_main", "lane_planes", "time_lane_rows"]
+__all__ = ["TF32_FLOPS", "card", "chained", "complex_matmul", "lane_main", "lane_planes",
+           "time_lane_rows"]
+
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet)
 
 
 def chained(op):
@@ -58,24 +61,35 @@ def complex_matmul(xr: torch.Tensor, xi: torch.Tensor):
     return lambda: torch.matmul(z, G)
 
 
-def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit) -> dict:
-    """Each row of ops ({name: (op, library op)}, the copy first) timed
-    with time_chain_diff beside its bound (16 B and ops_per_point[name]
-    float32 operations a point of the (b, n) planes) and its library
-    call, TF32 off on the card; returns {name: {"ms", "bound_ms",
+def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit,
+                   tf32_per_point: dict | None = None) -> dict:
+    """Each row of ops ({name: (op, library op or None)}, the copy first)
+    timed with time_chain_diff beside its bound (16 B and
+    ops_per_point[name] float32 operations a point of the (b, n) planes;
+    where tf32_per_point names the row, also its TF32 operations over
+    TF32_FLOPS, kept as "tf32_ms", and the bound is the larger) and its
+    library call, TF32 off on the card; returns {name: {"ms", "bound_ms",
     "bound_by", "library_ms", "of_copy"}} and emits one line a row."""
     b, n = xr.shape
+    tf32_per_point = tf32_per_point or {}
     out = {}
     with _tf32_off() if xr.is_cuda else nullcontext():
         for name, (op, lib) in ops.items():
             bnd, by = bound_ms(16.0 * b * n, ops_per_point[name] * b * n)
-            out[name] = dict(ms=time_chain_diff(chained(op), xr) * 1e3, bound_ms=bnd,
-                             bound_by=by, library_ms=time_chain_diff(chained(lib), xr) * 1e3)
+            r = dict(ms=time_chain_diff(chained(op), xr) * 1e3, bound_ms=bnd, bound_by=by,
+                     library_ms=None if lib is None else time_chain_diff(chained(lib), xr) * 1e3)
+            if name in tf32_per_point:
+                r["tf32_ms"] = tf32_per_point[name] * b * n / TF32_FLOPS * 1e3
+                if r["tf32_ms"] > bnd:
+                    r.update(bound_ms=r["tf32_ms"], bound_by="operations")
+            out[name] = r
     copy_ms = out["copy"]["ms"]
     for name, r in out.items():
         r["of_copy"] = r["ms"] / copy_ms
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        tf32 = f"  (TF32 {r['tf32_ms']:.4f} ms)" if "tf32_ms" in r else ""
         emit(f"{name:11s} {r['ms']:.4f} ms  ({r['of_copy']:.2f}x the copy)  bound "
-             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library {r['library_ms']:.4f} ms  "
+             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){tf32}  library {lib}  "
              f"[{xr.device.type}, {b} x {n}]")
     return out
 

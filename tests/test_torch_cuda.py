@@ -8,7 +8,9 @@ runs on its own, past tests/conftest.py (which imports jax):
 
 Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
 (K1-K14) and its plain version in float64 on the same inputs (the K14c
-copies, and gmm_concat against K13, equal), and between
+copies, and gmm_concat against K13, equal; K14d's half3 and adds equal
+to their float32 plain versions, bd_tf32 against its plain version with
+TF32-rounded operands), and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends); the fused
 peel + rows route (K9) also against the unfused plan.
@@ -924,6 +926,100 @@ def test_lane_wrappers_raise_on_card(cuda):
             fn(torch.zeros(4, 200, device=cuda), torch.zeros(4, 200, device=cuda))
         with pytest.raises(ValueError):
             fn(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256))
+
+
+_K14D = ("half3", "slice8_add", "reshape_add", "bd_tf32", "bd_hi", "anat_full")
+
+
+def _tf32_flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 2048)])
+def test_k14d_on_card(cuda, b, n):
+    """half3, slice8_add and reshape_add equal to their float32 plain
+    versions; bd_hi and anat_full >= 120 dB against float64; bd_tf32 >= 120
+    dB against its plain version with TF32-rounded operands summed in
+    float64 (and far below that against the exact product); one launch a
+    call; the TF32 flags untouched."""
+    xr, xi = _lane_planes(cuda, b, n, b + n)
+    tw = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(n), device=cuda)
+    x64 = (xr.double(), xi.double())
+    flags = _tf32_flags()
+    reset_launch_counts()
+    for name, plain in (("half3", cuda_probes.half3_plain), ("slice8_add", cuda_probes.add_one_plain),
+                        ("reshape_add", cuda_probes.add_one_plain)):
+        got, want = getattr(cuda_probes, name)(xr, xi), plain(xr, xi)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+    bd1 = cuda_probes.bd_tf32(xr, xi)
+    assert dsputils.snr_db(_c(bd1), _c(cuda_probes.bd_tf32_plain(*x64, tf32=True))) \
+        >= SNR_CARD_DB
+    assert dsputils.snr_db(_c(bd1), _c(cuda_probes.bd_tf32_plain(*x64))) < 100.0
+    assert dsputils.snr_db(_c(cuda_probes.bd_hi(xr, xi)), _c(cuda_probes.bd_hi_plain(*x64))) \
+        >= SNR_CARD_DB
+    assert dsputils.snr_db(_c(cuda_probes.anat_full(xr, xi, tw)),
+                           _c(cuda_probes.anat_full_plain(*x64, tw))) >= SNR_CARD_DB
+    counts = launch_counts()
+    assert all(counts[k] == 1 for k in _K14D)
+    assert _tf32_flags() == flags
+
+
+@pytest.mark.parametrize("b", [1001, 16])
+def test_bd_tf32_fragment_maps_on_card(cuda, b):
+    """The identity table returns round_tf32(x) exactly (the A and C maps);
+    a cyclic shift, P[j, j + 1 mod 128] = 1, returns each slice rolled by
+    one (the B map: Re F128 is symmetric and would not show a transposed B)."""
+    xr, xi = _lane_planes(cuda, b, 1024, b)
+    eye = torch.eye(128, device=cuda)
+    got = cuda_probes.bd_tf32(xr, xi, eye)
+    for g, x in zip(got, (xr, xi)):
+        assert torch.equal(g, cuda_probes.round_tf32(x))
+    got = cuda_probes.bd_tf32(xr, xi, torch.roll(eye, 1, dims=1))
+    for g, x in zip(got, (xr, xi)):
+        want = torch.roll(cuda_probes.round_tf32(x).view(b, 8, 128), 1, dims=2).reshape(b, 1024)
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("flags", [(False, False), (True, True)])
+def test_k14d_and_its_yardstick_leave_tf32_flags(cuda, flags):
+    from godsp_tpu_torch.probes import anatomy2
+
+    old = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    try:
+        xr, xi = _lane_planes(cuda, 64, 1024, 3)
+        tw = anatomy2.tw_row(cuda)
+        for name in _K14D:
+            getattr(cuda_probes, name)(xr, xi, *((tw,) if name == "anat_full" else ()))
+            assert _tf32_flags() == flags, name
+        ops = anatomy2.ops(xr, xi, tw)
+        for name, (op, lib) in ops.items():
+            op()
+            if lib is not None:
+                lib()
+            assert _tf32_flags() == flags, name
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def test_k14d_wrappers_raise_on_card(cuda):
+    for name in _K14D:
+        fn = getattr(cuda_probes, name)
+        extra = lambda n, dt=torch.float32: (  # noqa: E731
+            (torch.zeros(n, dtype=dt, device=cuda),) if name == "anat_full" else ())
+        with pytest.raises(TypeError):
+            fn(torch.zeros(4, 256, dtype=torch.float64, device=cuda),
+               torch.zeros(4, 256, dtype=torch.float64, device=cuda), *extra(256))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 200, device=cuda), torch.zeros(4, 200, device=cuda), *extra(200))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256), *extra(256))
+    with pytest.raises(TypeError):
+        cuda_probes.anat_full(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256, device=cuda),
+                              torch.zeros(256, dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError):
+        cuda_probes.bd_tf32(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256, device=cuda),
+                            torch.eye(128, dtype=torch.float64, device=cuda))
 
 
 def _chip_smoke():
