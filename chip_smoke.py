@@ -222,7 +222,17 @@ final line):
  16. probes.anatomy2.run at its full shape as one counted session: the six
      twins, copy_split (its copy row) and fft_pow2 (its K1 row) launched,
      nothing else;
- 17. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 17. K14h vdif and K14i sdif_peel (ops/cuda_probes.py) against their
+     float64 plain versions on the card (>= 120 dB), one launch a check:
+     vdif at 16384 x 1024 (n1 8, scale 1/32) and at a ragged 1001 x 512
+     (n1 4), its digit order exact at both (single exponentials peak at
+     (k mod n1) 128 + brev7(k // n1)); sdif_peel at 2^24 as
+     (1, 128, 131072) and at a ragged (3, 128, 1000); each timed at the
+     full shape beside its plain version, bound and library call;
+ 18. probes.vdif.run and probes.sdif.run at their full shapes as two
+     counted sessions: vdif, copy_split, fac_dft and fft_pow2; sdif_peel,
+     copy_split and outer_dft_split; nothing else;
+ 19. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -368,6 +378,9 @@ LANE_B, LANE_N = 16384, 1024
 # The anatomy twins (phases 15-16): probes.anatomy2.
 ANATOMY = "probes.anatomy2.run (16384 x 1024)"
 ANATOMY_TWINS = ("half3", "slice8_add", "reshape_add", "bd_tf32", "bd_hi", "anat_full")
+# The counted butterfly-probe sessions (phase 18): probes.vdif and probes.sdif.
+VDIF = "probes.vdif.run (16384 x 1024)"
+SDIF = "probes.sdif.run (1 x 128 x 131072)"
 # Phase 13's exact launches a step (worked out on the CPU with the wrappers
 # counting and kernel_route patched; see the phase's comments).
 _LARGE_CONV = {"outer_dft_split": 3, "fft_pow2": 2, "ifft_pow2": 1}
@@ -408,6 +421,8 @@ REPLACES = {
     "concatstore": "tools/probe_store.py:53",
     "gmm_concat": "tools/probe_store.py:53",
     **{name: "tools/probe_anatomy2.py:87" for name in ANATOMY_TWINS},
+    "vdif": "tools/probe_vdif.py:116",
+    "sdif_peel": "tools/probe_sdif.py:116",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -434,6 +449,8 @@ SOURCES = {
     "concatstore": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
     "gmm_concat": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
     **{name: "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu" for name in ANATOMY_TWINS},
+    "vdif": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
+    "sdif_peel": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
 }
 
 
@@ -2080,25 +2097,35 @@ def phase_probe_kernels(rec: KernelRecord, dev) -> None:
         rec.time(f"pwfloor_{name}", shape, op, plain, None, nbytes, flops)
 
 
+def probe_sessions(dev, sessions) -> dict[str, dict[str, int]]:
+    """Each (label, probe module, the wrappers it launches) as one counted
+    session: probe.run(dev) at its full shape, the launch counts zeroed
+    just before it and read just after; raises where a wrapper outside the
+    list launched, one in it did not, or a row is missing."""
+    from godsp_tpu_torch.ops import reset_launch_counts
+
+    steps: dict[str, dict[str, int]] = {}
+    for label, probe, launched in sessions:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rows, wall = counted(label, lambda p=probe: p.run(dev, emit=log), steps)
+        log(f"  {label}: {wall:.2f} s")
+        for name, c in steps[label].items():
+            if (c > 0) != (name in launched):
+                raise AssertionError(f"{label}: {name} launched {c} times")
+        if sorted(k for k in rows if k != "check") != sorted(probe.ROWS):
+            raise AssertionError(f"{label} rows {sorted(rows)}")
+    return steps
+
+
 def phase_probe_run(dev) -> dict[str, dict[str, int]]:
     """probes.pwfloor at its full geometry as one counted session
     (phase 12): every twin, K4, K3 and K12 launched."""
-    from godsp_tpu_torch.ops import reset_launch_counts
     from godsp_tpu_torch.probes import pwfloor
 
-    steps: dict[str, dict[str, int]] = {}
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    rows, wall = counted(PWFLOOR, lambda: pwfloor.run(dev, emit=log), steps)
-    log(f"  probes.pwfloor: {wall:.2f} s")
-    launched = ("pwfloor_loadonly", "pwfloor_frameonly", "pwfloor_noframe", "pwfloor_staged",
-                "pwelch_power_partials", "rfft_pow2", "copy_split")
-    for name, c in steps[PWFLOOR].items():
-        if (c > 0) != (name in launched):
-            raise AssertionError(f"{PWFLOOR}: {name} launched {c} times")
-    if sorted(rows) != sorted(pwfloor.ROWS):
-        raise AssertionError(f"pwfloor rows {sorted(rows)}")
-    return steps
+    return probe_sessions(dev, ((PWFLOOR, pwfloor, (
+        "pwfloor_loadonly", "pwfloor_frameonly", "pwfloor_noframe", "pwfloor_staged",
+        "pwelch_power_partials", "rfft_pow2", "copy_split")),))
 
 
 def toolkit_image(dev) -> torch.Tensor:
@@ -2357,24 +2384,11 @@ def phase_lane_kernels(rec: KernelRecord, dev) -> None:
 def phase_lane_probes(dev) -> dict[str, dict[str, int]]:
     """probes.facdft and probes.store at their full shape as two counted
     sessions (phase 14)."""
-    from godsp_tpu_torch.ops import reset_launch_counts
     from godsp_tpu_torch.probes import facdft, store
 
-    steps: dict[str, dict[str, int]] = {}
-    for label, probe, launched in (
-            (FACDFT, facdft, ("fac_dft", "gmm_floor", "copy_split")),
-            (STORE, store, ("slicestore", "concatstore", "gmm_concat", "gmm_floor",
-                            "copy_split"))):
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        rows, wall = counted(label, lambda p=probe: p.run(dev, emit=log), steps)
-        log(f"  {label}: {wall:.2f} s")
-        for name, c in steps[label].items():
-            if (c > 0) != (name in launched):
-                raise AssertionError(f"{label}: {name} launched {c} times")
-        if sorted(k for k in rows if k != "check") != sorted(probe.ROWS):
-            raise AssertionError(f"{label} rows {sorted(rows)}")
-    return steps
+    return probe_sessions(dev, (
+        (FACDFT, facdft, ("fac_dft", "gmm_floor", "copy_split")),
+        (STORE, store, ("slicestore", "concatstore", "gmm_concat", "gmm_floor", "copy_split"))))
 
 
 def phase_anatomy_kernels(rec: KernelRecord, dev) -> None:
@@ -2445,21 +2459,72 @@ def phase_anatomy_kernels(rec: KernelRecord, dev) -> None:
 
 def phase_anatomy_probe(dev) -> dict[str, dict[str, int]]:
     """probes.anatomy2 at its full shape as one counted session (phase 16)."""
-    from godsp_tpu_torch.ops import reset_launch_counts
     from godsp_tpu_torch.probes import anatomy2
 
-    steps: dict[str, dict[str, int]] = {}
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    rows, wall = counted(ANATOMY, lambda: anatomy2.run(dev, emit=log), steps)
-    log(f"  {ANATOMY}: {wall:.2f} s")
-    launched = ANATOMY_TWINS + ("copy_split", "fft_pow2")
-    for name, c in steps[ANATOMY].items():
-        if (c > 0) != (name in launched):
-            raise AssertionError(f"{ANATOMY}: {name} launched {c} times")
-    if sorted(k for k in rows if k != "check") != sorted(anatomy2.ROWS):
-        raise AssertionError(f"anatomy2 rows {sorted(rows)}")
-    return steps
+    return probe_sessions(dev, ((ANATOMY, anatomy2,
+                                 ANATOMY_TWINS + ("copy_split", "fft_pow2")),))
+
+
+def phase_dif_kernels(rec: KernelRecord, dev) -> None:
+    """K14h and K14i against their float64 plain versions on the card, one
+    launch a check (phase 17): vdif at the probe's 16384 x 1024 (n1 8,
+    scale 1/sqrt(n)) and at a ragged 1001 x 512 (n1 4, not a multiple of a
+    block's eight rows), its digit order exact at both widths; sdif_peel at
+    2^24 as (1, 128, 131072) and at a ragged (3, 128, 1000) (not a multiple
+    of a tile's 32 columns); each timed at the full shape beside its plain
+    version, bound and library call (vdif: torch.fft.fft of the complex
+    rows, norm="ortho"; sdif_peel: none, as K8)."""
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.ops import launch_counts
+    from godsp_tpu_torch.probes import sdif, vdif
+    from godsp_tpu_torch.probes._common import lane_planes
+
+    def once(name, run):
+        before = launch_counts()[name]
+        out = run()
+        if launch_counts()[name] != before + 1:
+            raise AssertionError(f"{name}: not one launch")
+        return out
+
+    for b, n in ((vdif.B, vdif.N), (1001, 512)):
+        xr, xi = lane_planes(dev, b, n, seed=17)
+        s = n ** -0.5
+        shape = f"{b} x {n}"
+        rec.check("vdif", lambda: cplx(once("vdif", lambda: cp.vdif(xr, xi, s))),
+                  cplx(cp.vdif_plain(xr.double(), xi.double(), s)), shape)
+        if not once("vdif", lambda: vdif.digit_order_exact(dev, n, s)):
+            raise AssertionError(f"vdif {shape}: the digit order is not exact")
+        log(f"  {'vdif':22s} {shape:34s} digit order exact (single exponentials)")
+        if (b, n) == (vdif.B, vdif.N):
+            z = torch.complex(xr, xi)
+            pts = float(b * n)
+            rec.time("vdif", shape, lambda: cp.vdif(xr, xi, s), lambda: cp.vdif_plain(xr, xi, s),
+                     lambda: torch.fft.fft(z, norm="ortho"), 16.0 * pts,
+                     vdif.OPS_PER_POINT["vdif"] * pts)
+            del z
+        del xr, xi
+    for shape in ((1, sdif.D, sdif.M), (3, sdif.D, 1000)):
+        xr, xi = (p.view(shape) for p in lane_planes(dev, shape[0] * shape[1], shape[2], seed=17))
+        label = " x ".join(map(str, shape))
+        rec.check("sdif_peel", lambda: cplx(once("sdif_peel", lambda: cp.sdif_peel(xr, xi))),
+                  cplx(cp.sdif_peel_plain(xr.double(), xi.double())), label)
+        if shape[0] == 1:
+            # No one PyTorch call computes a twiddled column DFT.
+            pts = float(xr.numel())
+            rec.time("sdif_peel", label, lambda: cp.sdif_peel(xr, xi),
+                     lambda: cp.sdif_peel_plain(xr, xi), None, 16.0 * pts,
+                     sdif.OPS_PER_POINT["sdif"] * pts)
+        del xr, xi
+
+
+def phase_dif_probes(dev) -> dict[str, dict[str, int]]:
+    """probes.vdif and probes.sdif at their full shapes as two counted
+    sessions (phase 18)."""
+    from godsp_tpu_torch.probes import sdif, vdif
+
+    return probe_sessions(dev, (
+        (VDIF, vdif, ("vdif", "copy_split", "fac_dft", "fft_pow2")),
+        (SDIF, sdif, ("sdif_peel", "copy_split", "outer_dft_split"))))
 
 
 def main() -> int:
@@ -2502,6 +2567,10 @@ def main() -> int:
     phase_anatomy_kernels(rec, dev)
     anatomy_steps = phase_anatomy_probe(dev)
     log(f"phases 15-16 (K14d): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dif_kernels(rec, dev)
+    dif_steps = phase_dif_probes(dev)
+    log(f"phases 17-18 (K14h, K14i): {time.perf_counter() - t0:.1f} s")
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
@@ -2515,6 +2584,7 @@ def main() -> int:
     steps.update(toolkit_steps)
     steps.update(lane_steps)
     steps.update(anatomy_steps)
+    steps.update(dif_steps)
 
     kernels = []
     for name in REPLACES:

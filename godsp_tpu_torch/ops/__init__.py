@@ -23,7 +23,10 @@
                  anat_full (shared-memory butterfly rounds, sliced and
                  reshaped adds, a TF32 and a 3xTF32 128-point DFT on the
                  tensor cores, the fused candidate), driven by
-                 probes.anatomy2
+                 probes.anatomy2; K14h vdif (the slice network, the
+                 twiddle and a warp-shuffle 128-point DIF) and K14i
+                 sdif_peel (seven shared-memory radix-2 row stages of the
+                 128-point peel), driven by probes.vdif and probes.sdif
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -67,8 +70,10 @@ from godsp_tpu_torch.ops.cuda_probes import (
     pwfloor_noframe,
     pwfloor_staged,
     reshape_add,
+    sdif_peel,
     slice8_add,
     slicestore,
+    vdif,
 )
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
@@ -120,12 +125,14 @@ __all__ = [
     "reshape_add",
     "rfft_pow2",
     "ring_halo",
+    "sdif_peel",
     "slice8_add",
     "slicestore",
     "stft_complex",
     "stft_mel",
     "stft_power",
     "supported_size",
+    "vdif",
 ]
 
 _COUNTS = (

@@ -112,6 +112,10 @@ def _declare(lib) -> None:
         getattr(lib, name).restype = i
     lib.gdsp_anat_full.argtypes = [p, p, p, p, p, p, i64, i, p]
     lib.gdsp_anat_full.restype = i
+    lib.gdsp_vdif.argtypes = [p, p, p, p, p, i64, i, p]
+    lib.gdsp_vdif.restype = i
+    lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
+    lib.gdsp_sdif_peel.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -84,6 +84,31 @@ dft_matrix/twiddle_2d, as tools/probe_facdft.py: _fac_tables builds them,
 and rounded once to float32.  The TPU's layout A ((B, 16, 64), j1 in
 sublanes) was a Mosaic workaround and is not ported.
 
+K14h and K14i: the butterfly twins of tools/probe_vdif.py and
+tools/probe_sdif.py in csrc/dif_probe_kernels.cu, whose header says what
+bounds them on the H100 and what their designs do.  Neither multiplies a
+dense matrix:
+
+  vdif(xr, xi, scale)  replaces tools/probe_vdif.py:116 (vdif_op over
+      _vdif_kernel): two float32 planes (b, n), n = n1 x 128 with n1 in
+      1, 2, 4, 8; per row the n1-point DFT across the slices, the twiddle
+      T[k1, p] = W_n^{k1 p} x scale, then a 128-point radix-2 DIF along
+      each slice; position k1 128 + p holds bin k1 + n1 brev7(p) (the vdif
+      digit order, vdif_digit_order); plain version vdif_plain;
+  sdif_peel(xr, xi)    replaces tools/probe_sdif.py:116 (sdif_peel over
+      _sdif_kernel): (..., 128, m) float32 planes; seven radix-2 DIF
+      stages across the 128 rows, then the post twiddle
+      Tb[r, t] = W_N^{brev7(r) t}, N = 128 m; row r holds the dense peel's
+      row brev7(r), i.e. cuda_outer.outer_dft_split(x, 128, 1)'s; plain
+      version sdif_peel_plain.
+
+Their tables are built in float64 and rounded once: the port carries the
+lane DIF's arithmetic (brev7_perm, the stage twiddles W_{2w}^j) rather
+than godsp_tpu's _lane_dft module, and Tb is K8's exact-exponent factored
+table (cuda_outer._factor_tables).  The TPU's roll-and-select lane
+stages and its hi x lo lane-grid layout of Tb were Mosaic workarounds and
+are not ported.
+
 A wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -108,6 +133,7 @@ from godsp_tpu_torch.ops.cuda_metrics import (
     gmm_tables,
 )
 from godsp_tpu_torch.ops.cuda_metrics import _check as _check_planes
+from godsp_tpu_torch.ops.cuda_outer import _exp_table, _factor_tables
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
     pwelch_power_partials_plain,
@@ -122,6 +148,7 @@ __all__ = [
     "bd_hi_plain",
     "bd_tf32",
     "bd_tf32_plain",
+    "brev7_perm",
     "concatstore",
     "fac_dft",
     "fac_dft_plain",
@@ -142,16 +169,23 @@ __all__ = [
     "re_f128",
     "reshape_add",
     "round_tf32",
+    "sdif_peel",
+    "sdif_peel_plain",
+    "sdif_tables",
     "slice8_add",
     "slicestore",
     "staged_segs_per_tile",
+    "vdif",
+    "vdif_digit_order",
+    "vdif_plain",
+    "vdif_tables",
 ]
 
 # Kernel launches by wrapper, counted where each launches its kernel.
 launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "pwfloor_staged": 0, "fac_dft": 0, "slicestore": 0, "concatstore": 0,
             "gmm_concat": 0, "half3": 0, "slice8_add": 0, "reshape_add": 0, "bd_tf32": 0,
-            "bd_hi": 0, "anat_full": 0}
+            "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0}
 
 _SMEM_BYTES = 232448  # shared memory a block may use on the H100 (227 KB)
 
@@ -615,3 +649,171 @@ def anat_full(xr: torch.Tensor, xi: torch.Tensor,
     tw = _cuda_args("anat_full", xr, tw)[1]
     return _lane_launch("anat_full", _build.library().gdsp_anat_full, xr, xi, tw,
                         _hi_packed(xr.device))
+
+
+# ---------------------------------------------------------------------------
+# K14h and K14i: the butterfly twins
+# ---------------------------------------------------------------------------
+
+VDIF_N1 = (1, 2, 4, 8)  # slices of a row vdif takes: n = n1 x 128
+PEEL_ROWS = 128  # rows of sdif_peel's column DFT
+_STAGE_WS = (64, 32, 16, 8, 4, 2, 1)  # half-widths of the seven radix-2 DIF stages
+
+
+def brev7_perm() -> torch.Tensor:
+    """p -> the 7-bit reversal of p, p < 128, int64: the bin at lane p of
+    vdif's slices and the dense peel row at sdif's row p."""
+    p = torch.arange(LANES)
+    return sum(((p >> k) & 1) << (6 - k) for k in range(7))
+
+
+@lru_cache(maxsize=None)
+def _stage_twiddles() -> np.ndarray:
+    """complex128 (127,): W_{2w}^j, j < w, for w = 64, 32, ..., 1 one after
+    another (stage w at offset 128 - 2w)."""
+    return np.concatenate([np.exp(-1j * np.pi * np.arange(w, dtype=np.float64) / w)
+                           for w in _STAGE_WS])
+
+
+def _c32(t: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+                 for v in (t.real, t.imag))
+
+
+def vdif_tables(n1: int, scale: float = 1.0, device=None) -> dict[str, torch.Tensor]:
+    """K14h's tables, float32 rounded once from float64: "tr"/"ti" (n1, 128),
+    T[k1, p] = W_{128 n1}^{k1 p} x scale (four_step.twiddle_2d), and
+    "sr"/"si" (127,), the seven lane stages' W_{2w}^j (offset 128 - 2w)."""
+    tr, ti = _c32(twiddle_2d(n1, LANES) * scale, device)
+    sr, si = _c32(_stage_twiddles(), device)
+    return {"tr": tr, "ti": ti, "sr": sr, "si": si}
+
+
+@lru_cache(maxsize=None)
+def _vdif_packed(n1: int, scale: float, device: torch.device) -> torch.Tensor:
+    """The kernel's table: T then the stages, (n1 128 + 127, 2) float32."""
+    t = vdif_tables(n1, scale, device)
+    return torch.cat([torch.stack([t["tr"].reshape(-1), t["ti"].reshape(-1)], -1),
+                      torch.stack([t["sr"], t["si"]], -1)]).contiguous()
+
+
+@lru_cache(maxsize=None)
+def _sdif_columns() -> np.ndarray:
+    """complex128 (7, 128): stage s's column, W_{2h}^{i mod h} on b rows
+    (i // h odd, h = 64 >> s) and 1 on a rows."""
+    i = np.arange(PEEL_ROWS)
+    return np.stack([np.where((i // h) % 2 == 1, np.exp(-1j * np.pi * (i % h) / h), 1.0 + 0j)
+                     for h in (64 >> s for s in range(7))])
+
+
+def sdif_tables(m: int, device=None) -> dict:
+    """K14i's tables for (128, m) planes: "cr"/"ci" (7, 128) float32, stage
+    s's column (h = 64 >> s): W_{2h}^{i mod h} on b rows (i // h odd) and 1
+    on a rows, rounded once from float64; "hi", "lo", "lo_bits": the post
+    twiddle's W_N^p = hi[p >> lo_bits] lo[p & (2^lo_bits - 1)], N = 128 m,
+    K8's factored tables (cuda_outer._factor_tables)."""
+    cr, ci = _c32(_sdif_columns(), device)
+    hi, lo, lo_bits = _factor_tables(PEEL_ROWS * m, False, torch.device(device or "cpu"))
+    return {"cr": cr, "ci": ci, "hi": hi, "lo": lo, "lo_bits": lo_bits}
+
+
+@lru_cache(maxsize=None)
+def _sdif_cols_packed(device: torch.device) -> torch.Tensor:
+    cr, ci = _c32(_sdif_columns(), device)
+    return torch.stack([cr, ci], -1).contiguous()
+
+
+def _cdtype(x: torch.Tensor) -> torch.dtype:
+    return torch.complex128 if x.dtype == torch.float64 else torch.complex64
+
+
+def _check_vdif(xr: torch.Tensor, xi: torch.Tensor) -> tuple[int, int]:
+    b, n = _check_planes(xr, xi, "vdif")
+    if n % LANES or n // LANES not in VDIF_N1:
+        raise ValueError(f"vdif: n must be n1 x {LANES} with n1 in {VDIF_N1}, got {n}")
+    return b, n
+
+
+def _check_sdif(xr: torch.Tensor, xi: torch.Tensor) -> int:
+    if xr.shape != xi.shape or xr.dim() < 2 or xr.shape[-2] != PEEL_ROWS or xr.shape[-1] < 1:
+        raise ValueError(f"sdif_peel: two (..., {PEEL_ROWS}, m) planes of one shape, got "
+                         f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+    return xr.shape[-1]
+
+
+def vdif_digit_order(f: torch.Tensor, n1: int) -> torch.Tensor:
+    """A natural spectrum (..., n) in vdif digit order: position k1 128 + p
+    holds bin k1 + n1 brev7(p)."""
+    v = f.reshape(*f.shape[:-1], f.shape[-1] // n1, n1).transpose(-1, -2)
+    return v[..., brev7_perm().to(f.device)].reshape(f.shape)
+
+
+def vdif_plain(xr: torch.Tensor, xi: torch.Tensor,
+               scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K14h in the input's dtype (complex128 for
+    float64 planes): the n1-point DFT across the slices, T, then the seven
+    radix-2 DIF stages along each slice; the vdif digit order out."""
+    b, n = _check_vdif(xr, xi)
+    n1, dev, cdt = n // LANES, xr.device, _cdtype(xr)
+    f = torch.from_numpy(dft_matrix(n1)).to(dev, cdt)
+    t = torch.from_numpy(twiddle_2d(n1, LANES) * scale).to(dev, cdt)
+    x = torch.complex(xr, xi).to(cdt).reshape(b, n1, LANES)
+    with _tf32_off() if x.is_cuda else nullcontext():
+        z = torch.einsum("kj,bjp->bkp", f, x) * t
+    tw = torch.from_numpy(_stage_twiddles()).to(dev, cdt)
+    for w in _STAGE_WS:
+        z = z.reshape(b, n1, LANES // (2 * w), 2, w)
+        lo, hi = z[..., 0, :], z[..., 1, :]
+        z = torch.stack([lo + hi, (lo - hi) * tw[LANES - 2 * w:LANES - w]], dim=-2)
+    z = z.reshape(b, n)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def sdif_peel_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K14i in the input's dtype: the seven radix-2
+    DIF stages across the 128 rows of (..., 128, m) planes, then
+    Tb[r, t] = W_N^{brev7(r) t} (the exponent exact in int64)."""
+    m = _check_sdif(xr, xi)
+    lead, dev, cdt = xr.shape[:-2], xr.device, _cdtype(xr)
+    x = torch.complex(xr, xi).to(cdt).reshape(-1, PEEL_ROWS, m)
+    cols = torch.from_numpy(_sdif_columns()).to(dev, cdt)
+    for s in range(7):
+        h = 64 >> s
+        x = x.reshape(x.shape[0], PEEL_ROWS // (2 * h), 2, h, m)
+        a, c = x[:, :, 0], x[:, :, 1]
+        wb = cols[s].reshape(PEEL_ROWS // (2 * h), 2, h)[:, 1, :, None]
+        x = torch.stack([a + c, (a - c) * wb], dim=2)
+    tb = _exp_table(PEEL_ROWS * m, brev7_perm().to(dev),
+                    torch.arange(m, device=dev), False).to(cdt)
+    y = (x.reshape(-1, PEEL_ROWS, m) * tb).reshape(*lead, PEEL_ROWS, m)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def vdif(xr: torch.Tensor, xi: torch.Tensor,
+         scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14h: the n-point DFT (n = n1 x 128, n1 in 1, 2, 4, 8) of every row of
+    two float32 planes (b, n), times scale, by the slice network, T and a
+    warp-shuffle 128-point DIF; the vdif digit order out."""
+    _, n = _check_vdif(xr, xi)
+    if not xr.is_cuda:
+        return vdif_plain(xr, xi, scale)
+    return _lane_launch("vdif", _build.library().gdsp_vdif, xr, xi,
+                        _vdif_packed(n // LANES, float(scale), xr.device))
+
+
+def sdif_peel(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14i: the 128-point peel of (..., 128, m) float32 planes by seven
+    shared-memory radix-2 stages, then Tb; row r holds
+    outer_dft_split(x, 128, 1)'s row brev7(r)."""
+    m = _check_sdif(xr, xi)
+    if not xr.is_cuda:
+        return sdif_peel_plain(xr, xi)
+    xr, xi = _cuda_planes(xr, xi, "sdif_peel")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    dev = xr.device
+    hi, lo, lo_bits = _factor_tables(PEEL_ROWS * m, False, dev)
+    _launch("sdif_peel", _build.library().gdsp_sdif_peel, yr,
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            _sdif_cols_packed(dev).data_ptr(), hi.data_ptr(), lo.data_ptr(), m,
+            xr.numel() // (PEEL_ROWS * m), lo_bits)
+    return yr, yi

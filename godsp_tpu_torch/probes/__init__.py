@@ -9,4 +9,10 @@
   anatomy2 — the data-movement and matrix-unit twins (K14d) beside K12
             and K1:
             python3 -m godsp_tpu_torch.probes.anatomy2
+  vdif    — the 1024-point DFT as a slice network and a 128-point DIF by
+            warp shuffles (K14h) beside K12, K14b and K1:
+            python3 -m godsp_tpu_torch.probes.vdif
+  sdif    — the 128-point peel of 2^24 as seven radix-2 row stages in
+            shared memory (K14i) beside K12 and K8:
+            python3 -m godsp_tpu_torch.probes.sdif
 """

@@ -65,21 +65,22 @@ def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit,
                    tf32_per_point: dict | None = None) -> dict:
     """Each row of ops ({name: (op, library op or None)}, the copy first)
     timed with time_chain_diff beside its bound (16 B and
-    ops_per_point[name] float32 operations a point of the (b, n) planes;
+    ops_per_point[name] float32 operations a point of the planes, any shape;
     where tf32_per_point names the row, also its TF32 operations over
     TF32_FLOPS, kept as "tf32_ms", and the bound is the larger) and its
     library call, TF32 off on the card; returns {name: {"ms", "bound_ms",
     "bound_by", "library_ms", "of_copy"}} and emits one line a row."""
-    b, n = xr.shape
+    pts = xr.numel()
+    shape = " x ".join(map(str, xr.shape))
     tf32_per_point = tf32_per_point or {}
     out = {}
     with _tf32_off() if xr.is_cuda else nullcontext():
         for name, (op, lib) in ops.items():
-            bnd, by = bound_ms(16.0 * b * n, ops_per_point[name] * b * n)
+            bnd, by = bound_ms(16.0 * pts, ops_per_point[name] * pts)
             r = dict(ms=time_chain_diff(chained(op), xr) * 1e3, bound_ms=bnd, bound_by=by,
                      library_ms=None if lib is None else time_chain_diff(chained(lib), xr) * 1e3)
             if name in tf32_per_point:
-                r["tf32_ms"] = tf32_per_point[name] * b * n / TF32_FLOPS * 1e3
+                r["tf32_ms"] = tf32_per_point[name] * pts / TF32_FLOPS * 1e3
                 if r["tf32_ms"] > bnd:
                     r.update(bound_ms=r["tf32_ms"], bound_by="operations")
             out[name] = r
@@ -90,7 +91,7 @@ def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit,
         tf32 = f"  (TF32 {r['tf32_ms']:.4f} ms)" if "tf32_ms" in r else ""
         emit(f"{name:11s} {r['ms']:.4f} ms  ({r['of_copy']:.2f}x the copy)  bound "
              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){tf32}  library {lib}  "
-             f"[{xr.device.type}, {b} x {n}]")
+             f"[{xr.device.type}, {shape}]")
     return out
 
 

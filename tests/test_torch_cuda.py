@@ -10,7 +10,8 @@ Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
 (K1-K14) and its plain version in float64 on the same inputs (the K14c
 copies, and gmm_concat against K13, equal; K14d's half3 and adds equal
 to their float32 plain versions, bd_tf32 against its plain version with
-TF32-rounded operands), and between
+TF32-rounded operands; K14h vdif also against the float64 FFT in its digit
+order, K14i sdif_peel against K8 with the rows bit-reversed), and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends); the fused
 peel + rows route (K9) also against the unfused plan.
@@ -1099,3 +1100,70 @@ def test_toolkit_keeps_tf32_off(cuda):
         assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 512), (9, 256), (5, 128)])
+def test_k14h_vdif_on_card(cuda, b, n):
+    """vdif >= 120 dB against its float64 plain version and against the
+    float64 FFT in vdif digit order, one launch a call; its digit order
+    exact (a single exponential at bin k peaks at (k mod n1) 128 +
+    brev7(k // n1))."""
+    from godsp_tpu_torch.probes import vdif
+
+    xr, xi = _lane_planes(cuda, b, n, b + n)
+    s = n ** -0.5
+    reset_launch_counts()
+    got = _c(cuda_probes.vdif(xr, xi, s))
+    assert launch_counts()["vdif"] == 1
+    assert dsputils.snr_db(got, _c(cuda_probes.vdif_plain(xr.double(), xi.double(), s))) \
+        >= SNR_CARD_DB
+    fft = torch.fft.fft(torch.complex(xr.double(), xi.double())) * s
+    assert dsputils.snr_db(got, _np(cuda_probes.vdif_digit_order(fft, n // 128))) >= SNR_CARD_DB
+    assert vdif.digit_order_exact(cuda, n, s)
+    assert launch_counts()["vdif"] == 2
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 131072), (3, 128, 1000), (128, 1), (2, 2, 128, 33)])
+def test_k14i_sdif_peel_on_card(cuda, shape):
+    """sdif_peel >= 120 dB against its float64 plain version and against
+    K8's peel with the rows mapped by brev7, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    xr, xi = (torch.randn(shape, generator=g, device=cuda) for _ in range(2))
+    reset_launch_counts()
+    got = cuda_probes.sdif_peel(xr, xi)
+    assert launch_counts()["sdif_peel"] == 1 and got[0].shape == shape
+    assert dsputils.snr_db(_c(got), _c(cuda_probes.sdif_peel_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+    d = cuda_outer.outer_dft_split(xr, xi, 128, 1)
+    perm = cuda_probes.brev7_perm().to(cuda)
+    assert dsputils.snr_db(_c(got), _c((d[0][..., perm, :], d[1][..., perm, :]))) >= SNR_CARD_DB
+
+
+def test_k14h_k14i_batches_past_grid_y(cuda):
+    """More rows than grid.y's 65535 blocks (eight rows a vdif block; one
+    sdif batch element a grid row) reach the kernels."""
+    xr, xi = _lane_planes(cuda, 8 * 65535 + 9, 128, 7)
+    got = cuda_probes.vdif(xr, xi)
+    assert dsputils.snr_db(_c(got), _c(cuda_probes.vdif_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+    xr, xi = (p.view(65537, 128, 1) for p in _lane_planes(cuda, 65537 * 128, 1, 8))
+    got = cuda_probes.sdif_peel(xr, xi)
+    assert dsputils.snr_db(_c(got), _c(cuda_probes.sdif_peel_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+
+
+def test_k14h_k14i_wrappers_raise_on_card(cuda):
+    f64 = dict(dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_probes.vdif(torch.zeros(4, 256, **f64), torch.zeros(4, 256, **f64))
+    with pytest.raises(TypeError):
+        cuda_probes.sdif_peel(torch.zeros(128, 8, **f64), torch.zeros(128, 8, **f64))
+    for n in (200, 640, 2048):
+        with pytest.raises(ValueError):
+            cuda_probes.vdif(torch.zeros(4, n, device=cuda), torch.zeros(4, n, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_probes.sdif_peel(torch.zeros(64, 8, device=cuda), torch.zeros(64, 8, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_probes.vdif(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256))
+    with pytest.raises(ValueError):
+        cuda_probes.sdif_peel(torch.zeros(128, 8, device=cuda), torch.zeros(128, 8))
