@@ -232,7 +232,25 @@ final line):
  18. probes.vdif.run and probes.sdif.run at their full shapes as two
      counted sessions: vdif, copy_split, fac_dft and fft_pow2; sdif_peel,
      copy_split and outer_dft_split; nothing else;
- 19. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 19. K14e lane_flip and K14f ls_network, gmm_tf32, ls_full and
+     fft_pow2_rows (ops/cuda_probes.py) on the card, at 16384 x 1024 and
+     at the ragged 1001 x 1024 and 1001 x 512 (n1 4): probes.r3's and
+     probes.r4's check_numerics, their launches counted (ls_network and
+     ls_full >= 120 dB against float64, gmm_tf32 >= 120 dB against its
+     TF32-rounded float64 plain version, its dB against the exact product
+     printed, every ls_full setting (store, chunks, rows a block)
+     torch.equal to the default launch; lane_flip exact on the TPU probe's
+     (8, 128) input and on the plane viewed as rows of 128); gmm_tf32
+     exact on identity and cyclic-shift tables (the mma fragment maps);
+     fft_pow2_rows >= 120 dB against K1's float64 plain version and
+     torch.equal to K1 at 1 .. 16 rows a block there and at every setting
+     of the sweep's 4096 x 4096, 2048 x 8192 and 1024 x 16384; each timed
+     at 16384 x 1024 beside its plain version, bound and library call;
+ 20. probes.r4.run and probes.r3.run at their full shapes as two counted
+     sessions: lane_flip, rfft_pow2, copy_split, fft_pow2_rows and
+     fft_pow2; ls_network, gmm_tf32, ls_full, copy_split, slicestore,
+     gmm_floor, fft_pow2 and fft_pow2_rows; nothing else;
+ 21. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -381,6 +399,10 @@ ANATOMY_TWINS = ("half3", "slice8_add", "reshape_add", "bd_tf32", "bd_hi", "anat
 # The counted butterfly-probe sessions (phase 18): probes.vdif and probes.sdif.
 VDIF = "probes.vdif.run (16384 x 1024)"
 SDIF = "probes.sdif.run (1 x 128 x 131072)"
+# K14e and K14f (phases 19-20): probes.r4 and probes.r3.
+R4 = "probes.r4.run (16384 x 1024; K1 at 2048 x 8192 and 1024 x 16384)"
+R3 = "probes.r3.run (16384 x 1024; K1's rows-a-block sweep)"
+LANE_SLICE_TWINS = ("ls_network", "gmm_tf32", "ls_full")
 # Phase 13's exact launches a step (worked out on the CPU with the wrappers
 # counting and kernel_route patched; see the phase's comments).
 _LARGE_CONV = {"outer_dft_split": 3, "fft_pow2": 2, "ifft_pow2": 1}
@@ -423,6 +445,9 @@ REPLACES = {
     **{name: "tools/probe_anatomy2.py:87" for name in ANATOMY_TWINS},
     "vdif": "tools/probe_vdif.py:116",
     "sdif_peel": "tools/probe_sdif.py:116",
+    **{name: "tools/probe_r3.py:157" for name in LANE_SLICE_TWINS},
+    "lane_flip": "tools/probe_r4.py:67",
+    "fft_pow2_rows": "godsp_tpu/ops/pallas_fft.py:1125",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -451,6 +476,9 @@ SOURCES = {
     **{name: "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu" for name in ANATOMY_TWINS},
     "vdif": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
     "sdif_peel": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
+    **{name: "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu" for name in LANE_SLICE_TWINS},
+    "lane_flip": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
+    "fft_pow2_rows": "godsp_tpu_torch/csrc/fft_kernels.cu",
 }
 
 
@@ -2465,6 +2493,17 @@ def phase_anatomy_probe(dev) -> dict[str, dict[str, int]]:
                                  ANATOMY_TWINS + ("copy_split", "fft_pow2")),))
 
 
+def once(name: str, run):
+    """run(), which must launch the wrapper `name` exactly once."""
+    from godsp_tpu_torch.ops import launch_counts
+
+    before = launch_counts()[name]
+    out = run()
+    if launch_counts()[name] != before + 1:
+        raise AssertionError(f"{name}: not one launch")
+    return out
+
+
 def phase_dif_kernels(rec: KernelRecord, dev) -> None:
     """K14h and K14i against their float64 plain versions on the card, one
     launch a check (phase 17): vdif at the probe's 16384 x 1024 (n1 8,
@@ -2475,16 +2514,8 @@ def phase_dif_kernels(rec: KernelRecord, dev) -> None:
     version, bound and library call (vdif: torch.fft.fft of the complex
     rows, norm="ortho"; sdif_peel: none, as K8)."""
     from godsp_tpu_torch.ops import cuda_probes as cp
-    from godsp_tpu_torch.ops import launch_counts
     from godsp_tpu_torch.probes import sdif, vdif
     from godsp_tpu_torch.probes._common import lane_planes
-
-    def once(name, run):
-        before = launch_counts()[name]
-        out = run()
-        if launch_counts()[name] != before + 1:
-            raise AssertionError(f"{name}: not one launch")
-        return out
 
     for b, n in ((vdif.B, vdif.N), (1001, 512)):
         xr, xi = lane_planes(dev, b, n, seed=17)
@@ -2525,6 +2556,114 @@ def phase_dif_probes(dev) -> dict[str, dict[str, int]]:
     return probe_sessions(dev, (
         (VDIF, vdif, ("vdif", "copy_split", "fac_dft", "fft_pow2")),
         (SDIF, sdif, ("sdif_peel", "copy_split", "outer_dft_split"))))
+
+
+def phase_lane_slice_kernels(rec: KernelRecord, dev) -> None:
+    """K14e and K14f against their plain versions on the card (phase 19):
+    at the probe's 16384 x 1024 and at the ragged 1001 x 1024 and 1001 x 512
+    (not a multiple of a tile's 16 rows; n1 4 at 512), probes.r3's and
+    probes.r4's check_numerics with their launches counted (ls_network and
+    ls_full >= 120 dB against float64, gmm_tf32 >= 120 dB against its
+    TF32-rounded float64 plain version, every ls_full setting of
+    probes.r3.FULL_SETTINGS torch.equal to the default launch; lane_flip
+    exact on the TPU probe's (8, 128) input and on the plane as rows of
+    128); gmm_tf32 exact on identity and cyclic-shift tables; fft_pow2_rows
+    >= 120 dB against K1's float64 plain version and torch.equal to K1 at
+    1 .. 16 rows a block there and at every setting of the sweep's shapes
+    (probes.r3.SWEEP); then each timed at 16384 x 1024 beside its plain
+    version, bound and the library yardstick of probes.r3.ops (torch.fft.fft
+    for fft_pow2_rows, timed at 16 rows a block, the widest setting the
+    sweep gives n = 1024; torch.flip for lane_flip)."""
+    from godsp_tpu_torch.ops import cuda_fft
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.ops import launch_counts
+    from godsp_tpu_torch.probes import r3, r4
+    from godsp_tpu_torch.probes._common import TF32_FLOPS, lane_planes
+    from godsp_tpu_torch.probes._common import planes_equal as equal
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    def fft_rows(xr, xi, shape, rpbs):
+        want = cplx(cuda_fft.fft_pow2_plain(xr.double(), xi.double()))
+        k1 = cuda_fft.fft_pow2(xr, xi)
+        for r in rpbs:
+            held = {}
+
+            def run(r=r):
+                held["y"] = once("fft_pow2_rows", lambda: cp.fft_pow2_rows(xr, xi, r))
+                return cplx(held["y"])
+
+            rec.check("fft_pow2_rows", run, want, f"{shape}, {r} rows a block")
+            if not equal(held["y"], k1):
+                raise AssertionError(f"fft_pow2_rows {shape}, {r} rows a block: differs from K1")
+        log(f"  {'fft_pow2_rows':22s} {shape:34s} rows a block {rpbs}: torch.equal to K1")
+
+    checked = {"ls_network": 1, "gmm_tf32": 1, "ls_full": len(r3.FULL_SETTINGS), "lane_flip": 2,
+               "rfft_pow2": 1}
+    eye = torch.eye(128, device=dev)
+    for b, n in ((r3.B, r3.N), (1001, 1024), (1001, 512)):
+        xr, xi = lane_planes(dev, b, n, seed=19)
+        shape = f"{b} x {n}"
+        before = launch_counts()
+        res = [r3.check_numerics(xr, xi), r4.check_numerics(xr)]  # raise where a twin falls short
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if got != checked:
+            raise AssertionError(f"r3/r4.check_numerics {shape}: launches {got}, not {checked}")
+        for r in res:
+            for name, err in r.pop("max_abs_err").items():
+                rec.err[name] = max(rec.err.get(name, 0.0), err)
+        log(f"  r3.check_numerics {shape:22s} {res[0]}")
+        log(f"  r4.check_numerics {shape:22s} {res[1]}, launches {got}")
+        rt = cp.round_tf32
+        for roll, what in ((0, "identity"), (1, "cyclic shift")):
+            table = torch.roll(eye, roll, dims=1).expand(n // 128, 3, 128, 128).contiguous()
+            a, c, s_ = (torch.roll(rt(v).view(b, -1, 128), roll, dims=2).reshape(b, n)
+                        for v in (xr, xi, xr + xi))
+            if not equal(cp.gmm_tf32(xr, xi, table), (a - c, s_ - a - c)):
+                raise AssertionError(f"gmm_tf32 {shape}: the {what} table is not exact")
+        log(f"  {'gmm_tf32':22s} {shape:34s} identity and cyclic-shift tables: torch.equal")
+        fft_rows(xr, xi, shape, (1, 2, 4, 8, 16))
+        if (b, n) != (r3.B, r3.N):
+            continue
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("lane-slice yardstick: TF32 is on")
+        lib = {name: pair[1] for name, pair in r3.ops(xr, xi).items()}
+        v = xr.view(-1, 128)
+        pts = float(b * n)
+        tc = FP32_FLOPS / TF32_FLOPS  # gmm_tf32's products run on the tensor cores
+        # ls_full and K1 compute the row's DFT: 5 log2 n operations a point
+        # (ls_full's method does 768 + 15).
+        for name, kernel, plain, library, nbytes, flops in (
+                ("ls_network", lambda: cp.ls_network(xr, xi), lambda: cp.ls_network_plain(xr, xi),
+                 lib["network"], 16.0 * pts, r3.OPS_PER_POINT["network"] * pts),
+                ("gmm_tf32", lambda: cp.gmm_tf32(xr, xi),
+                 lambda: cp.gmm_tf32_plain(xr, xi, tf32=True), lib["gmm_default"], 16.0 * pts,
+                 768.0 * pts * tc),
+                ("ls_full", lambda: cp.ls_full(xr, xi), lambda: cp.ls_full_plain(xr, xi),
+                 lib["full"], 16.0 * pts, r3.OPS_PER_POINT["full"] * pts),
+                ("fft_pow2_rows", lambda: cp.fft_pow2_rows(xr, xi, 16),
+                 lambda: cuda_fft.fft_pow2_plain(xr, xi), lib["fft1024"], 16.0 * pts,
+                 r3.OPS_PER_POINT["fft1024"] * pts),
+                ("lane_flip", lambda: cp.lane_flip(v), lambda: cp.lane_flip_plain(v),
+                 lambda: torch.flip(v, (-1,)).mul_(2.0), 8.0 * pts, pts)):
+            rec.time(name, shape, kernel, plain, library, nbytes, flops)
+        del xr, xi, lib, v
+    for (b, n), rpbs in r3.SWEEP.items():
+        if (b, n) != (r3.B, r3.N):  # that shape's settings ran above
+            xr, xi = lane_planes(dev, b, n, seed=19)
+            fft_rows(xr, xi, f"{b} x {n}", rpbs)
+            del xr, xi
+
+
+def phase_lane_slice_probes(dev) -> dict[str, dict[str, int]]:
+    """probes.r4 and probes.r3 at their full shapes as two counted sessions
+    (phase 20)."""
+    from godsp_tpu_torch.probes import r3, r4
+
+    return probe_sessions(dev, (
+        (R4, r4, ("lane_flip", "rfft_pow2", "copy_split", "fft_pow2_rows", "fft_pow2")),
+        (R3, r3, LANE_SLICE_TWINS + ("copy_split", "slicestore", "gmm_floor", "fft_pow2",
+                                     "fft_pow2_rows"))))
 
 
 def main() -> int:
@@ -2571,6 +2710,10 @@ def main() -> int:
     phase_dif_kernels(rec, dev)
     dif_steps = phase_dif_probes(dev)
     log(f"phases 17-18 (K14h, K14i): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_lane_slice_kernels(rec, dev)
+    lane_slice_steps = phase_lane_slice_probes(dev)
+    log(f"phases 19-20 (K14e, K14f): {time.perf_counter() - t0:.1f} s")
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
@@ -2585,6 +2728,7 @@ def main() -> int:
     steps.update(lane_steps)
     steps.update(anatomy_steps)
     steps.update(dif_steps)
+    steps.update(lane_slice_steps)
 
     kernels = []
     for name in REPLACES:

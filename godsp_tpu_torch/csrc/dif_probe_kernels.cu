@@ -7,10 +7,10 @@
 //
 // vdif_kernel<N1> replaces tools/probe_vdif.py:116 (vdif_op over
 // _vdif_kernel :82): per row of n = N1 x 128 points (N1 in 1, 2, 4, 8), the
-// N1-point DFT across the row's slices (pallas_fft._dft_slices: radix-2
-// DIT, bit-reversed slice order in), the twiddle T[k1, p] = W_n^{k1 p} x
-// scale, then a 128-point radix-2 DIF along each slice
-// (_lane_dft.lane_dif_128).  Position k1 128 + p of the output holds bin
+// N1-point DFT across the row's slices (slice_network.cuh, after
+// pallas_fft._dft_slices: radix-2 DIT, bit-reversed slice order in), the
+// twiddle T[k1, p] = W_n^{k1 p} x scale, then a 128-point radix-2 DIF
+// along each slice (_lane_dft.lane_dif_128).  Position k1 128 + p of the output holds bin
 // k1 + N1 brev7(p): the vdif digit order.  Design: one warp owns a row;
 // lane l holds points p = l + 32 q, q = 0..3, of all N1 slices (4 N1 complex
 // values, 64 registers at N1 = 8), loaded and stored 32 consecutive floats
@@ -47,6 +47,7 @@
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "slice_network.cuh"
 
 namespace {
 
@@ -59,52 +60,15 @@ constexpr int kCols = 32;                    // columns of an sdif tile
 constexpr int kSdifThreads = 256;
 constexpr int kColStep = kSdifThreads / kCols;  // rows a thread steps over
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
-}
-
-__host__ __device__ constexpr int rev_bits(int v, int bits) {
-  return bits == 0 ? 0 : ((v & 1) << (bits - 1)) | rev_bits(v >> 1, bits - 1);
-}
-
-__host__ __device__ constexpr int log2_small(int n) { return n <= 1 ? 0 : 1 + log2_small(n / 2); }
-
-// W_8^e, e < 4: the slice DFT's twiddles (W_m^j = W_8^{8 j / m}), exact
-// where the value is.
-__device__ __forceinline__ float2 w8(int e) {
-  constexpr float r = 0.70710678118654752440f;
-  return e == 0 ? make_float2(1.f, 0.f)
-       : e == 1 ? make_float2(r, -r)
-       : e == 2 ? make_float2(0.f, -1.f)
-                : make_float2(-r, -r);
-}
+using gdsp::cadd;
+using gdsp::cmul;
+using gdsp::csub;
+using gdsp::log2_small;
+using gdsp::rev_bits;
 
 // ---------------------------------------------------------------------------
 // K14h: vdif
 // ---------------------------------------------------------------------------
-
-// One radix-2 DIT stage of block size M over the N1 slices a lane holds,
-// every index a constant, so that z stays in registers.
-template <int N1, int M>
-__device__ __forceinline__ void dit_stage(float2 (&z)[N1][kQ]) {
-  constexpr int half = M / 2;
-#pragma unroll
-  for (int s = 0; s < N1; s += M) {
-#pragma unroll
-    for (int j = 0; j < half; ++j) {
-      const float2 w = w8(j * (8 / M));
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const float2 u = z[s + j][q];
-        const float2 v = j == 0 ? z[s + j + half][q] : cmul(z[s + j + half][q], w);
-        z[s + j][q] = cadd(u, v);
-        z[s + j + half][q] = csub(u, v);
-      }
-    }
-  }
-}
 
 // tab: T (N1 x 128 float2, scale folded in), then the seven lane stages'
 // W_{2w}^j, j < w, stage w at 128 - 2 w (127 float2).
@@ -132,9 +96,7 @@ vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* _
   }
 
   // The N1-point DFT across slices: radix-2 DIT in place, natural k1 out.
-  if constexpr (N1 >= 2) dit_stage<N1, 2>(z);
-  if constexpr (N1 >= 4) dit_stage<N1, 4>(z);
-  if constexpr (N1 >= 8) dit_stage<N1, 8>(z);
+  gdsp::slice_dft(z);
 
   // T, then the 128-point DIF of each slice.
 #pragma unroll

@@ -65,6 +65,28 @@ inline int rows_per_block(int n) { return n >= kPointsPerBlock ? 1 : kPointsPerB
 
 extern "C" {
 
+// The transform of gdsp_fft_pow2 with rows_per_block rows a block instead
+// of rows_per_block(n): the twin of the TPU probes' batch-tile sweeps
+// (tools/probe_r3.py bt4096/bt8192/ls16384, tools/probe_r4.py's 8192
+// stage).  Each row's arithmetic is the same, so every setting gives K1's
+// result.  Returns cudaErrorInvalidValue where rows_per_block is below 1 or
+// its rows pass the 227 KB of shared memory a block may use.
+int gdsp_fft_pow2_rows(const float* xr, const float* xi, float* yr, float* yi, const float2* tw,
+                       int log2n, int out_n, long long rows, float scale, int rows_per_block,
+                       void* stream) {
+  const int n = 1 << log2n;
+  const size_t smem = static_cast<size_t>(rows_per_block) * n * sizeof(float2);
+  if (rows_per_block < 1 || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = gdsp::allow_smem(fft_pow2_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
+  const int threads = gdsp::block_threads(static_cast<long long>(rows_per_block) * (n >> 1));
+  fft_pow2_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tw, log2n, out_n, rows,
+                                                         rows_per_block, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // y = scale * DFT(x) over rows of n = 2^log2n points, bins 0..out_n-1 of
 // each row stored (out_n = n, or n/2 + 1 for the one-sided transform);
 // xi may be null (real input).  tw is the forward table for a forward
@@ -72,17 +94,8 @@ extern "C" {
 // cudaGetLastError().
 int gdsp_fft_pow2(const float* xr, const float* xi, float* yr, float* yi, const float2* tw,
                   int log2n, int out_n, long long rows, float scale, void* stream) {
-  const int n = 1 << log2n;
-  const int rpb = rows_per_block(n);
-  const size_t smem = static_cast<size_t>(rpb) * n * sizeof(float2);
-  cudaError_t e = gdsp::allow_smem(fft_pow2_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (rows + rpb - 1) / rpb;
-  const int threads = gdsp::block_threads(static_cast<long long>(rpb) * (n >> 1));
-  fft_pow2_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tw, log2n, out_n,
-                                                         rows, rpb, scale);
-  return static_cast<int>(cudaGetLastError());
+  return gdsp_fft_pow2_rows(xr, xi, yr, yi, tw, log2n, out_n, rows, scale,
+                            rows_per_block(1 << log2n), stream);
 }
 
 }  // extern "C"

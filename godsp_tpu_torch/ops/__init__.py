@@ -26,7 +26,14 @@
                  probes.anatomy2; K14h vdif (the slice network, the
                  twiddle and a warp-shuffle 128-point DIF) and K14i
                  sdif_peel (seven shared-memory radix-2 row stages of the
-                 128-point peel), driven by probes.vdif and probes.sdif
+                 128-point peel), driven by probes.vdif and probes.sdif;
+                 K14e lane_flip (a warp-shuffle lane reversal) and K14f
+                 ls_network, gmm_tf32, ls_full (the TPU's lane-slice K1
+                 taken apart: the slice network, K13's contraction in one
+                 TF32 pass, and network + contraction in one kernel with
+                 its store, chunk and rows-a-block settings) with
+                 fft_pow2_rows (K1 at a given rows a block), driven by
+                 probes.r4 and probes.r3
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -63,8 +70,13 @@ from godsp_tpu_torch.ops.cuda_probes import (
     bd_tf32,
     concatstore,
     fac_dft,
+    fft_pow2_rows,
     gmm_concat,
+    gmm_tf32,
     half3,
+    lane_flip,
+    ls_full,
+    ls_network,
     pwfloor_frameonly,
     pwfloor_loadonly,
     pwfloor_noframe,
@@ -102,14 +114,19 @@ __all__ = [
     "cuda_stft",
     "fac_dft",
     "fft_pow2",
+    "fft_pow2_rows",
     "fused_supported",
     "gmm_concat",
     "gmm_floor",
+    "gmm_tf32",
     "half3",
     "ifft_pow2",
     "istft_overlap_add",
     "istft_supported",
+    "lane_flip",
     "launch_counts",
+    "ls_full",
+    "ls_network",
     "outer_dft_split",
     "outer_supported",
     "peel_rows_fused_split",

@@ -116,6 +116,16 @@ def _declare(lib) -> None:
     lib.gdsp_vdif.restype = i
     lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
     lib.gdsp_sdif_peel.restype = i
+    lib.gdsp_fft_pow2_rows.argtypes = [p, p, p, p, p, i, i, i64, f, i, p]
+    lib.gdsp_fft_pow2_rows.restype = i
+    lib.gdsp_ls_network.argtypes = [p, p, p, p, i64, i, p]
+    lib.gdsp_ls_network.restype = i
+    lib.gdsp_gmm_tf32.argtypes = [p, p, p, p, p, i64, i, i, p]
+    lib.gdsp_gmm_tf32.restype = i
+    lib.gdsp_ls_full.argtypes = [p, p, p, p, p, i64, i, i, i, i, p]
+    lib.gdsp_ls_full.restype = i
+    lib.gdsp_lane_flip.argtypes = [p, p, i64, p]
+    lib.gdsp_lane_flip.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -1,4 +1,4 @@
-"""K14a-c: the Hopper probes, each beside its plain version.
+"""K14a-f, K14h and K14i: the Hopper probes, each beside its plain version.
 
 K14a: the fused-Welch floor twins.
 
@@ -109,6 +109,36 @@ table (cuda_outer._factor_tables).  The TPU's roll-and-select lane
 stages and its hi x lo lane-grid layout of Tb were Mosaic workarounds and
 are not ported.
 
+K14e and K14f: the twins of tools/probe_r4.py's lane flip and of
+tools/probe_r3.py's run_variant bodies, which take the TPU's lane-slice K1
+(pallas_fft._fft_kernel_ls) apart, in csrc/lane_slice_probe_kernels.cu,
+whose header says what bounds them on the H100.  The lane-slice twins take
+two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
+
+  lane_flip(x)         replaces tools/probe_r4.py:67 (kf): y[..., 127 - c]
+      = 2 x[..., c] over a last axis of 128 points, by warp shuffles,
+      exactly; plain version lane_flip_plain;
+  ls_network(xr, xi)   replaces tools/probe_r3.py:157 k_step1_only: the
+      n1-point DFT across a row's slices (slice k1 out at columns
+      128 k1 ..); plain version ls_network_plain;
+  gmm_tf32(xr, xi)     replaces k_gmm_default: K13's Karatsuba contraction
+      with each product in one TF32 pass on the tensor cores (or with any
+      (n1, 3, 128, 128) tables g); plain version gmm_tf32_plain, which with
+      tf32=True rounds a, b, a + b and the tables as cvt.rna.tf32.f32 does;
+  ls_full(xr, xi, store, chunks, rows_per_block)  replaces k_full,
+      k_full_concat, make_subtiled(2/4/8) and k_full at bt 512 / 1024: the
+      n-point DFT of every row, the network then K13's contraction with
+      unscaled G (ls_tables) in one kernel, position 128 k1 + k2 holding bin
+      k1 + n1 k2 (ls_digit_order); every setting gives the same result;
+      plain version ls_full_plain;
+  fft_pow2_rows(xr, xi, rows_per_block)  K1 (csrc/fft_kernels.cu) at a
+      given rows a block, the TPU probes' batch-tile sweep; equal to
+      cuda_fft.fft_pow2; raises where the rows pass one block's 227 KB.
+
+gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
+measures the TPU's one-pass DEFAULT matmul of the dense step and changes
+no TF32 flag.
+
 A wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -124,12 +154,19 @@ import torch
 
 from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix, twiddle_2d
 from godsp_tpu_torch.ops import _build
-from godsp_tpu_torch.ops.cuda_fft import rfft_pow2_plain, twiddle_table
+from godsp_tpu_torch.ops.cuda_fft import (
+    MAX_N,
+    fft_pow2_plain,
+    rfft_pow2_plain,
+    supported_size,
+    twiddle_table,
+)
 from godsp_tpu_torch.ops.cuda_metrics import (
     LANES,
     _cuda_planes,
     copy_split_plain,
     gmm_floor_plain,
+    gmm_groups,
     gmm_tables,
 )
 from godsp_tpu_torch.ops.cuda_metrics import _check as _check_planes
@@ -141,6 +178,10 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 )
 
 __all__ = [
+    "LS_CHUNKS",
+    "LS_N1",
+    "LS_STORES",
+    "LS_TILE",
     "add_one_plain",
     "anat_full",
     "anat_full_plain",
@@ -153,11 +194,23 @@ __all__ = [
     "fac_dft",
     "fac_dft_plain",
     "fac_tables",
+    "fft_pow2_rows",
+    "fft_rows_fit",
     "gmm_concat",
+    "gmm_tf32",
+    "gmm_tf32_plain",
     "half3",
     "half3_plain",
     "hi_tables",
+    "lane_flip",
+    "lane_flip_plain",
     "launches",
+    "ls_digit_order",
+    "ls_full",
+    "ls_full_plain",
+    "ls_network",
+    "ls_network_plain",
+    "ls_tables",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
     "pwfloor_loadonly",
@@ -185,7 +238,8 @@ __all__ = [
 launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "pwfloor_staged": 0, "fac_dft": 0, "slicestore": 0, "concatstore": 0,
             "gmm_concat": 0, "half3": 0, "slice8_add": 0, "reshape_add": 0, "bd_tf32": 0,
-            "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0}
+            "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0, "ls_network": 0,
+            "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0}
 
 _SMEM_BYTES = 232448  # shared memory a block may use on the H100 (227 KB)
 
@@ -816,4 +870,186 @@ def sdif_peel(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.T
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             _sdif_cols_packed(dev).data_ptr(), hi.data_ptr(), lo.data_ptr(), m,
             xr.numel() // (PEEL_ROWS * m), lo_bits)
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# K14e and K14f: the lane flip and the lane-slice K1 taken apart
+# ---------------------------------------------------------------------------
+
+LS_N1 = (1, 2, 4, 8)  # slices of a row the lane-slice twins take: n = n1 x 128
+LS_TILE = 16  # rows of an ls_full tile
+LS_CHUNKS = (1, 2, 4, 8)  # ls_full's chunks of a tile (make_subtiled's n_sub)
+LS_STORES = ("slices", "rows")  # ls_full's stores: k_full's and k_full_concat's
+
+
+def _check_ls(xr: torch.Tensor, xi: torch.Tensor, name: str) -> tuple[int, int]:
+    b, n = _check_planes(xr, xi, name)
+    if n % LANES or n // LANES not in LS_N1:
+        raise ValueError(f"{name}: n must be n1 x {LANES} with n1 in {LS_N1}, got {n}")
+    return b, n
+
+
+def ls_digit_order(f: torch.Tensor, n1: int) -> torch.Tensor:
+    """A natural spectrum (..., n) in the lane-slice digit order: position
+    128 k1 + k2 holds bin k1 + n1 k2 (pallas_fft._digit_to_natural's
+    inverse)."""
+    return f.reshape(*f.shape[:-1], LANES, n1).transpose(-1, -2).reshape(f.shape)
+
+
+@lru_cache(maxsize=None)
+def ls_tables(n: int, device: torch.device) -> torch.Tensor:
+    """ls_full's G tables: K13's (gmm_tables) times 128, exactly
+    pallas_fft._ls_tables(n, False, False)'s gr, gi, gs rounded once from
+    float64 (a power-of-2 scale commutes with the rounding)."""
+    return gmm_tables(n, device) * float(LANES)
+
+
+def ls_network_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ls_network in the input's dtype: slice k1 of
+    the output is sum_j x[128 j + p] W_n1^{j k1}, the n1-point DFT across
+    the slices (dft_matrix, float64-built)."""
+    b, n = _check_ls(xr, xi, "ls_network")
+    n1, cdt = n // LANES, _cdtype(xr)
+    f = torch.from_numpy(dft_matrix(n1)).to(xr.device, cdt)
+    x = torch.complex(xr, xi).to(cdt).reshape(b, n1, LANES)
+    with _tf32_off() if x.is_cuda else nullcontext():
+        z = torch.einsum("kj,bjp->bkp", f, x).reshape(b, n)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def gmm_tf32_plain(xr: torch.Tensor, xi: torch.Tensor, tf32: bool = False,
+                   g: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K13's Karatsuba contraction of every slice with the (n1, 3, 128, 128)
+    tables g (default K13's, gmm_tables): m1 = a G_r, m2 = b G_i,
+    m3 = (a + b) G_s, yr = m1 - m2, yi = m3 - m1 - m2, summed in the input's
+    dtype; tf32 rounds a, b, a + b (added in float32) and the tables first,
+    as the kernel's cvt.rna.tf32.f32 does (round_tf32)."""
+    b, n = _check_lane_planes(xr, xi, "gmm_tf32")
+    g = gmm_tables(n, xr.device) if g is None else g.to(xr.device)
+    a, c = (_slices(v).transpose(0, 1) for v in (xr, xi))
+    s = a + c
+    gr, gi, gs = (g[:, p].to(xr.dtype) for p in range(3))
+    if tf32:
+        a, c, s, gr, gi, gs = (round_tf32(v) for v in (a, c, s, gr, gi, gs))
+    with _tf32_off() if xr.is_cuda else nullcontext():
+        m1, m2, m3 = a @ gr, c @ gi, s @ gs
+    return ((m1 - m2).transpose(0, 1).reshape(b, n),
+            (m3 - m1 - m2).transpose(0, 1).reshape(b, n))
+
+
+def ls_full_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ls_full in the input's dtype: ls_network, then
+    K13's twiddled 128-point DFT of each slice times 128: the n-point DFT of
+    every row in the lane-slice digit order (ls_digit_order)."""
+    _check_ls(xr, xi, "ls_full")
+    yr, yi = gmm_floor_plain(*ls_network_plain(xr, xi))
+    return yr * float(LANES), yi * float(LANES)
+
+
+def lane_flip_plain(x: torch.Tensor) -> torch.Tensor:
+    """2 x with its last axis (128 points) reversed, in x's dtype."""
+    return torch.flip(x, (-1,)) * 2.0
+
+
+def fft_rows_fit(n: int, rows_per_block: int) -> bool:
+    """Whether rows_per_block rows of n complex float32 values fit in the
+    shared memory of one block (227 KB)."""
+    return rows_per_block >= 1 and rows_per_block * n * 8 <= _SMEM_BYTES
+
+
+def ls_network(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14f network: the n1-point DFT across the slices of every row of two
+    float32 planes (b, n), n = n1 x 128, n1 in 1, 2, 4, 8; slice k1 out at
+    columns [128 k1, 128 k1 + 128)."""
+    _check_ls(xr, xi, "ls_network")
+    if not xr.is_cuda:
+        return ls_network_plain(xr, xi)
+    return _lane_launch("ls_network", _build.library().gdsp_ls_network, xr, xi)
+
+
+def gmm_tf32(xr: torch.Tensor, xi: torch.Tensor,
+             g: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14f gmm_default: K13's contraction (or with the (n1, 3, 128, 128)
+    float32 tables g) with each Karatsuba product in one TF32 pass on the
+    tensor cores; no TF32 flag is touched."""
+    b, n = _check_lane_planes(xr, xi, "gmm_tf32")
+    if g is not None and tuple(g.shape) != (n // LANES, 3, LANES, LANES):
+        raise ValueError(f"gmm_tf32: g must be ({n // LANES}, 3, {LANES}, {LANES}), "
+                         f"got {tuple(g.shape)}")
+    if not xr.is_cuda:
+        return gmm_tf32_plain(xr, xi, tf32=True, g=g)
+    g = gmm_tables(n, xr.device) if g is None else _cuda_args("gmm_tf32", xr, g)[1]
+    xr, xi = _cuda_planes(xr, xi, "gmm_tf32")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("gmm_tf32", _build.library().gdsp_gmm_tf32, yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), g.data_ptr(), b, n, gmm_groups(b, n))
+    return yr, yi
+
+
+def ls_full(xr: torch.Tensor, xi: torch.Tensor, store: str = "slices", chunks: int = 1,
+            rows_per_block: int = LS_TILE) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14f full: the n-point DFT (n = n1 x 128, n1 in 1, 2, 4, 8) of every
+    row of two float32 planes, the TPU's lane-slice K1 (slice network, then
+    K13's contraction with unscaled G), in the lane-slice digit order.
+    store "slices" stores each slice as its contraction ends (k_full),
+    "rows" whole rows after a tile (k_full_concat); chunks 1, 2, 4, 8 runs
+    network and contraction on 16 / chunks rows of a tile at a time
+    (make_subtiled); rows_per_block 16, 32, 64 rows a block are the TPU's
+    bt 256, 512, 1024 (x1, x2, x4).  Every setting gives the same result."""
+    b, n = _check_ls(xr, xi, "ls_full")
+    if store not in LS_STORES:
+        raise ValueError(f"ls_full: store must be one of {LS_STORES}, got {store!r}")
+    if chunks not in LS_CHUNKS:
+        raise ValueError(f"ls_full: chunks must be one of {LS_CHUNKS}, got {chunks}")
+    if rows_per_block < LS_TILE or rows_per_block % LS_TILE:
+        raise ValueError(f"ls_full: rows_per_block must be a positive multiple of {LS_TILE}, "
+                         f"got {rows_per_block}")
+    if not xr.is_cuda:
+        return ls_full_plain(xr, xi)
+    xr, xi = _cuda_planes(xr, xi, "ls_full")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("ls_full", _build.library().gdsp_ls_full, yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), ls_tables(n, xr.device).data_ptr(), b, n,
+            rows_per_block, LS_TILE // chunks, int(store == "rows"))
+    return yr, yi
+
+
+def lane_flip(x: torch.Tensor) -> torch.Tensor:
+    """K14e: y[..., 127 - c] = 2 x[..., c] over a float32 tensor whose last
+    axis holds 128 points, by warp shuffles; exact."""
+    if x.dim() < 1 or x.shape[-1] != LANES:
+        raise ValueError(f"lane_flip: the last axis must hold {LANES} points, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_cuda:
+        return lane_flip_plain(x)
+    x = _cuda_args("lane_flip", x)[0]
+    if x.data_ptr() % 16:
+        x = x.clone()
+    y = torch.empty_like(x)
+    return _launch("lane_flip", _build.library().gdsp_lane_flip, y, x.data_ptr(), y.data_ptr(),
+                   x.numel() // LANES)
+
+
+def fft_pow2_rows(xr: torch.Tensor, xi: torch.Tensor,
+                  rows_per_block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 (cuda_fft.fft_pow2's forward DFT of split float32 planes (..., n),
+    natural order) launched with rows_per_block rows a block, the probes'
+    batch-tile sweep; raises where those rows pass one block's shared
+    memory.  Every setting gives fft_pow2's result."""
+    n = xr.shape[-1]
+    if xi.shape != xr.shape or not supported_size(n):
+        raise ValueError(f"fft_pow2_rows: two (..., n) planes of one shape, n a power of 2 "
+                         f"up to {MAX_N}, got {tuple(xr.shape)} and {tuple(xi.shape)}")
+    if not fft_rows_fit(n, rows_per_block):
+        raise ValueError(f"fft_pow2_rows: {rows_per_block} rows of {n} points a block do not "
+                         f"fit in {_SMEM_BYTES} bytes of shared memory")
+    if not xr.is_cuda:
+        return fft_pow2_plain(xr, xi)
+    xr, xi = _cuda_args("fft_pow2_rows", xr, xi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("fft_pow2_rows", _build.library().gdsp_fft_pow2_rows, yr, xr.data_ptr(),
+            xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            twiddle_table(n, False, xr.device).data_ptr(), n.bit_length() - 1, n,
+            xr.numel() // n, 1.0, rows_per_block)
     return yr, yi

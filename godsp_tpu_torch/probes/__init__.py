@@ -15,4 +15,12 @@
   sdif    — the 128-point peel of 2^24 as seven radix-2 row stages in
             shared memory (K14i) beside K12 and K8:
             python3 -m godsp_tpu_torch.probes.sdif
+  r3      — the TPU's lane-slice K1 taken apart (K14f: the slice network,
+            K13's contraction in one TF32 pass, network + contraction in
+            one kernel with its store, chunk and rows-a-block settings)
+            beside K12, K14c, K13 and K1, then K1's rows-a-block sweep:
+            python3 -m godsp_tpu_torch.probes.r3
+  r4      — the lane flip by warp shuffles (K14e) and K3 beside K12, then
+            K1 at 2048 x 8192 and 1024 x 16384:
+            python3 -m godsp_tpu_torch.probes.r4
 """

@@ -4,19 +4,21 @@ timing loop and entry point."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
-from contextlib import nullcontext
 
+import numpy as np
 import torch
 
+from godsp_tpu_torch.dsputils import snr_db
 from godsp_tpu_torch.fft.four_step import _tf32_off
 from godsp_tpu_torch.ops import cuda_metrics
 from godsp_tpu_torch.utils.metrics import bound_ms, time_chain_diff
 
 __all__ = ["TF32_FLOPS", "card", "chained", "complex_matmul", "lane_main", "lane_planes",
-           "time_lane_rows"]
+           "planes_db", "planes_equal", "tf32_matmul_on", "time_lane_rows"]
 
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet)
 
@@ -50,6 +52,20 @@ def lane_planes(device, b: int, n: int, seed: int = 0) -> tuple[torch.Tensor, to
             torch.randn(b, n, generator=g, device=device) * 0.01)
 
 
+def planes_db(got, want, errs: dict, name: str) -> float:
+    """The dB of got against want, each a pair of (real, imaginary)
+    planes; their largest absolute difference kept in errs[name]."""
+    g = (got[0].double() + 1j * got[1].double()).cpu().numpy()
+    w = (want[0].double() + 1j * want[1].double()).cpu().numpy()
+    errs[name] = max(errs.get(name, 0.0), float(np.abs(g - w).max(initial=0.0)))
+    return float(snr_db(g, w))
+
+
+def planes_equal(got, want) -> bool:
+    """Whether two pairs of planes are equal, element for element."""
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def complex_matmul(xr: torch.Tensor, xi: torch.Tensor):
     """K13's library yardstick: one torch.matmul of the complex64 slices
     (n1, b, 128) with the complex64 G tables (n1, 128, 128), inputs built
@@ -61,22 +77,37 @@ def complex_matmul(xr: torch.Tensor, xi: torch.Tensor):
     return lambda: torch.matmul(z, G)
 
 
+@contextlib.contextmanager
+def tf32_matmul_on():
+    """TF32 on for cuBLAS inside the block only, the flag restored after: a
+    TF32 twin's library yardstick."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit,
-                   tf32_per_point: dict | None = None) -> dict:
+                   tf32_per_point: dict | None = None,
+                   bytes_per_point: dict | None = None) -> dict:
     """Each row of ops ({name: (op, library op or None)}, the copy first)
-    timed with time_chain_diff beside its bound (16 B and
-    ops_per_point[name] float32 operations a point of the planes, any shape;
-    where tf32_per_point names the row, also its TF32 operations over
-    TF32_FLOPS, kept as "tf32_ms", and the bound is the larger) and its
-    library call, TF32 off on the card; returns {name: {"ms", "bound_ms",
-    "bound_by", "library_ms", "of_copy"}} and emits one line a row."""
+    timed with time_chain_diff beside its bound (bytes_per_point[name],
+    default 16 B, and ops_per_point[name] float32 operations a point of the
+    planes, any shape; where tf32_per_point names the row, also its TF32
+    operations over TF32_FLOPS, kept as "tf32_ms", and the bound is the
+    larger) and its library call, TF32 off on the card; returns {name:
+    {"ms", "bound_ms", "bound_by", "library_ms", "of_copy"}} and emits one
+    line a row."""
     pts = xr.numel()
     shape = " x ".join(map(str, xr.shape))
     tf32_per_point = tf32_per_point or {}
+    bytes_per_point = bytes_per_point or {}
     out = {}
-    with _tf32_off() if xr.is_cuda else nullcontext():
+    with _tf32_off() if xr.is_cuda else contextlib.nullcontext():
         for name, (op, lib) in ops.items():
-            bnd, by = bound_ms(16.0 * pts, ops_per_point[name] * pts)
+            bnd, by = bound_ms(bytes_per_point.get(name, 16.0) * pts, ops_per_point[name] * pts)
             r = dict(ms=time_chain_diff(chained(op), xr) * 1e3, bound_ms=bnd, bound_by=by,
                      library_ms=None if lib is None else time_chain_diff(chained(lib), xr) * 1e3)
             if name in tf32_per_point:

@@ -48,17 +48,21 @@ at a cut size, for tests; a CPU time is not a device number.
 
 from __future__ import annotations
 
-import contextlib
 import sys
 
-import numpy as np
 import torch
 
 from godsp_tpu_torch._dtypes import resolve_device
-from godsp_tpu_torch.dsputils import snr_db
 from godsp_tpu_torch.fft.four_step import dft_matrix
 from godsp_tpu_torch.ops import cuda_fft, cuda_metrics, cuda_probes
-from godsp_tpu_torch.probes._common import lane_main, lane_planes, time_lane_rows
+from godsp_tpu_torch.probes._common import (
+    lane_main,
+    lane_planes,
+    planes_db,
+    planes_equal,
+    tf32_matmul_on,
+    time_lane_rows,
+)
 
 __all__ = ["B", "N", "OPS_PER_POINT", "ROWS", "SNR_DB", "TF32_PER_POINT", "check_numerics",
            "main", "ops", "run", "tw_row"]
@@ -78,18 +82,6 @@ def tw_row(device, n: int = N) -> torch.Tensor:
     return torch.randn(n, generator=g, device=device)
 
 
-def _db(got, want, errs: dict, name: str) -> float:
-    """got's dB against want; its largest absolute error kept in errs[name]."""
-    g = (got[0].double() + 1j * got[1].double()).cpu().numpy()
-    w = (want[0].double() + 1j * want[1].double()).cpu().numpy()
-    errs[name] = max(errs.get(name, 0.0), float(np.abs(g - w).max(initial=0.0)))
-    return float(snr_db(g, w))
-
-
-def _equal(got, want) -> bool:
-    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
 def check_numerics(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor) -> dict:
     """Each twin against its plain version (see the module's docstring),
     one call of each wrapper; raises on the card where one falls short.
@@ -98,19 +90,20 @@ def check_numerics(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor) -> dict
     cp = cuda_probes
     x64 = (xr.double(), xi.double())
     errs: dict[str, float] = {}
-    out = {"half3_equal": _equal(cp.half3(xr, xi), cp.half3_plain(xr, xi)),
-           "slice8_equal": _equal(cp.slice8_add(xr, xi), cp.add_one_plain(xr, xi)),
-           "reshape_equal": _equal(cp.reshape_add(xr, xi), cp.add_one_plain(xr, xi))}
+    out = {"half3_equal": planes_equal(cp.half3(xr, xi), cp.half3_plain(xr, xi)),
+           "slice8_equal": planes_equal(cp.slice8_add(xr, xi), cp.add_one_plain(xr, xi)),
+           "reshape_equal": planes_equal(cp.reshape_add(xr, xi), cp.add_one_plain(xr, xi))}
     for name, key in (("half3", "half3_equal"), ("slice8_add", "slice8_equal"),
                       ("reshape_add", "reshape_equal")):
         errs[name] = 0.0 if out[key] else float("inf")
     bd1 = cp.bd_tf32(xr, xi)
-    out["bd1_vs_tf32_plain_db"] = _db(bd1, cp.bd_tf32_plain(*x64, tf32=True), errs, "bd_tf32")
-    out["bd1_vs_exact_db"] = _db(bd1, cp.bd_tf32_plain(*x64), {}, "exact")
+    out["bd1_vs_tf32_plain_db"] = planes_db(bd1, cp.bd_tf32_plain(*x64, tf32=True), errs,
+                                            "bd_tf32")
+    out["bd1_vs_exact_db"] = planes_db(bd1, cp.bd_tf32_plain(*x64), {}, "exact")
     del bd1
-    out["bd_hi_vs_float64_db"] = _db(cp.bd_hi(xr, xi), cp.bd_hi_plain(*x64), errs, "bd_hi")
-    out["full_vs_float64_db"] = _db(cp.anat_full(xr, xi, tw), cp.anat_full_plain(*x64, tw),
-                                    errs, "anat_full")
+    out["bd_hi_vs_float64_db"] = planes_db(cp.bd_hi(xr, xi), cp.bd_hi_plain(*x64), errs, "bd_hi")
+    out["full_vs_float64_db"] = planes_db(cp.anat_full(xr, xi, tw),
+                                          cp.anat_full_plain(*x64, tw), errs, "anat_full")
     if xr.is_cuda:
         bad = [k for k, v in out.items() if v is False]
         bad += [k for k in ("bd1_vs_tf32_plain_db", "bd_hi_vs_float64_db", "full_vs_float64_db")
@@ -120,17 +113,6 @@ def check_numerics(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor) -> dict
                                  "meaningless")
     out["max_abs_err"] = errs
     return out
-
-
-@contextlib.contextmanager
-def _tf32_matmul_on():
-    """TF32 on for cuBLAS inside the block only, the flag restored after."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def ops(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor) -> dict:
@@ -145,7 +127,7 @@ def ops(xr: torch.Tensor, xi: torch.Tensor, tw: torch.Tensor) -> dict:
     f = torch.from_numpy(dft_matrix(128)).to(xr.device, torch.complex64)
 
     def tf32_matmul():
-        with _tf32_matmul_on():
+        with tf32_matmul_on():
             return torch.matmul(vr, fr), torch.matmul(vi, fr)
 
     return {

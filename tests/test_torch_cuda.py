@@ -11,7 +11,9 @@ Bound: >= 120 dB SNR (the BASELINE parity bar) between a float32 kernel
 copies, and gmm_concat against K13, equal; K14d's half3 and adds equal
 to their float32 plain versions, bd_tf32 against its plain version with
 TF32-rounded operands; K14h vdif also against the float64 FFT in its digit
-order, K14i sdif_peel against K8 with the rows bit-reversed), and between
+order, K14i sdif_peel against K8 with the rows bit-reversed; K14e lane_flip
+exact; K14f gmm_tf32 against its TF32-rounded plain version, every ls_full
+setting and every fft_pow2_rows setting equal to its default), and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends); the fused
 peel + rows route (K9) also against the unfused plan.
@@ -1167,3 +1169,158 @@ def test_k14h_k14i_wrappers_raise_on_card(cuda):
         cuda_probes.vdif(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256))
     with pytest.raises(ValueError):
         cuda_probes.sdif_peel(torch.zeros(128, 8, device=cuda), torch.zeros(128, 8))
+
+
+_K14F = ("ls_network", "gmm_tf32", "ls_full")
+_LS_SETTINGS = ({"store": "rows"}, {"chunks": 2}, {"chunks": 4}, {"chunks": 8},
+                {"rows_per_block": 32}, {"rows_per_block": 64},
+                {"store": "rows", "chunks": 8, "rows_per_block": 64})
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 1024), (1001, 512), (33, 256), (5, 128)])
+def test_k14f_on_card(cuda, b, n):
+    """ls_network and ls_full >= 120 dB against float64 (ls_full also
+    against the float64 FFT in the lane-slice digit order); every ls_full
+    setting torch.equal to the default, and the default equal to 128 x
+    gmm_concat of ls_network's output (one fmaf chain); gmm_tf32 >= 120 dB
+    against its TF32-rounded float64 plain version (its dB against the exact
+    product printed, ~68: one TF32 pass); one launch a call; the TF32 flags
+    untouched."""
+    xr, xi = _lane_planes(cuda, b, n, b + n)
+    x64 = (xr.double(), xi.double())
+    flags = _tf32_flags()
+    reset_launch_counts()
+    net = cuda_probes.ls_network(xr, xi)
+    assert dsputils.snr_db(_c(net), _c(cuda_probes.ls_network_plain(*x64))) >= SNR_CARD_DB
+    g = cuda_probes.gmm_tf32(xr, xi)
+    assert dsputils.snr_db(_c(g), _c(cuda_probes.gmm_tf32_plain(*x64, tf32=True))) >= SNR_CARD_DB
+    exact = dsputils.snr_db(_c(g), _c(cuda_probes.gmm_tf32_plain(*x64)))
+    print(f"gmm_tf32 {b} x {n}: {exact:.2f} dB against the exact product")
+    assert 50.0 < exact < 100.0
+    full = cuda_probes.ls_full(xr, xi)
+    assert dsputils.snr_db(_c(full), _c(cuda_probes.ls_full_plain(*x64))) >= SNR_CARD_DB
+    fft = cuda_probes.ls_digit_order(torch.fft.fft(torch.complex(*x64)), n // 128)
+    assert dsputils.snr_db(_c(full), _np(fft)) >= SNR_CARD_DB
+    assert launch_counts()["ls_full"] == 1
+    for kw in _LS_SETTINGS:
+        got = cuda_probes.ls_full(xr, xi, **kw)
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1]), kw
+    gc = cuda_probes.gmm_concat(*net)
+    assert torch.equal(full[0], gc[0] * 128) and torch.equal(full[1], gc[1] * 128)
+    counts = launch_counts()
+    assert counts["ls_network"] == 1 and counts["gmm_tf32"] == 1
+    assert counts["ls_full"] == 1 + len(_LS_SETTINGS)
+    assert _tf32_flags() == flags
+
+
+@pytest.mark.parametrize("b", [1001, 16])
+def test_gmm_tf32_fragment_maps_on_card(cuda, b):
+    """With every table plane the identity, gmm_tf32 returns round_tf32(a)
+    - round_tf32(b) and round_tf32(a + b) - round_tf32(a) - round_tf32(b)
+    exactly (the A and C maps); with a cyclic shift P[j, j + 1 mod 128] = 1
+    the same of the slices rolled by one (the B map)."""
+    xr, xi = _lane_planes(cuda, b, 1024, b)
+    eye = torch.eye(128, device=cuda)
+    rt = cuda_probes.round_tf32
+    for roll in (0, 1):
+        table = torch.roll(eye, roll, dims=1).expand(8, 3, 128, 128).contiguous()
+        yr, yi = cuda_probes.gmm_tf32(xr, xi, table)
+        a, c, s = (torch.roll(rt(v).view(b, 8, 128), roll, dims=2).reshape(b, 1024)
+                   for v in (xr, xi, xr + xi))
+        assert torch.equal(yr, a - c) and torch.equal(yi, s - a - c), roll
+
+
+def test_k14e_lane_flip_on_card(cuda):
+    """Exact: the TPU probe's (8, 128) input (rows 0..127) gives 2 x its
+    reversal; random planes viewed as (rows, 128) equal the plain version,
+    at the probe's 16384 x 1024 and at ragged row counts."""
+    from godsp_tpu_torch.probes import r4
+
+    reset_launch_counts()
+    got = cuda_probes.lane_flip(r4.flip_input(cuda))
+    assert torch.equal(got, 2 * torch.arange(127, -1, -1, dtype=torch.float32,
+                                              device=cuda).repeat(8, 1))
+    for b, n in ((16384, 1024), (1001, 128), (7, 384)):
+        x = _lane_planes(cuda, b, n, b)[0].view(-1, 128)
+        assert torch.equal(cuda_probes.lane_flip(x), cuda_probes.lane_flip_plain(x))
+    assert launch_counts()["lane_flip"] == 4
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (4096, 4096), (2048, 8192), (1024, 16384),
+                                 (1001, 1024), (3, 256)])
+def test_fft_pow2_rows_on_card(cuda, b, n):
+    """Every rows-a-block setting that fits gives K1's result bit for bit,
+    >= 120 dB against K1's float64 plain version; one that does not raises
+    before the launch."""
+    xr, xi = _lane_planes(cuda, b, n, n)
+    k1 = cuda_fft.fft_pow2(xr, xi)
+    want = _c(cuda_fft.fft_pow2_plain(xr.double(), xi.double()))
+    reset_launch_counts()
+    fits = [r for r in (1, 2, 4, 8, 16, 28) if cuda_probes.fft_rows_fit(n, r)]
+    for r in fits:
+        got = cuda_probes.fft_pow2_rows(xr, xi, r)
+        assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1]), r
+        assert dsputils.snr_db(_c(got), want) >= SNR_CARD_DB, r
+    assert launch_counts()["fft_pow2_rows"] == len(fits)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_probes.fft_pow2_rows(xr, xi, 232448 // (8 * n) + 1)
+    assert launch_counts()["fft_pow2_rows"] == len(fits)
+
+
+def test_k14e_k14f_batches_past_grid_y(cuda):
+    """More blocks than grid.y's 65535 (eight rows an ls_network block,
+    sixteen an ls_full block at n = 128) reach the kernels."""
+    xr, xi = _lane_planes(cuda, 8 * 65535 + 9, 128, 9)
+    got = cuda_probes.ls_network(xr, xi)
+    assert dsputils.snr_db(_c(got), _c(cuda_probes.ls_network_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+    xr, xi = _lane_planes(cuda, 16 * 65535 + 17, 128, 10)
+    got = cuda_probes.ls_full(xr, xi)
+    assert dsputils.snr_db(_c(got), _c(cuda_probes.ls_full_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+    other = cuda_probes.ls_full(xr, xi, store="rows", chunks=2)
+    assert torch.equal(other[0], got[0]) and torch.equal(other[1], got[1])
+
+
+@pytest.mark.parametrize("flags", [(False, False), (True, True)])
+def test_k14e_k14f_and_their_yardsticks_leave_tf32_flags(cuda, flags):
+    from godsp_tpu_torch.probes import r3, r4
+
+    old = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    try:
+        xr, xi = _lane_planes(cuda, 64, 1024, 3)
+        for name in _K14F:
+            getattr(cuda_probes, name)(xr, xi)
+            assert _tf32_flags() == flags, name
+        cuda_probes.lane_flip(xr.view(-1, 128))
+        for ops in (r3.ops(xr, xi), r4.ops(xr, xi)):
+            for name, (op, lib) in ops.items():
+                op()
+                if lib is not None:
+                    lib()
+                assert _tf32_flags() == flags, name
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def test_k14e_k14f_wrappers_raise_on_card(cuda):
+    f64 = dict(dtype=torch.float64, device=cuda)
+    for name in _K14F:
+        fn = getattr(cuda_probes, name)
+        with pytest.raises(TypeError):
+            fn(torch.zeros(4, 256, **f64), torch.zeros(4, 256, **f64))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 200, device=cuda), torch.zeros(4, 200, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256))
+    for n in (384, 2048):
+        with pytest.raises(ValueError):
+            cuda_probes.ls_full(torch.zeros(4, n, device=cuda), torch.zeros(4, n, device=cuda))
+    with pytest.raises(TypeError):
+        cuda_probes.gmm_tf32(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256, device=cuda),
+                             torch.zeros(2, 3, 128, 128, **f64))
+    with pytest.raises(TypeError):
+        cuda_probes.lane_flip(torch.zeros(4, 128, **f64))
+    with pytest.raises(TypeError):
+        cuda_probes.fft_pow2_rows(torch.zeros(4, 256, **f64), torch.zeros(4, 256, **f64), 1)
