@@ -207,7 +207,7 @@ final line):
      against float64, gmm_concat torch.equal to K13, the copies
      torch.equal to their input), each timed at 16384 x 1024 beside its
      plain version, bound and library call; then probes.facdft.run and
-     probes.store.run as two counted sessions;
+     probes.store.run (with K14g's i8_concat row) as two counted sessions;
  15. K14d, the anatomy twins (ops/cuda_probes.py: half3, slice8_add,
      reshape_add, bd_tf32, bd_hi, anat_full) against their plain versions
      on the card at 16384 x 1024 and at 1001 x 2048 through
@@ -250,7 +250,20 @@ final line):
      sessions: lane_flip, rfft_pow2, copy_split, fft_pow2_rows and
      fft_pow2; ls_network, gmm_tf32, ls_full, copy_split, slicestore,
      gmm_floor, fft_pow2 and fft_pow2_rows; nothing else;
- 21. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 21. K14g i8_dot, i8mm, i8dec, i8full and i8_concat (ops/cuda_probes.py)
+     on the card at 16384 x 1024 and at the ragged 1001 x 1024 and 1001 x
+     512 (n1 4): probes.int8's check_numerics and fragment_maps, their
+     launches counted (i8_dot exact at (256, 128) @ (128, 128) and (1001,
+     128) @ (128, 384); i8mm torch.equal to its plain version, which does
+     the same integer arithmetic; i8dec, i8full and i8_concat equal to
+     theirs or >= 120 dB; i8full equal to i8_concat; i8full's dB against
+     the float64 product printed, the scheme's ~120, not gated; i8mm and
+     i8dec exact on identity and cyclic-shift digit tables); each timed at
+     16384 x 1024 (i8_dot at (256, 128) @ (128, 128)) beside its plain
+     version, bound and library call;
+ 22. probes.int8.run at its full shape as one counted session: the five
+     K14g wrappers, copy_split and gmm_floor; nothing else;
+ 23. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -403,6 +416,9 @@ SDIF = "probes.sdif.run (1 x 128 x 131072)"
 R4 = "probes.r4.run (16384 x 1024; K1 at 2048 x 8192 and 1024 x 16384)"
 R3 = "probes.r3.run (16384 x 1024; K1's rows-a-block sweep)"
 LANE_SLICE_TWINS = ("ls_network", "gmm_tf32", "ls_full")
+# K14g (phases 21-22): probes.int8.
+INT8 = "probes.int8.run (16384 x 1024)"
+INT8_TWINS = ("i8_dot", "i8mm", "i8dec", "i8full", "i8_concat")
 # Phase 13's exact launches a step (worked out on the CPU with the wrappers
 # counting and kernel_route patched; see the phase's comments).
 _LARGE_CONV = {"outer_dft_split": 3, "fft_pow2": 2, "ifft_pow2": 1}
@@ -448,6 +464,11 @@ REPLACES = {
     **{name: "tools/probe_r3.py:157" for name in LANE_SLICE_TWINS},
     "lane_flip": "tools/probe_r4.py:67",
     "fft_pow2_rows": "godsp_tpu/ops/pallas_fft.py:1125",
+    "i8_dot": "tools/probe_int8.py:213",
+    "i8mm": "tools/probe_int8.py:71",
+    "i8dec": "tools/probe_int8.py:71",
+    "i8full": "tools/probe_int8.py:71",
+    "i8_concat": "tools/probe_store.py:53",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -479,6 +500,7 @@ SOURCES = {
     **{name: "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu" for name in LANE_SLICE_TWINS},
     "lane_flip": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
     "fft_pow2_rows": "godsp_tpu_torch/csrc/fft_kernels.cu",
+    **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
 }
 
 
@@ -2416,7 +2438,8 @@ def phase_lane_probes(dev) -> dict[str, dict[str, int]]:
 
     return probe_sessions(dev, (
         (FACDFT, facdft, ("fac_dft", "gmm_floor", "copy_split")),
-        (STORE, store, ("slicestore", "concatstore", "gmm_concat", "gmm_floor", "copy_split"))))
+        (STORE, store, ("slicestore", "concatstore", "gmm_concat", "gmm_floor", "copy_split",
+                         "i8_concat"))))
 
 
 def phase_anatomy_kernels(rec: KernelRecord, dev) -> None:
@@ -2666,6 +2689,70 @@ def phase_lane_slice_probes(dev) -> dict[str, dict[str, int]]:
                                      "fft_pow2_rows"))))
 
 
+def phase_int8_kernels(rec: KernelRecord, dev) -> None:
+    """K14g against its plain versions on the card (phase 21): at the
+    probe's 16384 x 1024 and at the ragged 1001 x 1024 and 1001 x 512 (not a
+    multiple of a step's 16 rows; n1 4 at 512), probes.int8.check_numerics
+    with its launches counted (i8_dot exact at (256, 128) @ (128, 128) and
+    (1001, 128) @ (128, 384); i8mm torch.equal to its plain version; i8dec,
+    i8full, i8_concat equal to theirs or >= 120 dB; i8full equal to
+    i8_concat; i8full's dB against float64 printed) and its fragment maps
+    (identity and cyclic-shift digit tables through i8mm and i8dec); then
+    each timed at the full shape beside its plain version, bound (16 B a
+    point, or the int8 operations over 1,979 TOPS expressed at the float32
+    rate bound_ms divides by, or the float32 ones) and library call
+    (torch._int_mm for i8_dot; K13's torch.matmul of the complex64 slices,
+    TF32 off, for i8full and i8_concat; none for i8mm and i8dec)."""
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.ops import launch_counts
+    from godsp_tpu_torch.probes import int8
+    from godsp_tpu_torch.probes._common import INT8_OPS, lane_planes
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    checked = {"i8_dot": 2, "i8mm": 1, "i8dec": 1, "i8full": 2, "i8_concat": 1}
+    mapped = {"i8mm": 2, "i8dec": 2}
+    tc = FP32_FLOPS / INT8_OPS  # the products run on the int8 tensor cores
+    for b, n in ((int8.B, int8.N), (1001, 1024), (1001, 512)):
+        xr, xi = lane_planes(dev, b, n, seed=21)
+        shape = f"{b} x {n}"
+        for what, run, want in (("check_numerics", int8.check_numerics, checked),
+                                ("fragment_maps", int8.fragment_maps, mapped)):
+            before = launch_counts()
+            res = run(xr, xi)  # raises where a twin falls short
+            after = launch_counts()
+            got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if got != want:
+                raise AssertionError(f"int8.{what} {shape}: launches {got}, not {want}")
+            for name, err in res.pop("max_abs_err", {}).items():
+                rec.err[name] = max(rec.err.get(name, 0.0), err)
+            log(f"  int8.{what} {shape:22s} {res}, launches {got}")
+        if (b, n) != (int8.B, int8.N):
+            continue
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("int8 yardstick: TF32 is on")
+        lib = {name: pair[1] for name, pair in int8.ops(xr, xi).items()}
+        pts = float(b * n)
+        for name, plain in (("i8mm", cp.i8mm_plain), ("i8dec", cp.i8dec_plain),
+                            ("i8full", cp.i8full_plain), ("i8_concat", cp.i8full_plain)):
+            flops = max(int8.OPS_PER_POINT[name], int8.INT8_PER_POINT[name] * tc) * pts
+            fn = getattr(cp, name)
+            rec.time(name, shape, lambda fn=fn: fn(xr, xi), lambda p=plain: p(xr, xi), lib[name],
+                     16.0 * pts, flops)
+        del xr, xi, lib
+    m, k, n = int8.DOT_SHAPES[0]
+    a, b_ = int8.dot_inputs(dev, m, k, n)
+    rec.time("i8_dot", f"{m} x {k} @ {k} x {n}", lambda: cp.i8_dot(a, b_),
+             lambda: cp.i8_dot_plain(a, b_), lambda: torch._int_mm(a, b_),
+             float(m * k + k * n + 4 * m * n), 2.0 * m * k * n * tc)
+
+
+def phase_int8_probe(dev) -> dict[str, dict[str, int]]:
+    """probes.int8 at its full shape as one counted session (phase 22)."""
+    from godsp_tpu_torch.probes import int8
+
+    return probe_sessions(dev, ((INT8, int8, INT8_TWINS + ("copy_split", "gmm_floor")),))
+
+
 def main() -> int:
     smi = phase_card()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2714,6 +2801,10 @@ def main() -> int:
     phase_lane_slice_kernels(rec, dev)
     lane_slice_steps = phase_lane_slice_probes(dev)
     log(f"phases 19-20 (K14e, K14f): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_int8_kernels(rec, dev)
+    int8_steps = phase_int8_probe(dev)
+    log(f"phases 21-22 (K14g): {time.perf_counter() - t0:.1f} s")
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
     steps.update(stft_steps)
@@ -2729,6 +2820,7 @@ def main() -> int:
     steps.update(anatomy_steps)
     steps.update(dif_steps)
     steps.update(lane_slice_steps)
+    steps.update(int8_steps)
 
     kernels = []
     for name in REPLACES:

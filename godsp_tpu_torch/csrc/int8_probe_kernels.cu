@@ -1,0 +1,530 @@
+// K14g: the twins for Hopper (sm_90a) of tools/probe_int8.py's int8-limb
+// contraction probe (_call :68, one pl.pallas_call at :71 over the bodies
+// _i8mm_kernel :93, _i8dec_kernel :123 and _i8full_kernel :162; the
+// exactness check of one int8 dot at :213) and of tools/probe_store.py's
+// _call (:53) over _i8_concat_kernel (:101).  They run under
+// godsp_tpu_torch/probes/int8.py and probes/store.py.  No library kernel is
+// called.  Every product is an int8 mma.sync m16n8k32 with its int32 sum on
+// the tensor cores (mma_s8.cuh): integer sums are exact, so unlike the TF32
+// twins the running sum may stay there.  Bounds below are at 16384 x 1024 on
+// the H100 (3.35 TB/s, 1,979 TOPS dense int8, 67 TFLOP/s float32).
+//
+// i8_dot_kernel replaces :213 (the body `tiny` :204): c = a b for int8 a
+// (m, k) and b (k, n), row-major, into int32 c (m, n), exactly.  A block of
+// four warps owns a 64 x 64 tile of c; a k-step stages 64 x 32 bytes of a
+// and 32 x 64 of b (b transposed, 48 bytes a staged row so the fragment
+// reads hit 32 banks), bytes past m, k or n read as 0.  At the probe's
+// (256, 128) @ (128, 128) the bound is the bytes, 0.1 MB: launch time.
+//
+// i8_probe_kernel<kMode, kRows> takes two float32 planes (b, n), n = n1 x
+// 128 with n1 <= 8, contiguous and 16-byte aligned, and int8 tables packed
+// by the wrapper in B-fragment order (for table plane p, n-tile nt of its
+// 128 output columns, k-step ks and lane L, eight bytes at
+// ((p * 16 + nt) * 4 + ks) * 32 + L); it writes two new planes.  Every mode
+// works on 16-row steps of one 128-column slice k1: the step's int8 digit
+// planes are computed on the CUDA cores into shared memory in A-fragment
+// order (a thread a row and 8 columns), then each of the 8 warps takes 16
+// output columns (two n-tiles) and runs the mode's products over the four
+// k-steps of the slice, then converts and stores.  kMode:
+//   kMM (i8mm, :93): a = xr 100, b = xi 100, s = (xr + xi) 50, each
+//     truncated to int8 (saturated out of range; in range as astype); with
+//     the slice's random tables w0 (128 x 384), w1 (x 256), w2 (x 128):
+//     yr = f32(sum over d of d w0[:, 0:128] + d w0[:, 128:256] + d w1[:, 0:128]) 1e-5,
+//     yi = f32(sum over d of d w0[:, 256:] + d w1[:, 128:] + d w2) 1e-5,
+//     the same integers as its q0 + q1 and q2; 2304 int8 MACs a point;
+//   kDEC (i8dec, :123): the row scale of the slice (row_quant_scales of
+//     max |xr| + |xi|: ck = K / S, s_out = S 2^32 / K^2 / 128, S = 2^(e + 1),
+//     e = floor(log2 max) taken exactly from the exponent bits) and the first
+//     digit d0 of xr ck, xi ck and (xr + xi) ck (digits3); yr = f32(sum of
+//     d0 w0[:, 0:128] + d0 w0[:, 128:256]) s_out, yi = f32(sum of
+//     d0 w0[:, 256:]) s_out; 1152 MACs a point;
+//   kFULL (i8full :162, i8_concat :101): godsp_tpu/ops/_int8_contract.py's
+//     karatsuba_g_i8 with K13's unscaled G (extra_scale 1/128): three digits
+//     each of a = xr ck, b = xi ck and (xr + xi) ck against the digits
+//     t0, t1, t2 of Gr, Gi and (Gr + Gi) / 2; per product the partials
+//     Q0 = d0 t0, Q1 = d0 t1 + d1 t0, Q2 = d0 t2 + d1 t1 + d2 t0 (the six
+//     products of i + j <= 2: the TPU's stacked w1 = [t0 | t1] and w2 = t0
+//     repeat w0's blocks, so a slice has nine unique 16 KB planes, 144 KB,
+//     not the stacked 288 KB); re = Qr - Qi, im = 2 Qs - Qr - Qi in int32,
+//     then one float32 recombination (Q0 + 2^-8 Q1 + 2^-16 Q2) s_out each;
+//     2304 MACs a point.
+// Every float32 step is an IEEE operation in _int8_contract.py's order
+// (__fadd_rn / __fmul_rn: nothing contracted to an FMA), the integers are
+// exact, and int32 -> float32 rounds to nearest, so each mode equals its
+// plain version (ops/cuda_probes.py) bit for bit.
+// kRows picks the TPU body's store (kFULL only):
+//   false (_i8full_kernel: the slice's outputs stored as they come): block
+//     (k1, row group) stages its slice's table planes once (144 KB for
+//     kFULL, 96 KB kMM, 48 KB kDEC) and walks its group's 16-row steps,
+//     prefetching the next step's inputs before the products.  The groups
+//     fill one wave (occupancy x SMs blocks), so at 16384 x 1024 a kFULL
+//     block walks 1024 rows and the tables cost 128 x 144 KB = 18.9 MB of
+//     L2 reads, 7 % of the 268 MB the planes move;
+//   true (_i8_concat_kernel: whole rows stored once a plane): block owns one
+//     16-row tile and walks its slices; the tile's outputs wait in shared
+//     memory (2 x 16 rows x (n + 8) floats, 132 KB at n = 1024) and go out
+//     as whole rows.  With them, a slice's 144 KB of tables no longer fits,
+//     so each product's three planes (48 KB) are staged in turn: every tile
+//     reads all 8 x 144 KB of tables again, 1.2 GB of L2 reads at 16384 rows,
+//     4.4 x the planes' bytes.  That is the price of whole-row stores here.
+// Bound: bytes, 16 B a point, 268 MB, 0.080 ms (4608 int8 operations a
+// point for kMM and kFULL, 2304 for kDEC: 0.039 / 0.020 ms at 1,979 TOPS).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "fft_block.cuh"
+#include "mma_s8.cuh"
+
+namespace {
+
+constexpr int kLanes = 128;
+constexpr int kThreads = 256;
+constexpr int kTile = 16;                          // rows of a step: one m16 tile
+constexpr int kPlane4 = kLanes * kLanes / 16;      // uint4s of a 128 x 128 int8 table plane
+constexpr int kDigit4 = kTile * kLanes / 16;       // uint4s of a 16 x 128 int8 digit plane
+constexpr int kOutPad = 8;                         // floats past n a staged output row
+constexpr float kK = 8355584.f;                    // K_I8 = 2^23 - 2^15 - 2^8
+constexpr float kB0 = 32896.5f;                    // 2^15 + 2^7 + 1/2
+constexpr float kB1 = 128.5f;                      // 2^7 + 1/2
+constexpr float kInvK2 = static_cast<float>(1.0 / (8355584.0 * 8355584.0));
+
+enum { kMM = 0, kDEC = 1, kFULL = 2 };
+
+__host__ __device__ constexpr int data_planes(int mode) { return mode == kFULL ? 9 : 3; }
+__host__ __device__ constexpr int table_planes(int mode) {
+  return mode == kFULL ? 9 : mode == kMM ? 6 : 3;
+}
+__host__ __device__ constexpr int accumulators(int mode) { return mode == kFULL ? 9 : 2; }
+
+// 2^k as a float32, -126 <= k <= 127.
+__device__ __forceinline__ float pow2(int k) { return __int_as_float((k + 127) << 23); }
+
+__device__ __forceinline__ int sat_trunc(float x) {
+  return static_cast<int>(fminf(fmaxf(truncf(x), -128.f), 127.f));
+}
+
+// _int8_contract.py's digits3: v = d0 2^16 + d1 2^8 + d2 + eps, |eps| <= 1/2,
+// every digit in [-128, 127] for |v| <= K.
+__device__ __forceinline__ void digits3(float v, int& d0, int& d1, int& d2) {
+  const float f0 = floorf(__fmul_rn(__fadd_rn(v, kB0), 0x1p-16f));
+  const float r0 = __fsub_rn(v, __fmul_rn(f0, 65536.f));
+  const float f1 = floorf(__fmul_rn(__fadd_rn(r0, kB1), 0x1p-8f));
+  const float r1 = __fsub_rn(r0, __fmul_rn(f1, 256.f));
+  d0 = static_cast<int>(f0);
+  d1 = static_cast<int>(f1);
+  d2 = static_cast<int>(floorf(__fadd_rn(r1, 0.5f)));
+}
+
+// (Q0 + 2^-8 Q1 + 2^-16 Q2) s, _int8_contract.py's _recombine.
+__device__ __forceinline__ float recombine(int q0, int q1, int q2, float s) {
+  const float v = __fadd_rn(__fadd_rn(__int2float_rn(q0), __fmul_rn(0x1p-8f, __int2float_rn(q1))),
+                            __fmul_rn(0x1p-16f, __int2float_rn(q2)));
+  return __fmul_rn(v, s);
+}
+
+// ---------------------------------------------------------------------------
+// i8_dot
+// ---------------------------------------------------------------------------
+
+constexpr int kDot = 64;      // rows and columns of a block's tile of c
+constexpr int kDotK = 32;     // k of a step
+constexpr int kDotRow = 48;   // bytes a staged row
+constexpr int kDotThreads = 128;
+
+__global__ void __launch_bounds__(kDotThreads)
+i8_dot_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bm, int32_t* __restrict__ c,
+              long long m, int k, int n) {
+  __shared__ __align__(16) int8_t sa[kDot * kDotRow];  // [row][k]
+  __shared__ __align__(16) int8_t sb[kDot * kDotRow];  // [column][k]
+  const long long r0 = gdsp::block_row() * kDot;
+  if (r0 >= m) return;
+  const int c0 = blockIdx.x * kDot;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  int acc[kDot / 8][4] = {};
+  for (int k0 = 0; k0 < k; k0 += kDotK) {
+    __syncthreads();  // the last step's fragments are read
+    for (int e = threadIdx.x; e < kDot * kDotK; e += kDotThreads) {
+      const int r = e / kDotK, ka = e % kDotK;
+      sa[r * kDotRow + ka] =
+          r0 + r < m && k0 + ka < k ? a[static_cast<size_t>(r0 + r) * k + k0 + ka] : int8_t(0);
+      const int kb = e / kDot, cc = e % kDot;
+      sb[cc * kDotRow + kb] =
+          k0 + kb < k && c0 + cc < n ? bm[static_cast<size_t>(k0 + kb) * n + c0 + cc] : int8_t(0);
+    }
+    __syncthreads();
+    const int8_t* pa = sa + (16 * w + g) * kDotRow + 4 * t;
+    const uint4 fa = make_uint4(*reinterpret_cast<const uint32_t*>(pa),
+                                *reinterpret_cast<const uint32_t*>(pa + 8 * kDotRow),
+                                *reinterpret_cast<const uint32_t*>(pa + 16),
+                                *reinterpret_cast<const uint32_t*>(pa + 8 * kDotRow + 16));
+#pragma unroll
+    for (int nt = 0; nt < kDot / 8; ++nt) {
+      const int8_t* pb = sb + (8 * nt + g) * kDotRow + 4 * t;
+      gdsp::mma_s8(acc[nt], fa, make_uint2(*reinterpret_cast<const uint32_t*>(pb),
+                                           *reinterpret_cast<const uint32_t*>(pb + 16)));
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kDot / 8; ++nt) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long r = r0 + 16 * w + g + 8 * (q >> 1);
+      const int col = c0 + 8 * nt + 2 * t + (q & 1);
+      if (r < m && col < n) c[static_cast<size_t>(r) * n + col] = acc[nt][q];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// i8mm, i8dec, i8full / i8_concat
+// ---------------------------------------------------------------------------
+
+// One thread's inputs of a step: row threadIdx.x / 16 of the tile, columns
+// 8 (threadIdx.x % 16) .. + 7 of slice k1; rows at or past b read as 0.
+struct StepIn {
+  float4 r[2], i[2];
+};
+
+__device__ __forceinline__ void load_step(StepIn& s, const float* xr, const float* xi, long long b,
+                                          int n, long long t0, int k1) {
+  const long long row = t0 + (threadIdx.x >> 4);
+  if (row < b) {
+    const size_t off = static_cast<size_t>(row) * n + k1 * kLanes + 8 * (threadIdx.x & 15);
+    s.r[0] = __ldg(reinterpret_cast<const float4*>(xr + off));
+    s.r[1] = __ldg(reinterpret_cast<const float4*>(xr + off + 4));
+    s.i[0] = __ldg(reinterpret_cast<const float4*>(xi + off));
+    s.i[1] = __ldg(reinterpret_cast<const float4*>(xi + off + 4));
+  } else {
+    s.r[0] = s.r[1] = s.i[0] = s.i[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The step's digit planes into sd in A-fragment order (plane p, k-step ks,
+// lane L, register q at word ((p * 4 + ks) * 32 + L) * 4 + q) and, for the
+// modes with a row scale, each row's s_out into s_row.  A row is one half
+// warp, so its max is a shuffle over 16 lanes.
+template <int kMode>
+__device__ __forceinline__ void digit_step(const StepIn& s, uint32_t* sd, float* s_row) {
+  constexpr int kData = data_planes(kMode);
+  const int row = threadIdx.x >> 4, part = threadIdx.x & 15;
+  const float vr[8] = {s.r[0].x, s.r[0].y, s.r[0].z, s.r[0].w,
+                       s.r[1].x, s.r[1].y, s.r[1].z, s.r[1].w};
+  const float vi[8] = {s.i[0].x, s.i[0].y, s.i[0].z, s.i[0].w,
+                       s.i[1].x, s.i[1].y, s.i[1].z, s.i[1].w};
+  float ck = 0.f;
+  if constexpr (kMode != kMM) {
+    float mx = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) mx = fmaxf(mx, __fadd_rn(fabsf(vr[q]), fabsf(vi[q])));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    mx = fmaxf(mx, 1e-30f);
+    const int e = ((__float_as_int(mx) >> 23) & 0xff) - 127;  // floor(log2 mx): mx is normal
+    ck = __fmul_rn(pow2(-e - 1), kK);
+    if (part == 0) s_row[row] = __fmul_rn(kInvK2, pow2(e + 26));
+  }
+  const int g = row & 7, hi = row >> 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = 8 * part + 4 * u;
+    const int ks = c >> 5, h = (c >> 4) & 1, t = (c >> 2) & 3;
+    const int at = (ks * 32 + 4 * g + t) * 4 + hi + 2 * h;
+    int d[kData][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float ar = vr[4 * u + q], ai = vi[4 * u + q];
+      if constexpr (kMode == kMM) {
+        d[0][q] = sat_trunc(__fmul_rn(ar, 100.f));
+        d[1][q] = sat_trunc(__fmul_rn(ai, 100.f));
+        d[2][q] = sat_trunc(__fmul_rn(__fadd_rn(ar, ai), 50.f));
+      } else {
+        const float x[3] = {ar, ai, __fadd_rn(ar, ai)};
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          int d0, d1, d2;
+          digits3(__fmul_rn(x[p], ck), d0, d1, d2);
+          if constexpr (kMode == kDEC) {
+            d[p][q] = d0;
+          } else {
+            d[3 * p][q] = d0;
+            d[3 * p + 1][q] = d1;
+            d[3 * p + 2][q] = d2;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kData; ++p)
+      sd[p * kDigit4 * 4 + at] = gdsp::pack_s8(d[p][0], d[p][1], d[p][2], d[p][3]);
+  }
+}
+
+// The products of one step for this warp's two n-tiles (output columns
+// 16 w .. 16 w + 15 of the slice).  sd: digit planes; st: table planes
+// staged from plane tb of the slice on (kFULL: product kP's three planes at
+// tb); acc[a][j][q]: accumulator a, n-tile j, C register q.
+template <int kMode, int kP>
+__device__ __forceinline__ void products(const uint4* sd, const uint2* st, int tb,
+                                         int (&acc)[accumulators(kMode)][2][4]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  auto A = [&](int p, int ks) { return sd[(p * 4 + ks) * 32 + lane]; };
+  auto B = [&](int p, int nt, int ks) { return st[(((p - tb) * 16 + nt) * 4 + ks) * 32 + lane]; };
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if constexpr (kMode == kFULL) {
+      const uint4 d0 = A(3 * kP, ks), d1 = A(3 * kP + 1, ks), d2 = A(3 * kP + 2, ks);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nt = 2 * w + j, p = 3 * kP;
+        const uint2 t0 = B(p, nt, ks), t1 = B(p + 1, nt, ks), t2 = B(p + 2, nt, ks);
+        gdsp::mma_s8(acc[p][j], d0, t0);
+        gdsp::mma_s8(acc[p + 1][j], d0, t1);
+        gdsp::mma_s8(acc[p + 1][j], d1, t0);
+        gdsp::mma_s8(acc[p + 2][j], d0, t2);
+        gdsp::mma_s8(acc[p + 2][j], d1, t1);
+        gdsp::mma_s8(acc[p + 2][j], d2, t0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nt = 2 * w + j;
+        uint2 tw[table_planes(kMode)];
+#pragma unroll
+        for (int p = 0; p < table_planes(kMode); ++p) tw[p] = B(p, nt, ks);
+#pragma unroll
+        for (int dp = 0; dp < 3; ++dp) {
+          const uint4 d = A(dp, ks);
+          // kMM planes w0a w0b w0c w1a w1b w2; kDEC planes w0a w0b w0c.
+          gdsp::mma_s8(acc[0][j], d, tw[0]);
+          gdsp::mma_s8(acc[0][j], d, tw[1]);
+          gdsp::mma_s8(acc[1][j], d, tw[2]);
+          if constexpr (kMode == kMM) {
+            gdsp::mma_s8(acc[0][j], d, tw[3]);
+            gdsp::mma_s8(acc[1][j], d, tw[4]);
+            gdsp::mma_s8(acc[1][j], d, tw[5]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The outputs of C register q of n-tile j (row g + 8 (q / 2) of the step).
+template <int kMode>
+__device__ __forceinline__ float2 outputs(const int (&acc)[accumulators(kMode)][2][4], int j, int q,
+                                          float s) {
+  if constexpr (kMode == kMM) {
+    return make_float2(__fmul_rn(__int2float_rn(acc[0][j][q]), 1e-5f),
+                       __fmul_rn(__int2float_rn(acc[1][j][q]), 1e-5f));
+  } else if constexpr (kMode == kDEC) {
+    return make_float2(__fmul_rn(__int2float_rn(acc[0][j][q]), s),
+                       __fmul_rn(__int2float_rn(acc[1][j][q]), s));
+  } else {
+    int re[3], im[3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      re[l] = acc[l][j][q] - acc[3 + l][j][q];
+      im[l] = 2 * acc[6 + l][j][q] - acc[l][j][q] - acc[3 + l][j][q];
+    }
+    return make_float2(recombine(re[0], re[1], re[2], s), recombine(im[0], im[1], im[2], s));
+  }
+}
+
+__device__ __forceinline__ void stage(uint4* dst, const uint4* src, int count) {
+  for (int e = threadIdx.x; e < count; e += kThreads) dst[e] = __ldg(src + e);
+}
+
+template <int kMode, bool kRows>
+__global__ void __launch_bounds__(kThreads, kMode == kFULL ? 1 : 2)
+i8_probe_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* __restrict__ yr, float* __restrict__ yi, const uint4* __restrict__ tables,
+                long long b, int n, long long rows_per_block) {
+  constexpr int kStaged = kRows ? 3 : table_planes(kMode);  // table planes in shared memory
+  constexpr int kData = data_planes(kMode);
+  extern __shared__ uint4 smem[];
+  uint4* st = smem;
+  uint4* sd = st + kStaged * kPlane4;
+  float* s_row = reinterpret_cast<float*>(sd + kData * kDigit4);
+  float* so = s_row + kTile;  // kRows: the tile's outputs, re then im, rows n + kOutPad apart
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int n1 = n / kLanes;
+  const uint2* st2 = reinterpret_cast<const uint2*>(st);
+  uint32_t* sd1 = reinterpret_cast<uint32_t*>(sd);
+  StepIn in;
+
+  if constexpr (!kRows) {
+    const int k1 = blockIdx.x;
+    const long long r0 = blockIdx.y * rows_per_block;
+    if (r0 >= b) return;
+    const long long r1 = r0 + rows_per_block < b ? r0 + rows_per_block : b;
+    stage(st, tables + static_cast<size_t>(k1) * table_planes(kMode) * kPlane4,
+          kStaged * kPlane4);
+    load_step(in, xr, xi, b, n, r0, k1);
+    for (long long t0 = r0; t0 < r1; t0 += kTile) {
+      __syncthreads();  // the tables are staged; every warp has read the last step's digits
+      digit_step<kMode>(in, sd1, s_row);
+      __syncthreads();
+      if (t0 + kTile < r1) load_step(in, xr, xi, b, n, t0 + kTile, k1);
+      int acc[accumulators(kMode)][2][4] = {};
+      if constexpr (kMode == kFULL) {
+        products<kMode, 0>(sd, st2, 0, acc);
+        products<kMode, 1>(sd, st2, 0, acc);
+        products<kMode, 2>(sd, st2, 0, acc);
+      } else {
+        products<kMode, 0>(sd, st2, 0, acc);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k1 * kLanes + 16 * w + 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h;  // C registers 2 h (column 2 t) and 2 h + 1
+          const float sr = kMode == kMM ? 0.f : s_row[r];  // kMM writes no row scale
+          const float2 v0 = outputs<kMode>(acc, j, 2 * h, sr);
+          const float2 v1 = outputs<kMode>(acc, j, 2 * h + 1, sr);
+          if (t0 + r < r1) {
+            const size_t off = static_cast<size_t>(t0 + r) * n + col;
+            *reinterpret_cast<float2*>(yr + off) = make_float2(v0.x, v1.x);
+            *reinterpret_cast<float2*>(yi + off) = make_float2(v0.y, v1.y);
+          }
+        }
+      }
+    }
+  } else {
+    const int ld = n + kOutPad;
+    const long long t0 = gdsp::block_row() * kTile;
+    if (t0 >= b) return;
+    load_step(in, xr, xi, b, n, t0, 0);
+    for (int k1 = 0; k1 < n1; ++k1) {
+      __syncthreads();  // every warp has read the last slice's digits and tables
+      digit_step<kMode>(in, sd1, s_row);
+      if (k1 + 1 < n1) load_step(in, xr, xi, b, n, t0, k1 + 1);
+      int acc[accumulators(kMode)][2][4] = {};
+      const uint4* tk = tables + static_cast<size_t>(k1) * table_planes(kMode) * kPlane4;
+      stage(st, tk, 3 * kPlane4);
+      __syncthreads();
+      products<kMode, 0>(sd, st2, 0, acc);
+      __syncthreads();
+      stage(st, tk + 3 * kPlane4, 3 * kPlane4);
+      __syncthreads();
+      products<kMode, 1>(sd, st2, 3, acc);
+      __syncthreads();
+      stage(st, tk + 6 * kPlane4, 3 * kPlane4);
+      __syncthreads();
+      products<kMode, 2>(sd, st2, 6, acc);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k1 * kLanes + 16 * w + 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h;  // C registers 2 h (column 2 t) and 2 h + 1
+          const float sr = kMode == kMM ? 0.f : s_row[r];  // kMM writes no row scale
+          const float2 v0 = outputs<kMode>(acc, j, 2 * h, sr);
+          const float2 v1 = outputs<kMode>(acc, j, 2 * h + 1, sr);
+          *reinterpret_cast<float2*>(so + r * ld + col) = make_float2(v0.x, v1.x);
+          *reinterpret_cast<float2*>(so + (kTile + r) * ld + col) = make_float2(v0.y, v1.y);
+        }
+      }
+    }
+    __syncthreads();
+    const int quads = n / 4;
+    for (int e = threadIdx.x; e < kTile * quads; e += kThreads) {
+      const int rr = e / quads, c = 4 * (e % quads);
+      if (t0 + rr >= b) continue;
+      const size_t off = static_cast<size_t>(t0 + rr) * n + c;
+      *reinterpret_cast<float4*>(yr + off) = *reinterpret_cast<const float4*>(so + rr * ld + c);
+      *reinterpret_cast<float4*>(yi + off) =
+          *reinterpret_cast<const float4*>(so + (kTile + rr) * ld + c);
+    }
+  }
+}
+
+template <int kMode, bool kRows>
+int probe_smem(int n) {
+  const int staged = kRows ? 3 : table_planes(kMode);
+  const int out = kRows ? 2 * kTile * (n + kOutPad) * 4 : 0;
+  return (staged * kPlane4 + data_planes(kMode) * kDigit4) * 16 + kTile * 4 + out;
+}
+
+template <int kMode, bool kRows>
+int launch_probe(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
+                 long long b, int n, cudaStream_t s) {
+  if (b < 0 || n < kLanes || n % kLanes != 0 || n / kLanes > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  const auto kernel = i8_probe_kernel<kMode, kRows>;
+  const int smem = probe_smem<kMode, kRows>(n);
+  cudaError_t e = gdsp::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (b + kTile - 1) / kTile;
+  const uint4* tab = static_cast<const uint4*>(tables);
+  if (kRows) {
+    kernel<<<gdsp::row_grid(1, tiles), kThreads, smem, s>>>(xr, xi, yr, yi, tab, b, n, kTile);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // One wave: as many blocks as the SMs hold, split over the slices.
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(e);
+  const int n1 = n / kLanes;
+  long long groups = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms / n1;
+  if (groups < 1) groups = 1;
+  if (groups > tiles) groups = tiles;
+  const long long per = (tiles + groups - 1) / groups;  // tiles a block
+  groups = (tiles + per - 1) / per;
+  kernel<<<dim3(n1, static_cast<unsigned>(groups)), kThreads, smem, s>>>(
+      xr, xi, yr, yi, tab, b, n, per * kTile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// c (m, n) int32 = a (m, k) int8 @ b (k, n) int8, all row-major and
+// contiguous.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// negative extent.
+int gdsp_i8_dot(const int8_t* a, const int8_t* b, int32_t* c, long long m, int k, int n,
+                void* stream) {
+  if (m < 0 || k < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || n == 0) return 0;
+  const dim3 grid = gdsp::row_grid((n + kDot - 1) / kDot, (m + kDot - 1) / kDot);
+  i8_dot_kernel<<<grid, kDotThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, m, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Each int8-limb entry: (b, n) float32 planes, n = n1 x 128 with n1 <= 8,
+// every pointer 16-byte aligned; tables: the slices' table planes in
+// B-fragment order, (n1, planes, 16384) bytes (i8mm 6 planes: w0's three
+// blocks, w1's two, w2; i8dec 3: w0's blocks; i8full 9: the digits t0, t1,
+// t2 of Gr, Gi, (Gr + Gi) / 2).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or setting the kernel does not take.
+
+int gdsp_i8mm(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
+              long long b, int n, void* stream) {
+  return launch_probe<kMM, false>(xr, xi, yr, yi, tables, b, n, static_cast<cudaStream_t>(stream));
+}
+
+int gdsp_i8dec(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
+               long long b, int n, void* stream) {
+  return launch_probe<kDEC, false>(xr, xi, yr, yi, tables, b, n,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// store_rows 0: each slice stored as it ends (i8full); 1: whole rows after
+// a tile (i8_concat).
+int gdsp_i8full(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
+                long long b, int n, int store_rows, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (store_rows == 0) return launch_probe<kFULL, false>(xr, xi, yr, yi, tables, b, n, s);
+  if (store_rows == 1) return launch_probe<kFULL, true>(xr, xi, yr, yi, tables, b, n, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

@@ -33,7 +33,11 @@
                  TF32 pass, and network + contraction in one kernel with
                  its store, chunk and rows-a-block settings) with
                  fft_pow2_rows (K1 at a given rows a block), driven by
-                 probes.r4 and probes.r3
+                 probes.r4 and probes.r3; K14g i8_dot, i8mm, i8dec, i8full
+                 and K14c's i8_concat (K13's function by exact int8 limbs
+                 on the int8 tensor cores, with its raw MAC stream and its
+                 digit ladder taken apart), driven by probes.int8 and
+                 probes.store
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -74,6 +78,11 @@ from godsp_tpu_torch.ops.cuda_probes import (
     gmm_concat,
     gmm_tf32,
     half3,
+    i8_concat,
+    i8_dot,
+    i8dec,
+    i8full,
+    i8mm,
     lane_flip,
     ls_full,
     ls_network,
@@ -120,6 +129,11 @@ __all__ = [
     "gmm_floor",
     "gmm_tf32",
     "half3",
+    "i8_concat",
+    "i8_dot",
+    "i8dec",
+    "i8full",
+    "i8mm",
     "ifft_pow2",
     "istft_overlap_add",
     "istft_supported",

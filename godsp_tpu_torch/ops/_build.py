@@ -126,6 +126,13 @@ def _declare(lib) -> None:
     lib.gdsp_ls_full.restype = i
     lib.gdsp_lane_flip.argtypes = [p, p, i64, p]
     lib.gdsp_lane_flip.restype = i
+    lib.gdsp_i8_dot.argtypes = [p, p, p, i64, i, i, p]
+    lib.gdsp_i8_dot.restype = i
+    for name in ("gdsp_i8mm", "gdsp_i8dec"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
+        getattr(lib, name).restype = i
+    lib.gdsp_i8full.argtypes = [p, p, p, p, p, i64, i, i, p]
+    lib.gdsp_i8full.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

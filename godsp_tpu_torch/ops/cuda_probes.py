@@ -1,4 +1,4 @@
-"""K14a-f, K14h and K14i: the Hopper probes, each beside its plain version.
+"""K14a-i: the Hopper probes, each beside its plain version.
 
 K14a: the fused-Welch floor twins.
 
@@ -139,6 +139,38 @@ gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
 measures the TPU's one-pass DEFAULT matmul of the dense step and changes
 no TF32 flag.
 
+K14g: the int8-limb contraction twins of tools/probe_int8.py (_call :71
+over three bodies; the int8 dot at :213) and K14c's last store twin,
+tools/probe_store.py:53 over _i8_concat_kernel, in
+csrc/int8_probe_kernels.cu, whose header says what bounds them on the H100
+and what the designs do.  Every product is an int8 mma.sync with an exact
+int32 sum.  The plane twins take two float32 planes (b, n), n = n1 x 128,
+n1 <= 8:
+
+  i8_dot(a, b)          replaces :213 (tiny :204): int8 a (m, k) @ b (k, n)
+      into int32, exactly; plain version i8_dot_plain;
+  i8mm(xr, xi, tables)  replaces _i8mm_kernel (:93): each slice's a, b,
+      a + b quantized (x 100, x 100, x 50, truncated, saturated to int8)
+      against random tables (i8mm_tables: default_rng(7) as
+      make_i8mm_tables); plain version i8mm_plain;
+  i8dec(xr, xi, tables) replaces _i8dec_kernel (:123): the row scales and
+      digit ladder with only d0's stacked product; plain version
+      i8dec_plain;
+  i8full(xr, xi)        replaces _i8full_kernel (:162): karatsuba_g_i8 of
+      every slice with the digits of K13's unscaled G (i8full_tables, as
+      make_i8full_tables) and extra_scale 1/128: K13's function to ~127
+      dB against float64; plain version i8full_plain;
+  i8_concat(xr, xi)     replaces _i8_concat_kernel (probe_store.py:101):
+      i8full's kernel storing whole rows of a 16-row tile; equal to i8full.
+
+The port keeps its own copy of godsp_tpu/ops/_int8_contract.py's
+arithmetic (K_I8, digits3, row_quant_scales, table_digits_np,
+stack_tables_np).  Its row_quant_scales reads floor(log2 m) from the
+exponent bits and builds 2^k from bits, exactly; the kernels do the same,
+and repeat the plain versions' float32 operations in order, so each
+equals its plain version bit for bit.  The plain versions make the limb
+products in float64, exactly (torch has no integer matmul on CUDA).
+
 A wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -164,6 +196,7 @@ from godsp_tpu_torch.ops.cuda_fft import (
 from godsp_tpu_torch.ops.cuda_metrics import (
     LANES,
     _cuda_planes,
+    _g_host,
     copy_split_plain,
     gmm_floor_plain,
     gmm_groups,
@@ -178,6 +211,8 @@ from godsp_tpu_torch.ops.cuda_pwelch import (
 )
 
 __all__ = [
+    "I8_MAX_N1",
+    "K_I8",
     "LS_CHUNKS",
     "LS_N1",
     "LS_STORES",
@@ -191,6 +226,7 @@ __all__ = [
     "bd_tf32_plain",
     "brev7_perm",
     "concatstore",
+    "digits3",
     "fac_dft",
     "fac_dft_plain",
     "fac_tables",
@@ -202,6 +238,17 @@ __all__ = [
     "half3",
     "half3_plain",
     "hi_tables",
+    "i8_concat",
+    "i8_dot",
+    "i8_dot_plain",
+    "i8dec",
+    "i8dec_plain",
+    "i8full",
+    "i8full_plain",
+    "i8full_tables",
+    "i8mm",
+    "i8mm_plain",
+    "i8mm_tables",
     "lane_flip",
     "lane_flip_plain",
     "launches",
@@ -222,12 +269,15 @@ __all__ = [
     "re_f128",
     "reshape_add",
     "round_tf32",
+    "row_quant_scales",
     "sdif_peel",
     "sdif_peel_plain",
     "sdif_tables",
     "slice8_add",
     "slicestore",
+    "stack_tables_np",
     "staged_segs_per_tile",
+    "table_digits_np",
     "vdif",
     "vdif_digit_order",
     "vdif_plain",
@@ -239,7 +289,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "pwfloor_staged": 0, "fac_dft": 0, "slicestore": 0, "concatstore": 0,
             "gmm_concat": 0, "half3": 0, "slice8_add": 0, "reshape_add": 0, "bd_tf32": 0,
             "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0, "ls_network": 0,
-            "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0}
+            "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0, "i8_dot": 0,
+            "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0}
 
 _SMEM_BYTES = 232448  # shared memory a block may use on the H100 (227 KB)
 
@@ -1053,3 +1104,360 @@ def fft_pow2_rows(xr: torch.Tensor, xi: torch.Tensor,
             twiddle_table(n, False, xr.device).data_ptr(), n.bit_length() - 1, n,
             xr.numel() // n, 1.0, rows_per_block)
     return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# K14g: the int8-limb contraction twins
+# ---------------------------------------------------------------------------
+
+# The port's copy of godsp_tpu/ops/_int8_contract.py's arithmetic (K_I8,
+# the ladder offsets, digits3, row_quant_scales, table_digits_np,
+# stack_tables_np), in torch and host numpy.
+K_I8 = float(2**23 - 2**15 - 2**8)  # ~24 bits, with headroom for the ladder's roundings
+_B0 = np.float32(2**15 + 2**7 + 0.5)
+_B1 = np.float32(2**7 + 0.5)
+_INV_K2 = float(np.float32(1.0 / (K_I8 * K_I8)))
+I8_MAX_N1 = 8  # slices of a row the int8 twins take: n = n1 x 128, n1 <= 8
+_I8_TABLE_SHAPES = ((LANES, 3 * LANES), (LANES, 2 * LANES), (LANES, LANES))  # w0, w1, w2 a slice
+
+
+def digits3(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The balanced base-256 digits (d0, d1, d2), int8, of float32 v in
+    [-K_I8, K_I8]: v = d0 2^16 + d1 2^8 + d2 + eps, |eps| <= 1/2, by the
+    float32 floor ladder of _int8_contract.digits3, operation for
+    operation."""
+    if v.dtype != torch.float32:
+        raise TypeError(f"digits3: the ladder is float32's, got {v.dtype}")
+    d0 = torch.floor((v + float(_B0)) * 2.0**-16)
+    r0 = v - d0 * 65536.0
+    d1 = torch.floor((r0 + float(_B1)) * 2.0**-8)
+    r1 = r0 - d1 * 256.0
+    d2 = torch.floor(r1 + 0.5)
+    return d0.to(torch.int8), d1.to(torch.int8), d2.to(torch.int8)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k as float32 for integer k in [-126, 127], from its exponent bits."""
+    return ((k + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def row_quant_scales(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ck, s_out) of _int8_contract.row_quant_scales for a positive float32
+    row bound m: v = x ck is the digit split's input (ck = K / S, S =
+    2^(e + 1) >= m) and s_out = S 2^32 / K^2 takes the recombined limbs
+    back to x @ T units.  e = floor(log2 max(m, 1e-30)) is read exactly from
+    the exponent bits; JAX's float32 log2 may round up to the next integer
+    at an m just under a power of two, and then picks the next S."""
+    m = m.clamp_min(1e-30)
+    e = ((m.view(torch.int32) >> 23) & 0xFF) - 127
+    return _pow2(-e - 1) * K_I8, _pow2(e + 33) * _INV_K2
+
+
+def table_digits_np(t: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The digits (int8) of a table with |t| <= 1 by digits3's ladder in
+    float64, exactly (K_I8 |t| < 2^24; every step integer or half)."""
+    v = np.asarray(t, np.float64) * K_I8
+    if np.any(np.abs(v) > K_I8):
+        raise ValueError("table entries must satisfy |t| <= 1")
+    d0 = np.floor((v + float(_B0)) * 2.0**-16)
+    r0 = v - d0 * 65536.0
+    d1 = np.floor((r0 + float(_B1)) * 2.0**-8)
+    r1 = r0 - d1 * 256.0
+    d2 = np.floor(r1 + 0.5)
+    for d in (d0, d1, d2):
+        assert d.min() >= -128 and d.max() <= 127
+    return d0.astype(np.int8), d1.astype(np.int8), d2.astype(np.int8)
+
+
+def stack_tables_np(t: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A table's digits stacked for the three-matmul form: w0 = [t0 | t1 |
+    t2] (c, 384), w1 = [t0 | t1] (c, 256), w2 = t0 (c, 128); the six
+    products d_i t_j of i + j <= 2."""
+    t0, t1, t2 = table_digits_np(t)
+    return (np.ascontiguousarray(np.concatenate([t0, t1, t2], axis=1)),
+            np.ascontiguousarray(np.concatenate([t0, t1], axis=1)),
+            np.ascontiguousarray(t0))
+
+
+@lru_cache(maxsize=None)
+def i8mm_tables(n1: int = 8) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """i8mm's and i8dec's random int8 tables w0 (n1, 128, 384), w1
+    (n1, 128, 256), w2 (n1, 128, 128) in [-100, 100), drawn from
+    default_rng(7) as tools/probe_int8.py's make_i8mm_tables (n1 = 8)."""
+    rng = np.random.default_rng(7)
+    return tuple(rng.integers(-100, 100, size=(n1, *shape)).astype(np.int8)
+                 for shape in _I8_TABLE_SHAPES)
+
+
+@lru_cache(maxsize=None)
+def i8full_tables(n: int = 1024) -> tuple[np.ndarray, ...]:
+    """i8full's nine int8 tables (wr0, wr1, wr2, wi0, wi1, wi2, ws0, ws1,
+    ws2), each (n1, 128, 384 / 256 / 128): the stacked digits of every
+    slice's Gr and Gi (ls_tables' float32 G, unscaled) and of (Gr + Gi) / 2
+    formed in float64, as make_i8full_tables."""
+    g = _g_host(n).astype(np.float64) * LANES
+    parts = [[stack_tables_np(mat) for mat in (gk[0], gk[1], (gk[0] + gk[1]) / 2.0)] for gk in g]
+    return tuple(np.stack([p[key][j] for p in parts]) for key in range(3) for j in range(3))
+
+
+def _check_i8(xr: torch.Tensor, xi: torch.Tensor, name: str) -> tuple[int, int]:
+    b, n = _check_planes(xr, xi, name)
+    if n < LANES or n % LANES or n // LANES > I8_MAX_N1:
+        raise ValueError(f"{name}: n must be n1 x {LANES} with 1 <= n1 <= {I8_MAX_N1}, got {n}")
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 planes (the quantization is float32's), got "
+                        f"{xr.dtype}, {xi.dtype}")
+    if xi.device != xr.device:
+        raise ValueError(f"{name}: both planes must be on one device")
+    return b, n
+
+
+def _i8_user_tables(tables, n1: int, device: torch.device, name: str) -> tuple:
+    """(w0, w1, w2) as int8 tensors on `device`: numpy arrays or tensors there."""
+    if len(tables) != 3:
+        raise ValueError(f"{name}: tables are (w0, w1, w2)")
+    out = []
+    for w, shape in zip(tables, _I8_TABLE_SHAPES):
+        w = torch.from_numpy(np.ascontiguousarray(w)) if isinstance(w, np.ndarray) else w
+        if w.dtype != torch.int8:
+            raise TypeError(f"{name}: int8 tables, got {w.dtype}")
+        if tuple(w.shape) != (n1, *shape):
+            raise ValueError(f"{name}: a table of shape {(n1, *shape)}, got {tuple(w.shape)}")
+        if w.device.type != "cpu" and w.device != device:
+            raise ValueError(f"{name}: tables on {w.device}, planes on {device}")
+        out.append(w.to(device))
+    return tuple(out)
+
+
+@lru_cache(maxsize=None)
+def _i8mm_default(n1: int, device: torch.device) -> tuple:
+    return tuple(torch.from_numpy(w).to(device) for w in i8mm_tables(n1))
+
+
+def _i8mm_host(tables, n1: int, device: torch.device, name: str) -> tuple:
+    if tables is None:
+        return _i8mm_default(n1, device)
+    return _i8_user_tables(tables, n1, device, name)
+
+
+@lru_cache(maxsize=None)
+def _i8full_t64(n: int, device: torch.device) -> tuple:
+    """i8full's tables as float64 on `device`: ((wr0, wr1, wr2), (wi..), (ws..))."""
+    t = [torch.from_numpy(w).to(device, torch.float64) for w in i8full_tables(n)]
+    return tuple(tuple(t[3 * p:3 * p + 3]) for p in range(3))
+
+
+def _frag_planes(planes: torch.Tensor) -> torch.Tensor:
+    """(..., 128 [i2], 128 [col]) int8 planes in the kernels' B-fragment
+    order: for n-tile nt, k-step ks, lane 4 g + t, the 8 bytes
+    T[32 ks + 16 h + 4 t + q][8 nt + g] over (h, q); (..., 16384) bytes."""
+    lead = planes.shape[:-2]
+    v = planes.reshape(*lead, 4, 2, 4, 4, 16, 8)  # ks, h, t, q, nt, g
+    k = len(lead)
+    v = v.permute(*range(k), k + 4, k + 0, k + 5, k + 2, k + 1, k + 3)
+    return v.reshape(*lead, LANES * LANES).contiguous()
+
+
+def _split_blocks(w: torch.Tensor) -> list[torch.Tensor]:
+    """(n1, 128, 128 c) -> its c 128-column blocks."""
+    return [w[..., LANES * j:LANES * (j + 1)] for j in range(w.shape[-1] // LANES)]
+
+
+def _pack_i8(w0, w1, w2, dec: bool) -> torch.Tensor:
+    """i8mm's (w0's three blocks, w1's two, w2) or i8dec's (w0's three)
+    planes a slice, packed: (n1, planes, 16384) int8."""
+    planes = _split_blocks(w0) + ([] if dec else _split_blocks(w1) + [w2])
+    return _frag_planes(torch.stack(planes, dim=1))
+
+
+@lru_cache(maxsize=None)
+def _i8mm_packed(n1: int, dec: bool, device: torch.device) -> torch.Tensor:
+    return _pack_i8(*_i8mm_default(n1, device), dec)
+
+
+@lru_cache(maxsize=None)
+def _i8full_packed(n: int, device: torch.device) -> torch.Tensor:
+    """The digits t0, t1, t2 of Gr, Gi, (Gr + Gi) / 2 (each product's w0
+    blocks: its w1 and w2 repeat them) a slice, packed: (n1, 9, 16384)."""
+    t = i8full_tables(n)
+    w0s = [torch.from_numpy(t[3 * p]).to(device) for p in range(3)]
+    return _frag_planes(torch.stack([b for w in w0s for b in _split_blocks(w)], dim=1))
+
+
+def _i8_slices(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], x.shape[1] // LANES, LANES).transpose(0, 1)
+
+
+def _i8_unslice(y: torch.Tensor, b: int, n: int) -> torch.Tensor:
+    return y.transpose(0, 1).reshape(b, n)
+
+
+def _mm64(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """d (n1, b, 128) @ w (n1, 128, c) of integers, exactly, in float64
+    (every sum stays far below 2^53)."""
+    return torch.matmul(d.to(torch.float64), w.to(torch.float64))
+
+
+def _mm_stacked(d, w) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """_int8_contract.mm_i8_stacked: (q0, q1, q2) of digits d and stacked
+    tables w, exact float64."""
+    p0, p1, p2 = (_mm64(di, wi) for di, wi in zip(d, w))
+    L = LANES
+    return p0[..., :L], p0[..., L:2 * L] + p1[..., :L], p0[..., 2 * L:] + p1[..., L:] + p2
+
+
+def _recombine(q, s_out: torch.Tensor) -> torch.Tensor:
+    """(q0 + 2^-8 q1 + 2^-16 q2) s_out in float32, _int8_contract's order."""
+    f = [v.to(torch.float32) for v in q]
+    return (f[0] + f[1] * 2.0**-8 + f[2] * 2.0**-16) * s_out
+
+
+def _sat_trunc(x: torch.Tensor) -> torch.Tensor:
+    return torch.trunc(x).clamp(-128.0, 127.0)
+
+
+def i8_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (m, k) int8 @ b (k, n) int8 into int32, exactly (through float64)."""
+    _check_i8_dot(a, b)
+    return _mm64(a, b).to(torch.int32)
+
+
+def i8mm_plain(xr: torch.Tensor, xi: torch.Tensor,
+               tables=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of i8mm: per slice a = trunc(xr 100), b =
+    trunc(xi 100), s = trunc((xr + xi) 50) (float32, saturated to int8's
+    range) through mm_i8_stacked against (w0, w1, w2) (default i8mm_tables);
+    yr = f32(sum of q0 + q1) 1e-5, yi = f32(sum of q2) 1e-5."""
+    b, n = _check_i8(xr, xi, "i8mm")
+    w = _i8mm_host(tables, n // LANES, xr.device, "i8mm")
+    ar, ai = _i8_slices(xr), _i8_slices(xi)
+    acc_r = acc_i = 0.0
+    for x in (ar * 100.0, ai * 100.0, (ar + ai) * 50.0):
+        d = _sat_trunc(x)
+        q0, q1, q2 = _mm_stacked((d, d, d), w)
+        acc_r = acc_r + q0 + q1
+        acc_i = acc_i + q2
+    return (_i8_unslice(acc_r.to(torch.float32) * 1e-5, b, n),
+            _i8_unslice(acc_i.to(torch.float32) * 1e-5, b, n))
+
+
+def i8dec_plain(xr: torch.Tensor, xi: torch.Tensor,
+                tables=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of i8dec: per slice the row scales of max |xr| +
+    |xi|, the first digit d0 of xr ck, xi ck and (xr + xi) ck against w0
+    (default i8mm_tables); yr = f32(sum of d0 w0[:, :256]'s two blocks)
+    s_out / 128, yi = f32(sum of d0 w0[:, 256:]) s_out / 128."""
+    b, n = _check_i8(xr, xi, "i8dec")
+    w0 = _i8mm_host(tables, n // LANES, xr.device, "i8dec")[0]
+    ar, ai = _i8_slices(xr), _i8_slices(xi)
+    ck, s_out = row_quant_scales((ar.abs() + ai.abs()).amax(dim=-1, keepdim=True))
+    s_out = s_out * (1.0 / LANES)
+    L = LANES
+    acc_r = acc_i = 0.0
+    for x in (ar, ai, ar + ai):
+        q = _mm64(digits3(x * ck)[0], w0)
+        acc_r = acc_r + (q[..., :L] + q[..., L:2 * L])
+        acc_i = acc_i + q[..., 2 * L:]
+    return (_i8_unslice(acc_r.to(torch.float32) * s_out, b, n),
+            _i8_unslice(acc_i.to(torch.float32) * s_out, b, n))
+
+
+def i8full_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of i8full and i8_concat: karatsuba_g_i8 of every
+    slice with i8full_tables (extra_scale 1/128): K13's function (the
+    twiddled 128-point DFT of each slice, over 128) in int8 limbs, the
+    Karatsuba +- on the exact partials, one float32 recombination each."""
+    b, n = _check_i8(xr, xi, "i8full")
+    wr, wi, ws = _i8full_t64(n, xr.device)
+    ar, ai = _i8_slices(xr), _i8_slices(xi)
+    ck, s_out = row_quant_scales((ar.abs() + ai.abs()).amax(dim=-1, keepdim=True))
+    s_out = s_out * (1.0 / LANES)
+    q_r = _mm_stacked(digits3(ar * ck), wr)
+    q_i = _mm_stacked(digits3(ai * ck), wi)
+    q_s = _mm_stacked(digits3((ar + ai) * ck), ws)
+    re = _recombine([a - c for a, c in zip(q_r, q_i)], s_out)
+    im = _recombine([2 * s - a - c for s, a, c in zip(q_s, q_r, q_i)], s_out)
+    return _i8_unslice(re, b, n), _i8_unslice(im, b, n)
+
+
+def _check_i8_dot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"i8_dot: a (m, k) and b (k, n), got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"i8_dot: int8 operands, got {a.dtype}, {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"i8_dot: operands on {a.device} and {b.device}")
+    return a.shape[0], a.shape[1], b.shape[1]
+
+
+def i8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K14g's dot: a (m, k) int8 @ b (k, n) int8 into int32, exactly, on the
+    int8 tensor cores."""
+    m, k, n = _check_i8_dot(a, b)
+    if not a.is_cuda:
+        return i8_dot_plain(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty(m, n, dtype=torch.int32, device=a.device)
+    return _launch("i8_dot", _build.library().gdsp_i8_dot, c, a.data_ptr(), b.data_ptr(),
+                   c.data_ptr(), m, k, n)
+
+
+def _i8_launch(name: str, fn, xr: torch.Tensor, xi: torch.Tensor, packed: torch.Tensor,
+               *extra) -> tuple[torch.Tensor, torch.Tensor]:
+    xr, xi = _cuda_planes(xr, xi, name)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch(name, fn, yr, xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            packed.data_ptr(), xr.shape[0], xr.shape[1], *extra)
+    return yr, yi
+
+
+def _i8mm_packed_for(tables, n: int, dec: bool, device: torch.device, name: str) -> torch.Tensor:
+    if tables is None:
+        return _i8mm_packed(n // LANES, dec, device)
+    return _pack_i8(*_i8_user_tables(tables, n // LANES, device, name), dec)
+
+
+def i8mm(xr: torch.Tensor, xi: torch.Tensor, tables=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14g i8mm: the raw int8 MAC stream at the full contraction's count
+    (2304 MACs a point): the quantized a, b, a + b of each slice of two
+    float32 planes (b, n), n = n1 x 128, n1 <= 8, against (w0, w1, w2)
+    (default i8mm_tables: (n1, 128, 384 / 256 / 128) int8)."""
+    _check_i8(xr, xi, "i8mm")
+    if not xr.is_cuda:
+        return i8mm_plain(xr, xi, tables)
+    return _i8_launch("i8mm", _build.library().gdsp_i8mm, xr, xi,
+                      _i8mm_packed_for(tables, xr.shape[1], False, xr.device, "i8mm"))
+
+
+def i8dec(xr: torch.Tensor, xi: torch.Tensor, tables=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14g i8dec: the row scales and digit ladder of the contraction with
+    only d0's stacked product against w0 (1152 MACs a point)."""
+    _check_i8(xr, xi, "i8dec")
+    if not xr.is_cuda:
+        return i8dec_plain(xr, xi, tables)
+    return _i8_launch("i8dec", _build.library().gdsp_i8dec, xr, xi,
+                      _i8mm_packed_for(tables, xr.shape[1], True, xr.device, "i8dec"))
+
+
+def _i8_contract(name: str, xr: torch.Tensor, xi: torch.Tensor,
+                 store_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_i8(xr, xi, name)
+    if not xr.is_cuda:
+        return i8full_plain(xr, xi)
+    return _i8_launch(name, _build.library().gdsp_i8full, xr, xi,
+                      _i8full_packed(xr.shape[1], xr.device), store_rows)
+
+
+def i8full(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14g i8full: K13's function (gmm_floor: the twiddled 128-point DFT of
+    every slice, over 128) by the exact int8-limb Karatsuba contraction,
+    each slice's outputs stored as they come; equal to i8full_plain."""
+    return _i8_contract("i8full", xr, xi, 0)
+
+
+def i8_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14c i8_concat: i8full's kernel with a 16-row tile's outputs of every
+    slice gathered in shared memory and stored as whole rows; equal to
+    i8full."""
+    return _i8_contract("i8_concat", xr, xi, 1)

@@ -23,4 +23,9 @@
   r4      — the lane flip by warp shuffles (K14e) and K3 beside K12, then
             K1 at 2048 x 8192 and 1024 x 16384:
             python3 -m godsp_tpu_torch.probes.r4
+  int8    — K13's function by the exact int8-limb contraction on the int8
+            tensor cores (K14g: i8mm, i8dec, i8full, i8_concat, after
+            i8_dot's exactness and i8full's dB against float64) beside K12
+            and K13:
+            python3 -m godsp_tpu_torch.probes.int8
 """

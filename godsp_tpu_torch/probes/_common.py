@@ -17,10 +17,11 @@ from godsp_tpu_torch.fft.four_step import _tf32_off
 from godsp_tpu_torch.ops import cuda_metrics
 from godsp_tpu_torch.utils.metrics import bound_ms, time_chain_diff
 
-__all__ = ["TF32_FLOPS", "card", "chained", "complex_matmul", "lane_main", "lane_planes",
-           "planes_db", "planes_equal", "tf32_matmul_on", "time_lane_rows"]
+__all__ = ["INT8_OPS", "TF32_FLOPS", "card", "chained", "complex_matmul", "lane_main",
+           "lane_planes", "planes_db", "planes_equal", "tf32_matmul_on", "time_lane_rows"]
 
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet)
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak, operations a second (the same)
 
 
 def chained(op):
@@ -91,18 +92,21 @@ def tf32_matmul_on():
 
 def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit,
                    tf32_per_point: dict | None = None,
-                   bytes_per_point: dict | None = None) -> dict:
+                   bytes_per_point: dict | None = None,
+                   int8_per_point: dict | None = None) -> dict:
     """Each row of ops ({name: (op, library op or None)}, the copy first)
     timed with time_chain_diff beside its bound (bytes_per_point[name],
     default 16 B, and ops_per_point[name] float32 operations a point of the
-    planes, any shape; where tf32_per_point names the row, also its TF32
-    operations over TF32_FLOPS, kept as "tf32_ms", and the bound is the
-    larger) and its library call, TF32 off on the card; returns {name:
-    {"ms", "bound_ms", "bound_by", "library_ms", "of_copy"}} and emits one
-    line a row."""
+    planes, any shape; where tf32_per_point or int8_per_point names the row,
+    also its TF32 operations over TF32_FLOPS or int8 operations over
+    INT8_OPS, kept as "tf32_ms" or "int8_ms", and the bound is the larger)
+    and its library call, TF32 off on the card; returns {name: {"ms",
+    "bound_ms", "bound_by", "library_ms", "of_copy"}} and emits one line a
+    row."""
     pts = xr.numel()
     shape = " x ".join(map(str, xr.shape))
-    tf32_per_point = tf32_per_point or {}
+    tensor_rates = (("tf32", tf32_per_point or {}, TF32_FLOPS),
+                    ("int8", int8_per_point or {}, INT8_OPS))
     bytes_per_point = bytes_per_point or {}
     out = {}
     with _tf32_off() if xr.is_cuda else contextlib.nullcontext():
@@ -110,18 +114,20 @@ def time_lane_rows(xr: torch.Tensor, ops: dict, ops_per_point: dict, emit,
             bnd, by = bound_ms(bytes_per_point.get(name, 16.0) * pts, ops_per_point[name] * pts)
             r = dict(ms=time_chain_diff(chained(op), xr) * 1e3, bound_ms=bnd, bound_by=by,
                      library_ms=None if lib is None else time_chain_diff(chained(lib), xr) * 1e3)
-            if name in tf32_per_point:
-                r["tf32_ms"] = tf32_per_point[name] * pts / TF32_FLOPS * 1e3
-                if r["tf32_ms"] > bnd:
-                    r.update(bound_ms=r["tf32_ms"], bound_by="operations")
+            for unit, per_point, rate in tensor_rates:
+                if name in per_point:
+                    r[f"{unit}_ms"] = per_point[name] * pts / rate * 1e3
+                    if r[f"{unit}_ms"] > r["bound_ms"]:
+                        r.update(bound_ms=r[f"{unit}_ms"], bound_by="operations")
             out[name] = r
     copy_ms = out["copy"]["ms"]
     for name, r in out.items():
         r["of_copy"] = r["ms"] / copy_ms
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        tf32 = f"  (TF32 {r['tf32_ms']:.4f} ms)" if "tf32_ms" in r else ""
+        tc = "".join(f"  ({unit.upper()} {r[f'{unit}_ms']:.4f} ms)" for unit, _, _ in tensor_rates
+                     if f"{unit}_ms" in r)
         emit(f"{name:11s} {r['ms']:.4f} ms  ({r['of_copy']:.2f}x the copy)  bound "
-             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){tf32}  library {lib}  "
+             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){tc}  library {lib}  "
              f"[{xr.device.type}, {shape}]")
     return out
 

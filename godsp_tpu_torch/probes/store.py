@@ -21,12 +21,16 @@ events; their difference over the extra launches):
                stores;
   gmm_concat   K13's contraction over every slice of a row tile, stored
                as whole rows;
+  i8_concat    K13's function by the int8-limb contraction
+               (godsp_tpu/ops/_int8_contract.py's scheme, K14g's kernel),
+               a 16-row tile's every slice stored as whole rows;
 
-each beside its bound (utils.metrics.bound_ms) and its library yardstick
-(copy_ for the copies, torch.matmul of the complex64 slices with K13's G
-tables, TF32 off, for the contractions).  The TPU probe's fifth twin,
-i8_concat (the int8-limb contraction of godsp_tpu/ops/_int8_contract.py
-with whole-row stores), is pending with K14g (tools/probe_int8.py).
+each beside its bound (utils.metrics.bound_ms; i8_concat's 4608 int8
+operations a point over 1,979 TOPS too) and its library yardstick (copy_
+for the copies, torch.matmul of the complex64 slices with K13's G tables,
+TF32 off, for the contractions).  i8_concat must equal its plain version
+(the same integer and float32 arithmetic; else >= 120 dB against it); its
+dB against float64 is reported, not gated (probes/int8.py says why).
 
 run(device="cpu", b=...) sends the same rows through the plain versions
 at a cut size, for tests; a CPU time is not a device number.
@@ -41,20 +45,30 @@ import torch
 from godsp_tpu_torch._dtypes import resolve_device
 from godsp_tpu_torch.dsputils import snr_db
 from godsp_tpu_torch.ops import cuda_metrics, cuda_probes
-from godsp_tpu_torch.probes._common import complex_matmul, lane_main, lane_planes, time_lane_rows
+from godsp_tpu_torch.probes import int8
+from godsp_tpu_torch.probes._common import (
+    complex_matmul,
+    lane_main,
+    lane_planes,
+    planes_db,
+    planes_equal,
+    time_lane_rows,
+)
 
 __all__ = ["B", "N", "ROWS", "SNR_DB", "check_numerics", "main", "run"]
 
 N, B = 1024, 16384
-ROWS = ("copy", "slicestore", "concatstore", "gmm", "gmm_concat")
+ROWS = ("copy", "slicestore", "concatstore", "gmm", "gmm_concat", "i8_concat")
 OPS_PER_POINT = {"copy": 0.0, "slicestore": 0.0, "concatstore": 0.0, "gmm": 768.0,
-                 "gmm_concat": 768.0}
+                 "gmm_concat": 768.0, "i8_concat": int8.OPS_PER_POINT["i8_concat"]}
+INT8_PER_POINT = {"i8_concat": int8.INT8_PER_POINT["i8_concat"]}
 SNR_DB = 120.0
 
 
 def check_numerics(xr: torch.Tensor, xi: torch.Tensor) -> dict:
     """The copies equal their input; gmm_concat equals K13 (or, if not,
-    holds >= SNR_DB against the float64 plain version).  Raises otherwise."""
+    holds >= SNR_DB against the float64 plain version); i8_concat equals
+    its plain version (or holds >= SNR_DB against it).  Raises otherwise."""
     out = {}
     for name in ("slicestore", "concatstore"):
         got = getattr(cuda_probes, name)(xr, xi)
@@ -70,6 +84,14 @@ def check_numerics(xr: torch.Tensor, xi: torch.Tensor) -> dict:
         (want[0] + 1j * want[1]).cpu().numpy()))
     if xr.is_cuda and out["gmm_concat_vs_float64_db"] < SNR_DB:
         raise AssertionError(f"gmm_concat: {out['gmm_concat_vs_float64_db']:.2f} dB < {SNR_DB}")
+    got = cuda_probes.i8_concat(xr, xi)
+    want = cuda_probes.i8full_plain(xr, xi)
+    out["i8_concat_equal_plain"] = planes_equal(got, want)
+    out["i8_concat_vs_plain_db"] = planes_db(got, want, {}, "i8_concat")
+    out["i8_concat_vs_float64_db"] = planes_db(
+        got, cuda_probes.gmm_tf32_plain(xr.double(), xi.double()), {}, "float64")
+    if xr.is_cuda and out["i8_concat_vs_plain_db"] < SNR_DB:
+        raise AssertionError(f"i8_concat: {out['i8_concat_vs_plain_db']:.2f} dB < {SNR_DB}")
     return out
 
 
@@ -84,6 +106,7 @@ def ops(xr: torch.Tensor, xi: torch.Tensor) -> dict:
         "concatstore": (lambda: cuda_probes.concatstore(xr, xi), copy),
         "gmm": (lambda: cuda_metrics.gmm_floor(xr, xi), matmul),
         "gmm_concat": (lambda: cuda_probes.gmm_concat(xr, xi), matmul),
+        "i8_concat": (lambda: cuda_probes.i8_concat(xr, xi), matmul),
     }
 
 
@@ -97,7 +120,8 @@ def run(device=None, b: int | None = None, emit=print) -> dict:
     xr, xi = lane_planes(dev, b, N)
     out = {"check": check_numerics(xr, xi)}
     emit(f"check: {out['check']}  [{dev.type}]")
-    out.update(time_lane_rows(xr, ops(xr, xi), OPS_PER_POINT, emit))
+    out.update(time_lane_rows(xr, ops(xr, xi), OPS_PER_POINT, emit,
+                              int8_per_point=INT8_PER_POINT))
     return out
 
 

@@ -13,7 +13,10 @@ to their float32 plain versions, bd_tf32 against its plain version with
 TF32-rounded operands; K14h vdif also against the float64 FFT in its digit
 order, K14i sdif_peel against K8 with the rows bit-reversed; K14e lane_flip
 exact; K14f gmm_tf32 against its TF32-rounded plain version, every ls_full
-setting and every fft_pow2_rows setting equal to its default), and between
+setting and every fft_pow2_rows setting equal to its default; K14g i8_dot
+equal to the exact int32 product, i8mm, i8dec, i8full and i8_concat equal
+to their plain versions, which do the same integer and float32 arithmetic,
+and i8full > 100 dB against the float64 product), and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends); the fused
 peel + rows route (K9) also against the unfused plan.
@@ -1324,3 +1327,115 @@ def test_k14e_k14f_wrappers_raise_on_card(cuda):
         cuda_probes.lane_flip(torch.zeros(4, 128, **f64))
     with pytest.raises(TypeError):
         cuda_probes.fft_pow2_rows(torch.zeros(4, 256, **f64), torch.zeros(4, 256, **f64), 1)
+
+
+# ---------------------------------------------------------------------------
+# K14g: the int8-limb contraction twins
+# ---------------------------------------------------------------------------
+
+_K14G = ("i8mm", "i8dec", "i8full", "i8_concat")
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 128, 128), (1001, 128, 384), (33, 100, 70), (5, 7, 3)])
+def test_k14g_i8_dot_on_card(cuda, m, k, n):
+    """i8_dot torch.equal to the exact int32 product, ragged m, k and n
+    included; one launch a call."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+    b = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+    reset_launch_counts()
+    got = cuda_probes.i8_dot(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    want = a.astype(np.int64) @ b.astype(np.int64)
+    assert got.dtype == torch.int32 and np.array_equal(_np(got), want)
+    assert launch_counts()["i8_dot"] == 1
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 1024), (1001, 512), (33, 256), (5, 128)])
+def test_k14g_on_card(cuda, b, n):
+    """i8mm, i8dec, i8full and i8_concat torch.equal to their plain versions
+    on the card (the same integer and float32 arithmetic in the same order),
+    i8full equal to i8_concat; i8full's dB against the float64 exact product
+    printed and > 100 (the scheme keeps ~120); one launch a call."""
+    xr, xi = (v * 0.01 for v in _lane_planes(cuda, b, n, b + n))
+    reset_launch_counts()
+    got = {name: getattr(cuda_probes, name)(xr, xi) for name in _K14G}
+    for name, plain in (("i8mm", cuda_probes.i8mm_plain), ("i8dec", cuda_probes.i8dec_plain),
+                        ("i8full", cuda_probes.i8full_plain),
+                        ("i8_concat", cuda_probes.i8full_plain)):
+        want = plain(xr, xi)
+        assert torch.equal(got[name][0], want[0]) and torch.equal(got[name][1], want[1]), name
+    assert torch.equal(got["i8full"][0], got["i8_concat"][0])
+    assert torch.equal(got["i8full"][1], got["i8_concat"][1])
+    db = dsputils.snr_db(_c(got["i8full"]),
+                         _c(cuda_probes.gmm_tf32_plain(xr.double(), xi.double())))
+    print(f"i8full {b} x {n}: {db:.2f} dB against the float64 product")
+    assert db > 100.0
+    assert all(launch_counts()[name] == 1 for name in _K14G)
+
+
+@pytest.mark.parametrize("b", [1001, 16])
+def test_k14g_fragment_maps_on_card(cuda, b):
+    """On identity and cyclic-shift digit tables i8mm gives 3 x the rolled
+    sum of its quantized planes times 1e-5 and i8dec its plain version,
+    exactly (the int8 mma's A, B and C maps)."""
+    from godsp_tpu_torch.probes import int8
+
+    xr, xi = (v * 0.01 for v in _lane_planes(cuda, b, 1024, b))
+    assert int8.fragment_maps(xr, xi) == {"identity": True, "cyclic_shift": True}
+
+
+def test_k14g_batches_past_grid_y(cuda):
+    """i8_concat's one block a 16-row tile passes grid.y's 65535 blocks; its
+    result equals i8full's, and the last rows their plain version's."""
+    xr, xi = (v * 0.01 for v in _lane_planes(cuda, 16 * 65535 + 17, 128, 11))
+    full = cuda_probes.i8full(xr, xi)
+    rows = cuda_probes.i8_concat(xr, xi)
+    assert torch.equal(full[0], rows[0]) and torch.equal(full[1], rows[1])
+    tail = cuda_probes.i8full_plain(xr[-40:].contiguous(), xi[-40:].contiguous())
+    assert torch.equal(full[0][-40:], tail[0]) and torch.equal(full[1][-40:], tail[1])
+
+
+@pytest.mark.parametrize("flags", [(False, False), (True, True)])
+def test_k14g_and_its_yardsticks_leave_tf32_flags(cuda, flags):
+    from godsp_tpu_torch.probes import int8
+
+    old = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    try:
+        xr, xi = (v * 0.01 for v in _lane_planes(cuda, 64, 1024, 4))
+        a, b = int8.dot_inputs(cuda, 256, 128, 128)
+        cuda_probes.i8_dot(a, b)
+        torch._int_mm(a, b)
+        assert _tf32_flags() == flags
+        for name, (op, lib) in int8.ops(xr, xi).items():
+            op()
+            if lib is not None:
+                lib()
+            assert _tf32_flags() == flags, name
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def test_k14g_wrappers_raise_on_card(cuda):
+    f64 = dict(dtype=torch.float64, device=cuda)
+    for name in _K14G:
+        fn = getattr(cuda_probes, name)
+        with pytest.raises(TypeError):
+            fn(torch.zeros(4, 256, **f64), torch.zeros(4, 256, **f64))
+        for n in (200, 2048):
+            with pytest.raises(ValueError):
+                fn(torch.zeros(4, n, device=cuda), torch.zeros(4, n, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, 256, device=cuda), torch.zeros(4, 256))
+    floats = [torch.zeros(2, 128, c, device=cuda) for c in (384, 256, 128)]
+    for name in ("i8mm", "i8dec"):
+        with pytest.raises(TypeError):
+            getattr(cuda_probes, name)(torch.zeros(4, 256, device=cuda),
+                                       torch.zeros(4, 256, device=cuda), floats)
+    i8 = dict(dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_probes.i8_dot(torch.zeros(4, 8, device=cuda), torch.zeros(8, 4, **i8))
+    with pytest.raises(ValueError):
+        cuda_probes.i8_dot(torch.zeros(4, 8, **i8), torch.zeros(7, 4, **i8))
+    with pytest.raises(ValueError):
+        cuda_probes.i8_dot(torch.zeros(4, 8, **i8), torch.zeros(8, 4, dtype=torch.int8))

@@ -1,7 +1,7 @@
 """The Hopper probes on the CPU: K14a, the fused-Welch floor twins
 (ops/cuda_probes.py) and their probe script (probes/pwfloor.py); K14b
-(fac_dft) and K14c (slicestore, concatstore, gmm_concat) and theirs
-(probes/facdft.py, probes/store.py).
+(fac_dft) and K14c (slicestore, concatstore, gmm_concat, and K14g's
+i8_concat) and theirs (probes/facdft.py, probes/store.py).
 
 Each twin's plain version is held against its Pallas counterpart in
 tools/probe_pwfloor.py (build_variant(v, "parallel", interpret=True)),
@@ -21,7 +21,9 @@ to_layout_a/_a_to_dense), >= 100 dB, and the port's tables against
 _fac_tables(); the store twins' against a pl.pallas_call(interpret=True)
 built here around tools/probe_store.py's kernel bodies at 256 rows (the
 module hard-codes 16384 rows and no interpret flag): equal for the
-copies, >= 100 dB for gmm_concat.  Both probe scripts run at a cut size.
+copies, >= 100 dB for gmm_concat and for i8_concat (with the tool's own
+make_i8full_tables; tests/test_torch_int8.py says why not equal).  Both
+probe scripts run at a cut size.
 """
 
 import importlib.util
@@ -251,7 +253,7 @@ def _store_call(mod, kern, tables, xr, xi):
         interpret=True)(xr, xi, *tables)
 
 
-@pytest.mark.parametrize("twin", ["slicestore", "concatstore", "gmm_concat"])
+@pytest.mark.parametrize("twin", ["slicestore", "concatstore", "gmm_concat", "i8_concat"])
 def test_store_twin_plain_matches_the_tpu_kernel(lane_inputs, twin):
     import jax.numpy as jnp
 
@@ -264,10 +266,17 @@ def test_store_twin_plain_matches_the_tpu_kernel(lane_inputs, twin):
     if twin == "gmm_concat":
         tabs = _ls_tables(mod.N, False, False, 1.0 / 128)
         tables = [jnp.asarray(tabs[k]) for k in _LS_ORDER]
+    if twin == "i8_concat":  # the tool's own nine digit tables (probe_int8's)
+        tables = mod.make_i8full_tables()
     out = _store_call(mod, getattr(mod, f"_{twin}_kernel"), tables, jnp.asarray(xr),
                       jnp.asarray(xi))
     want = _c(out)
-    if twin == "gmm_concat":
+    if twin == "i8_concat":
+        # float32 planes only (the quantization is float32's); the row
+        # scales' exp2 differ by ulps (tests/test_torch_int8.py), not equal.
+        got = _c(cuda_probes.i8_concat(torch.from_numpy(xr), torch.from_numpy(xi)))
+        assert dsputils.snr_db(got, want) >= SNR_DB
+    elif twin == "gmm_concat":
         got = _c(cuda_probes.gmm_concat(*_planes64(xr, xi)))
         assert dsputils.snr_db(got, want) >= SNR_DB
         got32 = _c(cuda_probes.gmm_concat(torch.from_numpy(xr), torch.from_numpy(xi)))
@@ -308,6 +317,9 @@ def test_lane_probe_rows_on_the_cpu(probe, rows):
     else:
         assert out["check"]["slicestore_equal"] and out["check"]["concatstore_equal"]
         assert out["check"]["gmm_concat_equal_k13"]
+        assert out["check"]["i8_concat_equal_plain"]
+        assert out["check"]["i8_concat_vs_float64_db"] >= 120.0
+        assert out["i8_concat"]["int8_ms"] > 0
 
 
 @pytest.mark.parametrize("probe", [facdft, store])
