@@ -9,7 +9,8 @@ final line):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit and torch's device name;
   2. builds the CUDA kernels from godsp_tpu_torch/csrc (nvcc, sm_90a);
-  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K4
+  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2: the
+     register-radix design of csrc/fft_regs.cuh, K4
      pwelch_power_partials, K7 csd_power_partials, K9
      peel_rows_fused_split) against its plain
      PyTorch version run in float64 on the card, at main-path shapes: SNR >= 120 dB, and each
@@ -41,6 +42,12 @@ final line):
      version at 1024 x 16384 and at 7 x 4099 (the scalar tail), and K13
      gmm_floor against its float64 plain version at 1024 x 16384 and at
      n = 128, 8192 and 16384 (n1 = 1 .. 128), both timed at 1024 x 16384;
+     and the redesign lines (phase_fft_redesign): K1 at 16384 x 1024,
+     65536 x 256, 4096 x 4096, 2048 x 8192 and 1024 x 16384, K2 and K3 at
+     16384 x 1024, each >= 120 dB against float64 and timed by chain
+     (utils.metrics.time_chain_diff) beside fft_pow2_radix2 (K1's radix-2
+     first design; K3's with n/2 + 1 bins), torch.fft and the bound,
+     one line a kernel and shape;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -247,9 +254,11 @@ final line):
      of the sweep's 4096 x 4096, 2048 x 8192 and 1024 x 16384; each timed
      at 16384 x 1024 beside its plain version, bound and library call;
  20. probes.r4.run and probes.r3.run at their full shapes as two counted
-     sessions: lane_flip, rfft_pow2, copy_split, fft_pow2_rows and
-     fft_pow2; ls_network, gmm_tf32, ls_full, copy_split, slicestore,
-     gmm_floor, fft_pow2 and fft_pow2_rows; nothing else;
+     sessions: lane_flip, rfft_pow2, copy_split, fft_pow2_rows, fft_pow2
+     and fft_pow2_radix2; ls_network, gmm_tf32, ls_full, copy_split,
+     slicestore, gmm_floor, fft_pow2, fft_pow2_rows and fft_pow2_radix2;
+     nothing else (the sweep times K1 at each rows a CTA beside its
+     radix-2 first design);
  21. K14g i8_dot, i8mm, i8dec, i8full and i8_concat (ops/cuda_probes.py)
      on the card at 16384 x 1024 and at the ragged 1001 x 1024 and 1001 x
      512 (n1 4): probes.int8's check_numerics and fragment_maps, their
@@ -464,6 +473,7 @@ REPLACES = {
     **{name: "tools/probe_r3.py:157" for name in LANE_SLICE_TWINS},
     "lane_flip": "tools/probe_r4.py:67",
     "fft_pow2_rows": "godsp_tpu/ops/pallas_fft.py:1125",
+    "fft_pow2_radix2": "godsp_tpu/ops/pallas_fft.py:1125",
     "i8_dot": "tools/probe_int8.py:213",
     "i8mm": "tools/probe_int8.py:71",
     "i8dec": "tools/probe_int8.py:71",
@@ -500,6 +510,7 @@ SOURCES = {
     **{name: "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu" for name in LANE_SLICE_TWINS},
     "lane_flip": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
     "fft_pow2_rows": "godsp_tpu_torch/csrc/fft_kernels.cu",
+    "fft_pow2_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
 }
 
@@ -720,6 +731,69 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
             rec.device_time("pwelch_power_partials", "pwelch_partials_kernel",
                             lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, stride,
                                                                       pad=pad))
+
+
+# K1/K2/K3's register-radix design beside its radix-2 first design
+# (fft_pow2_radix2), torch.fft and the bound, by chain: K1 at these shapes
+# of 2^24 points, K2 and K3 at the first.
+REDESIGN_SHAPES = ((16384, 1024), (65536, 256), (4096, 4096), (2048, 8192), (1024, 16384))
+
+
+def phase_fft_redesign(rec: KernelRecord, dev) -> None:
+    """Phase 3's redesign lines: at each shape of REDESIGN_SHAPES, K1 (and
+    at 16384 x 1024 K2 and K3) held against its float64 plain version
+    (>= 120 dB), then timed with utils.metrics.time_chain_diff beside
+    fft_pow2_radix2 (K1's radix-2 first design, K3's with n/2 + 1
+    bins stored), torch.fft (fft, ifft, rfft) and the bound; one line a
+    kernel and shape.  fft_pow2_radix2 is checked and timed here for the
+    kernels line (its launches come from phase 20's sweep)."""
+    from godsp_tpu_torch.ops import cuda_fft, cuda_probes
+    from godsp_tpu_torch.probes._common import chained
+    from godsp_tpu_torch.utils.metrics import time_chain_diff
+
+    def chain_ms(op, x):
+        return time_chain_diff(chained(op), x) * 1e3
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    log("K1/K2/K3 redesign vs the radix-2 first design, by chain:")
+    for b, n in REDESIGN_SHAPES:
+        xr = torch.randn(b, n, generator=g, device=dev)
+        xi = torch.randn(b, n, generator=g, device=dev)
+        x64 = (xr.double(), xi.double())
+        z = torch.complex(xr, xi)
+        shape = f"{b} x {n}"
+        pts = float(b * n)
+        rows = [("fft_pow2", lambda: cuda_fft.fft_pow2(xr, xi),
+                 lambda: cuda_probes.fft_pow2_radix2(xr, xi), lambda: torch.fft.fft(z),
+                 cuda_fft.fft_pow2_plain(*x64), 16.0 * pts, fft_flops(n, b))]
+        if (b, n) == REDESIGN_SHAPES[0]:
+            rows += [
+                ("ifft_pow2", lambda: cuda_fft.ifft_pow2(xr, xi, 1.0 / n),
+                 lambda: cuda_probes.fft_pow2_radix2(xr, xi, True, 1.0 / n),
+                 lambda: torch.fft.ifft(z), cuda_fft.ifft_pow2_plain(*x64, 1.0 / n),
+                 16.0 * pts, fft_flops(n, b) + 2.0 * pts),
+                ("rfft_pow2", lambda: cuda_fft.rfft_pow2(xr),
+                 lambda: cuda_probes.fft_pow2_radix2(xr, None, bins=n // 2 + 1),
+                 lambda: torch.fft.rfft(xr), cuda_fft.rfft_pow2_plain(x64[0]),
+                 4.0 * pts + 8.0 * b * (n // 2 + 1), rfft_flops(n, b))]
+            rec.check("fft_pow2_radix2", lambda: cplx(cuda_probes.fft_pow2_radix2(xr, xi)),
+                      cplx(cuda_fft.fft_pow2_plain(*x64)), f"forward {shape}")
+            rec.time("fft_pow2_radix2", shape, lambda: cuda_probes.fft_pow2_radix2(xr, xi),
+                     lambda: cuda_fft.fft_pow2_plain(xr, xi), lambda: torch.fft.fft(z),
+                     16.0 * pts, fft_flops(n, b))
+        for name, kernel, radix2, library, want, nbytes, flops in rows:
+            got = cplx(kernel())
+            db = snr(got, cplx(want))
+            rec.err[name] = max(rec.err.get(name, 0.0), float((got - cplx(want)).abs().max()))
+            del got
+            if not db >= SNR_DB:
+                raise AssertionError(f"{name} {shape}: {db:.2f} dB < {SNR_DB} dB")
+            ms, r2, lib = chain_ms(kernel, xr), chain_ms(radix2, xr), chain_ms(library, xr)
+            bnd, by = bound_ms(nbytes, flops)
+            log(f"  redesign {name:10s} {shape:12s} {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
+                f"library {lib:.4f} ms  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
+                f"faster than radix-2: {ms < r2}")
+        del xr, xi, x64, z, rows
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
@@ -2684,9 +2758,10 @@ def phase_lane_slice_probes(dev) -> dict[str, dict[str, int]]:
     from godsp_tpu_torch.probes import r3, r4
 
     return probe_sessions(dev, (
-        (R4, r4, ("lane_flip", "rfft_pow2", "copy_split", "fft_pow2_rows", "fft_pow2")),
+        (R4, r4, ("lane_flip", "rfft_pow2", "copy_split", "fft_pow2_rows", "fft_pow2",
+                  "fft_pow2_radix2")),
         (R3, r3, LANE_SLICE_TWINS + ("copy_split", "slicestore", "gmm_floor", "fft_pow2",
-                                     "fft_pow2_rows"))))
+                                     "fft_pow2_rows", "fft_pow2_radix2"))))
 
 
 def phase_int8_kernels(rec: KernelRecord, dev) -> None:
@@ -2763,6 +2838,7 @@ def main() -> int:
     phase_build()
     rec = KernelRecord()
     phase_kernels(rec, dev)
+    phase_fft_redesign(rec, dev)
     phase_stft_kernels(rec, dev)
     phase_outer_kernel(rec, dev)
     phase_peel_rows_kernel(rec, dev)

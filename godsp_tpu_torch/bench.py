@@ -74,8 +74,8 @@ SUMMARY_MAX_CHARS = 1800
 FLAGSHIP = "fft1024_precise"
 TARGET = 0.80  # BASELINE.json: >= 80 % of the device-memory roofline
 GMM_NOTE = ("gmm_floor is K13: the twiddled 128-point DFT of every lane slice as a dense "
-            "contraction, the TPU's dense-DFT design of one K1 step; K1 on this card is a "
-            "radix-2 FFT in shared memory, so fraction_of_gmm_floor reads what that design "
+            "contraction, the TPU's dense-DFT design of one K1 step; K1 on this card is "
+            "register-radix Stockham passes, so fraction_of_gmm_floor reads what that design "
             "would cost here beside K1's")
 
 

@@ -1,7 +1,10 @@
-// Block-level power-of-2 FFT in shared memory: the body of every kernel
-// of this library (fft_pow2_kernel, which serves fft_pow2, ifft_pow2 and
-// rfft_pow2; pwelch_partials_kernel; stft_kernel; istft_kernel;
-// outer_dft_kernel, whose rows are columns of its tile).
+// Block-level power-of-2 FFT in shared memory: the body of the kernels
+// that transform a row inside a fused pass (K4-K9: pwelch_partials_kernel,
+// stft_kernel, istft_kernel, csd_partials_kernel, outer_dft_kernel, whose
+// rows are columns of its tile, peel_rows_kernel), of the probe twins of
+// pwelch_probe_kernels.cu and anatomy_probe_kernels.cu, and of
+// fft_pow2_radix2_kernel, K1's first design kept as a yardstick.  K1, K2
+// and K3 themselves run on fft_regs.cuh's register-radix passes.
 //
 // A block holds `rows` transforms of n complex float32 values in dynamic
 // shared memory (n <= 16384, 128 KB a row).  The loader writes each row

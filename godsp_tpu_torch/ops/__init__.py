@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch version.
 
-  cuda_fft     — K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2 (batched pow-2 FFT)
+  cuda_fft     — K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2 (batched pow-2 FFT:
+                 register-radix Stockham rows, K3 a packed half-length FFT)
   cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum)
   cuda_csd     — K7 csd_power_partials (the same for two signals, conj(X)Y->sum)
   cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
@@ -37,7 +38,8 @@
                  and K14c's i8_concat (K13's function by exact int8 limbs
                  on the int8 tensor cores, with its raw MAC stream and its
                  digit ladder taken apart), driven by probes.int8 and
-                 probes.store
+                 probes.store; fft_pow2_radix2, K1's first (radix-2)
+                 design, the yardstick of its redesign
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -74,6 +76,7 @@ from godsp_tpu_torch.ops.cuda_probes import (
     bd_tf32,
     concatstore,
     fac_dft,
+    fft_pow2_radix2,
     fft_pow2_rows,
     gmm_concat,
     gmm_tf32,
@@ -123,6 +126,7 @@ __all__ = [
     "cuda_stft",
     "fac_dft",
     "fft_pow2",
+    "fft_pow2_radix2",
     "fft_pow2_rows",
     "fused_supported",
     "gmm_concat",

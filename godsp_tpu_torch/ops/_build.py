@@ -58,8 +58,14 @@ def _nvcc() -> str:
 
 def _declare(lib) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.gdsp_fft_pow2.argtypes = [p, p, p, p, p, i, i, i64, f, p]
+    lib.gdsp_fft_pow2.argtypes = [p, p, p, p, p, i, i64, f, i, p]
     lib.gdsp_fft_pow2.restype = i
+    lib.gdsp_rfft_pow2.argtypes = [p, p, p, p, i, i64, p]
+    lib.gdsp_rfft_pow2.restype = i
+    lib.gdsp_fft_pow2_geometry.argtypes = [i, p]
+    lib.gdsp_fft_pow2_geometry.restype = i
+    lib.gdsp_fft_pow2_radix2.argtypes = [p, p, p, p, p, i, i, i64, f, p]
+    lib.gdsp_fft_pow2_radix2.restype = i
     lib.gdsp_pwelch_partials.argtypes = [
         p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
     ]
@@ -116,7 +122,7 @@ def _declare(lib) -> None:
     lib.gdsp_vdif.restype = i
     lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
     lib.gdsp_sdif_peel.restype = i
-    lib.gdsp_fft_pow2_rows.argtypes = [p, p, p, p, p, i, i, i64, f, i, p]
+    lib.gdsp_fft_pow2_rows.argtypes = [p, p, p, p, p, i, i64, f, i, i, p]
     lib.gdsp_fft_pow2_rows.restype = i
     lib.gdsp_ls_network.argtypes = [p, p, p, p, i64, i, p]
     lib.gdsp_ls_network.restype = i

@@ -16,9 +16,9 @@ the twiddled 128-point DFT of each slice (steps 2-3 of a four-step
 n1 x 128 FFT) as a dense contraction with G[k1][i2, k2] =
 exp(-2 pi i k1 i2 / n) exp(-2 pi i i2 k2 / 128) / 128.  On the TPU it is
 K1's contraction stream without its butterflies; on the H100, whose K1 is
-a radix-2 FFT in shared memory, its time says what the TPU's dense-DFT
-design of one K1 step costs on this card (csrc/metrics_kernels.cu, whose
-header says what bounds each kernel).
+register-radix Stockham passes (csrc/fft_regs.cuh), its time says what
+the TPU's dense-DFT design of one K1 step costs on this card
+(csrc/metrics_kernels.cu, whose header says what bounds each kernel).
 
 The G tables are built in float64 on the host as godsp_tpu builds them
 (ops/pallas_fft.py: _ls_tables: the twiddle times the scaled DFT matrix;

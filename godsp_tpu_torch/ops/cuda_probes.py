@@ -132,8 +132,20 @@ two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
       k1 + n1 k2 (ls_digit_order); every setting gives the same result;
       plain version ls_full_plain;
   fft_pow2_rows(xr, xi, rows_per_block)  K1 (csrc/fft_kernels.cu) at a
-      given rows a block, the TPU probes' batch-tile sweep; equal to
-      cuda_fft.fft_pow2; raises where the rows pass one block's 227 KB.
+      given rows a CTA, the TPU probes' batch-tile sweep; equal to
+      cuda_fft.fft_pow2; raises where the CTA passes the kernel's launch
+      bound (512 threads a CTA for n <= 1024, 1024 above) or one block's
+      227 KB of shared memory (cuda_fft.cta_fits).
+
+K1's first design, kept off the main path as the yardstick of its
+redesign (csrc/radix2_probe_kernels.cu; it replaces no TPU kernel):
+
+  fft_pow2_radix2(xr, xi|None, inverse, scale, bins)  the radix-2
+      fft_pow2_kernel K1 first ran (bit-reversed load into shared memory,
+      log2 n stages of fft_block.cuh's block_fft_rows; bins = n/2 + 1 with
+      a real input is K3's first design); plain version
+      cuda_fft.fft_pow2_plain.
+      Nothing under fft/, models/, spectral/ or parallel/ calls it.
 
 gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
 measures the TPU's one-pass DEFAULT matmul of the dense step and changes
@@ -188,8 +200,11 @@ from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix, twiddle_2d
 from godsp_tpu_torch.ops import _build
 from godsp_tpu_torch.ops.cuda_fft import (
     MAX_N,
+    MAX_SMEM,
+    cta_fits,
     fft_pow2_plain,
     rfft_pow2_plain,
+    stockham_table,
     supported_size,
     twiddle_table,
 )
@@ -230,6 +245,7 @@ __all__ = [
     "fac_dft",
     "fac_dft_plain",
     "fac_tables",
+    "fft_pow2_radix2",
     "fft_pow2_rows",
     "fft_rows_fit",
     "gmm_concat",
@@ -290,15 +306,12 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "gmm_concat": 0, "half3": 0, "slice8_add": 0, "reshape_add": 0, "bd_tf32": 0,
             "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0, "ls_network": 0,
             "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0, "i8_dot": 0,
-            "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0}
-
-_SMEM_BYTES = 232448  # shared memory a block may use on the H100 (227 KB)
-
+            "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
     accumulator fit in one block's shared memory."""
-    room = (_SMEM_BYTES - 8 * pad - 4 * (pad // 2 + 1)) // 4 - nfft
+    room = (MAX_SMEM - 8 * pad - 4 * (pad // 2 + 1)) // 4 - nfft
     if room < 0:
         raise ValueError(f"staged twin: nfft {nfft} and pad {pad} leave no room for a span")
     return room // stride + 1
@@ -1004,9 +1017,11 @@ def lane_flip_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def fft_rows_fit(n: int, rows_per_block: int) -> bool:
-    """Whether rows_per_block rows of n complex float32 values fit in the
-    shared memory of one block (227 KB)."""
-    return rows_per_block >= 1 and rows_per_block * n * 8 <= _SMEM_BYTES
+    """Whether K1 launches with rows_per_block rows of n points a CTA: at
+    least one row, within the launch bound's threads, and the slots' two
+    float32 planes within one block's 227 KB of shared memory
+    (cuda_fft.cta_fits)."""
+    return cta_fits(n, rows_per_block)
 
 
 def ls_network(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1085,24 +1100,53 @@ def lane_flip(x: torch.Tensor) -> torch.Tensor:
 def fft_pow2_rows(xr: torch.Tensor, xi: torch.Tensor,
                   rows_per_block: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 (cuda_fft.fft_pow2's forward DFT of split float32 planes (..., n),
-    natural order) launched with rows_per_block rows a block, the probes'
-    batch-tile sweep; raises where those rows pass one block's shared
-    memory.  Every setting gives fft_pow2's result."""
+    natural order) launched with rows_per_block rows a CTA, the probes'
+    batch-tile sweep; raises where that CTA does not fit (fft_rows_fit).
+    Every setting gives fft_pow2's result."""
     n = xr.shape[-1]
     if xi.shape != xr.shape or not supported_size(n):
         raise ValueError(f"fft_pow2_rows: two (..., n) planes of one shape, n a power of 2 "
                          f"up to {MAX_N}, got {tuple(xr.shape)} and {tuple(xi.shape)}")
     if not fft_rows_fit(n, rows_per_block):
-        raise ValueError(f"fft_pow2_rows: {rows_per_block} rows of {n} points a block do not "
-                         f"fit in {_SMEM_BYTES} bytes of shared memory")
+        raise ValueError(f"fft_pow2_rows: {rows_per_block} rows of {n} points a CTA do not "
+                         f"fit the kernel's threads and {MAX_SMEM} bytes of shared memory")
     if not xr.is_cuda:
         return fft_pow2_plain(xr, xi)
     xr, xi = _cuda_args("fft_pow2_rows", xr, xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch("fft_pow2_rows", _build.library().gdsp_fft_pow2_rows, yr, xr.data_ptr(),
             xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            twiddle_table(n, False, xr.device).data_ptr(), n.bit_length() - 1, n,
-            xr.numel() // n, 1.0, rows_per_block)
+            stockham_table(n, False, xr.device).data_ptr(), n.bit_length() - 1,
+            xr.numel() // n, 1.0, 0, rows_per_block)
+    return yr, yi
+
+
+def fft_pow2_radix2(xr: torch.Tensor, xi: torch.Tensor | None, inverse: bool = False,
+                    scale: float = 1.0, bins: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's first design (csrc/radix2_probe_kernels.cu): scale * DFT (or the
+    conjugate-table inverse) of split float32 planes (..., n), n = 2..16384,
+    natural order, xi None a real input, bins 0..bins-1 of each row stored
+    (default n; n/2 + 1 with xi None is K3's first design).  fft_pow2's
+    function by the radix-2 shared-memory kernel K1 first ran: a yardstick
+    off the main path."""
+    n = xr.shape[-1]
+    bins = n if bins is None else bins
+    if (xi is not None and xi.shape != xr.shape) or not supported_size(n) or not 1 <= bins <= n:
+        raise ValueError(f"fft_pow2_radix2: (..., n) planes of one shape, n a power of 2 up "
+                         f"to {MAX_N}, 1 <= bins <= n, got {tuple(xr.shape)}, bins {bins}")
+    if xi is None and inverse:
+        raise ValueError("fft_pow2_radix2: real-input mode is forward-only (xi=None)")
+    if not xr.is_cuda:
+        yr, yi = fft_pow2_plain(xr, xi, inverse, scale)
+        return yr[..., :bins].contiguous(), yi[..., :bins].contiguous()
+    planes = _cuda_args("fft_pow2_radix2", *((xr,) if xi is None else (xr, xi)))
+    xr, xi = planes[0], (planes[1] if xi is not None else None)
+    yr = torch.empty(*xr.shape[:-1], bins, dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    _launch("fft_pow2_radix2", _build.library().gdsp_fft_pow2_radix2, yr, xr.data_ptr(),
+            None if xi is None else xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            twiddle_table(n, inverse, xr.device).data_ptr(), n.bit_length() - 1, bins,
+            xr.numel() // n, float(scale))
     return yr, yi
 
 

@@ -51,11 +51,14 @@ of ls_full's bins).  The TPU probe's "full kernel PARALLEL sem" row is a
 dimension_semantics knob with no CUDA meaning and is not ported.
 
 The sweep (sweep): at each shape of SWEEP, b x n rows x points (2^24
-points each), K12's copy, then K1 (fft_pow2_rows) at each rows a block,
-its result torch.equal to fft_pow2's first, each beside torch.fft.fft.
-16384 x 1024 holds K1's default 4 rows a block; 4096 x 4096, 2048 x 8192
-and 1024 x 16384 are the TPU's bt4096, bt8192 and ls16384 sections (their
-default 1 row; 16384 points take 128 KB, so 2 rows do not fit). The
+points each), K12's copy, then K1 (fft_pow2_rows) at each rows a CTA,
+its result torch.equal to fft_pow2's first, then K1's radix-2 first
+design (cuda_probes.fft_pow2_radix2), each beside torch.fft.fft.  16384 x
+1024 and 65536 x 256 hold K1's default 8 rows a CTA and 16 (a row in one
+warp, eight warps a CTA; 16 warps is the launch bound); 4096 x 4096,
+2048 x 8192 and 1024 x 16384 are the TPU's bt4096, bt8192 and ls16384
+sections (a row a CTA of 256, 512 and 1024 threads, the default; 16384
+points take 128 KB and 1024 threads, so 2 rows do not fit).  The
 TPU's ls16384 timed its lane-slice kernel at n1 = 128, a choice inside K1
 there; ls_full is written for n1 <= 8 (at n1 = 128 it would stream 24 MB
 of G a row), so that row is K1 at 16384.
@@ -92,9 +95,9 @@ FULL_SETTINGS = {"full": {}, "full_concat": {"store": "rows"}, "sub2": {"chunks"
                  "sub4": {"chunks": 4}, "sub8": {"chunks": 8},
                  "full_rows32": {"rows_per_block": 32}, "full_rows64": {"rows_per_block": 64}}
 LANE_ROWS = ("copy", "sliced", "network", "gmm_hi", "gmm_default", *FULL_SETTINGS, "fft1024")
-# K1's rows a block swept at each (rows, points): 2^24 points each.
-SWEEP = {(16384, 1024): (2, 4, 8, 16), (4096, 4096): (1, 2, 4), (2048, 8192): (1, 2),
-         (1024, 16384): (1,)}
+# K1's rows a CTA swept at each (rows, points): 2^24 points each.
+SWEEP = {(16384, 1024): (1, 2, 4, 8, 16), (65536, 256): (4, 8, 16, 32), (4096, 4096): (1, 2, 4),
+         (2048, 8192): (1, 2), (1024, 16384): (1,)}
 # The float32 operations a point each row's function needs: ls_full's rows
 # compute the DFT of the row, as K1 does (its method does 768 + 15).
 OPS_PER_POINT = {"copy": 0.0, "sliced": 0.0, "network": 15.0, "gmm_hi": 768.0,
@@ -106,9 +109,10 @@ SNR_DB = 120.0
 
 def row_names(shapes: dict) -> tuple[str, ...]:
     """The sweep's rows over shapes ({(b, n): rows a block}): each shape's
-    copy, then K1 at each rows a block."""
+    copy, then K1 at each rows a block, then K1's radix-2 first design."""
     return tuple(name for (b, n), rpbs in shapes.items()
-                 for name in (f"copy_{b}x{n}", *(f"k1_{b}x{n}_rows{r}" for r in rpbs)))
+                 for name in (f"copy_{b}x{n}", *(f"k1_{b}x{n}_rows{r}" for r in rpbs),
+                              f"k1_{b}x{n}_radix2"))
 
 
 ROWS = LANE_ROWS + row_names(SWEEP)
@@ -185,10 +189,11 @@ def ops(xr: torch.Tensor, xi: torch.Tensor) -> dict:
 
 
 def sweep(device, shapes: dict, emit) -> tuple[dict, dict]:
-    """K1's rows-a-block sweep over shapes ({(b, n): rows a block}): at each
+    """K1's rows-a-CTA sweep over shapes ({(b, n): rows a CTA}): at each
     shape K12's copy, then fft_pow2_rows at each setting (its result
     torch.equal to fft_pow2's first; raises on the card where one is not),
-    each beside torch.fft.fft.  Returns ({row: timing}, {shape: equal})."""
+    then fft_pow2_radix2 (K1's first design, the same function), each
+    beside torch.fft.fft.  Returns ({row: timing}, {shape: equal})."""
     rows, equal = {}, {}
     for (b, n), rpbs in shapes.items():
         xr, xi = lane_planes(device, b, n, seed=n)
@@ -203,8 +208,11 @@ def sweep(device, shapes: dict, emit) -> tuple[dict, dict]:
         timed = {"copy": (lambda: cuda_metrics.copy_split(xr, xi),
                           lambda: (yr.copy_(xr), yi.copy_(xi))),
                  **{f"rows{r}": (lambda r=r: cuda_probes.fft_pow2_rows(xr, xi, r),
-                                 lambda: torch.fft.fft(z)) for r in rpbs}}
-        flops = {"copy": 0.0, **{f"rows{r}": 5.0 * np.log2(n) for r in rpbs}}
+                                 lambda: torch.fft.fft(z)) for r in rpbs},
+                 "radix2": (lambda: cuda_probes.fft_pow2_radix2(xr, xi),
+                            lambda: torch.fft.fft(z))}
+        flops = {"copy": 0.0, "radix2": 5.0 * np.log2(n),
+                 **{f"rows{r}": 5.0 * np.log2(n) for r in rpbs}}
         res = time_lane_rows(xr, timed, flops, emit)
         rows[f"copy_{b}x{n}"] = res.pop("copy")
         rows.update({f"k1_{b}x{n}_{k}": v for k, v in res.items()})

@@ -30,8 +30,9 @@ glue, because its packed layout needed the glue; K3 here stores the
 n/2 + 1 natural bins, and the packed layout is not part of the contract,
 so the row is K3 alone.  Then the sweep (probes.r3.sweep) at SWEEP:
 K12's copy and K1 (fft_pow2_rows) at 2048 x 8192 with 1 (K1's default)
-and 2 rows a block, and at 1024 x 16384 with its only fit, 1 row, each
-equal to fft_pow2's result and beside torch.fft.fft.  The TPU stage's
+and 2 rows a CTA, and at 1024 x 16384 with its only fit, 1 row, each
+equal to fft_pow2's result, then K1's radix-2 first design
+(fft_pow2_radix2), each beside torch.fft.fft.  The TPU stage's
 "arbitrary" dimension_semantics cells have no CUDA meaning and are not
 ported.
 

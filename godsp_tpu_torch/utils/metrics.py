@@ -326,7 +326,7 @@ def gmm_floor(xr: torch.Tensor, xi: torch.Tensor, batch_tile: int = 256):
     planes (b, n), n a multiple of 128, as a dense contraction (steps 2-3
     of a four-step n1 x 128 FFT; ops/cuda_metrics.py).  On the TPU it was
     K1's contraction stream without its butterflies; on the card, whose K1
-    is a radix-2 FFT in shared memory, the bench's fraction_of_gmm_floor
+    is register-radix Stockham passes, the bench's fraction_of_gmm_floor
     says what the TPU's dense-DFT design of one K1 step costs here beside
     K1's design.  b must be a multiple of batch_tile, as in godsp_tpu."""
     _check_batch_tile(xr, xi, batch_tile)

@@ -13,7 +13,9 @@ to their float32 plain versions, bd_tf32 against its plain version with
 TF32-rounded operands; K14h vdif also against the float64 FFT in its digit
 order, K14i sdif_peel against K8 with the rows bit-reversed; K14e lane_flip
 exact; K14f gmm_tf32 against its TF32-rounded plain version, every ls_full
-setting and every fft_pow2_rows setting equal to its default; K14g i8_dot
+setting and every fft_pow2_rows setting equal to its default; K1/K2/K3
+at every power of two 2..16384, and K1's radix-2 first design
+(fft_pow2_radix2); K14g i8_dot
 equal to the exact int32 product, i8mm, i8dec, i8full and i8_concat equal
 to their plain versions, which do the same integer and float32 arithmetic,
 and i8full > 100 dB against the float64 product), and between
@@ -94,11 +96,17 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [2, 256, 1024, 16384])
-def test_k1_k2_k3_on_card(cuda, n):
-    rng = np.random.default_rng(n)
-    xr = torch.from_numpy(rng.normal(size=(33, n))).to(cuda)
-    xi = torch.from_numpy(rng.normal(size=(33, n))).to(cuda)
+_K1_SIZES = [1 << k for k in range(1, 15)]
+
+
+@pytest.mark.parametrize("n,rows", [(n, r) for n in _K1_SIZES for r in (1, 33)]
+                         + [(n, 65537) for n in _K1_SIZES if n <= 256])
+def test_k1_k2_k3_on_card(cuda, n, rows):
+    """The register-radix K1/K2/K3 at every power of two 2..16384, at 1 and
+    33 rows, and at 65,537 rows (past grid.y's 65535) where n <= 256."""
+    rng = np.random.default_rng(n + rows)
+    xr = torch.from_numpy(rng.normal(size=(rows, n))).to(cuda)
+    xi = torch.from_numpy(rng.normal(size=(rows, n))).to(cuda)
     for got, want in (
         (cuda_fft.fft_pow2(xr.float(), xi.float()), cuda_fft.fft_pow2_plain(xr, xi)),
         (cuda_fft.fft_pow2(xr.float(), None), cuda_fft.fft_pow2_plain(xr, None)),
@@ -109,6 +117,79 @@ def test_k1_k2_k3_on_card(cuda, n):
         g = _np(got[0]) + 1j * _np(got[1])
         w = _np(want[0]) + 1j * _np(want[1])
         assert dsputils.snr_db(g, w) >= SNR_CARD_DB
+
+
+def test_k3_reads_an_unaligned_view(cuda):
+    """K3 reads pairs as 8-byte float2: a row view starting at an odd
+    float goes through a copy and gives the contiguous row's result."""
+    x = torch.randn(4 * 1024 + 1, device=cuda)
+    v = x[1:].view(4, 1024)
+    assert v.data_ptr() % 8
+    got = cuda_fft.rfft_pow2(v)
+    want = cuda_fft.rfft_pow2(v.clone())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k1_geometry_matches_the_host_plan(cuda):
+    """gdsp_fft_pow2_geometry (the kernels' own plan) equals ops/cuda_fft.py's."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 11)()
+    for lg in range(15):
+        assert lib.gdsp_fft_pow2_geometry(lg, out) == 0
+        g = cuda_fft.geometry(1 << lg)
+        assert list(out) == [g.points, g.threads, int(g.warp), g.q, g.max_threads,
+                             g.default_rows, len(g.radices), *(list(g.radices) + [0] * 4)[:4]]
+
+
+@pytest.mark.parametrize("n", _K1_SIZES)
+def test_fft_pow2_rows_every_setting_on_card(cuda, n):
+    """Every rows-a-CTA setting that fits gives fft_pow2's result bit for bit."""
+    xr, xi = (torch.randn(301, n, device=cuda) for _ in range(2))
+    k1 = cuda_fft.fft_pow2(xr, xi)
+    fits = [r for r in range(1, 1025) if cuda_probes.fft_rows_fit(n, r)]
+    assert fits == list(range(1, len(fits) + 1))
+    for r in fits:
+        got = cuda_probes.fft_pow2_rows(xr, xi, r)
+        assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1]), r
+
+
+@pytest.mark.parametrize("n", [2, 256, 1024, 16384])
+def test_fft_pow2_radix2_on_card(cuda, n):
+    """K1's first design, the redesign's yardstick, against float64."""
+    rng = np.random.default_rng(n)
+    xr = torch.from_numpy(rng.normal(size=(33, n))).to(cuda)
+    xi = torch.from_numpy(rng.normal(size=(33, n))).to(cuda)
+    before = launch_counts()["fft_pow2_radix2"]
+    for got, want in (
+        (cuda_probes.fft_pow2_radix2(xr.float(), xi.float()), cuda_fft.fft_pow2_plain(xr, xi)),
+        (cuda_probes.fft_pow2_radix2(xr.float(), None), cuda_fft.fft_pow2_plain(xr, None)),
+        (cuda_probes.fft_pow2_radix2(xr.float(), xi.float(), True, 1.0 / n),
+         cuda_fft.ifft_pow2_plain(xr, xi, 1.0 / n)),
+        (cuda_probes.fft_pow2_radix2(xr.float(), None, bins=n // 2 + 1),
+         cuda_fft.rfft_pow2_plain(xr)),
+    ):
+        assert dsputils.snr_db(_np(got[0]) + 1j * _np(got[1]),
+                               _np(want[0]) + 1j * _np(want[1])) >= SNR_CARD_DB
+    assert launch_counts()["fft_pow2_radix2"] == before + 4
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_k1_k2_k3_leave_tf32_flags(cuda, flag):
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = flag
+        x = torch.randn(8, 1024, device=cuda)
+        cuda_fft.fft_pow2(x, x)
+        cuda_fft.ifft_pow2(x, x, 1.0 / 1024)
+        cuda_fft.rfft_pow2(x)
+        cuda_probes.fft_pow2_radix2(x, x)
+        torch.cuda.synchronize()
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def test_cuda_dispatch_rules(cuda):

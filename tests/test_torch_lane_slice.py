@@ -258,9 +258,9 @@ def test_r3_rows_on_the_cpu():
     assert g["bound_by"] == "bytes" and g["tf32_ms"] == pytest.approx(768 * pts / 495e12 * 1e3)
     assert r3.ROWS == r3.LANE_ROWS + r3.row_names(r3.SWEEP)
     assert r3.row_names({(4, 8192): (1, 2)}) == ("copy_4x8192", "k1_4x8192_rows1",
-                                                "k1_4x8192_rows2")
-    # Every sweep setting fits one block's shared memory; 16384 points take
-    # all of one row's 128 KB, so only one row a block fits there.
+                                                "k1_4x8192_rows2", "k1_4x8192_radix2")
+    # Every sweep setting fits one CTA; 16384 points take a row's 1024
+    # threads and 128 KB, so only one row a CTA fits there.
     assert all(cp.fft_rows_fit(n, r) for (_, n), rs in r3.SWEEP.items() for r in rs)
     assert not cp.fft_rows_fit(16384, 2)
 

@@ -86,11 +86,14 @@ def test_lane_flip_wrapper_checks():
 
 
 @pytest.mark.parametrize("n,rows_per_block,fits", [
-    (1024, 1, True), (1024, 28, True), (1024, 29, False), (8192, 2, True), (8192, 4, False),
+    (1024, 1, True), (1024, 16, True), (1024, 17, False), (8192, 2, True), (8192, 4, False),
     (16384, 1, True), (16384, 2, False), (256, 0, False), (256, -1, False)])
 def test_fft_pow2_rows_limits(n, rows_per_block, fits):
-    """rows_per_block * n * 8 B must fit the 227 KB (232,448 B) a block may
-    use, and be positive; checked before any device work."""
+    """A CTA of rows_per_block rows must stay within the kernel's launch
+    bound (512 threads up to n = 1024, a warp a row; 1024 above, n / 16 a
+    row) and its slots' 8 B a point within the 227 KB (232,448 B) a block
+    may use, and the rows must be positive; checked before any device
+    work."""
     assert cp.fft_rows_fit(n, rows_per_block) is fits
     x = torch.zeros(2, n)
     if fits:
