@@ -9,8 +9,8 @@ final line):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit and torch's device name;
   2. builds the CUDA kernels from godsp_tpu_torch/csrc (nvcc, sm_90a);
-  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2: the
-     register-radix design of csrc/fft_regs.cuh, K4
+  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K5 and
+     K8: the register-radix design of csrc/fft_regs.cuh, K4
      pwelch_power_partials, K7 csd_power_partials, K9
      peel_rows_fused_split) against its plain
      PyTorch version run in float64 on the card, at main-path shapes: SNR >= 120 dB, and each
@@ -47,7 +47,14 @@ final line):
      16384 x 1024, each >= 120 dB against float64 and timed by chain
      (utils.metrics.time_chain_diff) beside fft_pow2_radix2 (K1's radix-2
      first design; K3's with n/2 + 1 bins), torch.fft and the bound,
-     one line a kernel and shape;
+     one line a kernel and shape; then K5 (stft_complex / stft_power /
+     stft_mel over the whole recording at nfft = pad = 1024, hops 256 /
+     512 / 256, 80 mels) and K8 (outer_dft_split at every shape of
+     phase 6's calls: 16 x (128, 8192), (1024, 16384) inverse, the two
+     calls of 2^28 and of 2^26) the same way beside their radix-2 first
+     designs (stft_radix2, outer_dft_radix2), torch.stft (complex mode)
+     and K12's copy of the same planes (K8), each yardstick's chains a
+     counted session of their own (the yardsticks' only launches);
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -272,7 +279,8 @@ final line):
      version, bound and library call;
  22. probes.int8.run at its full shape as one counted session: the five
      K14g wrappers, copy_split and gmm_floor; nothing else;
- 23. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 23. prints {"kernels": [...]} (44 wrappers) and, last, {"ok": true,
+     "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
 (nvidia-smi runs to completion).
@@ -474,6 +482,8 @@ REPLACES = {
     "lane_flip": "tools/probe_r4.py:67",
     "fft_pow2_rows": "godsp_tpu/ops/pallas_fft.py:1125",
     "fft_pow2_radix2": "godsp_tpu/ops/pallas_fft.py:1125",
+    "stft_radix2": "godsp_tpu/ops/pallas_stft.py:150",
+    "outer_dft_radix2": "godsp_tpu/ops/pallas_outer.py:245",
     "i8_dot": "tools/probe_int8.py:213",
     "i8mm": "tools/probe_int8.py:71",
     "i8dec": "tools/probe_int8.py:71",
@@ -511,6 +521,8 @@ SOURCES = {
     "lane_flip": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
     "fft_pow2_rows": "godsp_tpu_torch/csrc/fft_kernels.cu",
     "fft_pow2_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
+    "stft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
+    "outer_dft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
 }
 
@@ -524,6 +536,16 @@ def snr(got, want) -> float:
 
     g, w = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t for t in (got, want))
     return snr_db(g, w)
+
+
+def snr_on_card(got: torch.Tensor, want: torch.Tensor) -> float:
+    """dsputils.snr_db's formula in float64 where the tensors lie (no copy
+    of a 2^28-point result to the host)."""
+    err = float((got.to(want.dtype) - want).abs().double().square().sum())
+    sig = float(want.abs().double().square().sum())
+    if err == 0.0:
+        return float("inf")
+    return float("-inf") if sig == 0.0 else 10.0 * np.log10(sig / err)
 
 
 def cplx(planes):
@@ -739,14 +761,16 @@ def phase_kernels(rec: KernelRecord, dev) -> None:
 REDESIGN_SHAPES = ((16384, 1024), (65536, 256), (4096, 4096), (2048, 8192), (1024, 16384))
 
 
-def phase_fft_redesign(rec: KernelRecord, dev) -> None:
+def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     """Phase 3's redesign lines: at each shape of REDESIGN_SHAPES, K1 (and
     at 16384 x 1024 K2 and K3) held against its float64 plain version
     (>= 120 dB), then timed with utils.metrics.time_chain_diff beside
     fft_pow2_radix2 (K1's radix-2 first design, K3's with n/2 + 1
     bins stored), torch.fft (fft, ifft, rfft) and the bound; one line a
     kernel and shape.  fft_pow2_radix2 is checked and timed here for the
-    kernels line (its launches come from phase 20's sweep)."""
+    kernels line (its launches come from phase 20's sweep).  Then K5's and
+    K8's lines (phase_stft_outer_redesign), whose counted yardstick
+    sessions it returns."""
     from godsp_tpu_torch.ops import cuda_fft, cuda_probes
     from godsp_tpu_torch.probes._common import chained
     from godsp_tpu_torch.utils.metrics import time_chain_diff
@@ -794,6 +818,124 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> None:
                 f"library {lib:.4f} ms  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
                 f"faster than radix-2: {ms < r2}")
         del xr, xi, x64, z, rows
+    return phase_stft_outer_redesign(rec, dev)
+
+
+# K5 and K8's redesign (PR 15) beside their radix-2 first designs, by chain:
+# K5 in each mode over the whole recording at phase 5's hops, K8 at every
+# shape phase 6 gives it (k8_shapes).
+K5_REDESIGN = (("complex", 256), ("power", 512), ("mel", 256))
+
+
+def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: str, op, radix2,
+                  library, copy, view, want, nbytes: float, flops: float) -> float:
+    """One redesign line: view(op()) held against want (float64 on the
+    card, >= 120 dB), then op, the yardstick radix2 (wrapper `yard`) and
+    (where not None) library and K12's copy of the same planes timed by
+    chain (time_chain_diff); the yardstick's chains run as a counted
+    session of their own, which must launch `yard` and nothing else.
+    Returns the kernel's ms."""
+    from godsp_tpu_torch.probes._common import chained
+    from godsp_tpu_torch.utils.metrics import time_chain_diff
+
+    probe = torch.empty(1, device=want.device)
+
+    def chain_ms(f):
+        return time_chain_diff(chained(f), probe) * 1e3
+
+    got = view(op())
+    db = snr_on_card(got, want)
+    rec.err[name] = max(rec.err.get(name, 0.0), float((got.to(want.dtype) - want).abs().max()))
+    del got
+    if not db >= SNR_DB:
+        raise AssertionError(f"{name} {shape}: {db:.2f} dB < {SNR_DB} dB")
+    ms = chain_ms(op)
+    label = f"phase 3: {yard} by chain, {shape}"
+    r2 = counted(label, lambda: chain_ms(radix2), steps)[0]
+    for k, c in steps[label].items():
+        if (c > 0) != (k == yard):
+            raise AssertionError(f"{label}: {k} launched {c} times")
+    bnd, by = bound_ms(nbytes, flops)
+    lib = "none" if library is None else f"{chain_ms(library):.4f} ms"
+    cp = "" if copy is None else f"  K12 copy {chain_ms(copy):.4f} ms"
+    log(f"  redesign {name:15s} {shape:34s} {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
+        f"library {lib}{cp}  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
+        f"faster than radix-2: {ms < r2}")
+    return ms
+
+
+def phase_stft_outer_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K5 (stft_complex / stft_power / stft_mel at nfft = pad = 1024 over
+    the whole recording's length, hops 256 / 512 / 256, 80 mels) and K8
+    (outer_dft_split at every shape of k8_shapes for phase 6's calls) each
+    held against its float64 plain version and timed beside its radix-2
+    first design (stft_radix2, outer_dft_radix2), the library call
+    (torch.stft for the complex mode; none else), K12's copy of the same
+    planes (K8) and the bound, by chain.  The yardsticks are checked (>=
+    120 dB) and timed (time_ms) for the kernels line at the first line of
+    each; their chains are the only launches of them in the run."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.dsputils import next_power_of_2
+    from godsp_tpu_torch.models import mel_filterbank
+    from godsp_tpu_torch.ops import cuda_metrics, cuda_outer, cuda_probes, cuda_stft
+
+    steps: dict[str, dict[str, int]] = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = FS * SECONDS
+    x = torch.rand(n, generator=g, device=dev) * 2 - 1
+    w = window.window_table("hann", NFFT, device=dev, dtype=torch.float32)
+    fb = mel_filterbank(80, NFFT, FS, device=dev, dtype=torch.float32)
+    band = cuda_stft.mel_band(fb)
+    band_bins = float((band[:, 1] - band[:, 0] + 1).clamp(min=0).sum())
+    lp = NFFT // 2 + 1
+    log("K5/K8 redesign vs the radix-2 first designs, by chain:")
+    for out, hop in K5_REDESIGN:
+        F = (n - NFFT) // hop + 1
+        name = f"stft_{out}"
+        mel = (fb,) if out == "mel" else ()
+        shape = f"{F} x {NFFT}, hop {hop}" + (", 80 mels" if mel else "")
+        want = cuda_stft.stft_pallas_plain(x.double(), w.double(), NFFT, hop, F, NFFT, out,
+                                           fb.double())
+        out_bytes = {"complex": 8.0 * lp, "power": 4.0 * lp, "mel": 4.0 * fb.shape[0]}[out]
+        flops = F * (NFFT + rfft_flops(NFFT)
+                     + {"complex": 0.0, "power": 3.0 * lp, "mel": 3.0 * lp + 2.0 * band_bins}[out])
+        op = (lambda k=getattr(cuda_stft, name), m=mel, h=hop, f=F: k(x, w, NFFT, h, f, *m))
+        radix2 = (lambda o=out, m=fb if mel else None, h=hop, f=F:
+                  cuda_probes.stft_radix2(x, w, NFFT, h, f, out=o, fb=m))
+        library = (lambda h=hop: torch.stft(x, NFFT, hop_length=h, window=w, center=False,
+                                            return_complex=True)) if out == "complex" else None
+        nbytes = 4.0 * (n + NFFT) + F * out_bytes + (4.0 * fb.numel() if mel else 0.0)
+        redesign_line(rec, steps, name, "stft_radix2", shape, op, radix2, library, None,
+                      lambda t: t, want, nbytes, flops)
+        if "stft_radix2" not in rec.times:
+            rec.check("stft_radix2", radix2, want, f"complex {shape}")
+            rec.time("stft_radix2", shape, radix2,
+                     lambda: cuda_stft.stft_pallas_plain(x, w, NFFT, hop, F, NFFT, out),
+                     library, nbytes, flops)
+        del want
+    del x
+    pad = next_power_of_2(2 * FS * SECONDS - 1)  # hilbert's Bluestein pad, 2^26
+    cases = ([(s_, False) for s_ in k8_shapes(N20, B20)] + [(s_, True) for s_ in k8_shapes(N24)]
+             + [(s_, False) for s_ in k8_shapes(N28)] + [(s_, False) for s_ in k8_shapes(pad)])
+    for (b, m, n3), inverse in cases:
+        xr = torch.randn(b, m, n3, generator=g, device=dev)
+        xi = torch.randn(b, m, n3, generator=g, device=dev)
+        shape = f"{b} x ({m}, {n3}) {'inverse' if inverse else 'forward'}"
+        want = cplx(cuda_outer.outer_dft_split_plain(xr.double(), xi.double(), m, 1, inverse))
+        points = float(b * m * n3)
+        nbytes, flops = 16.0 * points, fft_flops(m, b * n3) + 12.0 * points
+        op = lambda: cuda_outer.outer_dft_split(xr, xi, m, 1, inverse)
+        radix2 = lambda: cuda_probes.outer_dft_radix2(xr, xi, m, 1, inverse)
+        flat = (xr.view(b * m, n3), xi.view(b * m, n3))
+        redesign_line(rec, steps, "outer_dft_split", "outer_dft_radix2", shape, op, radix2, None,
+                      lambda: cuda_metrics.copy_split(*flat), cplx, want, nbytes, flops)
+        if "outer_dft_radix2" not in rec.times:
+            rec.check("outer_dft_radix2", lambda: cplx(radix2()), want, shape)
+            rec.time("outer_dft_radix2", shape, radix2,
+                     lambda: cuda_outer.outer_dft_split_plain(xr, xi, m, 1, inverse), None,
+                     nbytes, flops)
+        del xr, xi, want, flat
+    return steps
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
@@ -2838,7 +2980,7 @@ def main() -> int:
     phase_build()
     rec = KernelRecord()
     phase_kernels(rec, dev)
-    phase_fft_redesign(rec, dev)
+    redesign_steps = phase_fft_redesign(rec, dev)
     phase_stft_kernels(rec, dev)
     phase_outer_kernel(rec, dev)
     phase_peel_rows_kernel(rec, dev)
@@ -2883,6 +3025,7 @@ def main() -> int:
     log(f"phases 21-22 (K14g): {time.perf_counter() - t0:.1f} s")
     # Each wrapper's launches come from the counted sessions, each read
     # right after it ran.
+    steps.update(redesign_steps)
     steps.update(stft_steps)
     steps.update(fft_steps)
     steps.update(welch_steps)

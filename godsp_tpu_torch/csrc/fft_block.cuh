@@ -1,10 +1,10 @@
 // Block-level power-of-2 FFT in shared memory: the body of the kernels
-// that transform a row inside a fused pass (K4-K9: pwelch_partials_kernel,
-// stft_kernel, istft_kernel, csd_partials_kernel, outer_dft_kernel, whose
-// rows are columns of its tile, peel_rows_kernel), of the probe twins of
-// pwelch_probe_kernels.cu and anatomy_probe_kernels.cu, and of
-// fft_pow2_radix2_kernel, K1's first design kept as a yardstick.  K1, K2
-// and K3 themselves run on fft_regs.cuh's register-radix passes.
+// that transform a row inside a fused pass (K4, K6, K7, K9:
+// pwelch_partials_kernel, istft_kernel, csd_partials_kernel,
+// peel_rows_kernel), of the probe twins of pwelch_probe_kernels.cu and
+// anatomy_probe_kernels.cu, and of radix2_probe_kernels.cu, the first
+// designs of K1/K3, K5 and K8 kept as yardsticks.  K1, K2, K3, K5 and K8
+// themselves run on fft_regs.cuh's register-radix passes.
 //
 // A block holds `rows` transforms of n complex float32 values in dynamic
 // shared memory (n <= 16384, 128 KB a row).  The loader writes each row

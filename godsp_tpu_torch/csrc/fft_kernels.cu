@@ -44,10 +44,12 @@ using gdsp::regs::Cta;
 using gdsp::regs::Row;
 using gdsp::regs::Slot;
 using gdsp::regs::cta_shape;
+using gdsp::regs::default_rows;
 using gdsp::regs::out_index;
 using gdsp::regs::row_dft;
 using gdsp::regs::slot_of;
 using gdsp::regs::unroll;
+using gdsp::regs::with_log2;
 
 constexpr size_t kSmemMax = 232448;  // 227 KB, what one block may use
 
@@ -126,24 +128,6 @@ rfft_pow2_kernel(const float2* __restrict__ x, float* __restrict__ yr, float* __
     yr[o + m] = v[0].x - v[0].y;
     yi[o + m] = 0.f;
   }
-}
-
-// f(std::integral_constant<int, L>{}) for L = log2n in [LO, HI].
-template <int L, int HI, class F>
-int with_log2(int log2n, F f) {
-  if constexpr (L > HI) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    return log2n == L ? f(std::integral_constant<int, L>{}) : with_log2<L + 1, HI>(log2n, f);
-  }
-}
-
-// Rows a CTA by default: eight warps in the warp route, one row in the
-// block route (the fastest settings of the H100 sweep, PERF.md).
-template <int LOG2N>
-constexpr int default_rows() {
-  using S = Row<LOG2N>;
-  return S::kWarp ? 8 * S::kQ : 1;
 }
 
 // The CTA of rows_per_cta rows and its shared memory (words of both

@@ -1,5 +1,8 @@
 // Register-radix Stockham FFT rows for Hopper (sm_90a): the body of
-// fft_pow2_kernel (K1, K2) and rfft_pow2_kernel (K3) in fft_kernels.cu.
+// fft_pow2_kernel (K1, K2) and rfft_pow2_kernel (K3) in fft_kernels.cu, of
+// stft_kernel (K5: K3's half-length frame) in stft_kernel.cu and of
+// outer_dft_kernel (K8: the passes run down the columns of a tile, Q = the
+// tile's columns, a block barrier a fence) in outer_kernel.cu.
 //
 // Plan.  A row of n = 2^LOG2N complex float32 points is spread over
 // T = n / P threads, P points a thread held in registers.  The transform is
@@ -130,6 +133,24 @@ __host__ __device__ constexpr Cta cta_shape(int rows) {
                   : Cta{rows * S::kT, rows};
 }
 
+// f(std::integral_constant<int, L>{}) for L = log2n in [L, HI]
+// (cudaErrorInvalidValue outside): the host picks an instantiation.
+template <int L, int HI, class F>
+int with_log2(int log2n, F f) {
+  if constexpr (L > HI) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return log2n == L ? f(std::integral_constant<int, L>{}) : with_log2<L + 1, HI>(log2n, f);
+  }
+}
+
+// Rows a CTA by default: eight warps in the warp route, one row in the
+// block route (the fastest settings of the H100 sweep, PERF.md).
+template <int LOG2N>
+constexpr int default_rows() {
+  return Row<LOG2N>::kWarp ? 8 * Row<LOG2N>::kQ : 1;
+}
+
 // ---------------------------------------------------------------------------
 // Complex arithmetic and the R-point DFT in registers
 // ---------------------------------------------------------------------------
@@ -243,19 +264,22 @@ __device__ __forceinline__ void fence(bool warp) {
 }
 
 // A thread's view of its row in shared memory: word of logical index i
-// (already swizzled) is at base + i * Q.
-template <int LOG2N>
+// (already swizzled) is at base + i * Q, Q rows (K8: columns of a tile)
+// interleaved word by word; WARP: the row's threads are one warp, so its
+// exchanges are fenced by __syncwarp alone.
+template <int LOG2N, int Q = Row<LOG2N>::kQ, bool WARP = Row<LOG2N>::kWarp>
 struct Slot {
   float* re;
   float* im;
   int base;
   __device__ __forceinline__ void put(int i, float2 v) const {
-    re[base + i * Row<LOG2N>::kQ] = v.x;
-    im[base + i * Row<LOG2N>::kQ] = v.y;
+    re[base + i * Q] = v.x;
+    im[base + i * Q] = v.y;
   }
   __device__ __forceinline__ float2 get(int i) const {
-    return make_float2(re[base + i * Row<LOG2N>::kQ], im[base + i * Row<LOG2N>::kQ]);
+    return make_float2(re[base + i * Q], im[base + i * Q]);
   }
+  __device__ __forceinline__ void fence() const { regs::fence(WARP); }
 };
 
 template <int LOG2N>
@@ -284,8 +308,8 @@ __device__ __forceinline__ void butterflies(float2* v, int t, const float2* __re
 
 // Pass PASS's outputs into the exchange, then the next pass's inputs out
 // of it.
-template <int LOG2N, int PASS>
-__device__ __forceinline__ void exchange(float2* v, int t, const Slot<LOG2N>& s) {
+template <int LOG2N, int PASS, class SlotT>
+__device__ __forceinline__ void exchange(float2* v, int t, const SlotT& s) {
   using S = Row<LOG2N>;
   using X = Pass<LOG2N, PASS>;
   using Y = Pass<LOG2N, PASS + 1>;
@@ -298,7 +322,7 @@ __device__ __forceinline__ void exchange(float2* v, int t, const Slot<LOG2N>& s)
       s.put(swizzle<LOG2N, PASS>(out + r * X::kNs), v[b * X::kR + r]);
     });
   });
-  fence(S::kWarp);
+  s.fence();
   unroll<Y::kB>([&](auto bb) {
     constexpr int b = GDSP_IDX(bb);
     const int j = t + b * S::kT;
@@ -307,11 +331,11 @@ __device__ __forceinline__ void exchange(float2* v, int t, const Slot<LOG2N>& s)
       v[b * Y::kR + r] = s.get(swizzle<LOG2N, PASS>(j + r * (S::kN / Y::kR)));
     });
   });
-  fence(S::kWarp);  // every read done before the slot is written again
+  s.fence();  // every read done before the slot is written again
 }
 
-template <int LOG2N, int PASS, bool INV>
-__device__ __forceinline__ void passes_from(float2* v, int t, const Slot<LOG2N>& s,
+template <int LOG2N, int PASS, bool INV, class SlotT>
+__device__ __forceinline__ void passes_from(float2* v, int t, const SlotT& s,
                                             const float2* __restrict__ tw) {
   if constexpr (PASS < Row<LOG2N>::kPasses) {
     if constexpr (PASS > 0) exchange<LOG2N, PASS - 1>(v, t, s);
@@ -323,10 +347,10 @@ __device__ __forceinline__ void passes_from(float2* v, int t, const Slot<LOG2N>&
 // The n-point DFT of one row.  In: v[r] = x[t + r T], r < P (the first
 // pass's inputs).  Out: v[b R + r] = X[t + (b + r B) T] with the last
 // pass's radix R and B = P / R butterflies a thread (out_index gives the
-// bin).  Every thread of the CTA calls it (it fences); ends fenced when a
-// pass read shared memory.
-template <int LOG2N, bool INV>
-__device__ __forceinline__ void row_dft(float2* v, int t, const Slot<LOG2N>& s,
+// bin).  s is the row's Slot (any Q and fence).  Every thread of the CTA
+// calls it (it fences); ends fenced when a pass read shared memory.
+template <int LOG2N, bool INV, class SlotT>
+__device__ __forceinline__ void row_dft(float2* v, int t, const SlotT& s,
                                         const float2* __restrict__ tw) {
   passes_from<LOG2N, 0, INV>(v, t, s, tw);
 }

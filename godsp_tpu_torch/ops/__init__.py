@@ -4,9 +4,11 @@
                  register-radix Stockham rows, K3 a packed half-length FFT)
   cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum)
   cuda_csd     — K7 csd_power_partials (the same for two signals, conj(X)Y->sum)
-  cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT)
+  cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT:
+                 K3's packed half-length transform behind a framing load)
   cuda_istft   — K6 istft_overlap_add (fused inverse FFT->window->overlap-add)
-  cuda_outer   — K8 outer_dft_split (the giant-N FFT's outer levels + twiddles)
+  cuda_outer   — K8 outer_dft_split (the giant-N FFT's outer levels + twiddles:
+                 register-radix passes down a tile of columns)
                  and K9 peel_rows_fused_split (its last 128-point peel fused
                  with the row FFT, the route of fft.large.set_fuse_rows_enabled)
   cuda_halo    — K10 ring_halo (the sharded Welch's overlap halo, one launch a ring)
@@ -38,8 +40,9 @@
                  and K14c's i8_concat (K13's function by exact int8 limbs
                  on the int8 tensor cores, with its raw MAC stream and its
                  digit ladder taken apart), driven by probes.int8 and
-                 probes.store; fft_pow2_radix2, K1's first (radix-2)
-                 design, the yardstick of its redesign
+                 probes.store; fft_pow2_radix2, stft_radix2 and
+                 outer_dft_radix2, the first (radix-2) designs of K1, K5
+                 and K8, the yardsticks of their redesigns
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -89,6 +92,7 @@ from godsp_tpu_torch.ops.cuda_probes import (
     lane_flip,
     ls_full,
     ls_network,
+    outer_dft_radix2,
     pwfloor_frameonly,
     pwfloor_loadonly,
     pwfloor_noframe,
@@ -97,6 +101,7 @@ from godsp_tpu_torch.ops.cuda_probes import (
     sdif_peel,
     slice8_add,
     slicestore,
+    stft_radix2,
     vdif,
 )
 from godsp_tpu_torch.ops.cuda_pwelch import (
@@ -145,6 +150,7 @@ __all__ = [
     "launch_counts",
     "ls_full",
     "ls_network",
+    "outer_dft_radix2",
     "outer_dft_split",
     "outer_supported",
     "peel_rows_fused_split",
@@ -166,6 +172,7 @@ __all__ = [
     "stft_complex",
     "stft_mel",
     "stft_power",
+    "stft_radix2",
     "supported_size",
     "vdif",
 ]

@@ -82,12 +82,17 @@ def _declare(lib) -> None:
         p, p, p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
     ]
     lib.gdsp_csd_partials.restype = i
-    lib.gdsp_stft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i64, i, i, i, p]
-    lib.gdsp_stft.restype = i
+    for name in ("gdsp_stft", "gdsp_stft_radix2"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i64, i, i, i, p]
+        getattr(lib, name).restype = i
     lib.gdsp_istft_ola.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i64, f, p]
     lib.gdsp_istft_ola.restype = i
-    lib.gdsp_outer_dft.argtypes = [p, p, p, p, p, p, p, i, i, i64, i64, i, p]
+    lib.gdsp_outer_dft.argtypes = [p, p, p, p, p, p, p, p, i, i, i64, i64, i, i, p]
     lib.gdsp_outer_dft.restype = i
+    lib.gdsp_outer_dft_geometry.argtypes = [i, p]
+    lib.gdsp_outer_dft_geometry.restype = i
+    lib.gdsp_outer_dft_radix2.argtypes = [p, p, p, p, p, p, p, i, i, i64, i64, i, p]
+    lib.gdsp_outer_dft_radix2.restype = i
     lib.gdsp_peel_rows.argtypes = [p, p, p, p, p, p, p, p, i, i64, i, f, p]
     lib.gdsp_peel_rows.restype = i
     lib.gdsp_copy_split.argtypes = [p, p, p, p, i64, p]

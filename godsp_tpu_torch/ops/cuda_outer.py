@@ -16,9 +16,15 @@ godsp_tpu's two dense outer levels and both twiddles (pallas_outer.py:6-9)
 in its row order, so that the n3-point FFT of every row finishes the
 transform (fft/large.py).  d2 = 1 is the single-level form.  The kernel
 (csrc/outer_kernel.cu, whose header says what bounds it on the H100) runs
-the m-point column DFT as one radix-2 FFT in shared memory, for any
-pow-2 m = 2..2048 and any n3; the TPU's d <= 128 and n3 % 128 rules are
-not ported.
+the m-point column DFT on csrc/fft_regs.cuh's register-radix Stockham
+passes down the columns of a tile of C adjacent columns (tile(m): C, its
+threads and shared memory), the W_N twiddle from the factored hi/lo
+tables at the store, for any pow-2 m = 2..2048 and any n3; the TPU's
+d <= 128 and n3 % 128 rules are not ported.  outer_dft_regs_model is its
+float64 model, for the CPU tests (no main-path call uses it): the column
+passes (cuda_fft's row model, the columns as rows), the hi/lo twiddle in
+the kernel's order and the row permutation.  The first design (radix-2
+stages in shared memory) stays as cuda_probes.outer_dft_radix2.
 
 The plain version is godsp_tpu's einsum form (fft/large.py:378-404): the
 dense DFT over d1, the factored twiddle, the dense DFT over d2 and its
@@ -47,24 +53,34 @@ from __future__ import annotations
 
 from contextlib import nullcontext
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix
 from godsp_tpu_torch.ops import _build
-from godsp_tpu_torch.ops.cuda_fft import fft_pow2_plain, twiddle_table
+from godsp_tpu_torch.ops.cuda_fft import (
+    _row_dft_model,
+    fft_pow2_plain,
+    geometry,
+    stockham_table,
+    twiddle_table,
+)
 
 __all__ = [
     "MAX_ROWS",
     "PEEL",
     "launches",
+    "Tile",
+    "outer_dft_regs_model",
     "outer_dft_split",
     "outer_dft_split_plain",
     "outer_supported",
     "peel_rows_fused_split",
     "peel_rows_fused_split_plain",
     "peel_rows_supported",
+    "tile",
 ]
 
 MAX_ROWS = 2048  # m rows x 8 columns of float2 in shared memory: 128 KB a block
@@ -85,6 +101,26 @@ def peel_rows_supported(n3: int) -> bool:
     n3 % 128 == 0 and 2 <= n3 / 128 <= 64, at the pow-2 sizes its plan
     gives)."""
     return 256 <= n3 <= 8192 and n3 & (n3 - 1) == 0
+
+
+class Tile(NamedTuple):
+    """K8's column tile of m rows (gdsp_outer_dft_geometry returns the same
+    on the card)."""
+
+    columns: int  # C adjacent columns a CTA, interleaved word by word in shared memory
+    threads: int  # T C: T = m / P threads a column
+    smem: int  # bytes of shared memory: two float planes of C m words (none for one pass)
+
+
+def tile(m: int) -> Tile:
+    """The column tile of m rows, m a power of 2 in 2..MAX_ROWS: 256
+    threads (max(32, 256 / T) columns while T <= 16, 8 columns above;
+    m = 2048 runs 1024 threads)."""
+    if m < 2 or m & (m - 1) or m > MAX_ROWS:
+        raise ValueError(f"tile: m must be a power of 2 in 2..{MAX_ROWS}, got {m}")
+    g = geometry(m)
+    c = max(32, 256 // g.threads) if g.threads <= 16 else 8
+    return Tile(c, g.threads * c, c * m * 8 if len(g.radices) >= 2 else 0)
 
 
 def _exp_table(n: int, kk: torch.Tensor, tt: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -177,6 +213,39 @@ def outer_dft_split_plain(xr: torch.Tensor, xi: torch.Tensor, d1: int, d2: int,
     return y.real.contiguous(), y.imag.contiguous()
 
 
+def outer_dft_regs_model(xr, xi, d1: int, d2: int,
+                         inverse: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """float64 model of K8 (csrc/outer_kernel.cu) on numpy planes (..., m,
+    n3): each column's m-point transform by the kernel's passes (cuda_fft's
+    row model: plan, table indices, swizzled exchanges), the twiddle
+    W_N^{k c} as the kernel forms it for column c = c0 + cc of its tile of
+    C = tile(m).columns: hi[p >> s] lo[p & (2^s - 1)] at p = k c0 (exact),
+    times W_N^{k cc} (_tile_table), and bin k stored at row (k % d1) d2 +
+    k / d1.  For the CPU tests; no main-path call uses it."""
+    xr = np.asarray(xr, np.float64)
+    m, n3 = xr.shape[-2], xr.shape[-1]
+    if m != d1 * d2:
+        raise ValueError(f"row dim {m} != d1*d2 = {d1 * d2}")
+    n = m * n3
+    z = (xr + 1j * np.asarray(xi, np.float64)).reshape(-1, m, n3)
+    cols = np.swapaxes(z, 1, 2).reshape(-1, m)  # every column a row of the model
+    f = np.swapaxes(_row_dft_model(cols, inverse).reshape(-1, n3, m), 1, 2)  # (b, k, c)
+    lo_bits = ((n - 1).bit_length() + 1) // 2
+    sign = 2.0 if inverse else -2.0
+    k = np.arange(m)[:, None]
+    c = np.arange(n3)[None, :]
+    cc = c % tile(m).columns
+    p = k * (c - cc)  # k c0 < N, exact
+    w = (np.exp(1j * sign * np.pi * ((p >> lo_bits) << lo_bits) / n)
+         * np.exp(1j * sign * np.pi * (p & ((1 << lo_bits) - 1)) / n)
+         * np.exp(1j * sign * np.pi * (k * cc) / n))
+    kk = np.arange(m)
+    y = np.empty_like(f)
+    y[:, (kk % d1) * d2 + kk // d1, :] = f * w
+    y = y.reshape(xr.shape)
+    return y.real, y.imag
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -187,30 +256,53 @@ def outer_dft_split(xr: torch.Tensor, xi: torch.Tensor, d1: int, d2: int,
     """K8: the outer levels of (..., d1*d2, n3) float32 planes in one
     device-memory pass; row k1*d2 + k2 of the result is ready for its
     n3-point row FFT.  inverse conjugates every table (no scale)."""
-    rows, n3 = _check(xr, xi, d1, d2)
     if not xr.is_cuda:
         return outer_dft_split_plain(xr, xi, d1, d2, inverse)
+    return _launch(xr, xi, d1, d2, inverse, launches, "outer_dft_split")
+
+
+@lru_cache(maxsize=None)
+def _tile_table(n: int, m: int, c: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """(m C, 2) float32 W_n^{k cc}, k < m, cc < C, at k C + cc: float64, rounded once."""
+    p = np.arange(m)[:, None] * np.arange(c)[None, :]
+    ang = (2.0 if inverse else -2.0) * np.pi * p.reshape(-1) / n
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)).to(device)
+
+
+def _launch(xr, xi, d1: int, d2: int, inverse: bool, counts: dict, name: str,
+            radix2: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K8 (radix2: its first design, cuda_probes.outer_dft_radix2) on
+    CUDA planes, counted in counts[name]."""
+    rows, n3 = _check(xr, xi, d1, d2)
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
-        raise TypeError(f"outer_dft_split: the kernel takes float32 planes, got {xr.dtype}")
+        raise TypeError(f"{name}: the kernel takes float32 planes, got {xr.dtype}")
     if xi.device != xr.device:
-        raise ValueError("outer_dft_split: re/im planes must be on one device")
+        raise ValueError(f"{name}: re/im planes must be on one device")
     xr, xi = xr.contiguous(), xi.contiguous()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     batch = xr.numel() // (rows * n3)
     if batch == 0:
         return yr, yi
-    hi, lo, lo_bits = _factor_tables(rows * n3, inverse, xr.device)
+    dev = xr.device
+    hi, lo, lo_bits = _factor_tables(rows * n3, inverse, dev)
     lib = _build.library()
-    with torch.cuda.device(xr.device):
-        rc = lib.gdsp_outer_dft(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            twiddle_table(rows, inverse, xr.device).data_ptr(), hi.data_ptr(), lo.data_ptr(),
-            rows.bit_length() - 1, d2, n3, batch, lo_bits,
-            torch.cuda.current_stream(xr.device).cuda_stream,
-        )
-    _build.check(rc, "outer_dft_split")
-    launches["outer_dft_split"] += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if radix2:
+            rc = lib.gdsp_outer_dft_radix2(
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                twiddle_table(rows, inverse, dev).data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                rows.bit_length() - 1, d2, n3, batch, lo_bits, stream)
+        else:
+            tt = _tile_table(rows * n3, rows, tile(rows).columns, inverse, dev)
+            rc = lib.gdsp_outer_dft(
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                stockham_table(rows, inverse, dev).data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                tt.data_ptr(), rows.bit_length() - 1, d2, n3, batch, lo_bits, int(inverse),
+                stream)
+    _build.check(rc, name)
+    counts[name] += 1
     return yr, yi
 
 

@@ -137,15 +137,23 @@ two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
       bound (512 threads a CTA for n <= 1024, 1024 above) or one block's
       227 KB of shared memory (cuda_fft.cta_fits).
 
-K1's first design, kept off the main path as the yardstick of its
-redesign (csrc/radix2_probe_kernels.cu; it replaces no TPU kernel):
+The first designs of K1, K5 and K8, kept off the main path as the
+yardsticks of their redesigns (csrc/radix2_probe_kernels.cu; they replace
+no TPU kernel of their own):
 
   fft_pow2_radix2(xr, xi|None, inverse, scale, bins)  the radix-2
       fft_pow2_kernel K1 first ran (bit-reversed load into shared memory,
       log2 n stages of fft_block.cuh's block_fft_rows; bins = n/2 + 1 with
       a real input is K3's first design); plain version
-      cuda_fft.fft_pow2_plain.
-      Nothing under fft/, models/, spectral/ or parallel/ calls it.
+      cuda_fft.fft_pow2_plain;
+  stft_radix2(x, w, nfft, stride, total_segs, pad, out, fb)  the stft_kernel
+      K5 first ran (frames loaded bit-reversed into shared memory, the
+      pad-point complex FFT by block_fft_rows, the mode's epilogue), any
+      mode; plain version cuda_stft.stft_pallas_plain;
+  outer_dft_radix2(xr, xi, d1, d2, inverse)  the outer_dft_kernel K8 first
+      ran (a column tile staged bit-reversed in shared memory, block_fft_rows,
+      the hi/lo twiddle); plain version cuda_outer.outer_dft_split_plain.
+      Nothing under fft/, models/, spectral/ or parallel/ calls them.
 
 gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
 measures the TPU's one-pass DEFAULT matmul of the dense step and changes
@@ -197,7 +205,7 @@ import numpy as np
 import torch
 
 from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix, twiddle_2d
-from godsp_tpu_torch.ops import _build
+from godsp_tpu_torch.ops import _build, cuda_outer, cuda_stft
 from godsp_tpu_torch.ops.cuda_fft import (
     MAX_N,
     MAX_SMEM,
@@ -274,6 +282,7 @@ __all__ = [
     "ls_network",
     "ls_network_plain",
     "ls_tables",
+    "outer_dft_radix2",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
     "pwfloor_loadonly",
@@ -293,6 +302,7 @@ __all__ = [
     "slicestore",
     "stack_tables_np",
     "staged_segs_per_tile",
+    "stft_radix2",
     "table_digits_np",
     "vdif",
     "vdif_digit_order",
@@ -306,7 +316,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "gmm_concat": 0, "half3": 0, "slice8_add": 0, "reshape_add": 0, "bd_tf32": 0,
             "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0, "ls_network": 0,
             "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0, "i8_dot": 0,
-            "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0}
+            "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0,
+            "stft_radix2": 0, "outer_dft_radix2": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -1148,6 +1159,27 @@ def fft_pow2_radix2(xr: torch.Tensor, xi: torch.Tensor | None, inverse: bool = F
             twiddle_table(n, inverse, xr.device).data_ptr(), n.bit_length() - 1, bins,
             xr.numel() // n, float(scale))
     return yr, yi
+
+
+def stft_radix2(x: torch.Tensor, w: torch.Tensor, nfft: int, stride: int, total_segs: int,
+                pad: int | None = None, out: str = "complex",
+                fb: torch.Tensor | None = None) -> torch.Tensor:
+    """K5's first design (csrc/radix2_probe_kernels.cu): cuda_stft's
+    function in mode `out` (complex, power or mel with fb), the same
+    shapes and checks, by the radix-2 shared-memory kernel K5 first ran: a
+    yardstick off the main path."""
+    return cuda_stft._launch(x, w, nfft, stride, total_segs, pad, out, fb,
+                             counts=launches, name="stft_radix2", radix2=True)
+
+
+def outer_dft_radix2(xr: torch.Tensor, xi: torch.Tensor, d1: int, d2: int,
+                     inverse: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's first design (csrc/radix2_probe_kernels.cu): outer_dft_split's
+    function by the radix-2 shared-memory kernel K8 first ran: a yardstick
+    off the main path."""
+    if not xr.is_cuda:
+        return cuda_outer.outer_dft_split_plain(xr, xi, d1, d2, inverse)
+    return cuda_outer._launch(xr, xi, d1, d2, inverse, launches, "outer_dft_radix2", radix2=True)
 
 
 # ---------------------------------------------------------------------------

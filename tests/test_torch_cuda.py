@@ -15,7 +15,9 @@ order, K14i sdif_peel against K8 with the rows bit-reversed; K14e lane_flip
 exact; K14f gmm_tf32 against its TF32-rounded plain version, every ls_full
 setting and every fft_pow2_rows setting equal to its default; K1/K2/K3
 at every power of two 2..16384, and K1's radix-2 first design
-(fft_pow2_radix2); K14g i8_dot
+(fft_pow2_radix2); K5 and K8's register-radix redesign at every pad and
+m with ragged shapes, past grid.y, never falling back, beside their
+radix-2 first designs (stft_radix2, outer_dft_radix2); K14g i8_dot
 equal to the exact int32 product, i8mm, i8dec, i8full and i8_concat equal
 to their plain versions, which do the same integer and float32 arithmetic,
 and i8full > 100 dB against the float64 product), and between
@@ -523,6 +525,182 @@ def test_k8_on_card(cuda, b, d1, d2, n3, inverse):
                                             inverse)
     g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
     assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB
+
+
+# ---------------------------------------------------------------- K5 / K8 redesign (PR 15)
+
+_K5_PADS = [1 << k for k in range(1, 15)]
+
+
+def _k5_case(cuda, pad, nfft, hop, rows, frames, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(rows, (frames - 1) * hop + nfft + hop // 2))).to(cuda)
+    w = torch.zeros(pad, dtype=torch.float64, device=cuda)
+    w[:nfft] = torch.from_numpy(rng.normal(size=nfft)).to(cuda)
+    fb = models.mel_filterbank(24, pad, 16000.0, device=cuda) if pad >= 64 else \
+        torch.from_numpy(rng.random((3, pad // 2 + 1))).to(cuda)
+    return x, w, fb, (x.shape[-1] - nfft) // hop + 1
+
+
+@pytest.mark.parametrize("pad", _K5_PADS)
+def test_k5_redesign_every_pad_on_card(cuda, pad):
+    """K5 (register-radix, csrc/stft_kernel.cu) in each mode at every pad
+    2..16384: the full frame at a quarter hop, nfft odd below pad at hop 3,
+    and hop 255, against the float64 plain version; one launch a call."""
+    odd = max(1, pad - 1)
+    for nfft, hop in sorted({(pad, max(1, pad // 4)), (odd, 3), (max(1, pad // 2 + 1), 255)}):
+        x, w, fb, F = _k5_case(cuda, pad, nfft, hop, 3, 9, pad + hop)
+        for out in ("complex", "power", "mel"):
+            extra = (fb.float(),) if out == "mel" else ()
+            name = f"stft_{out}"
+            before = launch_counts()[name]
+            got = getattr(cuda_stft, name)(x.float(), w.float(), nfft, hop, F, *extra, pad=pad)
+            assert launch_counts()[name] == before + 1
+            want = cuda_stft.stft_pallas_plain(x, w, nfft, hop, F, pad, out, fb)
+            assert got.shape == want.shape
+            assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, (nfft, hop, out)
+
+
+@pytest.mark.parametrize("nfft", [1000, 2048])
+def test_k5_redesign_at_hop_160_pad_2048_on_card(cuda, nfft):
+    x, w, fb, F = _k5_case(cuda, 2048, nfft, 160, 2, 400, nfft)
+    for out in ("complex", "power", "mel"):
+        extra = (fb.float(),) if out == "mel" else ()
+        got = getattr(cuda_stft, f"stft_{out}")(x.float(), w.float(), nfft, 160, F, *extra, pad=2048)
+        want = cuda_stft.stft_pallas_plain(x, w, nfft, 160, F, 2048, out, fb)
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, out
+
+
+@pytest.mark.parametrize("pad", [64, 1024])
+def test_k5_redesign_more_frames_than_grid_y_on_card(cuda, pad):
+    """66,000 rows of one frame each: the flat frame index serves them in
+    one launch."""
+    x, w, fb, _ = _k5_case(cuda, pad, pad, pad, 66_000, 1, pad)
+    x = x[:, :pad].contiguous()
+    for out in ("complex", "power", "mel"):
+        extra = (fb.float(),) if out == "mel" else ()
+        got = getattr(cuda_stft, f"stft_{out}")(x.float(), w.float(), pad, pad, 1, *extra, pad=pad)
+        want = cuda_stft.stft_pallas_plain(x, w, pad, pad, 1, pad, out, fb)
+        assert got.shape == (66_000, 1, want.shape[-1])
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, out
+
+
+def test_k5_reads_an_unaligned_window_on_card(cuda):
+    """K5 reads the window as float2 pairs: a window view starting at an
+    odd float goes through a copy and gives the contiguous window's result."""
+    x = torch.rand(2, 6000, device=cuda)
+    wide = torch.rand(1024 + 1, device=cuda)
+    w = wide[1:]
+    assert w.data_ptr() % 8
+    for out in ("complex", "power"):
+        got = getattr(cuda_stft, f"stft_{out}")(x, w, 1000, 160, 30, pad=1024)
+        want = getattr(cuda_stft, f"stft_{out}")(x, w.clone(), 1000, 160, 30, pad=1024)
+        assert torch.equal(got, want), out
+
+
+def test_k5_mel_band_sums_match_a_dense_bank_on_card(cuda):
+    """The mel mode sums each filter's band only: a bank whose filters
+    overlap, one all zero, one ending at bin pad/2, at pad 1024 and 2048
+    (eight frames a warp) and 4096 (a CTA a frame)."""
+    rng = np.random.default_rng(4)
+    for pad in (1024, 2048, 4096):
+        lp = pad // 2 + 1
+        fb = np.zeros((37, lp))
+        for j in range(37):
+            lo = int(rng.integers(0, lp))
+            hi = int(rng.integers(lo, min(lp, lo + 300)))
+            fb[j, lo:hi + 1] = rng.random(hi - lo + 1)
+        fb[3] = 0.0
+        fb[-1, lp - 50:] = rng.random(50)
+        fbt = torch.from_numpy(fb).to(cuda)
+        x, w, _, F = _k5_case(cuda, pad, pad, 300, 2, 40, pad)
+        got = cuda_stft.stft_mel(x.float(), w.float(), pad, 300, F, fbt.float())
+        want = cuda_stft.stft_pallas_plain(x, w, pad, 300, F, pad, "mel", fbt)
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, pad
+
+
+@pytest.mark.parametrize("m", [1 << k for k in range(1, 12)])
+def test_k8_redesign_every_m_on_card(cuda, m):
+    """K8 (register-radix passes down a tile of columns) at every m, ragged
+    n3, d2 > 1, both directions, against the float64 plain version."""
+    for b, n3, d2 in ((2, 1, 1), (1, 7, 2 if m >= 4 else 1), (3, 1001, 1), (1, 4099, m // 2 if m >= 4 else 1)):
+        x = _crandn(cuda, b, m, n3, seed=m + n3)
+        for inverse in (False, True):
+            before = launch_counts()["outer_dft_split"]
+            got = cuda_outer.outer_dft_split(x.real.float(), x.imag.float(), m // d2, d2, inverse)
+            assert launch_counts()["outer_dft_split"] == before + 1
+            want = cuda_outer.outer_dft_split_plain(x.real.contiguous(), x.imag.contiguous(),
+                                                    m // d2, d2, inverse)
+            g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
+            assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB, (b, n3, d2, inverse)
+
+
+def test_k8_redesign_batch_past_grid_y_on_card(cuda):
+    x = _crandn(cuda, 70_000, 8, 3, seed=8)
+    got = cuda_outer.outer_dft_split(x.real.float(), x.imag.float(), 8, 1)
+    want = cuda_outer.outer_dft_split_plain(x.real.contiguous(), x.imag.contiguous(), 8, 1)
+    g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
+    assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB
+
+
+def test_k8_tile_matches_the_host_on_card(cuda):
+    """gdsp_outer_dft_geometry (the kernel's own tile) equals cuda_outer.tile."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    for lg in range(1, 12):
+        assert lib.gdsp_outer_dft_geometry(lg, out) == 0
+        assert tuple(out) == tuple(cuda_outer.tile(1 << lg))
+
+
+def test_k5_k8_never_fall_back_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes through the kernel: with the plain versions made
+    to raise, every wrapper still answers, one launch a call."""
+    def broken(*a, **k):
+        raise AssertionError("plain version reached with a CUDA tensor")
+
+    monkeypatch.setattr(cuda_stft, "stft_pallas_plain", broken)
+    monkeypatch.setattr(cuda_outer, "outer_dft_split_plain", broken)
+    x = torch.rand(2, 9000, device=cuda)
+    w = window.window_table("hann", 1024, device=cuda, dtype=torch.float32)
+    fb = models.mel_filterbank(40, 1024, 16000.0, device=cuda, dtype=torch.float32)
+    xr, xi = torch.randn(2, 128, 300, device=cuda), torch.randn(2, 128, 300, device=cuda)
+    reset_launch_counts()
+    cuda_stft.stft_complex(x, w, 1024, 256, 20)
+    cuda_stft.stft_power(x, w, 1024, 256, 20)
+    cuda_stft.stft_mel(x, w, 1024, 256, 20, fb)
+    cuda_outer.outer_dft_split(xr, xi, 128, 1)
+    cuda_probes.stft_radix2(x, w, 1024, 256, 20)
+    cuda_probes.outer_dft_radix2(xr, xi, 128, 1)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "stft_complex": 1,
+                               "stft_power": 1, "stft_mel": 1, "outer_dft_split": 1,
+                               "stft_radix2": 1, "outer_dft_radix2": 1}
+
+
+def test_radix2_yardsticks_give_the_same_bins_on_card(cuda):
+    """stft_radix2 and outer_dft_radix2 (the first designs) against float64
+    and against the redesigned kernels, >= 120 dB."""
+    x, w, fb, F = _k5_case(cuda, 1024, 1000, 160, 2, 60, 3)
+    for out in ("complex", "power", "mel"):
+        extra = dict(fb=fb.float()) if out == "mel" else {}
+        old = cuda_probes.stft_radix2(x.float(), w.float(), 1000, 160, F, 1024, out, **extra)
+        new = getattr(cuda_stft, f"stft_{out}")(x.float(), w.float(), 1000, 160, F,
+                                                *extra.values(), pad=1024)
+        want = cuda_stft.stft_pallas_plain(x, w, 1000, 160, F, 1024, out, fb)
+        assert dsputils.snr_db(_np(old), _np(want)) >= SNR_CARD_DB, out
+        assert dsputils.snr_db(_np(old), _np(new)) >= SNR_CARD_DB, out
+    z = _crandn(cuda, 3, 128, 1000, seed=2)
+    for d1, d2, inverse in ((128, 1, False), (16, 8, True)):
+        old = cuda_probes.outer_dft_radix2(z.real.float(), z.imag.float(), d1, d2, inverse)
+        new = cuda_outer.outer_dft_split(z.real.float(), z.imag.float(), d1, d2, inverse)
+        want = torch.complex(*cuda_outer.outer_dft_split_plain(z.real.contiguous(),
+                                                               z.imag.contiguous(), d1, d2,
+                                                               inverse))
+        old, new = (torch.complex(*p).to(torch.complex128) for p in (old, new))
+        assert dsputils.snr_db(_np(old), _np(want)) >= SNR_CARD_DB
+        assert dsputils.snr_db(_np(old), _np(new)) >= SNR_CARD_DB
 
 
 def _oracle(fn):
