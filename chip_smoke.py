@@ -9,9 +9,9 @@ final line):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit and torch's device name;
   2. builds the CUDA kernels from godsp_tpu_torch/csrc (nvcc, sm_90a);
-  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K5 and
-     K8: the register-radix design of csrc/fft_regs.cuh, K4
-     pwelch_power_partials, K7 csd_power_partials, K9
+  3. holds each kernel (K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2, K4
+     pwelch_power_partials, K5, K7 csd_power_partials and K8: the
+     register-radix design of csrc/fft_regs.cuh, K9
      peel_rows_fused_split) against its plain
      PyTorch version run in float64 on the card, at main-path shapes: SNR >= 120 dB, and each
      launch count must rise; times kernel, plain version (float32) and,
@@ -54,7 +54,14 @@ final line):
      calls of 2^28 and of 2^26) the same way beside their radix-2 first
      designs (stft_radix2, outer_dft_radix2), torch.stft (complex mode)
      and K12's copy of the same planes (K8), each yardstick's chains a
-     counted session of their own (the yardsticks' only launches);
+     counted session of their own (the yardsticks' only launches); then
+     K4 (16384 segments at 1024/512, beside pwfloor_loadonly, its load
+     floor; the bench's 52,428 at hop 160; 16384 at pad 2048) and K7
+     (the recording's length at 1024/512, and at hop 160 with nfft
+     1000, pad 1024) the same way beside pwelch_radix2 and csd_radix2,
+     and K4, K11 and pwelch_radix2 at the streaming chunk alone by the
+     profiler's events, after the CTAs K4/K11 and K7 launch are held to
+     the host's plan;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -484,6 +491,8 @@ REPLACES = {
     "fft_pow2_radix2": "godsp_tpu/ops/pallas_fft.py:1125",
     "stft_radix2": "godsp_tpu/ops/pallas_stft.py:150",
     "outer_dft_radix2": "godsp_tpu/ops/pallas_outer.py:245",
+    "pwelch_radix2": "godsp_tpu/ops/pallas_pwelch.py:483",
+    "csd_radix2": "godsp_tpu/ops/pallas_csd.py:84",
     "i8_dot": "tools/probe_int8.py:213",
     "i8mm": "tools/probe_int8.py:71",
     "i8dec": "tools/probe_int8.py:71",
@@ -523,6 +532,8 @@ SOURCES = {
     "fft_pow2_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     "stft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     "outer_dft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
+    "pwelch_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
+    "csd_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
 }
 
@@ -563,6 +574,23 @@ def golden_pxx() -> np.ndarray:
     raise LookupError("GOLDEN_PXX not found in tests/test_spectral.py")
 
 
+def kernel_alone_ms(symbol: str, kernel, reps: int = 50):
+    """(ms a launch of the CUDA kernel `symbol` by the profiler's events
+    over reps calls of kernel(), or None where it recorded none; the
+    profiler's rows with device time, for listing)."""
+    kernel()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp, trace_to(tmp) as prof:
+        for _ in range(reps):
+            kernel()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    own = [e for e in rows if symbol in e.key]
+    if not own:
+        return None, rows
+    # The mean over the events the profiler kept (it may drop a few).
+    return sum(e.self_device_time_total for e in own) / 1e3 / sum(e.count for e in own), rows
+
+
 class KernelRecord:
     def __init__(self):
         self.err: dict[str, float] = {}
@@ -584,21 +612,12 @@ class KernelRecord:
         beside the events time, which at a small shape also holds the
         wrapper's host work.  The wrapper's other device work (fills,
         copies) is listed apart."""
-        kernel()
-        torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp, trace_to(tmp) as prof:
-            for _ in range(reps):
-                kernel()
-        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        own = [e for e in rows if symbol in e.key]
+        ms, rows = kernel_alone_ms(symbol, kernel, reps)
         t = self.times[name]
-        if not own:
-            t["kernel_device_ms"] = None
+        t["kernel_device_ms"] = ms
+        if ms is None:
             log(f"  {name:22s} device-only: not measured (no profiler event of {symbol})")
             return
-        # The mean over the events the profiler kept (it may drop a few).
-        ms = sum(e.self_device_time_total for e in own) / 1e3 / sum(e.count for e in own)
-        t["kernel_device_ms"] = ms
         log(f"  {name:22s} device-only {ms:.4f} ms a launch (profiler events of {symbol}), "
             f"events {t['ms']:.4f} ms a call, at {t['shape']}")
         for e in rows:
@@ -818,7 +837,9 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
                 f"library {lib:.4f} ms  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
                 f"faster than radix-2: {ms < r2}")
         del xr, xi, x64, z, rows
-    return phase_stft_outer_redesign(rec, dev)
+    steps = phase_stft_outer_redesign(rec, dev)
+    steps.update(phase_welch_redesign(rec, dev))
+    return steps
 
 
 # K5 and K8's redesign (PR 15) beside their radix-2 first designs, by chain:
@@ -828,13 +849,14 @@ K5_REDESIGN = (("complex", 256), ("power", 512), ("mel", 256))
 
 
 def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: str, op, radix2,
-                  library, copy, view, want, nbytes: float, flops: float) -> float:
+                  library, copy, view, want, nbytes: float, flops: float,
+                  extra: tuple | None = None) -> float:
     """One redesign line: view(op()) held against want (float64 on the
     card, >= 120 dB), then op, the yardstick radix2 (wrapper `yard`) and
-    (where not None) library and K12's copy of the same planes timed by
-    chain (time_chain_diff); the yardstick's chains run as a counted
-    session of their own, which must launch `yard` and nothing else.
-    Returns the kernel's ms."""
+    (where not None) library, K12's copy of the same planes and extra
+    (label, op) timed by chain (time_chain_diff); the yardstick's chains
+    run as a counted session of their own, which must launch `yard` and
+    nothing else.  Returns the kernel's ms."""
     from godsp_tpu_torch.probes._common import chained
     from godsp_tpu_torch.utils.metrics import time_chain_diff
 
@@ -858,8 +880,9 @@ def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: s
     bnd, by = bound_ms(nbytes, flops)
     lib = "none" if library is None else f"{chain_ms(library):.4f} ms"
     cp = "" if copy is None else f"  K12 copy {chain_ms(copy):.4f} ms"
+    ex = "" if extra is None else f"  {extra[0]} {chain_ms(extra[1]):.4f} ms"
     log(f"  redesign {name:15s} {shape:34s} {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
-        f"library {lib}{cp}  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
+        f"library {lib}{cp}{ex}  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
         f"faster than radix-2: {ms < r2}")
     return ms
 
@@ -935,6 +958,144 @@ def phase_stft_outer_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int
                      lambda: cuda_outer.outer_dft_split_plain(xr, xi, m, 1, inverse), None,
                      nbytes, flops)
         del xr, xi, want, flat
+    return steps
+
+
+# K4/K11 and K7's redesign beside their radix-2 first designs, by
+# chain: K4 (nfft, hop, pad, segments) at K14a's geometry, the bench's hop
+# 160 and pad 2048; K7 over the whole recording at 1024/512 and at hop 160
+# (nfft 1000, pad 1024), phase 7's csd.
+K4_REDESIGN = ((1024, 512, 1024, 16384), (1024, 160, 1024, (1 << 23) // 160),
+               (2048, 1024, 2048, 16384))
+K7_REDESIGN = ((1024, 512, 1024), (1000, 160, 1024))
+
+
+def phase_welch_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K4 at each shape of K4_REDESIGN (beside pwfloor_loadonly, K4's load
+    floor, at K14a's) and K7 at each of K7_REDESIGN over the recording's
+    length, each held against its float64 plain version and timed
+    beside its radix-2 first design (pwelch_radix2, csd_radix2) and the
+    bound, by chain; then K4, K11 and pwelch_radix2 at the streaming
+    chunk (256 segments, 1024/512; K11 one shard's block and its
+    neighbour's head) alone by the profiler's events of each kernel.  The
+    yardsticks are checked (>= 120 dB) and timed (time_ms) for the
+    kernels line at their first line; their chains are the only counted
+    launches of them in the run.  First the CTAs the kernels launch
+    (gdsp_pwelch_geometry, gdsp_csd_geometry) are held to the host's plan
+    (cuda_pwelch.partials_cta, cuda_csd.sums_in_smem), which the CPU
+    tests' bank counts and summation order read."""
+    import ctypes
+
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import _build, cuda_csd, cuda_fused_halo, cuda_probes, cuda_pwelch
+
+    lib, out = _build.library(), (ctypes.c_int * 4)()
+    for lg in range(1, 15):
+        for tile in (1, 3, 8, 17, 64):
+            plan = cuda_pwelch.partials_cta(1 << lg, tile, tile, 1)
+            if lib.gdsp_pwelch_geometry(lg, tile, out) != 0 or tuple(out)[:3] != plan:
+                raise AssertionError(f"K4's CTA at pad {1 << lg}, tile {tile}: {tuple(out)[:3]}"
+                                     f" against the host's {plan}")
+            plan = (*cuda_pwelch.partials_cta(1 << lg, tile, tile, 2),
+                    int(cuda_csd.sums_in_smem(1 << lg)))
+            if lib.gdsp_csd_geometry(lg, tile, out) != 0 or tuple(out) != plan:
+                raise AssertionError(f"K7's CTA at pad {1 << lg}, tile {tile}: {tuple(out)}"
+                                     f" against the host's {plan}")
+    log("K4/K11 and K7's CTAs equal the host's plan at every pad")
+    steps: dict[str, dict[str, int]] = {}
+    g = torch.Generator(device=dev).manual_seed(16)
+    log("K4/K11/K7 redesign vs the radix-2 first designs, by chain:")
+    for nfft, hop, pad, S in K4_REDESIGN:
+        L = (S - 1) * hop + nfft
+        ext = torch.rand(1, L, generator=g, device=dev) * 2 - 1
+        mask = torch.ones(1, S, device=dev)
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        lp = pad // 2 + 1
+        shape = f"{S} segments, nfft {nfft} hop {hop} pad {pad}"
+        want = cuda_pwelch.pwelch_power_partials_plain(ext.double(), mask.double(), w.double(),
+                                                       nfft, hop, pad, bt)
+        op = lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, hop, pad)
+        radix2 = lambda: cuda_probes.pwelch_radix2(ext, mask, w, nfft, hop, pad)
+        floor = None
+        if (nfft, hop, pad, S) == K4_REDESIGN[0]:
+            floor = ("pwfloor_loadonly",
+                     lambda: cuda_probes.pwfloor_loadonly(ext, mask, w, nfft, hop, pad))
+        nbytes = 4.0 * (L + S + pad + -(-S // bt) * lp)
+        flops = S * (nfft + rfft_flops(pad) + 3.0 * lp)
+        redesign_line(rec, steps, "pwelch_power_partials", "pwelch_radix2", shape, op, radix2,
+                      None, None, lambda t: t, want, nbytes, flops, extra=floor)
+        # A call's host work is ~0.05 ms, as long as K4 at 16384 segments:
+        # the kernels' own device time beside the chains.
+        alone = [("K4", "pwelch_partials_kernel", op), ("radix-2", "pwelch_radix2_kernel", radix2)]
+        if floor is not None:
+            alone.append(("pwfloor_loadonly", "loadonly_kernel", floor[1]))
+        fmt = [(label, kernel_alone_ms(symbol, run)[0]) for label, symbol, run in alone]
+        log(f"  redesign alone (profiler events), {shape}: " + "  ".join(
+            f"{label} {'not measured' if ms is None else f'{ms:.4f} ms'}" for label, ms in fmt))
+        if "pwelch_radix2" not in rec.times:
+            rec.check("pwelch_radix2", radix2, want, shape)
+            # No one PyTorch call frames, windows, transforms and sums.
+            rec.time("pwelch_radix2", shape, radix2,
+                     lambda: cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft, hop,
+                                                                     pad, bt),
+                     None, nbytes, flops)
+        del ext, want
+    n = FS * SECONDS
+    x = torch.rand(n, generator=g, device=dev) * 2 - 1
+    y = 0.7 * torch.roll(x, DELAY) + 0.1 * torch.randn(n, generator=g, device=dev)
+    for nfft, hop, pad in K7_REDESIGN:
+        S = (n - nfft) // hop + 1
+        L = (S - 1) * hop + nfft
+        xs, ys = x[:L], y[:L]
+        mask = torch.ones(S, device=dev)
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        lp = pad // 2 + 1
+        shape = f"{S} segments, nfft {nfft} hop {hop} pad {pad}"
+        want = cplx(cuda_csd.csd_power_partials_plain(xs.double(), ys.double(), mask.double(),
+                                                      w.double(), nfft, hop, pad, bt))
+        op = lambda: cuda_csd.csd_power_partials(xs, ys, mask, w, nfft, hop, pad)
+        radix2 = lambda: cuda_probes.csd_radix2(xs, ys, mask, w, nfft, hop, pad)
+        nbytes = 4.0 * (2 * L + S + pad + 2 * -(-S // bt) * lp)
+        flops = S * (2.0 * (nfft + rfft_flops(pad)) + 8.0 * lp)
+        redesign_line(rec, steps, "csd_power_partials", "csd_radix2", shape, op, radix2, None,
+                      None, cplx, want, nbytes, flops)
+        if "csd_radix2" not in rec.times:
+            rec.check("csd_radix2", lambda: cplx(radix2()), want, shape)
+            # No one PyTorch call frames two signals and sums their cross power.
+            rec.time("csd_radix2", shape, radix2,
+                     lambda: cuda_csd.csd_power_partials_plain(xs, ys, mask, w, nfft, hop, pad,
+                                                               bt),
+                     None, nbytes, flops)
+        del want
+    del x, y
+    # The streaming chunk alone: K4 on 256 segments, K11 on one shard's
+    # block reading its neighbour's head, pwelch_radix2 on the K4 input.
+    S, hop = SEGS, 512
+    sig = torch.rand(1, 2 * S * hop, generator=g, device=dev) * 2 - 1
+    ext, blk, src = sig[:, : S * hop + 512], sig[:, : S * hop], sig[:, S * hop:]
+    mask = torch.ones(1, S, device=dev)
+    w = window.window_table("hann", NFFT, device=dev, dtype=torch.float32)
+    want = cuda_pwelch.pwelch_power_partials_plain(ext.double(), mask.double(), w.double(), NFFT,
+                                                   hop, NFFT, cuda_pwelch.segs_per_tile(S, 1))
+    alone = {}
+    for name, symbol, run in (
+        ("pwelch_power_partials", "pwelch_partials_kernel",
+         lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, NFFT, hop)),
+        ("pwelch_power_partials_halo", "pwelch_partials_kernel",
+         lambda: cuda_fused_halo.pwelch_power_partials_halo(blk, src, mask[0], w, NFFT, hop)),
+        ("pwelch_radix2", "pwelch_radix2_kernel",
+         lambda: cuda_probes.pwelch_radix2(ext, mask, w, NFFT, hop)),
+    ):
+        db = snr_on_card(run(), want)
+        if not db >= SNR_DB:
+            raise AssertionError(f"{name} at the chunk: {db:.2f} dB < {SNR_DB} dB")
+        alone[name] = kernel_alone_ms(symbol, run)[0]
+    fmt = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in alone.items()}
+    log(f"  redesign alone at the chunk ({S} segments, 1024/512): K4 {fmt['pwelch_power_partials']}"
+        f"  K11 {fmt['pwelch_power_partials_halo']}  radix-2 {fmt['pwelch_radix2']}  "
+        f"(profiler events)")
     return steps
 
 
@@ -2344,8 +2505,10 @@ def phase_probe_kernels(rec: KernelRecord, dev) -> None:
         rec.check("pwfloor_staged", lambda: cp.pwfloor_staged(e, m, ww, nfft, hop, 1024),
                   cp.pwfloor_staged_plain(e64, m64, w64, nfft, hop, 1024, bt),
                   f"{what}, float64 plain")
-        same = torch.equal(cp.pwfloor_staged(e, m, ww, nfft, hop, 1024), k4)
-        log(f"  {'pwfloor_staged':22s} {what}: torch.equal to K4: {same}")
+        same = torch.equal(cp.pwfloor_staged(e, m, ww, nfft, hop, 1024),
+                           cp.pwelch_radix2(e, m, ww, nfft, hop, 1024))
+        log(f"  {'pwfloor_staged':22s} {what}: torch.equal to K4's first design "
+            f"(pwelch_radix2): {same}")
         del k4
     shape = "16384 segments, nfft = pad = 1024, hop 512"
     for name, (op, read, nbytes, flops) in pwfloor.ops(x).items():

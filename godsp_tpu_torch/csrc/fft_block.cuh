@@ -1,10 +1,10 @@
 // Block-level power-of-2 FFT in shared memory: the body of the kernels
-// that transform a row inside a fused pass (K4, K6, K7, K9:
-// pwelch_partials_kernel, istft_kernel, csd_partials_kernel,
+// that transform a row inside a fused pass (K6, K9: istft_kernel,
 // peel_rows_kernel), of the probe twins of pwelch_probe_kernels.cu and
 // anatomy_probe_kernels.cu, and of radix2_probe_kernels.cu, the first
-// designs of K1/K3, K5 and K8 kept as yardsticks.  K1, K2, K3, K5 and K8
-// themselves run on fft_regs.cuh's register-radix passes.
+// designs of K1/K3, K4, K5, K7 and K8 kept as yardsticks.  K1-K5, K7, K8
+// and K11 themselves run on fft_regs.cuh's register-radix passes; K4,
+// K7 and K11 take only this header's launch helpers (allow_smem).
 //
 // A block holds `rows` transforms of n complex float32 values in dynamic
 // shared memory (n <= 16384, 128 KB a row).  The loader writes each row

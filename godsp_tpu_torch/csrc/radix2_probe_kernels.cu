@@ -1,11 +1,13 @@
-// The first designs of K1/K3, K5 and K8, kept as yardsticks off the main
-// path.  Each kernel is the one its TPU kernel's port first ran, unchanged
-// in arithmetic; they replace no TPU kernel of their own: each shows, on
-// one card and in one run, what the register-radix redesign (fft_regs.cuh:
-// fft_kernels.cu for K1/K2/K3 in PR 14, stft_kernel.cu and outer_kernel.cu
-// for K5 and K8 in PR 15) changed.  Wrappers: ops/cuda_probes.py
-// fft_pow2_radix2, stft_radix2, outer_dft_radix2, each with its own launch
-// count; nothing under fft/, models/, spectral/ or parallel/ reaches them.
+// The first designs of K1/K3, K4, K5, K7 and K8, kept as yardsticks off
+// the main path.  Each kernel is the one its TPU kernel's port first ran,
+// unchanged in arithmetic; they replace no TPU kernel of their own: each
+// shows, on one card and in one run, what the register-radix redesign
+// (fft_regs.cuh: fft_kernels.cu for K1/K2/K3, stft_kernel.cu and
+// outer_kernel.cu for K5 and K8, pwelch_kernel.cu and csd_kernel.cu for
+// K4/K11 and K7) changed.  Wrappers:
+// ops/cuda_probes.py fft_pow2_radix2, stft_radix2, outer_dft_radix2,
+// pwelch_radix2, csd_radix2, each with its own launch count; nothing under
+// fft/, models/, spectral/ or parallel/ reaches them.
 //
 // fft_pow2_radix2_kernel (K1's first design): a coalesced load into shared
 // memory in bit-reversed order, the log2 n radix-2 DIT stages of
@@ -28,6 +30,19 @@
 // block_fft_rows with the m-point table, then multiplies by W_N^{k c} from
 // the factored hi/lo tables and stores row (k % d1) d2 + k / d1.  Bound:
 // 16 B a point.
+//
+// pwelch_radix2_kernel (K4's first design, without K11's halo): grid
+// (tiles, rows); a block walks its tile's segments in order and, for each
+// with mask[s] != 0, loads the windowed, zero-extended frame bit-reversed
+// into shared memory, runs the pad-point complex FFT of the real frame
+// with block_fft_rows (a __syncthreads a stage) and adds mask[s] |X_k|^2
+// into a shared accumulator of pad/2 + 1 floats.  Bound: the samples'
+// bytes (pwelch_kernel.cu).
+//
+// csd_radix2_kernel<MAXB> (K7's first design): the same walk, x's frame
+// transformed in the one shared buffer and its X_k copied into MAXB
+// registers a thread, then y's, then mask[s] conj(X_k) Y_k added into two
+// register accumulators.  Bound: csd_kernel.cu's.
 
 #include <cstdint>
 
@@ -294,6 +309,212 @@ int gdsp_outer_dft_radix2(const float* xr, const float* xi, float* yr, float* yi
                      static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tw, hi, lo, log2m,
                                                           d2, n3, batch, log2t, lo_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// K4's first design
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void pwelch_radix2_kernel(const float* __restrict__ ext, const float* __restrict__ mask,
+                                     const float* __restrict__ w, float* __restrict__ out,
+                                     const float2* __restrict__ tw, long long rows,
+                                     long long L_ext, long long S, int nfft, int stride,
+                                     int log2pad, int bt, int n_tiles) {
+  extern __shared__ float2 s[];
+  const long long row = gdsp::block_row();
+  if (row >= rows) return;
+  const int pad = 1 << log2pad;
+  const int lp = (pad >> 1) + 1;
+  float* acc = reinterpret_cast<float*>(s + pad);
+  const int tile = blockIdx.x;
+  const float* x = ext + row * L_ext;
+  const float* m = mask + row * S;
+
+  for (int k = threadIdx.x; k < lp; k += blockDim.x) acc[k] = 0.f;
+
+  const long long s0 = static_cast<long long>(tile) * bt;
+  const long long s1 = s0 + bt < S ? s0 + bt : S;
+  for (long long sg = s0; sg < s1; ++sg) {
+    const float ms = m[sg];  // the same for every thread: uniform branch
+    if (ms == 0.f) continue;
+    const long long base = sg * stride;
+    __syncthreads();  // the previous segment's readers are done with s[]
+    for (int i = threadIdx.x; i < pad; i += blockDim.x) {
+      float v = 0.f;
+      if (i < nfft && base + i < L_ext) v = x[base + i] * w[i];
+      s[gdsp::bit_reverse(i, log2pad)] = make_float2(v, 0.f);
+    }
+    __syncthreads();
+    gdsp::block_fft_rows(s, 1, pad, log2pad, tw);
+    for (int k = threadIdx.x; k < lp; k += blockDim.x) {
+      const float2 c = s[k];
+      acc[k] += ms * (c.x * c.x + c.y * c.y);
+    }
+  }
+  float* o = out + (row * n_tiles + tile) * lp;
+  for (int k = threadIdx.x; k < lp; k += blockDim.x) o[k] = acc[k];
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4's function by the radix-2 design: out[r, t, k] = sum over segments s
+// of tile t of mask[r, s] * |FFT_pad(w * ext[r, s*stride:])|^2_k for k <=
+// pad/2, ext and mask contiguous rows.  tw is the (pad/2)-entry forward
+// table (ops/cuda_fft.py: twiddle_table).  Returns cudaGetLastError().
+int gdsp_pwelch_radix2(const float* ext, const float* mask, const float* w, float* out,
+                       const float2* tw, long long rows, long long L_ext, long long S, int nfft,
+                       int stride, int log2pad, int bt, int n_tiles, void* stream) {
+  const int pad = 1 << log2pad;
+  const int lp = (pad >> 1) + 1;
+  const size_t smem = static_cast<size_t>(pad) * sizeof(float2) + static_cast<size_t>(lp) * 4;
+  cudaError_t e = gdsp::allow_smem(pwelch_radix2_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid = gdsp::row_grid(static_cast<unsigned>(n_tiles), rows);
+  const int threads = gdsp::block_threads(pad >> 1);
+  pwelch_radix2_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ext, mask, w, out, tw, rows, L_ext, S, nfft, stride, log2pad, bt, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// K7's first design
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// x (or y) segment sg of `row`, windowed and zero-extended, into s[] in
+// bit-reversed order, then its FFT.  Ends synchronized.
+__device__ __forceinline__ void load_and_transform(float2* s, const float* __restrict__ src,
+                                                   const float* __restrict__ w, long long base,
+                                                   long long L_ext, int nfft, int pad,
+                                                   int log2pad, const float2* __restrict__ tw) {
+  for (int i = threadIdx.x; i < pad; i += blockDim.x) {
+    float v = 0.f;
+    if (i < nfft && base + i < L_ext) v = src[base + i] * w[i];
+    s[gdsp::bit_reverse(i, log2pad)] = make_float2(v, 0.f);
+  }
+  __syncthreads();
+  gdsp::block_fft_rows(s, 1, pad, log2pad, tw);
+}
+
+template <int MAXB>
+__global__ void __launch_bounds__(512) csd_radix2_kernel(
+    const float* __restrict__ ext_x, const float* __restrict__ ext_y,
+    const float* __restrict__ mask, const float* __restrict__ w, float* __restrict__ out_re,
+    float* __restrict__ out_im, const float2* __restrict__ tw, long long rows, long long L_ext,
+    long long S, int nfft, int stride, int log2pad, int bt, int n_tiles) {
+  extern __shared__ float2 s[];
+  const long long row = gdsp::block_row();
+  if (row >= rows) return;
+  const int pad = 1 << log2pad;
+  const int lp = (pad >> 1) + 1;
+  const int tile = blockIdx.x;
+  const float* x = ext_x + row * L_ext;
+  const float* y = ext_y + row * L_ext;
+  const float* m = mask + row * S;
+
+  float xr[MAXB], xi[MAXB], acc_re[MAXB], acc_im[MAXB];
+#pragma unroll
+  for (int j = 0; j < MAXB; ++j) acc_re[j] = acc_im[j] = 0.f;
+
+  const long long s0 = static_cast<long long>(tile) * bt;
+  const long long s1 = s0 + bt < S ? s0 + bt : S;
+  for (long long sg = s0; sg < s1; ++sg) {
+    const float ms = m[sg];  // the same for every thread: uniform branch
+    if (ms == 0.f) continue;
+    const long long base = sg * stride;
+    __syncthreads();  // the previous segment's readers are done with s[]
+    load_and_transform(s, x, w, base, L_ext, nfft, pad, log2pad, tw);
+#pragma unroll
+    for (int j = 0; j < MAXB; ++j) {
+      const int k = threadIdx.x + j * blockDim.x;
+      const float2 c = k < lp ? s[k] : make_float2(0.f, 0.f);
+      xr[j] = c.x;
+      xi[j] = c.y;
+    }
+    __syncthreads();  // every X_k is in registers before y overwrites s[]
+    load_and_transform(s, y, w, base, L_ext, nfft, pad, log2pad, tw);
+#pragma unroll
+    for (int j = 0; j < MAXB; ++j) {
+      const int k = threadIdx.x + j * blockDim.x;
+      if (k < lp) {
+        const float2 c = s[k];
+        acc_re[j] += ms * (xr[j] * c.x + xi[j] * c.y);
+        acc_im[j] += ms * (xr[j] * c.y - xi[j] * c.x);
+      }
+    }
+  }
+  const long long o = (row * n_tiles + tile) * lp;
+#pragma unroll
+  for (int j = 0; j < MAXB; ++j) {
+    const int k = threadIdx.x + j * blockDim.x;
+    if (k < lp) {
+      out_re[o + k] = acc_re[j];
+      out_im[o + k] = acc_im[j];
+    }
+  }
+}
+
+template <int MAXB>
+cudaError_t launch_csd_radix2(const float* ext_x, const float* ext_y, const float* mask,
+                              const float* w, float* out_re, float* out_im, const float2* tw,
+                              long long rows, long long L_ext, long long S, int nfft, int stride,
+                              int log2pad, int bt, int n_tiles, int threads, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(1) << log2pad) * sizeof(float2);
+  cudaError_t e = gdsp::allow_smem(csd_radix2_kernel<MAXB>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid = gdsp::row_grid(static_cast<unsigned>(n_tiles), rows);
+  csd_radix2_kernel<MAXB><<<grid, threads, smem, stream>>>(
+      ext_x, ext_y, mask, w, out_re, out_im, tw, rows, L_ext, S, nfft, stride, log2pad, bt,
+      n_tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K7's function by the radix-2 design: out_re[r, t, k] + i out_im[r, t, k]
+// = sum over segments s of tile t of mask[r, s] * conj(X_s[k]) Y_s[k],
+// X_s = FFT_pad(w * ext_x[r, s*stride:]), Y_s likewise of ext_y, for k <=
+// pad/2.  tw is the (pad/2)-entry forward table (ops/cuda_fft.py:
+// twiddle_table).  Returns cudaGetLastError().
+int gdsp_csd_radix2(const float* ext_x, const float* ext_y, const float* mask, const float* w,
+                    float* out_re, float* out_im, const float2* tw, long long rows,
+                    long long L_ext, long long S, int nfft, int stride, int log2pad, int bt,
+                    int n_tiles, void* stream) {
+  const int pad = 1 << log2pad;
+  const int lp = (pad >> 1) + 1;
+  const int threads = gdsp::block_threads(pad >> 1);
+  const int per_thread = (lp + threads - 1) / threads;  // bins a thread owns
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GDSP_CSD_LAUNCH(B)                                                               \
+  launch_csd_radix2<B>(ext_x, ext_y, mask, w, out_re, out_im, tw, rows, L_ext, S, nfft, stride, \
+                       log2pad, bt, n_tiles, threads, st)
+  cudaError_t e;
+  if (per_thread <= 2) {
+    e = GDSP_CSD_LAUNCH(2);
+  } else if (per_thread <= 3) {
+    e = GDSP_CSD_LAUNCH(3);
+  } else if (per_thread <= 5) {
+    e = GDSP_CSD_LAUNCH(5);
+  } else if (per_thread <= 9) {
+    e = GDSP_CSD_LAUNCH(9);
+  } else if (per_thread <= 17) {
+    e = GDSP_CSD_LAUNCH(17);
+  } else {
+    e = cudaErrorInvalidValue;  // pad > 16384: the wrapper never asks
+  }
+#undef GDSP_CSD_LAUNCH
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

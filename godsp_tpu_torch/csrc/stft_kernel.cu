@@ -28,7 +28,8 @@
 // shared memory and log2 pad radix-2 stages of fft_block.cuh behind a
 // block barrier each, stays in radix2_probe_kernels.cu as the yardstick):
 // K3's packed half-length transform (fft_kernels.cu: rfft_pow2_kernel)
-// behind a framing load.  The frame is read as m = pad/2 complex pairs
+// behind a framing load, both in frame_regs.cuh (load_frame, spectrum),
+// which K4/K11 and K7 share.  The frame is read as m = pad/2 complex pairs
 // z[j] = (x[a+2j] w[2j], x[a+2j+1] w[2j+1]), a = s*stride, as two float
 // loads (an odd hop makes a odd: an 8-byte load would be misaligned), the
 // window through __ldg, a pair's sample past nfft or past L zero.  Its
@@ -56,17 +57,19 @@
 #include <cstdint>
 
 #include "fft_block.cuh"
-#include "fft_regs.cuh"
+#include "frame_regs.cuh"
 
 namespace {
 
+using gdsp::frames::Samples;
+using gdsp::frames::load_frame;
+using gdsp::frames::spectrum;
 using gdsp::regs::Cta;
 using gdsp::regs::Row;
 using gdsp::regs::Slot;
 using gdsp::regs::cta_shape;
 using gdsp::regs::default_rows;
 using gdsp::regs::out_index;
-using gdsp::regs::row_dft;
 using gdsp::regs::slot_of;
 using gdsp::regs::unroll;
 using gdsp::regs::with_log2;
@@ -106,37 +109,11 @@ stft_kernel(const float* __restrict__ x, const float2* __restrict__ w,
   const bool live = slot < frames_per_cta && f < frames;
   const long long row = live ? f / S : 0;
   const long long a = (live ? f - row * S : 0) * stride;
-  const float* __restrict__ xr = x + row * L + a;
-  // Samples e < lim are read: e < nfft and a + e < L (0 for a dead slot).
-  const int lim = live ? static_cast<int>(L - a < nfft ? (L - a > 0 ? L - a : 0) : nfft) : 0;
-  float2 v[R::kP];
-  unroll<R::kP>([&](auto rr) {
-    constexpr int r = GDSP_IDX(rr);
-    const int e = 2 * (t + r * R::kT);
-    const float2 wp = __ldg(&w[e >> 1]);  // w[e], w[e + 1]: even e, 8-byte aligned
-    v[r] = make_float2(e < lim ? __ldg(&xr[e]) * wp.x : 0.f,
-                       e + 1 < lim ? __ldg(&xr[e + 1]) * wp.y : 0.f);
-  });
+  const Samples edges{nullptr, 0, L, nullptr, 0, 0};  // samples past L read zeros
   const Slot<LOG2M> s = slot_of<LOG2M>(smem, slots, slot);
-  row_dft<LOG2M, false>(v, t, s, tw);
-  // Z[t + c T] is in v; its partner Z[m - k] is another thread's, so the
-  // frame goes through its slot once more, in natural order (K3's split).
-  unroll<R::kP>([&](auto ii) {
-    constexpr int i = GDSP_IDX(ii);
-    s.put(t + out_index<LOG2M>(i) * R::kT, v[i]);
-  });
-  s.fence();
-  const float top = v[0].x - v[0].y;  // X[m] = Re Z[0] - Im Z[0] (thread t = 0)
-  unroll<R::kP>([&](auto ii) {
-    constexpr int i = GDSP_IDX(ii);
-    const int k = t + out_index<LOG2M>(i) * R::kT;
-    const float2 za = v[i];
-    const float2 zb = s.get((m - k) & (m - 1));  // Z[m - k]; its conjugate below
-    const float2 e = make_float2(0.5f * (za.x + zb.x), 0.5f * (za.y - zb.y));
-    const float2 d = make_float2(0.5f * (za.x - zb.x), 0.5f * (za.y + zb.y));
-    const float2 wd = gdsp::regs::mul(d, __ldg(&tw[m + k]));
-    v[i] = make_float2(e.x + wd.y, e.y - wd.x);  // X[k]
-  });
+  float2 v[R::kP];
+  load_frame<LOG2M, false>(v, t, x + row * L, nullptr, a, edges, nfft, w, live, s);
+  const float top = spectrum<LOG2M>(v, t, s, tw);  // X[t + out_index(i) T] in v[i]
   if (mode == 0) {
     if (!live) return;
     float2* o = reinterpret_cast<float2*>(out) + f * lp;
@@ -158,10 +135,10 @@ stft_kernel(const float* __restrict__ x, const float2* __restrict__ w,
     return;
   }
   // mel: |X_k|^2 into the frame's slot (k < m: re plane, k = m: im plane),
-  // then each filter summed over its band along k.  Every thread runs
-  // every loop to its shuffles (frames past the end sum zeros).
+  // then each filter summed over its band along k (spectrum left the slot
+  // free).  Every thread runs every loop to its shuffles (frames past the
+  // end sum zeros).
   constexpr int kQ = R::kQ;
-  s.fence();  // every read of Z done before the slot is overwritten
   if constexpr (R::kWarp && kQ == 1) {
     // A frame a warp (m = 512, 1024): the CTA's eight frames are summed
     // side by side, 4 lanes along k a frame, warp w taking filters

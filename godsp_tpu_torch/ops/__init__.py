@@ -2,7 +2,8 @@
 
   cuda_fft     — K1 fft_pow2, K2 ifft_pow2, K3 rfft_pow2 (batched pow-2 FFT:
                  register-radix Stockham rows, K3 a packed half-length FFT)
-  cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum)
+  cuda_pwelch  — K4 pwelch_power_partials (fused frame->window->FFT->|.|^2->sum:
+                 K3's packed half-length transform behind a framing load)
   cuda_csd     — K7 csd_power_partials (the same for two signals, conj(X)Y->sum)
   cuda_stft    — K5 stft_complex, stft_power, stft_mel (fused per-frame STFT:
                  K3's packed half-length transform behind a framing load)
@@ -40,9 +41,10 @@
                  and K14c's i8_concat (K13's function by exact int8 limbs
                  on the int8 tensor cores, with its raw MAC stream and its
                  digit ladder taken apart), driven by probes.int8 and
-                 probes.store; fft_pow2_radix2, stft_radix2 and
-                 outer_dft_radix2, the first (radix-2) designs of K1, K5
-                 and K8, the yardsticks of their redesigns
+                 probes.store; fft_pow2_radix2, pwelch_radix2,
+                 stft_radix2, csd_radix2 and outer_dft_radix2, the first
+                 (radix-2) designs of K1, K4, K5, K7 and K8, the
+                 yardsticks of their redesigns
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -78,6 +80,7 @@ from godsp_tpu_torch.ops.cuda_probes import (
     bd_hi,
     bd_tf32,
     concatstore,
+    csd_radix2,
     fac_dft,
     fft_pow2_radix2,
     fft_pow2_rows,
@@ -93,6 +96,7 @@ from godsp_tpu_torch.ops.cuda_probes import (
     ls_full,
     ls_network,
     outer_dft_radix2,
+    pwelch_radix2,
     pwfloor_frameonly,
     pwfloor_loadonly,
     pwfloor_noframe,
@@ -119,6 +123,7 @@ __all__ = [
     "copy_split",
     "csd_power_partials",
     "csd_power_sum",
+    "csd_radix2",
     "cuda_csd",
     "cuda_fft",
     "cuda_fused_halo",
@@ -158,6 +163,7 @@ __all__ = [
     "pwelch_power_partials",
     "pwelch_power_partials_halo",
     "pwelch_power_sum",
+    "pwelch_radix2",
     "pwfloor_frameonly",
     "pwfloor_loadonly",
     "pwfloor_noframe",

@@ -66,10 +66,9 @@ def _declare(lib) -> None:
     lib.gdsp_fft_pow2_geometry.restype = i
     lib.gdsp_fft_pow2_radix2.argtypes = [p, p, p, p, p, i, i, i64, f, p]
     lib.gdsp_fft_pow2_radix2.restype = i
-    lib.gdsp_pwelch_partials.argtypes = [
-        p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
-    ]
-    lib.gdsp_pwelch_partials.restype = i
+    for name in ("gdsp_pwelch_partials", "gdsp_pwelch_radix2"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+        getattr(lib, name).restype = i
     lib.gdsp_pwelch_partials_halo.argtypes = [
         p, i64, i64, p, i64, i64, p, i64, p, p, p, i64, i64, i, i, i, i, i, p,
     ]
@@ -78,10 +77,12 @@ def _declare(lib) -> None:
     lib.gdsp_ring_halo.restype = i
     lib.gdsp_enable_peer.argtypes = [i, i]
     lib.gdsp_enable_peer.restype = i
-    lib.gdsp_csd_partials.argtypes = [
-        p, p, p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p,
-    ]
-    lib.gdsp_csd_partials.restype = i
+    for name in ("gdsp_csd_partials", "gdsp_csd_radix2"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+        getattr(lib, name).restype = i
+    for name in ("gdsp_pwelch_geometry", "gdsp_csd_geometry"):
+        getattr(lib, name).argtypes = [i, i, p]
+        getattr(lib, name).restype = i
     for name in ("gdsp_stft", "gdsp_stft_radix2"):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i64, i, i, i, p]
         getattr(lib, name).restype = i

@@ -13,9 +13,12 @@ or the injected tail (the next chunk's head) on the last shard; the
 caller picks it, as the TPU kernel's SMEM `islast` flag did.  On the TPU
 the neighbour's head travelled by remote DMA, overlapped with the
 interior tiles; on Hopper the kernel reads it in place
-(csrc/pwelch_kernel.cu, gdsp_pwelch_partials_halo), so no block + halo
+(csrc/pwelch_kernel.cu, gdsp_pwelch_partials_halo: K4's register-radix
+body, the source of each sample of a pair chosen apart, since a pair may
+straddle the block's end at an odd hop), so no block + halo
 concatenation is written to device memory.  x and halo_src may be views
-with the whole signal's row stride.
+with the whole signal's row stride.  cuda_pwelch.pwelch_regs_model with
+halo given is its float64 model.
 
 The same mask semantics, tiles (segs_per_tile) and natural bin order as
 K4: (..., n_tiles, pad//2 + 1) per-tile sums, summed over tiles in
@@ -35,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from godsp_tpu_torch.ops import _build
-from godsp_tpu_torch.ops.cuda_fft import twiddle_table
+from godsp_tpu_torch.ops.cuda_fft import rfft_table
 from godsp_tpu_torch.ops.cuda_halo import peer_read, row_layout
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
@@ -111,12 +114,14 @@ def pwelch_power_partials_halo(x: torch.Tensor, halo_src: torch.Tensor, mask: to
         mask, ms = mask.reshape(rows, S).contiguous(), S
     peer_read(x.device, halo_src, "pwelch_power_partials_halo")
     w = w.contiguous()
+    if w.data_ptr() % 8:  # the kernel reads the window as float2 pairs
+        w = w.clone()
     lib = _build.library()
     with torch.cuda.device(x.device):
         rc = lib.gdsp_pwelch_partials_halo(
             x.data_ptr(), xs, x.shape[-1], halo_src.data_ptr(), hs, halo_src.shape[-1],
             mask.data_ptr(), ms, w.data_ptr(), out.data_ptr(),
-            twiddle_table(pad, False, x.device).data_ptr(),
+            rfft_table(pad, x.device).data_ptr(),
             rows, S, nfft, stride, pad.bit_length() - 1, bt, n_tiles,
             torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -18,7 +18,8 @@ what bounds them on the H100):
       masked sum: (..., n_tiles, pad//2 + 1);
   pwfloor_staged(ext, mask, w, nfft, stride, pad)     replaces :229 full2d
       K4's function with each tile's span staged once in shared memory:
-      (..., n_tiles, pad//2 + 1), equal to K4's partials at the same tiles.
+      (..., n_tiles, pad//2 + 1), equal to the partials of K4's first
+      design (pwelch_radix2) at the same tiles.
 
 The tiles are K4's (cuda_pwelch.segs_per_tile) unless `bt` says otherwise;
 staged caps bt so that a block's span fits in 227 KB of shared memory.
@@ -137,9 +138,9 @@ two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
       bound (512 threads a CTA for n <= 1024, 1024 above) or one block's
       227 KB of shared memory (cuda_fft.cta_fits).
 
-The first designs of K1, K5 and K8, kept off the main path as the
-yardsticks of their redesigns (csrc/radix2_probe_kernels.cu; they replace
-no TPU kernel of their own):
+The first designs of K1, K4, K5, K7 and K8, kept off the main path as
+the yardsticks of their redesigns (csrc/radix2_probe_kernels.cu; they
+replace no TPU kernel of their own):
 
   fft_pow2_radix2(xr, xi|None, inverse, scale, bins)  the radix-2
       fft_pow2_kernel K1 first ran (bit-reversed load into shared memory,
@@ -152,7 +153,15 @@ no TPU kernel of their own):
       mode; plain version cuda_stft.stft_pallas_plain;
   outer_dft_radix2(xr, xi, d1, d2, inverse)  the outer_dft_kernel K8 first
       ran (a column tile staged bit-reversed in shared memory, block_fft_rows,
-      the hi/lo twiddle); plain version cuda_outer.outer_dft_split_plain.
+      the hi/lo twiddle); plain version cuda_outer.outer_dft_split_plain;
+  pwelch_radix2(ext, mask, w, nfft, stride, pad)  the pwelch_partials_kernel
+      K4 first ran (each segment loaded bit-reversed into shared memory, the
+      pad-point complex FFT by block_fft_rows, |X|^2 summed in shared
+      memory); plain version cuda_pwelch.pwelch_power_partials_plain;
+  csd_radix2(ext_x, ext_y, mask, w, nfft, stride, pad)  the
+      csd_partials_kernel K7 first ran (the same for x, then for y in the
+      same buffer, X_k in registers); plain version
+      cuda_csd.csd_power_partials_plain.
       Nothing under fft/, models/, spectral/ or parallel/ calls them.
 
 gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
@@ -205,7 +214,7 @@ import numpy as np
 import torch
 
 from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix, twiddle_2d
-from godsp_tpu_torch.ops import _build, cuda_outer, cuda_stft
+from godsp_tpu_torch.ops import _build, cuda_csd, cuda_outer, cuda_pwelch, cuda_stft
 from godsp_tpu_torch.ops.cuda_fft import (
     MAX_N,
     MAX_SMEM,
@@ -249,6 +258,7 @@ __all__ = [
     "bd_tf32_plain",
     "brev7_perm",
     "concatstore",
+    "csd_radix2",
     "digits3",
     "fac_dft",
     "fac_dft_plain",
@@ -283,6 +293,7 @@ __all__ = [
     "ls_network_plain",
     "ls_tables",
     "outer_dft_radix2",
+    "pwelch_radix2",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
     "pwfloor_loadonly",
@@ -317,7 +328,7 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0, "ls_network": 0,
             "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0, "i8_dot": 0,
             "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0,
-            "stft_radix2": 0, "outer_dft_radix2": 0}
+            "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -1180,6 +1191,25 @@ def outer_dft_radix2(xr: torch.Tensor, xi: torch.Tensor, d1: int, d2: int,
     if not xr.is_cuda:
         return cuda_outer.outer_dft_split_plain(xr, xi, d1, d2, inverse)
     return cuda_outer._launch(xr, xi, d1, d2, inverse, launches, "outer_dft_radix2", radix2=True)
+
+
+def pwelch_radix2(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
+                  stride: int, pad: int | None = None) -> torch.Tensor:
+    """K4's first design (csrc/radix2_probe_kernels.cu): pwelch_power_partials'
+    function, the same shapes, tiles and checks, by the radix-2
+    shared-memory kernel K4 first ran: a yardstick off the main path."""
+    return cuda_pwelch._launch(ext, mask, w, nfft, stride, pad, "pwelch_radix2", launches,
+                               radix2=True)
+
+
+def csd_radix2(ext_x: torch.Tensor, ext_y: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+               nfft: int, stride: int,
+               pad: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's first design (csrc/radix2_probe_kernels.cu): csd_power_partials'
+    function, the same shapes, tiles and checks, by the radix-2
+    shared-memory kernel K7 first ran: a yardstick off the main path."""
+    return cuda_csd._launch(ext_x, ext_y, mask, w, nfft, stride, pad, "csd_radix2", launches,
+                            radix2=True)
 
 
 # ---------------------------------------------------------------------------

@@ -180,7 +180,7 @@ def test_k7_plain_ragged_tiles_vs_numpy(nfft, stride, pad):
     """Tiles of segs_per_tile segments, the last one partial, a masked
     scatter, and segments that run off the end of ext, against the
     per-segment loop of conj(X) * Y."""
-    S = 1101
+    S = 1102
     rng = np.random.default_rng(2)
     x = rng.normal(size=(2, (S - 1) * stride + nfft - 30))
     y = rng.normal(size=x.shape)

@@ -703,6 +703,167 @@ def test_radix2_yardsticks_give_the_same_bins_on_card(cuda):
         assert dsputils.snr_db(_np(old), _np(new)) >= SNR_CARD_DB
 
 
+# ---------------------------------------------------------------- K4 / K11 / K7 redesign
+
+
+def _welch_case(cuda, pad, nfft, hop, rows, S, seed):
+    """rows x (S segments + a halo of nfft - hop samples) float64 on the
+    card, an arbitrary window zero past nfft, and a partial mask with a
+    masked run at the end (its samples need not be read)."""
+    rng = np.random.default_rng(seed)
+    sig = torch.from_numpy(rng.normal(size=(rows, S * hop + nfft))).to(cuda)
+    w = torch.zeros(pad, dtype=torch.float64, device=cuda)
+    w[:nfft] = torch.from_numpy(rng.normal(size=nfft)).to(cuda)
+    keep = (rng.random((rows, S)) < 0.8) & (np.arange(S) < S - 2)
+    mask = torch.from_numpy(keep.astype(np.float64)).to(cuda)
+    return sig, w, mask
+
+
+def _welch_geometries(pad):
+    """(nfft, hop): the full frame at a quarter hop, nfft odd below pad at
+    hops 3 and 1, half the frame at hop 255, and hop 160."""
+    odd = max(1, pad - 1)
+    return sorted({(pad, max(1, pad // 4)), (odd, 3), (odd, 1), (max(1, pad // 2 + 1), 255),
+                   (min(pad, 1000), 160)})
+
+
+def _snr_c(got, want):
+    g = torch.complex(*got).to(torch.complex128)
+    return dsputils.snr_db(_np(g), _np(torch.complex(*want)))
+
+
+@pytest.mark.parametrize("pad", [1 << k for k in range(1, 15)])
+def test_k4_k11_k7_redesign_every_pad_on_card(cuda, pad):
+    """K4, K11 and K7 (csrc/frame_regs.cuh's body) at every pad 2..16384
+    against their float64 plain versions, >= 120 dB, at odd hops and hop
+    160, two rows, a partial mask and a ragged last tile (701 segments a
+    row), K11 reading a neighbour whose first pair straddles the block's
+    end at an odd hop; one launch a call, and two calls bit-equal."""
+    S, rows = 701, 2
+    for nfft, hop in _welch_geometries(pad):
+        sig, w, mask = _welch_case(cuda, pad, nfft, hop, rows, S, pad + hop)
+        bt = cuda_pwelch.segs_per_tile(S, rows)
+        assert S % bt
+        ext, ext32, w32, m32 = sig, sig.float(), w.float(), mask.float()
+        reset_launch_counts()
+        got = cuda_pwelch.pwelch_power_partials(ext32, m32, w32, nfft, hop, pad=pad)
+        again = cuda_pwelch.pwelch_power_partials(ext32, m32, w32, nfft, hop, pad=pad)
+        want = cuda_pwelch.pwelch_power_partials_plain(ext, mask, w, nfft, hop, pad, bt)
+        assert got.shape == want.shape and torch.equal(got, again)
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, ("K4", nfft, hop)
+        L = S * hop - (hop % 2 == 0)  # odd hop: the block ends inside a pair
+        x, h = sig[:, :L], sig[:, L:]
+        got = cuda_fused_halo.pwelch_power_partials_halo(x.float(), h.float(), m32, w32, nfft,
+                                                         hop, pad=pad)
+        want = cuda_fused_halo.pwelch_power_partials_halo_plain(x, h, mask, w, nfft, hop, pad, bt)
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, ("K11", nfft, hop)
+        y = 0.3 * torch.roll(sig, 5, -1) + torch.flip(sig, (-1,))
+        got = cuda_csd.csd_power_partials(ext32, y.float(), m32, w32, nfft, hop, pad=pad)
+        again = cuda_csd.csd_power_partials(ext32, y.float(), m32, w32, nfft, hop, pad=pad)
+        want = cuda_csd.csd_power_partials_plain(ext, y, mask, w, nfft, hop, pad, bt)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _snr_c(got, want) >= SNR_CARD_DB, ("K7", nfft, hop)
+        assert launch_counts() == {**{k: 0 for k in launch_counts()},
+                                   "pwelch_power_partials": 2, "pwelch_power_partials_halo": 1,
+                                   "csd_power_partials": 2}
+
+
+@pytest.mark.parametrize("pad,nfft,hop,S", [(1024, 1024, 512, 51_678), (1024, 1000, 160, 6000),
+                                            (2048, 1000, 160, 3001), (32, 32, 16, 70_001)])
+def test_k4_k7_redesign_at_main_path_shapes_on_card(cuda, pad, nfft, hop, S):
+    """The tiles of the main path (64 segments, eight frames a CTA), hop 160
+    at pad 1024 and 2048, and many tiles of a small pad, one row."""
+    sig, w, mask = _welch_case(cuda, pad, nfft, hop, 1, S, S)
+    bt = cuda_pwelch.segs_per_tile(S, 1)
+    got = cuda_pwelch.pwelch_power_partials(sig.float(), mask.float(), w.float(), nfft, hop, pad)
+    want = cuda_pwelch.pwelch_power_partials_plain(sig, mask, w, nfft, hop, pad, bt)
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    y = torch.roll(sig, 37, -1) * 0.7
+    got = cuda_csd.csd_power_partials(sig.float(), y.float(), mask.float(), w.float(), nfft, hop,
+                                      pad)
+    assert _snr_c(got, cuda_csd.csd_power_partials_plain(sig, y, mask, w, nfft, hop, pad, bt)) \
+        >= SNR_CARD_DB
+
+
+def test_k4_k7_geometry_matches_the_host_plan(cuda):
+    """gdsp_pwelch_geometry and gdsp_csd_geometry (the CTAs the kernels
+    launch) equal partials_cta's and sums_in_smem's, which the CPU tests'
+    bank counts and summation order read, at every pad and tile."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 4)()
+    for lg in range(1, 15):
+        pad = 1 << lg
+        for tile in (1, 2, 3, 5, 7, 8, 9, 16, 17, 31, 33, 64):
+            assert lib.gdsp_pwelch_geometry(lg, tile, out) == 0
+            assert list(out)[:3] == list(cuda_pwelch.partials_cta(pad, tile, tile, 1)), (pad, tile)
+            assert lib.gdsp_csd_geometry(lg, tile, out) == 0
+            assert list(out) == [*cuda_pwelch.partials_cta(pad, tile, tile, 2),
+                                 int(cuda_csd.sums_in_smem(pad))], (pad, tile)
+    assert lib.gdsp_pwelch_geometry(15, 1, out) != 0
+    assert lib.gdsp_csd_geometry(0, 1, out) != 0
+
+
+def test_k4_k11_k7_never_fall_back_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes through the kernels: with the plain versions made
+    to raise, every wrapper still answers, one launch a call; an unaligned
+    window goes through a copy and gives the aligned window's result."""
+    def broken(*a, **k):
+        raise AssertionError("plain version reached with a CUDA tensor")
+
+    x = torch.rand(2, 20000, device=cuda)
+    wide = torch.rand(1024 + 1, device=cuda)
+    w = wide[1:]
+    assert w.data_ptr() % 8
+    mask = torch.ones(2, 30, device=cuda)
+    aligned = (cuda_pwelch.pwelch_power_partials(x, mask, w.clone(), 1000, 160, 1024),
+               cuda_csd.csd_power_partials(x, x, mask, w.clone(), 1000, 160, 1024))
+    for mod, name in ((cuda_pwelch, "pwelch_power_partials_plain"),
+                      (cuda_csd, "csd_power_partials_plain"),
+                      (cuda_fused_halo, "pwelch_power_partials_halo_plain")):
+        monkeypatch.setattr(mod, name, broken)
+    reset_launch_counts()
+    got = cuda_pwelch.pwelch_power_partials(x, mask, w, 1000, 160, 1024)
+    assert torch.equal(got, aligned[0])
+    got = cuda_csd.csd_power_partials(x, x, mask, w, 1000, 160, 1024)
+    assert all(torch.equal(a, b) for a, b in zip(got, aligned[1]))
+    cuda_fused_halo.pwelch_power_partials_halo(x[:, :4800], x[:, 4800:], mask[0], w, 1000, 160,
+                                               1024)
+    cuda_probes.pwelch_radix2(x, mask, w, 1000, 160, 1024)
+    cuda_probes.csd_radix2(x, x, mask, w, 1000, 160, 1024)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "pwelch_power_partials": 1,
+                               "csd_power_partials": 1, "pwelch_power_partials_halo": 1,
+                               "pwelch_radix2": 1, "csd_radix2": 1}
+
+
+@pytest.mark.parametrize("pad", [2, 256, 1024, 16384])
+def test_pwelch_csd_radix2_yardsticks_on_card(cuda, pad):
+    """pwelch_radix2 and csd_radix2 (K4's and K7's first designs) against
+    float64 and against the redesigned kernels, >= 120 dB, one launch a
+    call."""
+    nfft, hop, S = max(1, pad - 1), 3, 301
+    sig, w, mask = _welch_case(cuda, pad, nfft, hop, 2, S, pad)
+    bt = cuda_pwelch.segs_per_tile(S, 2)
+    y = torch.flip(sig, (-1,))
+    reset_launch_counts()
+    old = cuda_probes.pwelch_radix2(sig.float(), mask.float(), w.float(), nfft, hop, pad)
+    new = cuda_pwelch.pwelch_power_partials(sig.float(), mask.float(), w.float(), nfft, hop, pad)
+    want = cuda_pwelch.pwelch_power_partials_plain(sig, mask, w, nfft, hop, pad, bt)
+    assert dsputils.snr_db(_np(old), _np(want)) >= SNR_CARD_DB
+    assert dsputils.snr_db(_np(old), _np(new)) >= SNR_CARD_DB
+    old = cuda_probes.csd_radix2(sig.float(), y.float(), mask.float(), w.float(), nfft, hop, pad)
+    new = cuda_csd.csd_power_partials(sig.float(), y.float(), mask.float(), w.float(), nfft, hop,
+                                      pad)
+    assert _snr_c(old, cuda_csd.csd_power_partials_plain(sig, y, mask, w, nfft, hop, pad, bt)) \
+        >= SNR_CARD_DB
+    assert _snr_c(old, [t.double() for t in new]) >= SNR_CARD_DB
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "pwelch_radix2": 1,
+                               "pwelch_power_partials": 1, "csd_radix2": 1,
+                               "csd_power_partials": 1}
+
+
 def _oracle(fn):
     fft.set_kernels_enabled(False)
     try:
@@ -1046,8 +1207,10 @@ def test_pwfloor_twins_on_card(cuda, nfft, hop, pad, S, keep):
         assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
     assert all(launch_counts()[f"pwfloor_{v}"] == 1
                for v in ("loadonly", "frameonly", "noframe", "staged"))
+    # The same frames, FFT and sums as K4's first design, and K4's function.
+    assert torch.equal(cases[3][0], cuda_probes.pwelch_radix2(*f32[:3], nfft, hop, pad=pad))
     k4 = cuda_pwelch.pwelch_power_partials(*f32[:3], nfft, hop, pad=pad)
-    assert torch.equal(cases[3][0], k4)  # the same frames, FFT and sums as K4
+    assert dsputils.snr_db(_np(cases[3][0]), _np(k4)) >= SNR_CARD_DB
 
 
 def test_pwfloor_staged_tile_fits_shared_memory(cuda):

@@ -191,7 +191,7 @@ def test_k4_sum_vs_jax_power_sum():
 def test_k4_plain_ragged_tiles_vs_numpy():
     """Tiles of segs_per_tile segments, the last one partial, sum to the
     masked per-segment loop of pwelch.go:107-122."""
-    S, nfft, stride, pad = 1100, 64, 40, 128
+    S, nfft, stride, pad = 1101, 64, 40, 128
     rng = np.random.default_rng(2)
     ext = rng.normal(size=(S - 1) * stride + nfft - 30)  # last segments run off the end
     mask = (rng.random(S) < 0.9).astype(np.float64)
