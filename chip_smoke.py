@@ -61,7 +61,13 @@ final line):
      1000, pad 1024) the same way beside pwelch_radix2 and csd_radix2,
      and K4, K11 and pwelch_radix2 at the streaming chunk alone by the
      profiler's events, after the CTAs K4/K11 and K7 launch are held to
-     the host's plan;
+     the host's plan; then (phase_istft_peel_redesign) K9 at each
+     K9_SHAPES entry beside peel_rows_radix2 (its first design), the
+     separate route (K8 then K1/K2 on the same planes) and torch.fft, with
+     its cluster size and L2 re-read factor, and K6 at each K6_SHAPES
+     entry beside istft_radix2, by chain and alone, after K9's cluster
+     plan and K6's CTA are held to the host's (gdsp_peel_rows_geometry,
+     gdsp_istft_geometry);
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -346,6 +352,10 @@ F_FFT20, F_IFFT24, F_FFT28 = (f"fused: {label}" for label in (FFT20, IFFT24, FFT
 # (batch, n3, inverse, scale).
 K9_SHAPES = ((B20, N20 // 128, False, 1.0), (128, N24 // 128 // 128, True, 1.0 / N24),
              (3, 256, False, 1.0))
+# K6 at a spectra_to_wav chunk, at the Griffin-Lim shape (60 s) and at an
+# odd hop with pad > nfft (phase 3): (frames, hop, pad), nfft = NFFT.
+K6_SHAPES = ((CHUNK, 256, NFFT), ((FS * GL_SECONDS - NFFT) // 256 + 1, 256, NFFT),
+             (CHUNK, 160, 2048))
 
 # Steps of the counted session of the rest of the FFT surface (phase 10).
 DCT = "dct(1024-point frames, type 2, ortho)"
@@ -493,6 +503,8 @@ REPLACES = {
     "outer_dft_radix2": "godsp_tpu/ops/pallas_outer.py:245",
     "pwelch_radix2": "godsp_tpu/ops/pallas_pwelch.py:483",
     "csd_radix2": "godsp_tpu/ops/pallas_csd.py:84",
+    "istft_radix2": "godsp_tpu/ops/pallas_istft.py:167",
+    "peel_rows_radix2": "godsp_tpu/ops/pallas_outer.py:412",
     "i8_dot": "tools/probe_int8.py:213",
     "i8mm": "tools/probe_int8.py:71",
     "i8dec": "tools/probe_int8.py:71",
@@ -534,6 +546,8 @@ SOURCES = {
     "outer_dft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     "pwelch_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     "csd_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
+    "istft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
+    "peel_rows_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
 }
 
@@ -839,6 +853,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
         del xr, xi, x64, z, rows
     steps = phase_stft_outer_redesign(rec, dev)
     steps.update(phase_welch_redesign(rec, dev))
+    steps.update(phase_istft_peel_redesign(rec, dev))
     return steps
 
 
@@ -1099,6 +1114,99 @@ def phase_welch_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     return steps
 
 
+def phase_istft_peel_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K9 at each K9_SHAPES entry and K6 at each K6_SHAPES entry, each held
+    against its float64 plain version and timed by chain beside its first
+    design (peel_rows_radix2, istft_radix2; a counted session of its own),
+    the bound and, for K9, torch.fft of the flattened rows and the separate
+    route it replaces (K8 outer_dft_split(128, 1), then K1/K2 rows), with
+    the kernels alone by the profiler's events.  First the plans the C side
+    exports are held to the host's (cuda_outer.peel_plan,
+    cuda_istft.istft_cta), which the CPU tests' scatter map, bank counts
+    and summation order read.  The yardsticks are checked and timed for the
+    kernels line at their first line."""
+    import ctypes
+
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import _build, cuda_fft, cuda_istft, cuda_outer, cuda_probes
+
+    lib, out = _build.library(), (ctypes.c_int * 8)()
+    for lg in range(8, 14):
+        plan = tuple(cuda_outer.peel_plan(1 << lg))
+        if lib.gdsp_peel_rows_geometry(lg, out) != 0 or tuple(out) != plan:
+            raise AssertionError(f"K9's plan at n3 {1 << lg}: {tuple(out)} against the host's "
+                                 f"{plan}")
+    for lg in range(1, 15):
+        for one in (True, False):
+            cta = tuple(cuda_istft.istft_cta(1 << lg, one))
+            if lib.gdsp_istft_geometry(lg, int(one), out) != 0 or tuple(out)[:6] != cta:
+                side = "one-sided" if one else "full"
+                raise AssertionError(f"K6's CTA at pad {1 << lg} ({side}): {tuple(out)[:6]} "
+                                     f"against the host's {cta}")
+    log("K9's cluster plan and K6's CTA equal the host's at every n3 and pad")
+    steps: dict[str, dict[str, int]] = {}
+    g = torch.Generator(device=dev).manual_seed(19)
+    log("K9/K6 redesign vs the radix-2 first designs, by chain:")
+    for b, n3, inverse, scale in K9_SHAPES:
+        xr = torch.randn(b, 128, n3, generator=g, device=dev)
+        xi = torch.randn(b, 128, n3, generator=g, device=dev)
+        plan = cuda_outer.peel_plan(n3)
+        shape = (f"{b} x (128, {n3}) {'inverse' if inverse else 'forward'}, cluster "
+                 f"{plan.cluster}, re-read {plan.clusters}")
+        want = cplx(cuda_outer.peel_rows_fused_split_plain(xr.double(), xi.double(), inverse,
+                                                           scale))
+        op = lambda: cuda_outer.peel_rows_fused_split(xr, xi, inverse, scale)
+        radix2 = lambda: cuda_probes.peel_rows_radix2(xr, xi, inverse, scale)
+        z = torch.complex(xr, xi).reshape(b, -1)
+        library = ((lambda: torch.fft.ifft(z, norm="forward") * scale) if inverse
+                   else (lambda: torch.fft.fft(z)))
+
+        def separate():
+            yr, yi = cuda_outer.outer_dft_split(xr, xi, 128, 1, inverse)
+            if inverse:
+                return cuda_fft.ifft_pow2(yr, yi, scale)
+            return cuda_fft.fft_pow2(yr, yi, scale=scale)
+
+        nbytes, flops = 16.0 * b * 128 * n3, fft_flops(128 * n3, b)
+        redesign_line(rec, steps, "peel_rows_fused_split", "peel_rows_radix2", shape, op, radix2,
+                      library, None, cplx, want, nbytes, flops,
+                      extra=("separate K8 + K1/K2", separate))
+        alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+            ("K9", "peel_rows_kernel", op), ("radix-2", "peel_rows_radix2_kernel", radix2))]
+        log(f"  redesign alone (profiler events), {shape}: " + "  ".join(
+            f"{label} {'not measured' if ms is None else f'{ms:.4f} ms'}" for label, ms in alone))
+        if "peel_rows_radix2" not in rec.times:
+            rec.check("peel_rows_radix2", lambda: cplx(radix2()), want, shape)
+            rec.time("peel_rows_radix2", shape, radix2,
+                     lambda: cuda_outer.peel_rows_fused_split_plain(xr, xi, inverse, scale),
+                     library, nbytes, flops)
+        del xr, xi, z, want
+    w = window.window_table("hann", NFFT, device=dev, dtype=torch.float32)
+    for F, hop, pad in K6_SHAPES:
+        spec = torch.complex(torch.randn(F, pad // 2 + 1, generator=g, device=dev),
+                             torch.randn(F, pad // 2 + 1, generator=g, device=dev))
+        shape = f"{F} frames x {pad // 2 + 1} bins, nfft {NFFT} hop {hop} pad {pad}"
+        want = cuda_istft.istft_overlap_add_plain(c128(spec), w.double(), NFFT, hop)
+        op = lambda: cuda_istft.istft_overlap_add(spec, w, NFFT, hop)
+        radix2 = lambda: cuda_probes.istft_radix2(spec, w, NFFT, hop)
+        nbytes = 8.0 * spec.numel() + 4.0 * NFFT + 4.0 * ((F - 1) * hop + NFFT)
+        flops = F * (rfft_flops(pad) + 2.0 * NFFT)
+        redesign_line(rec, steps, "istft_overlap_add", "istft_radix2", shape, op, radix2, None,
+                      None, lambda t: t, want, nbytes, flops)
+        alone = [(label, kernel_alone_ms(symbol, run)[0]) for label, symbol, run in (
+            ("K6", "istft_kernel", op), ("radix-2", "istft_radix2_kernel", radix2))]
+        log(f"  redesign alone (profiler events), {shape}: " + "  ".join(
+            f"{label} {'not measured' if ms is None else f'{ms:.4f} ms'}" for label, ms in alone))
+        if "istft_radix2" not in rec.times:
+            rec.check("istft_radix2", radix2, want, shape)
+            # torch.istft also divides by the window-energy sum: not the same function.
+            rec.time("istft_radix2", shape, radix2,
+                     lambda: cuda_istft.istft_overlap_add_plain(spec, w, NFFT, hop), None, nbytes,
+                     flops)
+        del spec, want
+    return steps
+
+
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
     """K5 in its three modes and K6 against their float64 plain versions,
     at the shapes of phase 5, plus an odd hop with pad > nfft."""
@@ -1144,8 +1252,7 @@ def phase_stft_kernels(rec: KernelRecord, dev) -> None:
     # K6 at a spectra_to_wav chunk, at the Griffin-Lim shape (60 s), and at
     # an odd hop with pad > nfft.
     w = window.window_table("hann", NFFT, device=dev)
-    for F, hop, pad in ((CHUNK, 256, NFFT), ((FS * GL_SECONDS - NFFT) // 256 + 1, 256, NFFT),
-                        (CHUNK, 160, 2048)):
+    for F, hop, pad in K6_SHAPES:
         spec = torch.complex(torch.randn(F, pad // 2 + 1, generator=g, device=dev),
                              torch.randn(F, pad // 2 + 1, generator=g, device=dev))
         shape = f"nfft {NFFT} hop {hop} pad {pad} x {F} frames"

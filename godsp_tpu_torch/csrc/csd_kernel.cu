@@ -52,7 +52,7 @@
 
 #include <cstdint>
 
-#include "fft_block.cuh"
+#include "launch.cuh"
 #include "frame_regs.cuh"
 
 namespace {

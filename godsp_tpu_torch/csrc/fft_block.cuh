@@ -1,10 +1,9 @@
-// Block-level power-of-2 FFT in shared memory: the body of the kernels
-// that transform a row inside a fused pass (K6, K9: istft_kernel,
-// peel_rows_kernel), of the probe twins of pwelch_probe_kernels.cu and
-// anatomy_probe_kernels.cu, and of radix2_probe_kernels.cu, the first
-// designs of K1/K3, K4, K5, K7 and K8 kept as yardsticks.  K1-K5, K7, K8
-// and K11 themselves run on fft_regs.cuh's register-radix passes; K4,
-// K7 and K11 take only this header's launch helpers (allow_smem).
+// Block-level power-of-2 FFT in shared memory: the body of the probe
+// twins of pwelch_probe_kernels.cu and anatomy_probe_kernels.cu, and of
+// radix2_probe_kernels.cu, the first designs of K1/K3, K4, K5, K6, K7, K8
+// and K9 kept as yardsticks.  The kernels of the main path run on
+// fft_regs.cuh's register-radix passes and take their launch helpers from
+// launch.cuh, which this header includes for the probes.
 //
 // A block holds `rows` transforms of n complex float32 values in dynamic
 // shared memory (n <= 16384, 128 KB a row).  The loader writes each row
@@ -19,6 +18,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace gdsp {
 
@@ -58,35 +59,6 @@ __device__ __forceinline__ void block_fft_rows(float2* s, int rows, int n, int l
 __device__ __forceinline__ void block_fft_rows(float2* s, int rows, int n, int log2n,
                                                const float2* __restrict__ tw) {
   block_fft_rows(s, rows, n, log2n, tw, n);
-}
-
-// Threads per block for `butterflies` butterflies a stage: a multiple of
-// the warp, at most 512.
-inline int block_threads(long long butterflies) {
-  long long t = butterflies < 512 ? butterflies : 512;
-  t = (t + 31) / 32 * 32;
-  return static_cast<int>(t);
-}
-
-// A grid of x blocks per row over `rows` rows (rows > 0), spread over
-// grid.y and grid.z: one launch serves more rows than grid.y's 65535.
-// The last z slice may overshoot, so a kernel reads its row with
-// block_row() and returns at once when it is past the last row.
-inline dim3 row_grid(unsigned x, long long rows) {
-  const long long y = rows < 65535 ? rows : 65535;
-  return dim3(x, static_cast<unsigned>(y), static_cast<unsigned>((rows + y - 1) / y));
-}
-
-__device__ __forceinline__ long long block_row() {
-  return blockIdx.y + static_cast<long long>(gridDim.y) * blockIdx.z;
-}
-
-// Allow more than 48 KB of dynamic shared memory where a launch needs it.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel k, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace gdsp

@@ -35,7 +35,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "fft_block.cuh"
+#include "launch.cuh"
 #include "fft_regs.cuh"
 
 namespace {

@@ -2,6 +2,7 @@
 // CTA's frames: the framing load and the spectrum are the body that K5
 // (stft_kernel.cu, beside its three epilogues), K4/K11 (pwelch_kernel.cu)
 // and K7 (csd_kernel.cu) share; the partial sums are K4/K11's and K7's.
+// unsplit is K3's split run backwards, the load of K6 (istft_kernel.cu).
 //
 // Frame s of a row reads samples a = s * stride .. a + nfft - 1, windowed
 // by w[:nfft] and zero-extended to pad = 2m.  load_frame reads it as m
@@ -168,6 +169,32 @@ __device__ __forceinline__ float spectrum(float2* v, int t, const SlotT& s,
   });
   s.fence();  // every read of the slot done before the next frame writes it
   return top;
+}
+
+// The inputs of the m-point inverse transform whose output z[j] =
+// (x[2j], x[2j+1]) is pad times the inverse DFT of the one-sided spectrum
+// x of m + 1 bins (pad = 2m): K3's split run backwards,
+//   Z[k] = (X[k] + conj X[m-k]) + i W_pad^{-k} (X[k] - conj X[m-k]),
+// into v[r] = Z[t + r T] (the first pass's layout), X[0] and X[m] taken
+// real (the real part of an inverse DFT ignores their imaginary parts).
+// tw is the conjugate of rfft_table(pad) (ops/cuda_istft.py: irfft_table):
+// the inverse m-point Stockham table, then W_pad^{-k}, k < m.  live false
+// loads zeros.
+template <int LOG2M>
+__device__ __forceinline__ void unsplit(float2* v, int t, const float2* __restrict__ x,
+                                        const float2* __restrict__ tw, bool live) {
+  using R = Row<LOG2M>;
+  constexpr int m = R::kN;
+  unroll<R::kP>([&](auto rr) {
+    constexpr int r = GDSP_IDX(rr);
+    const int k = t + r * R::kT;
+    float2 a = live ? __ldg(&x[k]) : make_float2(0.f, 0.f);
+    float2 b = live ? __ldg(&x[m - k]) : make_float2(0.f, 0.f);
+    if (k == 0) a.y = b.y = 0.f;
+    const float2 sum = make_float2(a.x + b.x, a.y - b.y);   // X[k] + conj X[m - k]
+    const float2 wd = regs::mul(make_float2(a.x - b.x, a.y + b.y), __ldg(&tw[m + k]));
+    v[r] = make_float2(sum.x - wd.y, sum.y + wd.x);         // + i W^{-k} (X[k] - conj X[m - k])
+  });
 }
 
 // Segments a CTA of K4 (frames 1) or K7 (frames 2, a segment's x and y

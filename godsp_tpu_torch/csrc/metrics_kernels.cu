@@ -45,7 +45,7 @@
 
 #include <cuda_runtime.h>
 
-#include "fft_block.cuh"
+#include "launch.cuh"
 
 namespace {
 

@@ -55,7 +55,7 @@
 
 #include <cstdint>
 
-#include "fft_block.cuh"
+#include "launch.cuh"
 #include "frame_regs.cuh"
 
 namespace {

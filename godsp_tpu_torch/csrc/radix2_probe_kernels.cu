@@ -1,13 +1,14 @@
-// The first designs of K1/K3, K4, K5, K7 and K8, kept as yardsticks off
-// the main path.  Each kernel is the one its TPU kernel's port first ran,
-// unchanged in arithmetic; they replace no TPU kernel of their own: each
-// shows, on one card and in one run, what the register-radix redesign
-// (fft_regs.cuh: fft_kernels.cu for K1/K2/K3, stft_kernel.cu and
-// outer_kernel.cu for K5 and K8, pwelch_kernel.cu and csd_kernel.cu for
-// K4/K11 and K7) changed.  Wrappers:
-// ops/cuda_probes.py fft_pow2_radix2, stft_radix2, outer_dft_radix2,
-// pwelch_radix2, csd_radix2, each with its own launch count; nothing under
-// fft/, models/, spectral/ or parallel/ reaches them.
+// The first designs of K1/K3, K4, K5, K6, K7, K8 and K9, kept as
+// yardsticks off the main path.  Each kernel is the one its TPU kernel's
+// port first ran, unchanged in arithmetic; they replace no TPU kernel of
+// their own: each shows, on one card and in one run, what the
+// register-radix redesign (fft_regs.cuh: fft_kernels.cu for K1/K2/K3,
+// stft_kernel.cu and outer_kernel.cu for K5 and K8, pwelch_kernel.cu and
+// csd_kernel.cu for K4/K11 and K7, istft_kernel.cu and peel_rows_kernel.cu
+// for K6 and K9) changed.  Wrappers: ops/cuda_probes.py fft_pow2_radix2,
+// stft_radix2, outer_dft_radix2, pwelch_radix2, csd_radix2, istft_radix2,
+// peel_rows_radix2, each with its own launch count; nothing under fft/,
+// models/, spectral/ or parallel/ reaches them.
 //
 // fft_pow2_radix2_kernel (K1's first design): a coalesced load into shared
 // memory in bit-reversed order, the log2 n radix-2 DIT stages of
@@ -43,6 +44,23 @@
 // transformed in the one shared buffer and its X_k copied into MAXB
 // registers a thread, then y's, then mask[s] conj(X_k) Y_k added into two
 // register accumulators.  Bound: csd_kernel.cu's.
+//
+// peel_rows_radix2_kernel<R> (K9's first design): grid (128 / R row
+// groups, batch); block g owns the R rows k1 = g + G j (G = 128 / R) of
+// one batch element, reads all 128 input rows of every column (the
+// element re-read G times from L2), runs one radix-G decimation step and
+// an R-point DFT a column, the W_{128 n3} twiddle from the hi/lo tables,
+// stores at the bit-reversed position of t, then block_fft_rows over the R
+// rows and a coalesced scaled store.  Bound: 16 B a point.
+//
+// istft_radix2_kernel (K6's first design): grid (tiles of bt frames,
+// rows); for each frame of its tile in turn a block loads the bins
+// bit-reversed into shared memory, completing a one-sided spectrum to the
+// conjugate-symmetric pad-point one in the loader, runs the inverse
+// pad-point FFT with block_fft_rows, and adds the windowed real part at
+// the frame's offset into the tile's span (in shared memory where it
+// fits); the wrapper adds each span's nfft - hop tail onto the next one's
+// head.  Bound: istft_kernel.cu's.
 
 #include <cstdint>
 
@@ -515,6 +533,208 @@ int gdsp_csd_radix2(const float* ext_x, const float* ext_y, const float* mask, c
   }
 #undef GDSP_CSD_LAUNCH
   return static_cast<int>(e);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kPeelD = 128;  // points of the fused peel
+constexpr int kPeelThreads = 512;
+constexpr int kPeelSlabPoints = 16384;  // R * n3 float2 in shared memory: 128 KB
+constexpr int kPeelMaxRows = 16;        // R: u[R] lives in registers
+
+template <int R>
+__global__ void __launch_bounds__(kPeelThreads)
+    peel_rows_radix2_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                     float* __restrict__ yr, float* __restrict__ yi,
+                     const float2* __restrict__ w128, const float2* __restrict__ tw,
+                     const float2* __restrict__ hi, const float2* __restrict__ lo, int log2n3,
+                     long long batch, int lo_bits, float scale) {
+  constexpr int G = kPeelD / R;  // row groups a batch element
+  extern __shared__ float2 smem[];
+  float2* wt = smem;      // W_128^p, p < 128
+  float2* s = smem + kPeelD;  // R rows of n3 points
+  const long long b = gdsp::block_row();
+  if (b >= batch) return;
+  const int g = blockIdx.x;
+  const int n3 = 1 << log2n3;
+  for (int e = threadIdx.x; e < kPeelD; e += blockDim.x) wt[e] = w128[e];
+  __syncthreads();
+
+  const long long base = b * kPeelD * n3;
+  const unsigned lo_mask = (1u << lo_bits) - 1;
+  for (int t = threadIdx.x; t < n3; t += blockDim.x) {
+    float2 u[R];
+#pragma unroll
+    for (int i0 = 0; i0 < R; ++i0) {
+      float ar = 0.f, ai = 0.f;
+#pragma unroll 8
+      for (int i1 = 0; i1 < G; ++i1) {
+        const long long gi = base + static_cast<long long>(i0 + R * i1) * n3 + t;
+        const float vr = __ldg(&xr[gi]);
+        const float vi = __ldg(&xi[gi]);
+        const float2 w = wt[(R * g * i1) & (kPeelD - 1)];
+        ar = fmaf(vr, w.x, fmaf(-vi, w.y, ar));
+        ai = fmaf(vr, w.y, fmaf(vi, w.x, ai));
+      }
+      const float2 w = wt[(g * i0) & (kPeelD - 1)];
+      u[i0] = make_float2(ar * w.x - ai * w.y, ar * w.y + ai * w.x);
+    }
+    const unsigned tr = gdsp::bit_reverse(t, log2n3);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float vr = 0.f, vi = 0.f;
+#pragma unroll
+      for (int i0 = 0; i0 < R; ++i0) {
+        const float2 w = wt[(G * j * i0) & (kPeelD - 1)];
+        vr = fmaf(u[i0].x, w.x, fmaf(-u[i0].y, w.y, vr));
+        vi = fmaf(u[i0].x, w.y, fmaf(u[i0].y, w.x, vi));
+      }
+      const unsigned p = static_cast<unsigned>(g + G * j) * static_cast<unsigned>(t);
+      const float2 wh = __ldg(&hi[p >> lo_bits]);
+      const float2 wl = __ldg(&lo[p & lo_mask]);
+      const float2 w = make_float2(wh.x * wl.x - wh.y * wl.y, wh.x * wl.y + wh.y * wl.x);
+      s[j * n3 + tr] = make_float2(vr * w.x - vi * w.y, vr * w.y + vi * w.x);
+    }
+  }
+  __syncthreads();
+  gdsp::block_fft_rows(s, R, n3, log2n3, tw);
+
+  for (int e = threadIdx.x; e < (R << log2n3); e += blockDim.x) {
+    const int j = e >> log2n3;
+    const int k3 = e & (n3 - 1);
+    const long long gi = base + static_cast<long long>(g + G * j) * n3 + k3;
+    const float2 c = s[e];
+    yr[gi] = c.x * scale;
+    yi[gi] = c.y * scale;
+  }
+}
+
+template <int R>
+int launch_peel_radix2(const float* xr, const float* xi, float* yr, float* yi,
+                       const float2* w128, const float2* tw, const float2* hi, const float2* lo,
+                       int log2n3, long long batch, int lo_bits, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = (kPeelD + (static_cast<size_t>(R) << log2n3)) * sizeof(float2);
+  cudaError_t e = gdsp::allow_smem(peel_rows_radix2_kernel<R>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  peel_rows_radix2_kernel<R><<<gdsp::row_grid(kPeelD / R, batch), kPeelThreads, smem,
+                               stream>>>(
+      xr, xi, yr, yi, w128, tw, hi, lo, log2n3, batch, lo_bits, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// y = scale * (the 128-point peel, its twiddle and the n3-point row FFT)
+// of x over `batch` (128, n3) planes, n3 = 2^log2n3 in 256..8192, rows in
+// natural order.  w128 is the whole 128-entry W_128 table, tw the n3-point
+// row table (both conjugate for the inverse), hi and lo the factored
+// W_{128 n3} tables, lo of 2^lo_bits entries.  Returns cudaGetLastError().
+int gdsp_peel_rows_radix2(const float* xr, const float* xi, float* yr, float* yi,
+                          const float2* w128, const float2* tw, const float2* hi,
+                          const float2* lo, int log2n3, long long batch, int lo_bits,
+                          float scale, void* stream) {
+  if (log2n3 < 8 || log2n3 > 13) return static_cast<int>(cudaErrorInvalidValue);
+  int rows = kPeelSlabPoints >> log2n3;
+  if (rows > kPeelMaxRows) rows = kPeelMaxRows;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 2:
+      return launch_peel_radix2<2>(xr, xi, yr, yi, w128, tw, hi, lo, log2n3, batch, lo_bits,
+                                    scale, st);
+    case 4:
+      return launch_peel_radix2<4>(xr, xi, yr, yi, w128, tw, hi, lo, log2n3, batch, lo_bits,
+                                    scale, st);
+    case 8:
+      return launch_peel_radix2<8>(xr, xi, yr, yi, w128, tw, hi, lo, log2n3, batch, lo_bits,
+                                    scale, st);
+    default:
+      return launch_peel_radix2<16>(xr, xi, yr, yi, w128, tw, hi, lo, log2n3, batch, lo_bits,
+                                    scale, st);
+  }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr size_t kIstftMaxSmem = 232448;  // dynamic shared memory a block may use on the H100
+
+__global__ void istft_radix2_kernel(const float2* __restrict__ spec, const float* __restrict__ w,
+                             const float2* __restrict__ tw_inv, float* __restrict__ out,
+                             long long rows, long long F, int bins, int onesided, int nfft,
+                             int hop, int log2pad, int bt, long long n_tiles, int span_in_smem,
+                             float scale) {
+  extern __shared__ float2 s[];
+  const long long row = gdsp::block_row();
+  if (row >= rows) return;
+  const int pad = 1 << log2pad;
+  const long long tile = blockIdx.x;
+  const int span = (bt - 1) * hop + nfft;
+  float* o = out + (row * n_tiles + tile) * span;
+  float* acc = span_in_smem ? reinterpret_cast<float*>(s + pad) : o;
+
+  for (int i = threadIdx.x; i < span; i += blockDim.x) acc[i] = 0.f;
+
+  const long long f0 = tile * bt;
+  const long long f1 = f0 + bt < F ? f0 + bt : F;
+  for (long long f = f0; f < f1; ++f) {
+    __syncthreads();  // the previous frame's readers are done with s[]; acc is visible
+    const float2* x = spec + (row * F + f) * bins;
+    for (int k = threadIdx.x; k < pad; k += blockDim.x) {
+      float2 v;
+      if (!onesided || k < bins) {
+        v = x[k];
+      } else {
+        v = x[pad - k];
+        v.y = -v.y;
+      }
+      s[gdsp::bit_reverse(k, log2pad)] = v;
+    }
+    __syncthreads();
+    gdsp::block_fft_rows(s, 1, pad, log2pad, tw_inv);
+    const int base = static_cast<int>(f - f0) * hop;
+    for (int t = threadIdx.x; t < nfft; t += blockDim.x) acc[base + t] += s[t].x * scale * w[t];
+  }
+  if (span_in_smem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < span; i += blockDim.x) o[i] = acc[i];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// out[r, t, :] = sum over frames f of tile t (bt frames a tile) of
+// w * scale * real(IFFT_pad(spec[r, f]))[:nfft], placed at (f - t*bt)*hop
+// in a span of (bt-1)*hop + nfft samples.  spec (rows, F, bins) float2,
+// natural order: bins = pad/2 + 1 with onesided, else pad.  tw_inv is the
+// conjugate table of pad = 2^log2pad.  Returns cudaGetLastError().
+int gdsp_istft_radix2(const float2* spec, const float* w, const float2* tw_inv, float* out,
+                   long long rows, long long F, int bins, int onesided, int nfft, int hop,
+                   int log2pad, int bt, long long n_tiles, float scale, void* stream) {
+  const int pad = 1 << log2pad;
+  const size_t span = static_cast<size_t>(bt - 1) * hop + nfft;
+  const size_t fft_bytes = static_cast<size_t>(pad) * sizeof(float2);
+  const int span_in_smem = fft_bytes + span * sizeof(float) <= kIstftMaxSmem;
+  const size_t smem = fft_bytes + (span_in_smem ? span * sizeof(float) : 0);
+  cudaError_t e = gdsp::allow_smem(istft_radix2_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid = gdsp::row_grid(static_cast<unsigned>(n_tiles), rows);
+  const int threads = gdsp::block_threads(pad >> 1);
+  istft_radix2_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      spec, w, tw_inv, out, rows, F, bins, onesided, nfft, hop, log2pad, bt, n_tiles,
+      span_in_smem, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

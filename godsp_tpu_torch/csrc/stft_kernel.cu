@@ -56,7 +56,7 @@
 
 #include <cstdint>
 
-#include "fft_block.cuh"
+#include "launch.cuh"
 #include "frame_regs.cuh"
 
 namespace {

@@ -42,9 +42,10 @@
                  on the int8 tensor cores, with its raw MAC stream and its
                  digit ladder taken apart), driven by probes.int8 and
                  probes.store; fft_pow2_radix2, pwelch_radix2,
-                 stft_radix2, csd_radix2 and outer_dft_radix2, the first
-                 (radix-2) designs of K1, K4, K5, K7 and K8, the
-                 yardsticks of their redesigns
+                 stft_radix2, istft_radix2, csd_radix2, outer_dft_radix2
+                 and peel_rows_radix2, the first (radix-2) designs of K1,
+                 K4, K5, K6, K7, K8 and K9, the yardsticks of their
+                 redesigns
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and
@@ -92,10 +93,12 @@ from godsp_tpu_torch.ops.cuda_probes import (
     i8dec,
     i8full,
     i8mm,
+    istft_radix2,
     lane_flip,
     ls_full,
     ls_network,
     outer_dft_radix2,
+    peel_rows_radix2,
     pwelch_radix2,
     pwfloor_frameonly,
     pwfloor_loadonly,
@@ -148,6 +151,7 @@ __all__ = [
     "i8dec",
     "i8full",
     "i8mm",
+    "istft_radix2",
     "ifft_pow2",
     "istft_overlap_add",
     "istft_supported",
@@ -156,6 +160,7 @@ __all__ = [
     "ls_full",
     "ls_network",
     "outer_dft_radix2",
+    "peel_rows_radix2",
     "outer_dft_split",
     "outer_supported",
     "peel_rows_fused_split",

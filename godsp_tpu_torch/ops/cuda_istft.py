@@ -12,13 +12,19 @@ un-normalized windowed overlap-add
     y[t] = sum_f w[t - f*hop] * real(ifft_pad(spec_f))[t - f*hop];
 the caller divides by the NOLA window-energy sum (models/_stft_impl.py).
 
-Grid rows x tiles of bt frames; each block inverse-transforms its frames
-one by one in shared memory (the one-sided spectrum is completed in the
-loader), windows them and overlap-adds them into a span of
-(bt-1)*hop + nfft samples (csrc/istft_kernel.cu, whose header says what
-bounds it on the H100).  Each tile's nfft - hop tail is added onto its
-successor's head by one shifted add here, as pallas_istft.py:274-296
-does; bt*hop >= nfft - hop keeps every tail inside the next tile.
+The kernel (csrc/istft_kernel.cu, whose header says what bounds it on the
+H100) runs a one-sided frame as K3's split run backwards into an m =
+pad/2-point inverse on csrc/fft_regs.cuh's register-radix passes, whose
+output holds the frame's real samples in pairs (a full frame: the
+pad-point inverse, its real part), a frame a warp at pad <= 2048, then
+sums the windowed frames of a round into each output sample in frame
+order, without atomics.  Here also its host side: the CTA (istft_cta),
+the tables (irfft_table), the tiles (tile_frames, CTAs of bt frames that
+first recompute the frames reaching into their tile) and a float64 model
+of the kernel (istft_regs_model) for the CPU tests; no main-path call
+uses the model.  The first design (a block a frame at a time, radix-2
+stages in shared memory) stays as cuda_probes.istft_radix2, with a
+wrapper-side stitch of its tiles' tails.
 
 Geometry: any pad = 2^k in 2..16384 with pad >= nfft and 0 < hop <= nfft
 (the TPU's nfft % 128 and nfft % hop lane rules are not ported).
@@ -29,18 +35,39 @@ CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from godsp_tpu_torch.ops import _build
-from godsp_tpu_torch.ops.cuda_fft import ifft_pow2_plain, supported_size, twiddle_table
+from godsp_tpu_torch.ops.cuda_fft import (
+    _row_dft_model,
+    geometry,
+    ifft_pow2_plain,
+    out_index,
+    rfft_table64,
+    stockham_table64,
+    supported_size,
+    twiddle_table,
+)
 
 __all__ = [
+    "EDGE",
+    "IstftCta",
+    "irfft_table",
+    "istft_cta",
     "istft_overlap_add",
     "istft_overlap_add_plain",
+    "istft_regs_model",
     "istft_supported",
     "launches",
     "overlap_add",
+    "run_stride",
+    "run_words",
     "tile_frames",
+    "window_words",
 ]
 
 # Kernel launches by wrapper, counted where each launches its kernel.
@@ -49,6 +76,8 @@ launches = {"istft_overlap_add": 0}
 # Blocks to aim for: four per SM of an H100 (132 SMs).
 _TARGET_BLOCKS = 4 * 132
 _MAX_FRAMES_PER_TILE = 64
+MAX_SMEM = 232448  # bytes of shared memory one block may use (227 KB)
+EDGE = 4  # samples at each end of a row summed directly in float64 (istft_kernel.cu: kEdge)
 
 
 def istft_supported(nfft: int, pad: int, hop: int) -> bool:
@@ -56,12 +85,111 @@ def istft_supported(nfft: int, pad: int, hop: int) -> bool:
     return supported_size(pad) and 1 <= nfft <= pad and 0 < hop <= nfft
 
 
-def tile_frames(n_frames: int, rows: int, nfft: int, hop: int) -> int:
-    """Frames a block overlap-adds: enough tiles to fill the card, at most
-    64, and never fewer than the tail needs (bt*hop >= nfft - hop)."""
-    need = max(1, -(-(nfft - hop) // hop))
-    bt = -(-(n_frames * rows) // _TARGET_BLOCKS)
-    return max(need, min(_MAX_FRAMES_PER_TILE, bt))
+class IstftCta(NamedTuple):
+    """K6's CTA at one pad (gdsp_istft_geometry returns the same on the card)."""
+
+    points: int  # of the row transform: pad/2 one-sided, pad full
+    threads: int
+    frames: int  # transformed at once, a round
+    stride: int  # words of a frame's run in the frame buffer
+    exchange: int  # words of the passes' exchange (two planes a frame)
+    region: int  # words before the window of partial sums: max(exchange, frames x stride)
+
+
+@lru_cache(maxsize=None)
+def istft_cta(pad: int, onesided: bool = True) -> IstftCta:
+    """The CTA of K6 at pad: a frame a warp (eight warps' frames a round,
+    Q = 32 / T a warp) while the row transform stays in a warp, else a
+    frame a CTA; the frame runs padded by 2T (one-sided pairs) or T (full)
+    words where a (half-)warp's store spans several frames, else pad words
+    (run_stride adds hop mod 32), the region sized for the longest."""
+    if not supported_size(pad):
+        raise ValueError(f"istft_cta: pad must be a power of 2 in 2..16384, got {pad}")
+    n = pad // 2 if onesided else pad
+    g = geometry(n)
+    frames = g.default_rows
+    threads = 32 * -(-frames // g.q) if g.warp else g.threads
+    p = g.points
+    one_frame = g.threads >= (16 if onesided else 32)  # a (half-)warp's store: one frame
+    if one_frame or p < 2:
+        stride = pad
+    else:
+        stride = pad + (2 if onesided else 1) * g.threads
+    exchange = frames * n * 2 if len(g.radices) >= 2 else 0
+    fbuf = frames * (pad + 31 if one_frame else stride)
+    return IstftCta(n, threads, frames, stride, exchange, max(exchange, fbuf))
+
+
+def run_stride(pad: int, onesided: bool, hop: int) -> int:
+    """Words of a frame's run at this hop: istft_cta's, or, where a
+    (half-)warp's store holds one frame, pad + (hop mod 32) (even for the
+    one-sided pairs' 8-byte stores), so that the sums read two frames at
+    one step on distinct banks."""
+    c = istft_cta(pad, onesided)
+    one_frame = geometry(c.points).threads >= (16 if onesided else 32)
+    return pad + (hop & (30 if onesided else 31)) if one_frame else c.stride
+
+
+def window_words(pad: int, onesided: bool, nfft: int, hop: int) -> int:
+    """Words of the window of partial sums: the power of 2 at least a
+    round's span, (frames - 1) hop + nfft."""
+    span = (istft_cta(pad, onesided).frames - 1) * hop + nfft
+    return 1 << (span - 1).bit_length()
+
+
+def smem_bytes(pad: int, onesided: bool, nfft: int, hop: int) -> int:
+    return 4 * (istft_cta(pad, onesided).region + window_words(pad, onesided, nfft, hop))
+
+
+def run_words(pad: int, onesided: bool, hop: int) -> np.ndarray:
+    """The frame-buffer words each lane of the CTA's first warp writes, a
+    warp access a register: (registers, lanes, 2) for the one-sided pairs
+    (8-byte stores, words 2j and 2j + 1 of its frame's run), (registers,
+    lanes, 1) for the full frame."""
+    c = istft_cta(pad, onesided)
+    g = geometry(c.points)
+    lane = np.arange(min(32, c.threads))
+    slot, t = lane // g.threads, lane % g.threads
+    j = t[None, :] + out_index(c.points)[:, None] * g.threads  # (P, lanes)
+    run = slot[None, :] * run_stride(pad, onesided, hop)
+    if onesided:
+        return np.stack([run + 2 * j, run + 2 * j + 1], axis=-1)
+    return (run + j)[..., None]
+
+
+@lru_cache(maxsize=None)
+def irfft_table(pad: int, device: torch.device) -> torch.Tensor:
+    """(pad, 2) float32 conjugate of rfft_table64(pad), rounded once: the
+    inverse m-point Stockham table, then W_pad^{-k}, k < m = pad/2."""
+    tab = np.conj(rfft_table64(pad))
+    return torch.from_numpy(np.stack([tab.real, tab.imag], -1).astype(np.float32)).to(device)
+
+
+@lru_cache(maxsize=None)
+def _inverse_table(pad: int, device: torch.device) -> torch.Tensor:
+    """(pad, 2) float32 inverse pad-point Stockham table, rounded once."""
+    tab = stockham_table64(pad, True)
+    return torch.from_numpy(np.stack([tab.real, tab.imag], -1).astype(np.float32)).to(device)
+
+
+def tile_frames(n_frames: int, rows: int, nfft: int, hop: int, pad: int | None = None,
+                onesided: bool = True) -> int:
+    """Frames a CTA owns: enough tiles to fill the card, at most 64.  With
+    pad, K6's tile: rounded up so that the recomputed frames before it and
+    the tile make whole rounds of istft_cta(pad).frames.  Without, K6's
+    first design's, never fewer than its stitch needs (bt*hop >= nfft -
+    hop)."""
+    bt = max(1, min(_MAX_FRAMES_PER_TILE, -(-(n_frames * rows) // _TARGET_BLOCKS)))
+    if pad is None:
+        return max(bt, -(-(nfft - hop) // hop))
+    fr = istft_cta(pad, onesided).frames
+    e = recomputed_frames(nfft, hop)
+    return -(-(bt + e) // fr) * fr - e
+
+
+def recomputed_frames(nfft: int, hop: int) -> int:
+    """Frames before a tile that reach into it: ceil(nfft / hop) - 1."""
+    return -(-nfft // hop) - 1
 
 
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
@@ -93,11 +221,72 @@ def istft_overlap_add_plain(spec: torch.Tensor, w: torch.Tensor, nfft: int, hop:
     return overlap_add(yr[..., :nfft] * w, hop)
 
 
+def istft_regs_model(spec, w, nfft: int, hop: int, onesided: bool = True,
+                     bt: int | None = None) -> np.ndarray:
+    """float64 model of K6 (csrc/istft_kernel.cu) on numpy spectra (..., F,
+    bins), step by step: a one-sided frame's backward split (bins 0 and m
+    taken real), the m-point inverse passes (cuda_fft's row model with the
+    inverse table), the pairs as samples 2j, 2j + 1 (a full frame: the
+    pad-point inverse passes, the real part), scale 1/pad and the window;
+    the row's first EDGE samples of frame 0 and last EDGE of frame F - 1
+    summed directly from the bins (the kernel's edge_samples, in float64);
+    then the overlap-add as the CTAs make it: tiles of bt frames
+    (tile_frames), each summing into each of its own samples every frame
+    that covers it, the recomputed frames before the tile first, in frame
+    order.  For the CPU tests; no main-path call uses it."""
+    spec = np.asarray(spec, np.complex128)
+    w = np.asarray(w, np.float64)
+    *lead, F, bins = spec.shape
+    pad = 2 * (bins - 1) if onesided else bins
+    rows = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    x = spec.reshape(rows * F, bins)
+    if onesided:
+        m = pad // 2
+        k = np.arange(m)
+        a, b = x[:, k].copy(), x[:, m - k].copy()
+        a[:, 0], b[:, 0] = a[:, 0].real, b[:, 0].real
+        z = (a + np.conj(b)) + 1j * np.conj(rfft_table64(pad)[m:]) * (a - np.conj(b))
+        zt = _row_dft_model(z, True) / pad
+        frames = np.stack([zt.real, zt.imag], axis=-1).reshape(rows * F, pad)
+    else:
+        frames = _row_dft_model(x, True).real / pad
+    frames = (frames[:, :nfft] * w[:nfft]).reshape(rows, F, nfft)
+    # The row's first EDGE samples of frame 0 and last EDGE of frame F - 1:
+    # the inverse DFT of the frame's bins summed directly (edge_samples).
+    for f, ns in ((0, range(min(EDGE, nfft))), (F - 1, range(max(0, nfft - EDGE), nfft))):
+        ns = np.asarray(list(ns))
+        k = np.arange(bins)
+        tw = np.exp(2j * np.pi * ((k[:, None] * ns[None, :]) % pad) / pad)  # W_pad^{-k n}
+        terms = (spec.reshape(rows, F, bins)[:, f, :, None] * tw).real
+        if onesided:
+            terms[:, 1:-1] *= 2.0  # the mirror bins
+        frames[:, f, ns] = terms.sum(axis=1) / pad * w[ns]
+    if bt is None:
+        bt = tile_frames(F, rows, nfft, hop, pad, onesided)
+    e = recomputed_frames(nfft, hop)
+    length = (F - 1) * hop + nfft
+    y = np.zeros((rows, length))
+    for f0 in range(0, F, bt):
+        f1 = min(F, f0 + bt)
+        lo, hi = f0 * hop, (f1 * hop if f1 < F else length)
+        acc = np.zeros((rows, length))
+        for f in range(max(0, f0 - e), f1):  # frame order
+            acc[:, f * hop:f * hop + nfft] += frames[:, f]
+        y[:, lo:hi] = acc[:, lo:hi]
+    return y.reshape(*lead, length)
+
+
 def istft_overlap_add(spec: torch.Tensor, w: torch.Tensor, nfft: int, hop: int,
                       onesided: bool = True) -> torch.Tensor:
     """K6: the un-normalized windowed overlap-add of the spectra's inverse
-    FFTs, (..., F, bins) -> (..., (F-1)*hop + nfft), tile_frames frames a
-    tile."""
+    FFTs, (..., F, bins) -> (..., (F-1)*hop + nfft)."""
+    pad = _check(spec, w, nfft, hop, onesided)
+    if not spec.is_cuda:
+        return istft_overlap_add_plain(spec, w, nfft, hop, onesided)
+    return _launch(spec, w, nfft, hop, onesided, pad, launches, "istft_overlap_add")
+
+
+def _check(spec, w, nfft: int, hop: int, onesided: bool) -> int:
     if spec.dim() < 2:
         raise ValueError(f"spectra must be (..., F, bins), got {tuple(spec.shape)}")
     bins = spec.shape[-1]
@@ -108,11 +297,30 @@ def istft_overlap_add(spec: torch.Tensor, w: torch.Tensor, nfft: int, hop: int,
         )
     if w.shape != (nfft,):
         raise ValueError(f"window must have shape ({nfft},), got {tuple(w.shape)}")
-    if not spec.is_cuda:
-        return istft_overlap_add_plain(spec, w, nfft, hop, onesided)
+    return pad
+
+
+def _stitch(out: torch.Tensor, bt: int, hop: int, nfft: int, length: int) -> torch.Tensor:
+    """K6's first design's (rows, tiles, span) tile spans -> (rows, length): each tile owns
+    bt*hop samples; its nfft - hop tail lands on the head of the next
+    tile's (bt*hop >= nfft - hop), and the last tile's tail ends the
+    signal.  One shifted add, no scatter (pallas_istft.py:274-296)."""
+    rows, n_tiles, _ = out.shape
+    own, tail = bt * hop, nfft - hop
+    main = out[..., :own].contiguous()
+    if tail > 0 and n_tiles > 1:
+        main[:, 1:, :tail] += out[:, :-1, own:]
+    y = torch.cat([main.reshape(rows, n_tiles * own), out[:, -1, own:]], dim=-1)
+    return y[:, :length]
+
+
+def _launch(spec, w, nfft: int, hop: int, onesided: bool, pad: int, counts: dict, name: str,
+            radix2: bool = False) -> torch.Tensor:
+    """Run K6 on a CUDA tensor, counted in counts[name]; radix2: K6's first
+    design (cuda_probes.istft_radix2), its tiles' tails stitched here."""
     if spec.dtype != torch.complex64 or w.dtype != torch.float32 or w.device != spec.device:
-        raise TypeError(f"istft_overlap_add: spec must be complex64 and w float32 on {spec.device}")
-    F = spec.shape[-2]
+        raise TypeError(f"{name}: spec must be complex64 and w float32 on {spec.device}")
+    F, bins = spec.shape[-2:]
     lead = spec.shape[:-2]
     rows = 1
     for d in lead:
@@ -120,28 +328,35 @@ def istft_overlap_add(spec: torch.Tensor, w: torch.Tensor, nfft: int, hop: int,
     length = (F - 1) * hop + nfft if F else 0
     if F == 0 or rows == 0:
         return torch.zeros(*lead, length, dtype=torch.float32, device=spec.device)
-    bt = tile_frames(F, rows, nfft, hop)
-    H = nfft - hop
-    n_tiles = -(-F // bt)
-    span = (bt - 1) * hop + nfft
-    out = torch.empty(rows, n_tiles, span, dtype=torch.float32, device=spec.device)
+    if length >= 1 << 31:
+        raise ValueError(f"{name}: a row of {length} samples (the kernel indexes a row in 32 bits)")
     s2 = torch.view_as_real(spec.reshape(rows, F, bins).contiguous())
     w = w.contiguous()
+    if w.data_ptr() % 8:  # the kernel reads the window as 8-byte pairs
+        w = w.clone()
+    dev = spec.device
     lib = _build.library()
-    with torch.cuda.device(spec.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if radix2:
+        bt = tile_frames(F, rows, nfft, hop)
+        n_tiles = -(-F // bt)
+        out = torch.empty(rows, n_tiles, (bt - 1) * hop + nfft, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.gdsp_istft_radix2(
+                s2.data_ptr(), w.data_ptr(), twiddle_table(pad, True, dev).data_ptr(),
+                out.data_ptr(), rows, F, bins, int(onesided), nfft, hop, pad.bit_length() - 1,
+                bt, n_tiles, 1.0 / pad, stream)
+        _build.check(rc, name)
+        counts[name] += 1
+        return _stitch(out, bt, hop, nfft, length).reshape(*lead, length)
+    bt = tile_frames(F, rows, nfft, hop, pad, onesided)
+    y = torch.empty(rows, length, dtype=torch.float32, device=dev)
+    tw = irfft_table(pad, dev) if onesided else _inverse_table(pad, dev)
+    with torch.cuda.device(dev):
         rc = lib.gdsp_istft_ola(
-            s2.data_ptr(), w.data_ptr(), twiddle_table(pad, True, spec.device).data_ptr(),
-            out.data_ptr(), rows, F, bins, int(onesided), nfft, hop, pad.bit_length() - 1,
-            bt, n_tiles, 1.0 / pad, torch.cuda.current_stream(spec.device).cuda_stream,
-        )
-    _build.check(rc, "istft_overlap_add")
-    launches["istft_overlap_add"] += 1
-    # Stitch: each tile owns bt*hop samples; its H-sample tail lands on the
-    # head of the next tile's (bt*hop >= H), and the last tile's tail ends
-    # the signal.  One shifted add, no scatter.
-    own = bt * hop
-    main = out[..., :own].contiguous()
-    if H > 0 and n_tiles > 1:
-        main[:, 1:, :H] += out[:, :-1, own:]
-    y = torch.cat([main.reshape(rows, n_tiles * own), out[:, -1, own:]], dim=-1)
-    return y[:, :length].reshape(*lead, length)
+            s2.data_ptr(), w.data_ptr(), tw.data_ptr(), y.data_ptr(), rows, F, bins,
+            int(onesided), nfft, hop, pad.bit_length() - 1, bt, -(-F // bt),
+            window_words(pad, onesided, nfft, hop), 1.0 / pad, stream)
+    _build.check(rc, name)
+    counts[name] += 1
+    return y.reshape(*lead, length)

@@ -41,9 +41,15 @@ peel_rows_supported), row k1 of the result is
 outer_dft_split(d1=128, d2=1) followed by the n3-point row FFT, in one
 pass over device memory (csrc/peel_rows_kernel.cu).  Its rows are in
 natural bin order, where godsp_tpu stores digit order, and `scale` (the
-public ifft's 1/N) is applied in its store.  Its plain version is
-godsp_tpu's form: the dense F(128) contraction and the (128, n3) twiddle
-of K8's plain version, then the plain row FFT, in the input's dtype.
+public ifft's 1/N) is applied in its store.  The kernel runs on a cluster
+of CTAs that hand the column step's results to the CTA owning each row
+through distributed shared memory; peel_plan is its plan (cluster, rows a
+CTA, the column DFT's points, the clusters a batch element reads its input
+with), peel_scatter its phase-A store map, peel_rows_regs_model its
+float64 model for the CPU tests (no main-path call uses either).  Its
+plain version is godsp_tpu's form: the dense F(128) contraction and the
+(128, n3) twiddle of K8's plain version, then the plain row FFT, in the
+input's dtype.  The first design stays as cuda_probes.peel_rows_radix2.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.
@@ -64,6 +70,7 @@ from godsp_tpu_torch.ops.cuda_fft import (
     _row_dft_model,
     fft_pow2_plain,
     geometry,
+    out_index,
     stockham_table,
     twiddle_table,
 )
@@ -71,6 +78,7 @@ from godsp_tpu_torch.ops.cuda_fft import (
 __all__ = [
     "MAX_ROWS",
     "PEEL",
+    "PeelPlan",
     "launches",
     "Tile",
     "outer_dft_regs_model",
@@ -78,8 +86,11 @@ __all__ = [
     "outer_dft_split_plain",
     "outer_supported",
     "peel_rows_fused_split",
+    "peel_plan",
     "peel_rows_fused_split_plain",
+    "peel_rows_regs_model",
     "peel_rows_supported",
+    "peel_scatter",
     "tile",
 ]
 
@@ -123,6 +134,122 @@ def tile(m: int) -> Tile:
     return Tile(c, g.threads * c, c * m * 8 if len(g.radices) >= 2 else 0)
 
 
+class PeelPlan(NamedTuple):
+    """K9's plan at one n3 (gdsp_peel_rows_geometry returns the same on the
+    card)."""
+
+    cluster: int  # C CTAs a cluster
+    rows: int  # R rows of the result a CTA holds in shared memory
+    points: int  # M = C R rows a cluster: the column DFT's points
+    clusters: int  # G = 128 / M clusters a batch element: its L2 re-read factor
+    threads: int  # a CTA's
+    tile_columns: int  # Ct columns a phase-A tile (K8's tile(M))
+    tiles: int  # phase-A tiles side by side in a CTA
+    smem: int  # bytes: the R rows' two planes, then each tile's exchange
+
+
+PEEL_CLUSTER = 8  # CTAs a cluster: the portable size
+PEEL_THREADS = 512
+_PEEL_SLAB = 16384  # R n3 float2 a CTA at most: 128 KB
+
+
+@lru_cache(maxsize=None)
+def peel_plan(n3: int) -> PeelPlan:
+    """K9's cluster plan at n3 (peel_rows_supported): R = min(16, 16384 /
+    n3) rows a CTA, clusters of 8 CTAs, the column step at M = 8 R points
+    in K8's tile(M), two tiles side by side in 512 threads."""
+    if not peel_rows_supported(n3):
+        raise ValueError(f"peel_plan: n3 must be a power of 2 in 256..8192, got {n3}")
+    r = min(16, _PEEL_SLAB // n3)
+    m = PEEL_CLUSTER * r
+    t = tile(m)
+    tiles = PEEL_THREADS // t.threads
+    exchange = t.columns * m * 2 if len(geometry(m).radices) >= 2 else 0
+    return PeelPlan(PEEL_CLUSTER, r, m, PEEL // m, PEEL_THREADS, t.columns, tiles,
+                    4 * (r * n3 * 2 + tiles * exchange))
+
+
+def _peel_slot_word(n3: int, rows: int, slot, c):
+    """Word of column c of row slot `slot` in a CTA's plane of rows of n3
+    points (fft_regs.cuh's slot_of: Q rows interleaved word by word)."""
+    q = geometry(n3).q
+    return (slot // q) * q * n3 + slot % q + c * q
+
+
+def peel_scatter(n3: int) -> dict[str, np.ndarray]:
+    """K9's phase-A stores of one cluster, as the kernel makes them: for
+    source CTA `src` (C), loop step `it`, thread `tid` (512) and output
+    register `i` (P), the bin j of the column DFT (k1 = g + G j), the
+    column c, whether the tile is live, the target CTA j mod C and the word
+    of its planes (row slot j / C, position c).  Arrays of shape (C, steps,
+    512, P)."""
+    plan = peel_plan(n3)
+    g = geometry(plan.points)
+    ct, tt = plan.tile_columns, g.threads * plan.tile_columns
+    cols = n3 // plan.cluster
+    tiles = cols // ct
+    steps = -(-tiles // plan.tiles)
+    src, it, tid, i = np.meshgrid(np.arange(plan.cluster), np.arange(steps),
+                                  np.arange(plan.threads), np.arange(g.points), indexing="ij")
+    tl = it * plan.tiles + tid // tt
+    t, cc = (tid % tt) // ct, (tid % tt) % ct
+    live = tl < tiles
+    c = src * cols + np.where(live, tl, 0) * ct + cc
+    j = t + out_index(plan.points)[i] * g.threads
+    dst = j % plan.cluster
+    word = _peel_slot_word(n3, plan.rows, j // plan.cluster, c)
+    return dict(j=j, c=c, live=live, dst=dst, word=word, tid=tid)
+
+
+def peel_rows_regs_model(xr, xi, inverse: bool = False,
+                         scale: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """float64 model of K9 (csrc/peel_rows_kernel.cu) on numpy planes (...,
+    128, n3), step by step: for each cluster g of a batch element, the
+    radix-G decimation u[i0] = W_128^{g i0} sum_i1 x[i0 + M i1] W_128^{g M
+    i1}, the M-point column passes (cuda_fft's row model, the columns as
+    rows), the twiddle W_{128 n3}^{k1 c}, the phase-A stores into each CTA's planes at peel_scatter's words, then
+    each CTA's rows read back from its planes, the n3-point row passes and
+    `scale`.  The twiddle is formed as the kernel forms it, hi[p >> s] lo[p
+    & (2^s - 1)] at p = k1 c.  For the CPU tests; no main-path call uses
+    it."""
+    xr = np.asarray(xr, np.float64)
+    shape = xr.shape
+    n3 = shape[-1]
+    if shape[-2] != PEEL or not peel_rows_supported(n3):
+        raise ValueError(f"unsupported fused peel-rows shape {shape[-2:]}")
+    x = (xr + 1j * np.asarray(xi, np.float64)).reshape(-1, PEEL, n3)
+    b = x.shape[0]
+    plan = peel_plan(n3)
+    C, R, M, G = plan.cluster, plan.rows, plan.points, plan.clusters
+    n = PEEL * n3
+    sign = 2.0 if inverse else -2.0
+    lo_bits = lo_bits_of(n)
+    mp = peel_scatter(n3)
+    keep = mp["live"]
+    jj, cc, dst, word = (mp[k][keep] for k in ("j", "c", "dst", "word"))
+    y = np.empty_like(x)
+    i0, i1 = np.arange(M), np.arange(G)
+    for g in range(G):
+        w1 = np.exp(1j * sign * np.pi * ((g * M * i1) % PEEL) / PEEL)  # W_128^{g M i1}
+        w0 = np.exp(1j * sign * np.pi * ((g * i0) % PEEL) / PEEL)  # W_128^{g i0}
+        u = np.einsum("bhmc,h->bmc", x.reshape(b, G, M, n3), w1) * w0[None, :, None]
+        cols = np.swapaxes(u, 1, 2).reshape(-1, M)
+        f = np.swapaxes(_row_dft_model(cols, inverse).reshape(b, n3, M), 1, 2)  # (b, j, c)
+        p = (g + G * np.arange(M))[:, None] * np.arange(n3)[None, :]  # k1 c, exact
+        w = (np.exp(1j * sign * np.pi * ((p >> lo_bits) << lo_bits) / n)
+             * np.exp(1j * sign * np.pi * (p & ((1 << lo_bits) - 1)) / n))
+        f = f * w
+        planes = np.full((b, C, R * n3), np.nan + 0j)
+        planes[:, dst, word] = f[:, jj, cc]
+        for q in range(C):
+            slots = np.arange(R)
+            rows = planes[:, q][:, _peel_slot_word(n3, R, slots[:, None], np.arange(n3)[None, :])]
+            out = _row_dft_model(rows.reshape(-1, n3), inverse).reshape(b, R, n3) * scale
+            y[:, g + G * (slots * C + q), :] = out
+    y = y.reshape(shape)
+    return y.real, y.imag
+
+
 def _exp_table(n: int, kk: torch.Tensor, tt: torch.Tensor, inverse: bool) -> torch.Tensor:
     """complex128 exp(-+2 pi i (kk (x) tt mod n) / n), the exponent exact in int64."""
     p = torch.remainder(kk[:, None] * tt[None, :], n).to(torch.float64)
@@ -130,11 +257,16 @@ def _exp_table(n: int, kk: torch.Tensor, tt: torch.Tensor, inverse: bool) -> tor
     return torch.polar(torch.ones_like(ang), ang)
 
 
+def lo_bits_of(n: int) -> int:
+    """Bits of the lo half of _factor_tables(n)."""
+    return ((n - 1).bit_length() + 1) // 2
+
+
 @lru_cache(maxsize=None)
 def _factor_tables(n: int, inverse: bool, device: torch.device):
     """(hi, lo, lo_bits): W_n^p = hi[p >> lo_bits] * lo[p & (2^lo_bits - 1)],
     two (entries, 2) float32 tables built in float64 and rounded once."""
-    lo_bits = ((n - 1).bit_length() + 1) // 2
+    lo_bits = lo_bits_of(n)
     n_hi = (n + (1 << lo_bits) - 1) >> lo_bits
     sign = 2.0 if inverse else -2.0
 
@@ -230,7 +362,7 @@ def outer_dft_regs_model(xr, xi, d1: int, d2: int,
     z = (xr + 1j * np.asarray(xi, np.float64)).reshape(-1, m, n3)
     cols = np.swapaxes(z, 1, 2).reshape(-1, m)  # every column a row of the model
     f = np.swapaxes(_row_dft_model(cols, inverse).reshape(-1, n3, m), 1, 2)  # (b, k, c)
-    lo_bits = ((n - 1).bit_length() + 1) // 2
+    lo_bits = lo_bits_of(n)
     sign = 2.0 if inverse else -2.0
     k = np.arange(m)[:, None]
     c = np.arange(n3)[None, :]
@@ -322,13 +454,33 @@ def peel_rows_fused_split(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = Fa
     (..., 128, n3) float32 planes in one device-memory pass, times scale;
     row k1 holds its natural-order bins k3.  inverse conjugates every
     table."""
-    n3 = _check_peel(xr, xi)
+    _check_peel(xr, xi)
     if not xr.is_cuda:
         return peel_rows_fused_split_plain(xr, xi, inverse, scale)
+    return _launch_peel(xr, xi, inverse, scale, launches, "peel_rows_fused_split")
+
+
+@lru_cache(maxsize=None)
+def _peel_args(n3: int, inverse: bool, device: torch.device, radix2: bool) -> tuple:
+    """K9's table pointers and log2 n3 (K9's first design's with radix2),
+    the tables held by the caches they come from."""
+    hi, lo, _ = _factor_tables(PEEL * n3, inverse, device)
+    rows = (twiddle_table(n3, inverse, device),) if radix2 else (
+        stockham_table(peel_plan(n3).points, inverse, device),
+        stockham_table(n3, inverse, device))
+    return (_dft_table(PEEL, inverse, device).data_ptr(), *(t.data_ptr() for t in rows),
+            hi.data_ptr(), lo.data_ptr(), n3.bit_length() - 1)
+
+
+def _launch_peel(xr, xi, inverse: bool, scale: float, counts: dict, name: str,
+                 radix2: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K9 (radix2: its first design, cuda_probes.peel_rows_radix2) on
+    CUDA planes, counted in counts[name]."""
+    n3 = _check_peel(xr, xi)
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
-        raise TypeError(f"peel_rows_fused_split: the kernel takes float32 planes, got {xr.dtype}")
+        raise TypeError(f"{name}: the kernel takes float32 planes, got {xr.dtype}")
     if xi.device != xr.device:
-        raise ValueError("peel_rows_fused_split: re/im planes must be on one device")
+        raise ValueError(f"{name}: re/im planes must be on one device")
     xr, xi = xr.contiguous(), xi.contiguous()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
@@ -336,15 +488,17 @@ def peel_rows_fused_split(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = Fa
     if batch == 0:
         return yr, yi
     dev = xr.device
-    hi, lo, lo_bits = _factor_tables(PEEL * n3, inverse, dev)
     lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.gdsp_peel_rows(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            _dft_table(PEEL, inverse, dev).data_ptr(), twiddle_table(n3, inverse, dev).data_ptr(),
-            hi.data_ptr(), lo.data_ptr(), n3.bit_length() - 1, batch, lo_bits, float(scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(rc, "peel_rows_fused_split")
-    launches["peel_rows_fused_split"] += 1
+        if radix2:
+            rc = lib.gdsp_peel_rows_radix2(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
+                                           yi.data_ptr(), *_peel_args(n3, inverse, dev, True),
+                                           batch, lo_bits_of(PEEL * n3), float(scale), stream)
+        else:
+            rc = lib.gdsp_peel_rows(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                                    *_peel_args(n3, inverse, dev, False), batch,
+                                    lo_bits_of(PEEL * n3), int(inverse), float(scale), stream)
+    _build.check(rc, name)
+    counts[name] += 1
     return yr, yi

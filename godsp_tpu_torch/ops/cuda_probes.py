@@ -138,9 +138,9 @@ two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
       bound (512 threads a CTA for n <= 1024, 1024 above) or one block's
       227 KB of shared memory (cuda_fft.cta_fits).
 
-The first designs of K1, K4, K5, K7 and K8, kept off the main path as
-the yardsticks of their redesigns (csrc/radix2_probe_kernels.cu; they
-replace no TPU kernel of their own):
+The first designs of K1, K4, K5, K6, K7, K8 and K9, kept off the main
+path as the yardsticks of their redesigns (csrc/radix2_probe_kernels.cu;
+they replace no TPU kernel of their own):
 
   fft_pow2_radix2(xr, xi|None, inverse, scale, bins)  the radix-2
       fft_pow2_kernel K1 first ran (bit-reversed load into shared memory,
@@ -162,6 +162,15 @@ replace no TPU kernel of their own):
       csd_partials_kernel K7 first ran (the same for x, then for y in the
       same buffer, X_k in registers); plain version
       cuda_csd.csd_power_partials_plain.
+  istft_radix2(spec, w, nfft, hop, onesided)  the istft_kernel K6 first
+      ran (a block a tile, one frame at a time: a bit-reversed load
+      completing the pad-point spectrum, block_fft_rows, the windowed real
+      part added into the tile's span; the tails stitched by the wrapper);
+      plain version cuda_istft.istft_overlap_add_plain;
+  peel_rows_radix2(xr, xi, inverse, scale)  the peel_rows_kernel K9 first
+      ran (R rows a block re-reading every input row, a radix-(128/R) step
+      and an R-point DFT, bit-reversed stores, block_fft_rows); plain
+      version cuda_outer.peel_rows_fused_split_plain.
       Nothing under fft/, models/, spectral/ or parallel/ calls them.
 
 gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
@@ -214,7 +223,7 @@ import numpy as np
 import torch
 
 from godsp_tpu_torch.fft.four_step import _tf32_off, dft_matrix, twiddle_2d
-from godsp_tpu_torch.ops import _build, cuda_csd, cuda_outer, cuda_pwelch, cuda_stft
+from godsp_tpu_torch.ops import _build, cuda_csd, cuda_istft, cuda_outer, cuda_pwelch, cuda_stft
 from godsp_tpu_torch.ops.cuda_fft import (
     MAX_N,
     MAX_SMEM,
@@ -292,7 +301,9 @@ __all__ = [
     "ls_network",
     "ls_network_plain",
     "ls_tables",
+    "istft_radix2",
     "outer_dft_radix2",
+    "peel_rows_radix2",
     "pwelch_radix2",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
@@ -328,7 +339,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "bd_hi": 0, "anat_full": 0, "vdif": 0, "sdif_peel": 0, "ls_network": 0,
             "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0, "i8_dot": 0,
             "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0,
-            "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0}
+            "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0,
+            "istft_radix2": 0, "peel_rows_radix2": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -1210,6 +1222,31 @@ def csd_radix2(ext_x: torch.Tensor, ext_y: torch.Tensor, mask: torch.Tensor, w: 
     shared-memory kernel K7 first ran: a yardstick off the main path."""
     return cuda_csd._launch(ext_x, ext_y, mask, w, nfft, stride, pad, "csd_radix2", launches,
                             radix2=True)
+
+
+def istft_radix2(spec: torch.Tensor, w: torch.Tensor, nfft: int, hop: int,
+                 onesided: bool = True) -> torch.Tensor:
+    """K6's first design (csrc/radix2_probe_kernels.cu): istft_overlap_add's
+    function, the same shapes and checks, by the radix-2 shared-memory
+    kernel K6 first ran, its tiles' tails stitched here: a yardstick off
+    the main path."""
+    pad = cuda_istft._check(spec, w, nfft, hop, onesided)
+    if not spec.is_cuda:
+        return cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop, onesided)
+    return cuda_istft._launch(spec, w, nfft, hop, onesided, pad, launches, "istft_radix2",
+                              radix2=True)
+
+
+def peel_rows_radix2(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
+                     scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9's first design (csrc/radix2_probe_kernels.cu): peel_rows_fused_split's
+    function by the radix-2 shared-memory kernel K9 first ran: a yardstick
+    off the main path."""
+    cuda_outer._check_peel(xr, xi)
+    if not xr.is_cuda:
+        return cuda_outer.peel_rows_fused_split_plain(xr, xi, inverse, scale)
+    return cuda_outer._launch_peel(xr, xi, inverse, scale, launches, "peel_rows_radix2",
+                                   radix2=True)
 
 
 # ---------------------------------------------------------------------------

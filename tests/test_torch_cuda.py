@@ -17,7 +17,11 @@ setting and every fft_pow2_rows setting equal to its default; K1/K2/K3
 at every power of two 2..16384, and K1's radix-2 first design
 (fft_pow2_radix2); K5 and K8's register-radix redesign at every pad and
 m with ragged shapes, past grid.y, never falling back, beside their
-radix-2 first designs (stft_radix2, outer_dft_radix2); K14g i8_dot
+radix-2 first designs (stft_radix2, outer_dft_radix2); K6 and K9's
+redesign (a frame a warp after K3's split run backwards; a thread-block
+cluster over distributed shared memory) at their edge geometries, two
+calls bit-equal, their plans equal to the host's, beside istft_radix2 and
+peel_rows_radix2; K14g i8_dot
 equal to the exact int32 product, i8mm, i8dec, i8full and i8_concat equal
 to their plain versions, which do the same integer and float32 arithmetic,
 and i8full > 100 dB against the float64 product), and between
@@ -312,8 +316,10 @@ def test_k5_on_card(cuda, out, nfft, hop, pad):
 
 @pytest.mark.parametrize("nfft,hop,pad,onesided", [
     (1024, 256, 1024, True), (1024, 160, 2048, True), (384, 128, 512, False), (256, 1, 256, True),
-    (16384, 4096, 16384, True),  # the span in shared memory: 224 KB a block
-    (16384, 1024, 16384, True),  # the span past shared memory: accumulated in the output row
+    (16384, 4096, 16384, True),  # a frame a CTA, the half-length transform of 8192 points
+    (16384, 1024, 16384, False),  # a frame a CTA of 1024 threads, 16384 points
+    (1023, 3, 1024, True), (1001, 7, 1024, False),  # odd nfft, odd hops
+    (512, 512, 512, True), (2, 1, 2, True), (2, 2, 2, False),  # hop = nfft; the smallest pad
 ])
 def test_k6_on_card(cuda, nfft, hop, pad, onesided):
     rng = np.random.default_rng(nfft + hop)
@@ -325,12 +331,16 @@ def test_k6_on_card(cuda, nfft, hop, pad, onesided):
     want = cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop, onesided)
     assert got.shape == want.shape == (2, (F - 1) * hop + nfft)
     assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    again = cuda_istft.istft_overlap_add(spec.to(torch.complex64), w.float(), nfft, hop, onesided)
+    assert torch.equal(got, again)  # no atomics: the same sums in the same order
 
 
 @pytest.mark.parametrize("F,rows,bt", [(50, 1, 3), (2500, 2, 10), (20000, 2, 64)])
 def test_k6_tile_stitch_at_the_tail_bound(cuda, F, rows, bt):
-    """Tiles of bt frames, from bt*hop just above nfft - hop (3 * 300 >= 724:
-    each tail reaches only the next tile) to the 64-frame cap."""
+    """K6's first design's tiles (istft_radix2: bt frames a tile, its tails
+    stitched by the wrapper), from bt*hop just above nfft - hop (3 * 300 >=
+    724: each tail reaches only the next tile) to the 64-frame cap; and K6,
+    whose CTAs recompute the frames before their tiles, at the same shapes."""
     nfft, hop = 1024, 300
     assert cuda_istft.tile_frames(F, rows, nfft, hop) == bt
     rng = np.random.default_rng(F)
@@ -338,8 +348,36 @@ def test_k6_tile_stitch_at_the_tail_bound(cuda, F, rows, bt):
     spec = torch.from_numpy(rng.normal(size=shape) + 1j * rng.normal(size=shape)).to(cuda)
     w = window.window_table("hann", nfft, device=cuda)
     want = cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop)
-    got = cuda_istft.istft_overlap_add(spec.to(torch.complex64), w.float(), nfft, hop)
+    for run in (cuda_istft.istft_overlap_add, cuda_probes.istft_radix2):
+        got = run(spec.to(torch.complex64), w.float(), nfft, hop)
+        assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, run
+
+
+def test_k6_geometry_matches_the_host_plan(cuda):
+    """gdsp_istft_geometry (the kernel's own CTA) equals ops/cuda_istft.py's."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 6)()
+    for lg in range(1, 15):
+        for onesided in (True, False):
+            assert lib.gdsp_istft_geometry(lg, int(onesided), out) == 0
+            assert tuple(out) == tuple(cuda_istft.istft_cta(1 << lg, onesided)), (lg, onesided)
+
+
+@pytest.mark.parametrize("pad,onesided", [(1024, True), (2048, False)])
+def test_istft_radix2_on_card(cuda, pad, onesided):
+    """K6's first design, the redesign's yardstick, against float64."""
+    rng = np.random.default_rng(pad)
+    bins = pad // 2 + 1 if onesided else pad
+    spec = torch.from_numpy(rng.normal(size=(3, 30, bins)) + 1j * rng.normal(size=(3, 30, bins)))
+    w = window.window_table("hann", pad, device=cuda)
+    spec = spec.to(cuda)
+    before = launch_counts()["istft_radix2"]
+    got = cuda_probes.istft_radix2(spec.to(torch.complex64), w.float(), pad, pad // 4, onesided)
+    want = cuda_istft.istft_overlap_add_plain(spec, w, pad, pad // 4, onesided)
     assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    assert launch_counts()["istft_radix2"] == before + 1
 
 
 def test_more_rows_than_grid_y(cuda):
@@ -1066,8 +1104,9 @@ def test_metrics_wrappers_raise_when_the_library_fails(cuda, monkeypatch):
 
 @pytest.mark.parametrize("b,n3,inverse,scale", [(16, 8192, False, 1.0),
                                                 (128, 1024, True, 2.0 ** -24),
-                                                (3, 256, False, 1.0)],
-                         ids=["16x2^20", "2^24-last-peel", "smallest-row"])
+                                                (3, 256, False, 1.0), (5, 512, True, 0.5),
+                                                (3, 2048, False, 1.0), (2, 4096, True, 1.0)],
+                         ids=["16x2^20", "2^24-last-peel", "smallest-row", "512", "2048", "4096"])
 def test_k9_on_card(cuda, b, n3, inverse, scale):
     x = _crandn(cuda, b, 128, n3, seed=n3)
     before = launch_counts()["peel_rows_fused_split"]
@@ -1077,10 +1116,13 @@ def test_k9_on_card(cuda, b, n3, inverse, scale):
                                                   inverse, scale)
     g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
     assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB
+    again = cuda_outer.peel_rows_fused_split(x.real.float(), x.imag.float(), inverse, scale)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])  # no atomics
 
 
 def test_k9_batches_past_grid_y(cuda):
-    """65,537 batch elements: the grid spreads them over y and z."""
+    """65,537 batch elements: more clusters than grid.y's 65535 (the grid is
+    one flat index of clusters)."""
     b = 65537
     xr = torch.randn(b, 128, 256, device=cuda)
     xi = torch.randn(b, 128, 256, device=cuda)
@@ -1089,6 +1131,30 @@ def test_k9_batches_past_grid_y(cuda):
         want = cuda_outer.peel_rows_fused_split_plain(xr[rows].double(), xi[rows].double())
         got = torch.complex(yr[rows], yi[rows]).to(torch.complex128)
         assert dsputils.snr_db(_np(got), _np(torch.complex(*want))) >= SNR_CARD_DB
+
+
+def test_k9_plan_matches_the_host_plan(cuda):
+    """gdsp_peel_rows_geometry (the kernel's own cluster plan) equals
+    ops/cuda_outer.py's peel_plan."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 8)()
+    for lg in range(8, 14):
+        assert lib.gdsp_peel_rows_geometry(lg, out) == 0
+        assert tuple(out) == tuple(cuda_outer.peel_plan(1 << lg)), lg
+
+
+def test_peel_rows_radix2_on_card(cuda):
+    """K9's first design, the redesign's yardstick, against float64."""
+    x = _crandn(cuda, 3, 128, 1024, seed=3)
+    before = launch_counts()["peel_rows_radix2"]
+    got = cuda_probes.peel_rows_radix2(x.real.float(), x.imag.float(), True, 0.5)
+    want = cuda_outer.peel_rows_fused_split_plain(x.real.contiguous(), x.imag.contiguous(),
+                                                  True, 0.5)
+    g, w = torch.complex(*got).to(torch.complex128), torch.complex(*want)
+    assert dsputils.snr_db(_np(g), _np(w)) >= SNR_CARD_DB
+    assert launch_counts()["peel_rows_radix2"] == before + 1
 
 
 def test_k9_wrapper_raises(cuda, monkeypatch):
