@@ -67,7 +67,10 @@ final line):
      its cluster size and L2 re-read factor, and K6 at each K6_SHAPES
      entry beside istft_radix2, by chain and alone, after K9's cluster
      plan and K6's CTA are held to the host's (gdsp_peel_rows_geometry,
-     gdsp_istft_geometry);
+     gdsp_istft_geometry), and the public istft's whole-signal margin
+     after the window-energy division at nfft 1024, 2048 and 4096 (Hann,
+     hop nfft/4; its first and last nfft samples and interior apart)
+     beside istft_radix2's (istft_margins);
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -356,6 +359,10 @@ K9_SHAPES = ((B20, N20 // 128, False, 1.0), (128, N24 // 128 // 128, True, 1.0 /
 # odd hop with pad > nfft (phase 3): (frames, hop, pad), nfft = NFFT.
 K6_SHAPES = ((CHUNK, 256, NFFT), ((FS * GL_SECONDS - NFFT) // 256 + 1, 256, NFFT),
              (CHUNK, 160, 2048))
+
+# K6's whole-signal margins after the window-energy division (phase 3).
+ISTFT_NFFTS = (1024, 2048, 4096)
+EDGE_SECONDS = 10
 
 # Steps of the counted session of the rest of the FFT surface (phase 10).
 DCT = "dct(1024-point frames, type 2, ortho)"
@@ -1204,7 +1211,51 @@ def phase_istft_peel_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int
                      lambda: cuda_istft.istft_overlap_add_plain(spec, w, NFFT, hop), None, nbytes,
                      flops)
         del spec, want
+    istft_margins(dev, g)
     return steps
+
+
+def istft_margins(dev, g: torch.Generator) -> None:
+    """The public istft (K6) over a whole signal, after its window-energy
+    division, at each ISTFT_NFFTS entry (Hann, hop nfft/4, the complex64
+    spectra of EDGE_SECONDS of float64 noise), against the float64 plain
+    route on the same spectra, beside K6's first
+    design (istft_radix2) under the same division: the whole signal, its
+    first and last nfft samples (where the division scales float32 error
+    by 1/w) and its interior.  K6 must hold SNR_DB over the whole signal."""
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.models import istft
+    from godsp_tpu_torch.models._stft_impl import _nola_norm
+    from godsp_tpu_torch.ops import cuda_istft, cuda_probes, cuda_stft
+
+    x = torch.randn(FS * EDGE_SECONDS, generator=g, device=dev, dtype=torch.float64)
+    log(f"K6 whole-signal margins (istft, Hann, hop nfft/4, {EDGE_SECONDS} s of noise) vs "
+        "float64, beside istft_radix2 under the same division:")
+    for nfft in ISTFT_NFFTS:
+        hop = nfft // 4
+        w64 = window.window_table("hann", nfft, device=dev)
+        F = (x.numel() - nfft) // hop + 1
+        L = (F - 1) * hop + nfft
+        s32 = cuda_stft.stft_pallas_plain(x, w64, nfft, hop, F).to(torch.complex64)
+        w32 = w64.float()
+        # The float64 route on the same complex64 spectra: their rounding,
+        # scaled by 1/w at the ends too, is the input's, not the kernel's.
+        want = (cuda_istft.istft_overlap_add_plain(c128(s32), w64, nfft, hop)
+                / _nola_norm(w64, F, hop, L))
+        runs = (("K6", istft(s32, nfft, hop=hop)),
+                ("radix-2", cuda_probes.istft_radix2(s32, w32, nfft, hop)
+                 / _nola_norm(w32, F, hop, L)))
+        parts = (("whole", slice(None)), ("head", slice(0, nfft)),
+                 ("interior", slice(nfft, L - nfft)), ("tail", slice(L - nfft, L)))
+        dbs = {label: {part: snr_on_card(y[sl], want[sl]) for part, sl in parts}
+               for label, y in runs}
+        runs_ht = cuda_istft.edge_runs(w32.cpu().numpy(), nfft)
+        log(f"  nfft {nfft}, hop {hop}, edge runs {runs_ht}: " + "; ".join(f"{label} " + " ".join(f"{p} {v:.2f}" for p, v in d.items())
+                        for label, d in dbs.items()) + " dB")
+        if not dbs["K6"]["whole"] >= SNR_DB:
+            raise AssertionError(f"istft at nfft {nfft}: {dbs['K6']['whole']:.2f} dB over the "
+                                 f"whole signal < {SNR_DB} dB")
+        del want, s32, runs
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:

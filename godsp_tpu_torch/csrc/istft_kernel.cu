@@ -42,9 +42,11 @@
 //     shared memory), adds the round's frames that cover it in frame
 //     order, and either stores the sample, once no later frame reaches
 //     it, or keeps the partial.  Two calls on the same input are bit-equal.
-//   * the row's first 4 samples of frame 0 and last 4 of frame F - 1 are
-//     then summed again directly in float64 from the frame's bins
-//     (edge_samples): the caller's window-energy division scales their
+//   * the samples at the row's two ends where the window is below
+//     kEdgeTau of its largest magnitude (frame 0's leading run, frame F -
+//     1's trailing run, each at most nfft/2; Hann: 15 at nfft 1024, 59 at
+//     4096) are then summed again directly in float64 from the frame's bins
+//     and a float64 twiddle table (edge_samples): the caller's window-energy division scales their
 //     float32 error by 1/w, which there is up to 1e5 (Hann, nfft 1024), and
 //     the half-length transform carries about 1.5 dB more error than the
 //     pad-point one whose imaginary half was thrown away (PERF.md §6).
@@ -114,33 +116,61 @@ struct Ola {
                                   : 1024 / kThreads;
 };
 
-// The row's first kEdge samples of frame 0 and last kEdge samples of frame
-// F - 1, each the inverse DFT of its frame's bins summed directly in
-// float64 (a warp a sample), windowed and scaled, over the float32
-// transform's values in the frame runs.  The caller divides the signal by
-// its window-energy sum, which at the row's ends is the one frame's w^2
-// (w[1]^2 ~ 1e-10 for Hann at nfft 1024): that scales those samples'
-// float32 error by 1/w, and it would rule the whole signal's accuracy.
-constexpr int kEdge = 4;
+// The window's samples below kEdgeTau max|w| at each end of a row are
+// summed again in float64.  The caller divides the signal by its
+// window-energy sum, which at the row's ends is the one frame's w^2 (w[1]^2
+// ~ 1e-10 for Hann at nfft 1024): that scales those samples' float32 error
+// by 1/w, and it would rule the whole signal's accuracy.  The samples left
+// in float32 carry scaled errors whose energy grows as nfft / tau^1.5
+// (Hann), about as the signal's own float32 error does, so one relative
+// threshold holds the margin across nfft (PERF.md §6: whole-signal margins
+// at nfft 1024..4096); ops/cuda_istft.py: EDGE_TAU holds the same.
+constexpr float kEdgeTau = 2e-3f;
 
+// Samples of w's leading (or, tail, trailing) run below thr, at most half
+// = nfft / 2; the same in every lane.
+__device__ __forceinline__ int edge_run(const float* __restrict__ w, int nfft, float thr,
+                                        bool tail) {
+  const int lane = threadIdx.x & 31;
+  const int half = nfft / 2;
+  for (int base = 0; base < half; base += 32) {
+    const int n = base + lane;
+    const bool stop = n >= half || fabsf(__ldg(&w[tail ? nfft - 1 - n : n])) >= thr;
+    const unsigned b = __ballot_sync(0xffffffffu, stop);
+    if (b) return base + __ffs(b) - 1;
+  }
+  return half;
+}
+
+// The row's edge samples (edge_run's at each end: the first eh of frame 0,
+// the last et of frame F - 1), each the inverse DFT of its frame's bins
+// summed directly in float64 (a warp a sample, W_pad^{-k n} from the
+// float64 table tw64), windowed and scaled, over the float32 transform's
+// values in the frame runs.
 template <bool HALF, int PAD>
 __device__ __forceinline__ void edge_samples(const float2* __restrict__ srow, int bins, int F,
                                              int fa, int fb, int nfft, int stride, float scale,
-                                             const float* __restrict__ w, float* fbuf) {
+                                             const float* __restrict__ w,
+                                             const double2* __restrict__ tw64, float* fbuf) {
   constexpr int kTop = HALF ? PAD / 2 : PAD - 1;  // the last bin
   const int lane = threadIdx.x & 31;
-  for (int task = threadIdx.x >> 5; task < 2 * kEdge; task += blockDim.x >> 5) {
-    const bool head = task < kEdge;
-    const int n = head ? task : nfft - 2 * kEdge + task;
+  float wmax = 0.f;
+  for (int n = lane; n < nfft; n += 32) wmax = fmaxf(wmax, fabsf(__ldg(&w[n])));
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, d));
+  const float thr = kEdgeTau * wmax;
+  const int eh = fa == 0 ? edge_run(w, nfft, thr, false) : 0;
+  const int et = fb == F ? edge_run(w, nfft, thr, true) : 0;
+  for (int task = threadIdx.x >> 5; task < eh + et; task += blockDim.x >> 5) {  // whole warps
+    const bool head = task < eh;
+    const int n = head ? task : nfft - et + (task - eh);
     const int f = head ? 0 : F - 1;
-    if ((head ? fa != 0 : fb != F) || n < 0 || n >= nfft) continue;  // whole warps
     const float2* x = srow + static_cast<long long>(f) * bins;
     double acc = 0.0;
     for (int k = lane; k <= kTop; k += 32) {
       const float2 v = __ldg(&x[k]);
-      double sn, cs;
-      sincospi(2.0 * static_cast<double>((k * n) & (PAD - 1)) / PAD, &sn, &cs);  // W_pad^{-k n}
-      const double re = static_cast<double>(v.x) * cs - static_cast<double>(v.y) * sn;
+      const double2 t = __ldg(&tw64[(k * n) & (PAD - 1)]);  // W_pad^{-k n}
+      const double re = static_cast<double>(v.x) * t.x - static_cast<double>(v.y) * t.y;
       acc += HALF && k > 0 && k < kTop ? 2.0 * re : re;  // a one-sided spectrum's mirror bins
     }
 #pragma unroll
@@ -155,7 +185,8 @@ __device__ __forceinline__ void edge_samples(const float2* __restrict__ srow, in
 template <int LOG2R, bool HALF>
 __global__ void __launch_bounds__(Ola<LOG2R, HALF>::kThreads, Ola<LOG2R, HALF>::kMinBlocks)
     istft_kernel(const float2* __restrict__ spec, const float* __restrict__ w,
-                 const float2* __restrict__ tw, float* __restrict__ out, int F, int bins,
+                 const float2* __restrict__ tw, const double2* __restrict__ tw64,
+                 float* __restrict__ out, int F, int bins,
                  int nfft, int hop, int bt, int n_tiles, int win_words, float scale) {
   using K = Ola<LOG2R, HALF>;
   using R = typename K::R;
@@ -212,7 +243,7 @@ __global__ void __launch_bounds__(Ola<LOG2R, HALF>::kThreads, Ola<LOG2R, HALF>::
     }
     __syncthreads();
     if (fa == 0 || fb == F) {  // the round holds the row's first or last frame
-      edge_samples<HALF, K::kPad>(srow, bins, F, fa, fb, nfft, stride, scale, w, fbuf);
+      edge_samples<HALF, K::kPad>(srow, bins, F, fa, fb, nfft, stride, scale, w, tw64, fbuf);
       __syncthreads();
     }
     // Each sample of the round's span: its partial, then the round's frames
@@ -242,7 +273,8 @@ __global__ void __launch_bounds__(Ola<LOG2R, HALF>::kThreads, Ola<LOG2R, HALF>::
 }
 
 template <int LOG2R, bool HALF>
-int launch(const float2* spec, const float* w, const float2* tw, float* out, long long rows,
+int launch(const float2* spec, const float* w, const float2* tw, const double2* tw64, float* out,
+           long long rows,
            long long F, int bins, int nfft, int hop, int bt, long long n_tiles, int win_words,
            float scale, cudaStream_t stream) {
   using K = Ola<LOG2R, HALF>;
@@ -254,7 +286,7 @@ int launch(const float2* spec, const float* w, const float2* tw, float* out, lon
   cudaError_t e = gdsp::allow_smem(istft_kernel<LOG2R, HALF>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   istft_kernel<LOG2R, HALF><<<static_cast<unsigned>(blocks), K::kThreads, smem, stream>>>(
-      spec, w, tw, out, static_cast<int>(F), bins, nfft, hop, bt, static_cast<int>(n_tiles),
+      spec, w, tw, tw64, out, static_cast<int>(F), bins, nfft, hop, bt, static_cast<int>(n_tiles),
       win_words, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -270,23 +302,25 @@ extern "C" {
 // hop, (tile + 1) bt hop) of its row (the last tile to the end) after
 // recomputing the ceil(nfft / hop) - 1 frames before its tile.  w is the
 // (nfft,) window, 8-byte aligned; tw the conjugate of rfft_table(pad)
-// (onesided) or of stockham_table(pad); win_words a power of 2 at least
+// (onesided) or of stockham_table(pad); tw64 the (pad,) float64 W_pad^{-k}
+// of the edge samples; win_words a power of 2 at least
 // (frames a round - 1) hop + nfft.  Returns cudaErrorInvalidValue for a
 // pad out of range, a window too short, a row of 2^31 samples or more or
 // a grid past 2^31 - 1 blocks, else cudaGetLastError().
-int gdsp_istft_ola(const float2* spec, const float* w, const float2* tw, float* out,
+int gdsp_istft_ola(const float2* spec, const float* w, const float2* tw, const double2* tw64,
+                   float* out,
                    long long rows, long long F, int bins, int onesided, int nfft, int hop,
                    int log2pad, int bt, long long n_tiles, int win_words, float scale,
                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (onesided) {
     return with_log2<0, 13>(log2pad - 1, [&](auto lg) {
-      return launch<decltype(lg)::value, true>(spec, w, tw, out, rows, F, bins, nfft, hop, bt,
+      return launch<decltype(lg)::value, true>(spec, w, tw, tw64, out, rows, F, bins, nfft, hop, bt,
                                                n_tiles, win_words, scale, st);
     });
   }
   return with_log2<1, 14>(log2pad, [&](auto lg) {
-    return launch<decltype(lg)::value, false>(spec, w, tw, out, rows, F, bins, nfft, hop, bt,
+    return launch<decltype(lg)::value, false>(spec, w, tw, tw64, out, rows, F, bins, nfft, hop, bt,
                                               n_tiles, win_words, scale, st);
   });
 }
@@ -294,8 +328,8 @@ int gdsp_istft_ola(const float2* spec, const float* w, const float2* tw, float* 
 // The CTA of pad = 2^log2pad (1..14), one-sided or full, as the kernel
 // runs it: out[0] points of the row transform, [1] threads, [2] frames a
 // round, [3] words of a frame's run (pad + (hop mod 32) where it is pad),
-// [4] exchange words, [5] words before the window of partial sums.  ops/cuda_istft.py: istft_cta holds the
-// same; the GPU tests compare.
+// [4] exchange words, [5] words before the window of partial sums.
+// ops/cuda_istft.py: istft_cta holds the same; the GPU tests compare.
 int gdsp_istft_geometry(int log2pad, int onesided, int* out) {
   auto fill = [&](auto k) {
     using K = decltype(k);

@@ -86,7 +86,7 @@ def _declare(lib) -> None:
     for name in ("gdsp_stft", "gdsp_stft_radix2"):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, i64, i64, i64, i, i64, i, i, i, p]
         getattr(lib, name).restype = i
-    lib.gdsp_istft_ola.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i64, i, f, p]
+    lib.gdsp_istft_ola.argtypes = [p, p, p, p, p, i64, i64, i, i, i, i, i, i, i64, i, f, p]
     lib.gdsp_istft_ola.restype = i
     lib.gdsp_istft_radix2.argtypes = [p, p, p, p, i64, i64, i, i, i, i, i, i, i64, f, p]
     lib.gdsp_istft_radix2.restype = i

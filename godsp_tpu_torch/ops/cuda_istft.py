@@ -18,13 +18,14 @@ pad/2-point inverse on csrc/fft_regs.cuh's register-radix passes, whose
 output holds the frame's real samples in pairs (a full frame: the
 pad-point inverse, its real part), a frame a warp at pad <= 2048, then
 sums the windowed frames of a round into each output sample in frame
-order, without atomics.  Here also its host side: the CTA (istft_cta),
-the tables (irfft_table), the tiles (tile_frames, CTAs of bt frames that
-first recompute the frames reaching into their tile) and a float64 model
-of the kernel (istft_regs_model) for the CPU tests; no main-path call
-uses the model.  The first design (a block a frame at a time, radix-2
-stages in shared memory) stays as cuda_probes.istft_radix2, with a
-wrapper-side stitch of its tiles' tails.
+order, without atomics, and sums the row's end samples where the window
+is small (edge_runs) again in float64.  Here also its host side: the CTA
+(istft_cta), the tables (irfft_table), the tiles (tile_frames, CTAs of
+bt frames that first recompute the frames reaching into their tile) and
+a float64 model of the kernel (istft_regs_model) for the CPU tests; no
+main-path call uses the model.  The first design (a block a frame at a
+time, radix-2 stages in shared memory) stays as cuda_probes.istft_radix2,
+with its own tiles and a wrapper-side stitch of their tails.
 
 Geometry: any pad = 2^k in 2..16384 with pad >= nfft and 0 < hop <= nfft
 (the TPU's nfft % 128 and nfft % hop lane rules are not ported).
@@ -50,12 +51,13 @@ from godsp_tpu_torch.ops.cuda_fft import (
     rfft_table64,
     stockham_table64,
     supported_size,
-    twiddle_table,
 )
 
 __all__ = [
-    "EDGE",
+    "EDGE_TAU",
     "IstftCta",
+    "edge_runs",
+    "edge_table",
     "irfft_table",
     "istft_cta",
     "istft_overlap_add",
@@ -77,7 +79,9 @@ launches = {"istft_overlap_add": 0}
 _TARGET_BLOCKS = 4 * 132
 _MAX_FRAMES_PER_TILE = 64
 MAX_SMEM = 232448  # bytes of shared memory one block may use (227 KB)
-EDGE = 4  # samples at each end of a row summed directly in float64 (istft_kernel.cu: kEdge)
+# The window's samples below EDGE_TAU max|w| at each end of a row are summed
+# directly in float64 (istft_kernel.cu: kEdgeTau).
+EDGE_TAU = 2e-3
 
 
 def istft_supported(nfft: int, pad: int, hop: int) -> bool:
@@ -157,6 +161,23 @@ def run_words(pad: int, onesided: bool, hop: int) -> np.ndarray:
     return (run + j)[..., None]
 
 
+def edge_runs(w, nfft: int) -> tuple[int, int]:
+    """Samples of the window's leading and trailing runs below EDGE_TAU
+    max|w| in float32, each at most nfft // 2: the row's first and last
+    samples K6 sums again in float64 (istft_kernel.cu: edge_run).  Hann
+    gives 15 at nfft 1024 and 59 at 4096; a window that stays above the
+    threshold, none."""
+    a = np.abs(np.asarray(w, np.float32)[:nfft])
+    thr = np.float32(EDGE_TAU) * (a.max() if a.size else np.float32(0))
+    half = nfft // 2
+
+    def run(v):
+        big = np.flatnonzero(v[:half] >= thr)
+        return int(big[0]) if big.size else half
+
+    return run(a), run(a[::-1])
+
+
 @lru_cache(maxsize=None)
 def irfft_table(pad: int, device: torch.device) -> torch.Tensor:
     """(pad, 2) float32 conjugate of rfft_table64(pad), rounded once: the
@@ -166,22 +187,27 @@ def irfft_table(pad: int, device: torch.device) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def edge_table(pad: int, device: torch.device) -> torch.Tensor:
+    """(pad, 2) float64 W_pad^{-k} = exp(2 pi i k / pad), k < pad: the
+    edge samples' twiddles (istft_kernel.cu: edge_samples reads entry
+    k n mod pad), kept in float64."""
+    ang = 2.0 * np.pi * np.arange(pad, dtype=np.float64) / pad
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1)).to(device)
+
+
+@lru_cache(maxsize=None)
 def _inverse_table(pad: int, device: torch.device) -> torch.Tensor:
     """(pad, 2) float32 inverse pad-point Stockham table, rounded once."""
     tab = stockham_table64(pad, True)
     return torch.from_numpy(np.stack([tab.real, tab.imag], -1).astype(np.float32)).to(device)
 
 
-def tile_frames(n_frames: int, rows: int, nfft: int, hop: int, pad: int | None = None,
+def tile_frames(n_frames: int, rows: int, nfft: int, hop: int, pad: int,
                 onesided: bool = True) -> int:
-    """Frames a CTA owns: enough tiles to fill the card, at most 64.  With
-    pad, K6's tile: rounded up so that the recomputed frames before it and
-    the tile make whole rounds of istft_cta(pad).frames.  Without, K6's
-    first design's, never fewer than its stitch needs (bt*hop >= nfft -
-    hop)."""
+    """Frames a CTA owns: enough tiles to fill the card, at most 64,
+    rounded up so that the recomputed frames before a tile and the tile
+    make whole rounds of istft_cta(pad).frames."""
     bt = max(1, min(_MAX_FRAMES_PER_TILE, -(-(n_frames * rows) // _TARGET_BLOCKS)))
-    if pad is None:
-        return max(bt, -(-(nfft - hop) // hop))
     fr = istft_cta(pad, onesided).frames
     e = recomputed_frames(nfft, hop)
     return -(-(bt + e) // fr) * fr - e
@@ -228,7 +254,7 @@ def istft_regs_model(spec, w, nfft: int, hop: int, onesided: bool = True,
     taken real), the m-point inverse passes (cuda_fft's row model with the
     inverse table), the pairs as samples 2j, 2j + 1 (a full frame: the
     pad-point inverse passes, the real part), scale 1/pad and the window;
-    the row's first EDGE samples of frame 0 and last EDGE of frame F - 1
+    the row's edge samples (edge_runs: frame 0's first, frame F - 1's last)
     summed directly from the bins (the kernel's edge_samples, in float64);
     then the overlap-add as the CTAs make it: tiles of bt frames
     (tile_frames), each summing into each of its own samples every frame
@@ -251,10 +277,11 @@ def istft_regs_model(spec, w, nfft: int, hop: int, onesided: bool = True,
     else:
         frames = _row_dft_model(x, True).real / pad
     frames = (frames[:, :nfft] * w[:nfft]).reshape(rows, F, nfft)
-    # The row's first EDGE samples of frame 0 and last EDGE of frame F - 1:
-    # the inverse DFT of the frame's bins summed directly (edge_samples).
-    for f, ns in ((0, range(min(EDGE, nfft))), (F - 1, range(max(0, nfft - EDGE), nfft))):
-        ns = np.asarray(list(ns))
+    # The row's edge samples, frame 0's leading run and frame F - 1's
+    # trailing one: the inverse DFT of the frame's bins summed directly
+    # (edge_samples).
+    eh, et = edge_runs(w, nfft)
+    for f, ns in ((0, np.arange(eh)), (F - 1, np.arange(nfft - et, nfft))):
         k = np.arange(bins)
         tw = np.exp(2j * np.pi * ((k[:, None] * ns[None, :]) % pad) / pad)  # W_pad^{-k n}
         terms = (spec.reshape(rows, F, bins)[:, f, :, None] * tw).real
@@ -300,63 +327,47 @@ def _check(spec, w, nfft: int, hop: int, onesided: bool) -> int:
     return pad
 
 
-def _stitch(out: torch.Tensor, bt: int, hop: int, nfft: int, length: int) -> torch.Tensor:
-    """K6's first design's (rows, tiles, span) tile spans -> (rows, length): each tile owns
-    bt*hop samples; its nfft - hop tail lands on the head of the next
-    tile's (bt*hop >= nfft - hop), and the last tile's tail ends the
-    signal.  One shifted add, no scatter (pallas_istft.py:274-296)."""
-    rows, n_tiles, _ = out.shape
-    own, tail = bt * hop, nfft - hop
-    main = out[..., :own].contiguous()
-    if tail > 0 and n_tiles > 1:
-        main[:, 1:, :tail] += out[:, :-1, own:]
-    y = torch.cat([main.reshape(rows, n_tiles * own), out[:, -1, own:]], dim=-1)
-    return y[:, :length]
-
-
-def _launch(spec, w, nfft: int, hop: int, onesided: bool, pad: int, counts: dict, name: str,
-            radix2: bool = False) -> torch.Tensor:
-    """Run K6 on a CUDA tensor, counted in counts[name]; radix2: K6's first
-    design (cuda_probes.istft_radix2), its tiles' tails stitched here."""
+def _cuda_args(spec, w, nfft: int, hop: int, name: str):
+    """(rows, F, bins, length, spec as (rows, F, bins, 2) float32, w 8-byte
+    aligned) for a kernel launch, or None for an empty result."""
     if spec.dtype != torch.complex64 or w.dtype != torch.float32 or w.device != spec.device:
         raise TypeError(f"{name}: spec must be complex64 and w float32 on {spec.device}")
     F, bins = spec.shape[-2:]
-    lead = spec.shape[:-2]
     rows = 1
-    for d in lead:
+    for d in spec.shape[:-2]:
         rows *= d
     length = (F - 1) * hop + nfft if F else 0
     if F == 0 or rows == 0:
-        return torch.zeros(*lead, length, dtype=torch.float32, device=spec.device)
+        return None
     if length >= 1 << 31:
         raise ValueError(f"{name}: a row of {length} samples (the kernel indexes a row in 32 bits)")
     s2 = torch.view_as_real(spec.reshape(rows, F, bins).contiguous())
     w = w.contiguous()
     if w.data_ptr() % 8:  # the kernel reads the window as 8-byte pairs
         w = w.clone()
+    return rows, F, bins, length, s2, w
+
+
+def _launch(spec, w, nfft: int, hop: int, onesided: bool, pad: int, counts: dict,
+            name: str) -> torch.Tensor:
+    """Run K6 on a CUDA tensor, counted in counts[name]."""
+    lead = spec.shape[:-2]
+    args = _cuda_args(spec, w, nfft, hop, name)
+    if args is None:
+        length = (spec.shape[-2] - 1) * hop + nfft if spec.shape[-2] else 0
+        return torch.zeros(*lead, length, dtype=torch.float32, device=spec.device)
+    rows, F, bins, length, s2, w = args
     dev = spec.device
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if radix2:
-        bt = tile_frames(F, rows, nfft, hop)
-        n_tiles = -(-F // bt)
-        out = torch.empty(rows, n_tiles, (bt - 1) * hop + nfft, dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.gdsp_istft_radix2(
-                s2.data_ptr(), w.data_ptr(), twiddle_table(pad, True, dev).data_ptr(),
-                out.data_ptr(), rows, F, bins, int(onesided), nfft, hop, pad.bit_length() - 1,
-                bt, n_tiles, 1.0 / pad, stream)
-        _build.check(rc, name)
-        counts[name] += 1
-        return _stitch(out, bt, hop, nfft, length).reshape(*lead, length)
     bt = tile_frames(F, rows, nfft, hop, pad, onesided)
     y = torch.empty(rows, length, dtype=torch.float32, device=dev)
     tw = irfft_table(pad, dev) if onesided else _inverse_table(pad, dev)
     with torch.cuda.device(dev):
-        rc = lib.gdsp_istft_ola(
-            s2.data_ptr(), w.data_ptr(), tw.data_ptr(), y.data_ptr(), rows, F, bins,
-            int(onesided), nfft, hop, pad.bit_length() - 1, bt, -(-F // bt),
-            window_words(pad, onesided, nfft, hop), 1.0 / pad, stream)
+        rc = _build.library().gdsp_istft_ola(
+            s2.data_ptr(), w.data_ptr(), tw.data_ptr(), edge_table(pad, dev).data_ptr(),
+            y.data_ptr(), rows, F, bins, int(onesided), nfft, hop, pad.bit_length() - 1, bt,
+            -(-F // bt),
+            window_words(pad, onesided, nfft, hop), 1.0 / pad,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     counts[name] += 1
     return y.reshape(*lead, length)

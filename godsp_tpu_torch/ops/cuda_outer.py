@@ -461,44 +461,39 @@ def peel_rows_fused_split(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = Fa
 
 
 @lru_cache(maxsize=None)
-def _peel_args(n3: int, inverse: bool, device: torch.device, radix2: bool) -> tuple:
-    """K9's table pointers and log2 n3 (K9's first design's with radix2),
-    the tables held by the caches they come from."""
+def _peel_args(n3: int, inverse: bool, device: torch.device) -> tuple:
+    """K9's table pointers and log2 n3, the tables held by the caches they
+    come from."""
     hi, lo, _ = _factor_tables(PEEL * n3, inverse, device)
-    rows = (twiddle_table(n3, inverse, device),) if radix2 else (
-        stockham_table(peel_plan(n3).points, inverse, device),
-        stockham_table(n3, inverse, device))
+    rows = (stockham_table(peel_plan(n3).points, inverse, device),
+            stockham_table(n3, inverse, device))
     return (_dft_table(PEEL, inverse, device).data_ptr(), *(t.data_ptr() for t in rows),
             hi.data_ptr(), lo.data_ptr(), n3.bit_length() - 1)
 
 
-def _launch_peel(xr, xi, inverse: bool, scale: float, counts: dict, name: str,
-                 radix2: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run K9 (radix2: its first design, cuda_probes.peel_rows_radix2) on
-    CUDA planes, counted in counts[name]."""
-    n3 = _check_peel(xr, xi)
+def _peel_planes(xr, xi, name: str):
+    """(xr, xi contiguous, yr, yi, batch) for a launch on CUDA planes."""
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel takes float32 planes, got {xr.dtype}")
     if xi.device != xr.device:
         raise ValueError(f"{name}: re/im planes must be on one device")
     xr, xi = xr.contiguous(), xi.contiguous()
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
-    batch = xr.numel() // (PEEL * n3)
+    return xr, xi, torch.empty_like(xr), torch.empty_like(xi), xr.numel() // (PEEL * xr.shape[-1])
+
+
+def _launch_peel(xr, xi, inverse: bool, scale: float, counts: dict,
+                 name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K9 on CUDA planes, counted in counts[name]."""
+    n3 = _check_peel(xr, xi)
+    xr, xi, yr, yi, batch = _peel_planes(xr, xi, name)
     if batch == 0:
         return yr, yi
     dev = xr.device
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if radix2:
-            rc = lib.gdsp_peel_rows_radix2(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
-                                           yi.data_ptr(), *_peel_args(n3, inverse, dev, True),
-                                           batch, lo_bits_of(PEEL * n3), float(scale), stream)
-        else:
-            rc = lib.gdsp_peel_rows(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                                    *_peel_args(n3, inverse, dev, False), batch,
-                                    lo_bits_of(PEEL * n3), int(inverse), float(scale), stream)
+        rc = _build.library().gdsp_peel_rows(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            *_peel_args(n3, inverse, dev), batch, lo_bits_of(PEEL * n3), int(inverse),
+            float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     counts[name] += 1
     return yr, yi

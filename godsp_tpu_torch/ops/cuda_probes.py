@@ -165,8 +165,9 @@ they replace no TPU kernel of their own):
   istft_radix2(spec, w, nfft, hop, onesided)  the istft_kernel K6 first
       ran (a block a tile, one frame at a time: a bit-reversed load
       completing the pad-point spectrum, block_fft_rows, the windowed real
-      part added into the tile's span; the tails stitched by the wrapper);
-      plain version cuda_istft.istft_overlap_add_plain;
+      part added into the tile's span; its tiles istft_radix2_tiles, their
+      tails stitched by the wrapper); plain version
+      cuda_istft.istft_overlap_add_plain;
   peel_rows_radix2(xr, xi, inverse, scale)  the peel_rows_kernel K9 first
       ran (R rows a block re-reading every input row, a radix-(128/R) step
       and an R-point DFT, bit-reversed stores, block_fft_rows); plain
@@ -302,6 +303,7 @@ __all__ = [
     "ls_network_plain",
     "ls_tables",
     "istft_radix2",
+    "istft_radix2_tiles",
     "outer_dft_radix2",
     "peel_rows_radix2",
     "pwelch_radix2",
@@ -1224,17 +1226,56 @@ def csd_radix2(ext_x: torch.Tensor, ext_y: torch.Tensor, mask: torch.Tensor, w: 
                             radix2=True)
 
 
+def istft_radix2_tiles(n_frames: int, rows: int, nfft: int, hop: int) -> int:
+    """Frames a block of istft_radix2 owns: K6's tile count
+    (cuda_istft.tile_frames before its rounding to whole rounds), never
+    fewer than the tail stitch needs (bt*hop >= nfft - hop)."""
+    bt = max(1, min(cuda_istft._MAX_FRAMES_PER_TILE,
+                    -(-(n_frames * rows) // cuda_istft._TARGET_BLOCKS)))
+    return max(bt, -(-(nfft - hop) // hop))
+
+
+def _istft_stitch(out: torch.Tensor, bt: int, hop: int, nfft: int, length: int) -> torch.Tensor:
+    """istft_radix2's (rows, tiles, span) tile spans -> (rows, length): each
+    tile owns bt*hop samples; its nfft - hop tail lands on the head of the
+    next tile's (bt*hop >= nfft - hop), and the last tile's tail ends the
+    signal.  One shifted add, no scatter (pallas_istft.py:274-296)."""
+    rows, n_tiles, _ = out.shape
+    own, tail = bt * hop, nfft - hop
+    main = out[..., :own].contiguous()
+    if tail > 0 and n_tiles > 1:
+        main[:, 1:, :tail] += out[:, :-1, own:]
+    y = torch.cat([main.reshape(rows, n_tiles * own), out[:, -1, own:]], dim=-1)
+    return y[:, :length]
+
+
 def istft_radix2(spec: torch.Tensor, w: torch.Tensor, nfft: int, hop: int,
                  onesided: bool = True) -> torch.Tensor:
     """K6's first design (csrc/radix2_probe_kernels.cu): istft_overlap_add's
     function, the same shapes and checks, by the radix-2 shared-memory
-    kernel K6 first ran, its tiles' tails stitched here: a yardstick off
-    the main path."""
+    kernel K6 first ran on tiles of istft_radix2_tiles frames, their tails
+    stitched here: a yardstick off the main path."""
     pad = cuda_istft._check(spec, w, nfft, hop, onesided)
     if not spec.is_cuda:
         return cuda_istft.istft_overlap_add_plain(spec, w, nfft, hop, onesided)
-    return cuda_istft._launch(spec, w, nfft, hop, onesided, pad, launches, "istft_radix2",
-                              radix2=True)
+    name, lead = "istft_radix2", spec.shape[:-2]
+    args = cuda_istft._cuda_args(spec, w, nfft, hop, name)
+    if args is None:
+        length = (spec.shape[-2] - 1) * hop + nfft if spec.shape[-2] else 0
+        return torch.zeros(*lead, length, dtype=torch.float32, device=spec.device)
+    rows, F, bins, length, s2, w = args
+    dev = spec.device
+    bt = istft_radix2_tiles(F, rows, nfft, hop)
+    n_tiles = -(-F // bt)
+    out = torch.empty(rows, n_tiles, (bt - 1) * hop + nfft, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().gdsp_istft_radix2(
+            s2.data_ptr(), w.data_ptr(), twiddle_table(pad, True, dev).data_ptr(),
+            out.data_ptr(), rows, F, bins, int(onesided), nfft, hop, pad.bit_length() - 1, bt,
+            n_tiles, 1.0 / pad, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    launches[name] += 1
+    return _istft_stitch(out, bt, hop, nfft, length).reshape(*lead, length)
 
 
 def peel_rows_radix2(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
@@ -1242,11 +1283,25 @@ def peel_rows_radix2(xr: torch.Tensor, xi: torch.Tensor, inverse: bool = False,
     """K9's first design (csrc/radix2_probe_kernels.cu): peel_rows_fused_split's
     function by the radix-2 shared-memory kernel K9 first ran: a yardstick
     off the main path."""
-    cuda_outer._check_peel(xr, xi)
+    n3 = cuda_outer._check_peel(xr, xi)
     if not xr.is_cuda:
         return cuda_outer.peel_rows_fused_split_plain(xr, xi, inverse, scale)
-    return cuda_outer._launch_peel(xr, xi, inverse, scale, launches, "peel_rows_radix2",
-                                   radix2=True)
+    name = "peel_rows_radix2"
+    xr, xi, yr, yi, batch = cuda_outer._peel_planes(xr, xi, name)
+    if batch == 0:
+        return yr, yi
+    dev = xr.device
+    hi, lo, lo_bits = _factor_tables(cuda_outer.PEEL * n3, inverse, dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().gdsp_peel_rows_radix2(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            cuda_outer._dft_table(cuda_outer.PEEL, inverse, dev).data_ptr(),
+            twiddle_table(n3, inverse, dev).data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            n3.bit_length() - 1, batch, lo_bits, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    launches[name] += 1
+    return yr, yi
 
 
 # ---------------------------------------------------------------------------

@@ -316,7 +316,8 @@ def test_k5_on_card(cuda, out, nfft, hop, pad):
 
 @pytest.mark.parametrize("nfft,hop,pad,onesided", [
     (1024, 256, 1024, True), (1024, 160, 2048, True), (384, 128, 512, False), (256, 1, 256, True),
-    (16384, 4096, 16384, True),  # a frame a CTA, the half-length transform of 8192 points
+    (16384, 4096, 16384, True),  # a frame a CTA, the half-length inverse of 8192 points
+    (16384, 1024, 16384, True),  # the same at a short hop: a window of four frames' partials
     (16384, 1024, 16384, False),  # a frame a CTA of 1024 threads, 16384 points
     (1023, 3, 1024, True), (1001, 7, 1024, False),  # odd nfft, odd hops
     (512, 512, 512, True), (2, 1, 2, True), (2, 2, 2, False),  # hop = nfft; the smallest pad
@@ -342,7 +343,7 @@ def test_k6_tile_stitch_at_the_tail_bound(cuda, F, rows, bt):
     724: each tail reaches only the next tile) to the 64-frame cap; and K6,
     whose CTAs recompute the frames before their tiles, at the same shapes."""
     nfft, hop = 1024, 300
-    assert cuda_istft.tile_frames(F, rows, nfft, hop) == bt
+    assert cuda_probes.istft_radix2_tiles(F, rows, nfft, hop) == bt
     rng = np.random.default_rng(F)
     shape = (rows, F, 513)
     spec = torch.from_numpy(rng.normal(size=shape) + 1j * rng.normal(size=shape)).to(cuda)
@@ -351,6 +352,24 @@ def test_k6_tile_stitch_at_the_tail_bound(cuda, F, rows, bt):
     for run in (cuda_istft.istft_overlap_add, cuda_probes.istft_radix2):
         got = run(spec.to(torch.complex64), w.float(), nfft, hop)
         assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB, run
+
+
+@pytest.mark.parametrize("nfft", [1024, 2048, 4096])
+def test_k6_whole_signal_after_the_window_energy_division(cuda, nfft):
+    """The public istft (K6) over a whole signal, Hann at hop nfft/4,
+    against the float64 route on the same complex64 spectra (on the card
+    the public stft returns complex64 even for float64 input, so both are
+    made on the CPU): the division scales the float32 error of
+    the row's end samples by 1/w, and K6 sums the samples where Hann is
+    below EDGE_TAU of its peak (more as nfft grows) in float64."""
+    hop = nfft // 4
+    x = torch.from_numpy(np.random.default_rng(nfft).normal(size=300_000))
+    spec = models.stft(x, nfft, hop=hop).to(torch.complex64)  # on the CPU, rounded once
+    reset_launch_counts()
+    got = models.istft(spec.to(cuda), nfft, hop=hop)
+    assert launch_counts()["istft_overlap_add"] == 1
+    want = models.istft(spec.to(torch.complex128), nfft, hop=hop)  # float64, on the CPU
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
 
 
 def test_k6_geometry_matches_the_host_plan(cuda):

@@ -6,7 +6,8 @@ frame's backward split with bins 0 and m taken real, the m = pad/2-point
 inverse passes of ops/cuda_fft.py's row model, the pairs as samples, a full
 frame's pad-point inverse passes and real part, scale and window, then the
 overlap-add as the CTAs make it, each sample the sum in frame order of the
-frames that cover it, a tile's earlier frames recomputed) against the
+frames that cover it, a tile's earlier frames recomputed, the row's edge
+samples where the window is small (edge_runs) summed directly) against the
 float64 plain version at <= 1e-12 relative at every pad 2..16384,
 one-sided and full, pad > nfft, odd nfft, odd hops (1, 3), hop = nfft, a
 ragged last tile and rows > 1; the model rounded to float32 against
@@ -103,6 +104,50 @@ def test_istft_model_takes_bins_0_and_m_real_and_keeps_leading_axes():
     real[..., 0], real[..., -1] = real[..., 0].real, real[..., -1].real
     assert _rel(cuda_istft.istft_regs_model(real, w, 64, 16),
                 cuda_istft.istft_regs_model(spec, w, 64, 16)) <= REL
+
+
+def _leading_below(w, nfft):
+    """Leading samples of w below EDGE_TAU of its largest magnitude, in
+    float32, at most nfft // 2: counted one by one."""
+    a = np.abs(np.asarray(w, np.float32))
+    thr = np.float32(cuda_istft.EDGE_TAU) * a.max()
+    n = 0
+    while n < nfft // 2 and a[n] < thr:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("name,nfft", [("hann", 1024), ("hann", 2048), ("hann", 4096),
+                                       ("hann", 7), ("blackman", 1000), ("hamming", 1024),
+                                       ("rectangular", 512), ("hann", 2), ("hann", 1)])
+def test_edge_runs_follow_the_window(name, nfft):
+    """K6 sums again in float64 the samples at a row's ends where the
+    window is below EDGE_TAU of its peak: a run that grows with nfft for
+    Hann (the 1/w scaling of float32 error stays over 500 that long), none
+    for windows that stay away from 0; scale-free."""
+    w = jwin.window_table_np(name, nfft)
+    head, tail = cuda_istft.edge_runs(w, nfft)
+    assert (head, tail) == (_leading_below(w, nfft), _leading_below(w[::-1], nfft))
+    assert cuda_istft.edge_runs(1e4 * w, nfft) == (head, tail)
+    if name == "hann" and nfft >= 1024:
+        want = nfft * np.sqrt(cuda_istft.EDGE_TAU) / np.pi  # sin^2(pi n / nfft) < tau
+        assert abs(head - want) <= 2 and abs(tail - want) <= 2
+    if name in ("hamming", "rectangular"):
+        assert (head, tail) == (0, 0)
+    assert cuda_istft.edge_runs(np.zeros(nfft), nfft) == (0, 0)
+
+
+@pytest.mark.parametrize("onesided", [True, False], ids=["one-sided", "full"])
+@pytest.mark.parametrize("nfft,hop,F", [(4096, 1024, 5), (2048, 512, 1), (1000, 333, 4)])
+def test_istft_model_edge_samples_are_the_plain_version(nfft, hop, F, onesided):
+    """Hann's long edge runs (59 samples a side at 4096; one frame holding
+    both runs), summed directly from the bins, against the plain version."""
+    pad = 1 << (nfft - 1).bit_length()
+    spec = _spec(2, F, pad // 2 + 1 if onesided else pad, nfft + hop)
+    w = jwin.window_table_np("hann", nfft)
+    assert min(cuda_istft.edge_runs(w, nfft)) >= 10
+    want = _plain(spec, w, nfft, hop, onesided)
+    assert _rel(cuda_istft.istft_regs_model(spec, w, nfft, hop, onesided), want) <= REL
 
 
 # ---------------------------------------------------------------- against godsp_tpu

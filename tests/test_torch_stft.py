@@ -23,7 +23,7 @@ from godsp_tpu import models as jmodels
 from godsp_tpu import window as jwin
 from godsp_tpu_torch import default_device, dsputils, models, set_default_device, wav
 from godsp_tpu_torch.models import _stft_impl, griffin, mel
-from godsp_tpu_torch.ops import cuda_istft, cuda_pwelch, cuda_stft
+from godsp_tpu_torch.ops import cuda_istft, cuda_probes, cuda_pwelch, cuda_stft
 
 SNR_KERNEL_DB = 100.0
 
@@ -377,7 +377,7 @@ def test_kernel_geometry_and_tiles():
     assert not cuda_istft.istft_supported(1024, 1024, 2048)  # hop > nfft
     assert not cuda_istft.istft_supported(1024, 1 << 15, 256)
     for F, nfft, hop in ((4096, 1024, 256), (10333, 1024, 256), (3, 1024, 1), (5, 256, 256)):
-        bt = cuda_istft.tile_frames(F, 1, nfft, hop)
+        bt = cuda_probes.istft_radix2_tiles(F, 1, nfft, hop)
         assert bt * hop >= nfft - hop and 1 <= bt
     with pytest.raises(ValueError, match="unsupported"):
         cuda_istft.istft_overlap_add(torch.ones(4, 65, dtype=torch.complex128), torch.ones(128),
@@ -390,9 +390,10 @@ def test_kernel_geometry_and_tiles():
 
 @pytest.mark.parametrize("F,rows,bt", [(50, 1, 3), (2500, 2, 10), (20000, 2, 64)])
 def test_tile_frames_covers_the_tail(F, rows, bt):
-    """The tiles of tests/test_torch_cuda.py's stitch test: the tail bound
-    (nfft - hop = 724 needs 3 frames of hop 300), a middle tile, the cap."""
-    assert cuda_istft.tile_frames(F, rows, 1024, 300) == bt
+    """The tiles of tests/test_torch_cuda.py's stitch test (K6's first
+    design, istft_radix2): the tail bound (nfft - hop = 724 needs 3 frames
+    of hop 300), a middle tile, the cap."""
+    assert cuda_probes.istft_radix2_tiles(F, rows, 1024, 300) == bt
     assert bt * 300 >= 1024 - 300
 
 

@@ -1,38 +1,22 @@
 #!/usr/bin/env python3
-"""K6 and K9's check, plan and times on one GPU.
+"""K6 and K9's register use and K6's tile setting on one GPU.
 
-    python3 tools/probe_torch_istft_peel.py [--ptxas] [--check] [--time] [--tiles] [--precision]
+    python3 tools/probe_torch_istft_peel.py [--ptxas] [--tiles]
 
 --ptxas compiles csrc/peel_rows_kernel.cu and csrc/istft_kernel.cu with
-`-Xptxas -v` and prints each kernel's registers, shared memory and spills
-(the whole output goes to godsp_tpu_torch/_build/ptxas_k6_k9.txt).  --check holds
-K9 (ops/cuda_outer.py: peel_rows_fused_split) at every n3 = 256..8192,
-forward and inverse, an odd batch, and K6 (ops/cuda_istft.py:
-istft_overlap_add) at every pad 2..16384 one-sided and full, odd hops,
-hop = nfft, nfft < pad, against their float64 plain versions on the card
-(>= 120 dB), checks that a second call is bit-equal, and compares the
-plans the C side exports (gdsp_peel_rows_geometry, gdsp_istft_geometry)
-with the host's (peel_plan, istft_cta).  --time times K6 beside istft_radix2 at
-phase 3's three shapes (chip_smoke.py: K6_SHAPES) and K9 beside
-peel_rows_radix2 at K9_SHAPES, by chain (utils.metrics.time_chain_diff)
-and alone (the profiler's events of the kernel).  (Its first version also
-timed K6 with each CTA writing its tile's span and the wrapper adding the
-tails: PERF.md §6.)
---tiles times K6 alone and by chain at K6_SHAPES for each setting of
-ops/cuda_istft.py's _TARGET_BLOCKS (the CTAs tile_frames aims for), the
-first setting again last, for the spread.  --precision synthesizes phase
-5's spectra_to_wav signal (chip_smoke.write_recording, its stft at
-1024/256, stream_istft over chunks of 4096 frames) with K6 and with
-istft_radix2 in its place, and prints each against the float64 plain
-version over the whole signal, its interior and its two ends, and the
-samples whose errors weigh most.  Prints the card's name and power limit
-first.  Needs a CUDA device;
-imports nothing of JAX.
+`-Xptxas -v` and prints each kernel's lines with spills (the whole output
+goes to godsp_tpu_torch/_build/ptxas_k6_k9.txt).  --tiles times K6 alone
+and by chain at phase 3's three shapes (chip_smoke.py: K6_SHAPES) for
+each setting of ops/cuda_istft.py's _TARGET_BLOCKS (the CTAs tile_frames
+aims for), the first setting again last, for the spread.  Both by
+default.  Prints the card's name and power limit first.  Needs a CUDA
+device; imports nothing of JAX.  The checks of both kernels, their times
+beside their first designs and the ISTFT's whole-signal margins are
+chip_smoke.py's phase 3 (phase_istft_peel_redesign, istft_margins).
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -65,103 +49,6 @@ def ptxas() -> None:
         fh.write("\n".join(lines))
 
 
-def check(dev) -> None:
-    import chip_smoke as cs
-    from godsp_tpu_torch.ops import _build, cuda_istft, cuda_outer
-
-    lib, out = _build.library(), (ctypes.c_int * 8)()
-    for lg in range(8, 14):
-        want = tuple(cuda_outer.peel_plan(1 << lg))
-        if lib.gdsp_peel_rows_geometry(lg, out) != 0 or tuple(out) != want:
-            raise AssertionError(f"K9's plan at n3 {1 << lg}: {tuple(out)} against {want}")
-    for lg in range(1, 15):
-        for one in (True, False):
-            want = tuple(cuda_istft.istft_cta(1 << lg, one))
-            if lib.gdsp_istft_geometry(lg, int(one), out) != 0 or tuple(out)[:6] != want:
-                raise AssertionError(f"K6's CTA at pad {1 << lg} {one}: {tuple(out)[:6]} / {want}")
-    print("K9's plan and K6's CTA equal the host's", flush=True)
-    g = torch.Generator(device=dev).manual_seed(17)
-    worst = 1e9
-    for lg in range(8, 14):
-        n3 = 1 << lg
-        for inverse, scale in ((False, 1.0), (True, 1.0 / (128 * n3))):
-            xr = torch.randn(3, 128, n3, generator=g, device=dev)
-            xi = torch.randn(3, 128, n3, generator=g, device=dev)
-            want = cs.cplx(cuda_outer.peel_rows_fused_split_plain(xr.double(), xi.double(),
-                                                                  inverse, scale))
-            a = cuda_outer.peel_rows_fused_split(xr, xi, inverse, scale)
-            b = cuda_outer.peel_rows_fused_split(xr, xi, inverse, scale)
-            db = cs.snr_on_card(cs.cplx(a), want)
-            same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-            worst = min(worst, db)
-            print(f"  K9 3 x (128, {n3}) {'inverse' if inverse else 'forward'}: {db:.2f} dB, "
-                  f"second call equal: {same}", flush=True)
-            if not (db >= cs.SNR_DB and same):
-                raise AssertionError(f"K9 at n3 {n3}")
-    cases = []
-    for lg in range(1, 15):
-        pad = 1 << lg
-        odd = max(1, pad - 1)
-        cases += [(pad, pad, max(1, pad // 4), True), (pad, odd, min(3, odd), True),
-                  (pad, pad, pad, False), (pad, max(1, pad // 2 + 1), max(1, pad // 5), False)]
-    cases += [(2048, 1024, 160, True), (1024, 1024, 256, True), (1024, 1000, 1, True)]
-    for pad, nfft, hop, one in cases:
-        bins = pad // 2 + 1 if one else pad
-        F = 37 if pad <= 4096 else 9
-        spec = torch.complex(torch.randn(2, F, bins, generator=g, device=dev),
-                             torch.randn(2, F, bins, generator=g, device=dev))
-        w = torch.rand(nfft, generator=g, device=dev)
-        want = cuda_istft.istft_overlap_add_plain(spec.to(torch.complex128), w.double(), nfft, hop,
-                                                  one)
-        a = cuda_istft.istft_overlap_add(spec, w, nfft, hop, one)
-        b = cuda_istft.istft_overlap_add(spec, w, nfft, hop, one)
-        db = cs.snr_on_card(a, want)
-        same = torch.equal(a, b)
-        worst = min(worst, db)
-        print(f"  K6 pad {pad} nfft {nfft} hop {hop} {'one-sided' if one else 'full'}: "
-              f"{db:.2f} dB, second call equal: {same}", flush=True)
-        if not (db >= cs.SNR_DB and same):
-            raise AssertionError(f"K6 at pad {pad} nfft {nfft} hop {hop} {one}")
-    print(f"check passed; least {worst:.2f} dB", flush=True)
-
-
-def time(dev) -> None:
-    import chip_smoke as cs
-    from godsp_tpu_torch import window
-    from godsp_tpu_torch.ops import cuda_istft, cuda_outer, cuda_probes
-    from godsp_tpu_torch.probes._common import chained
-    from godsp_tpu_torch.utils.metrics import time_chain_diff
-
-    probe = torch.empty(1, device=dev)
-
-    def chain(f):
-        return time_chain_diff(chained(f), probe) * 1e3
-
-    g = torch.Generator(device=dev).manual_seed(18)
-    w = window.window_table("hann", cs.NFFT, device=dev, dtype=torch.float32)
-    for F, hop, pad in cs.K6_SHAPES:
-        spec = torch.complex(torch.randn(F, pad // 2 + 1, generator=g, device=dev),
-                             torch.randn(F, pad // 2 + 1, generator=g, device=dev))
-        own = lambda: cuda_istft.istft_overlap_add(spec, w, cs.NFFT, hop)  # noqa: E731
-        r2 = lambda: cuda_probes.istft_radix2(spec, w, cs.NFFT, hop)  # noqa: E731
-        for _ in range(2):  # twice, for the spread
-            t = {k: chain(f) for k, f in (("K6", own), ("radix-2", r2))}
-            a = {k: cs.kernel_alone_ms(sym, f)[0] for k, sym, f in
-                 (("K6", "istft_kernel", own), ("radix-2", "istft_radix2_kernel", r2))}
-            print(f"  K6 {F} frames hop {hop} pad {pad}: chain " + "  ".join(
-                f"{k} {v:.4f}" for k, v in t.items()) + " ms; alone " + "  ".join(
-                f"{k} {v:.4f}" for k, v in a.items() if v is not None) + " ms", flush=True)
-    for b, n3, inverse, scale in cs.K9_SHAPES:
-        xr = torch.randn(b, 128, n3, generator=g, device=dev)
-        xi = torch.randn(b, 128, n3, generator=g, device=dev)
-        k9 = lambda: cuda_outer.peel_rows_fused_split(xr, xi, inverse, scale)  # noqa: E731
-        r2 = lambda: cuda_probes.peel_rows_radix2(xr, xi, inverse, scale)  # noqa: E731
-        t = {k: chain(f) for k, f in (("K9", k9), ("radix-2", r2))}
-        a = cs.kernel_alone_ms("peel_rows_kernel", k9)[0]
-        print(f"  K9 {b} x (128, {n3}): chain K9 {t['K9']:.4f} radix-2 {t['radix-2']:.4f} ms; "
-              f"alone K9 {a if a is None else f'{a:.4f}'} ms", flush=True)
-
-
 def tiles(dev) -> None:
     import chip_smoke as cs
     from godsp_tpu_torch import window
@@ -191,42 +78,6 @@ def tiles(dev) -> None:
         cuda_istft._TARGET_BLOCKS = default
 
 
-def precision(dev) -> None:
-    import chip_smoke as cs
-    from godsp_tpu_torch import models, window
-    from godsp_tpu_torch.models._stft_impl import _nola_norm, stream_istft
-    from godsp_tpu_torch.ops import cuda_istft, cuda_probes
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "recording.wav")
-        cs.write_recording(path)
-        x = torch.from_numpy(cs.read_decoded(path)).to(dev)
-    S = models.stft(x, cs.NFFT, hop=256)
-    F = S.shape[0]
-    L = (F - 1) * 256 + cs.NFFT
-    w64 = window.window_table("hann", cs.NFFT, device=dev)
-    want = (cuda_istft.istft_overlap_add_plain(S.to(torch.complex128), w64, cs.NFFT, 256)
-            / _nola_norm(w64, F, 256, L))
-    kernel = cuda_istft.istft_overlap_add
-    try:
-        for label, run in (("K6", kernel), ("istft_radix2", cuda_probes.istft_radix2)):
-            cuda_istft.istft_overlap_add = run
-            got = torch.cat([b for b in stream_istft(
-                (S[i:i + cs.CHUNK] for i in range(0, F, cs.CHUNK)), cs.NFFT, hop=256)], -1)
-            err = (got.double() - want).abs()
-            n = cs.NFFT
-            parts = {"whole": slice(None), "interior": slice(n, L - n), "head": slice(0, n),
-                     "tail": slice(L - n, L)}
-            db = {k: cs.snr_on_card(got[v], want[v]) for k, v in parts.items()}
-            top = torch.topk(err, 6)
-            print(f"  {label}: " + "  ".join(f"{k} {v:.2f} dB" for k, v in db.items())
-                  + "; largest errors at " + ", ".join(
-                      f"{int(i)} ({float(e):.2e})" for e, i in zip(top.values, top.indices)),
-                  flush=True)
-    finally:
-        cuda_istft.istft_overlap_add = kernel
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -237,20 +88,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     set_default_device("cuda")
     dev = torch.device("cuda")
-    args = set(sys.argv[1:]) or {"--ptxas", "--check", "--time", "--tiles", "--precision"}
+    args = set(sys.argv[1:]) or {"--ptxas", "--tiles"}
     if "--ptxas" in args:
         ptxas()
-    import chip_smoke as cs
-
-    cs.phase_build()
-    if "--check" in args:
-        check(dev)
-    if "--time" in args:
-        time(dev)
     if "--tiles" in args:
+        import chip_smoke as cs
+
+        cs.phase_build()
         tiles(dev)
-    if "--precision" in args:
-        precision(dev)
     return 0
 
 
