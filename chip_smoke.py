@@ -70,7 +70,14 @@ final line):
      gdsp_istft_geometry), and the public istft's whole-signal margin
      after the window-energy division at nfft 1024, 2048 and 4096 (Hann,
      hop nfft/4; its first and last nfft samples and interior apart)
-     beside istft_radix2's (istft_margins);
+     beside istft_radix2's (istft_margins); then
+     (phase_lane_cluster_redesign) gmm_concat at 16384 x 1024 and
+     ls_full there and at 1001 x 512 on their thread-block clusters
+     beside their first designs (gmm_concat_stream, ls_full_stream),
+     torch.matmul / torch.fft.fft, K13 and the bound, by chain and alone,
+     with the clusters and shared bytes of the plan, after the plan
+     is held to the host's (gdsp_lane_cluster_geometry,
+     cuda_probes.lane_cluster_plan);
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -517,6 +524,8 @@ REPLACES = {
     "i8dec": "tools/probe_int8.py:71",
     "i8full": "tools/probe_int8.py:71",
     "i8_concat": "tools/probe_store.py:53",
+    "gmm_concat_stream": "tools/probe_store.py:53",
+    "ls_full_stream": "tools/probe_r3.py:157",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -556,6 +565,8 @@ SOURCES = {
     "istft_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     "peel_rows_radix2": "godsp_tpu_torch/csrc/radix2_probe_kernels.cu",
     **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
+    "gmm_concat_stream": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
+    "ls_full_stream": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
 }
 
 
@@ -861,6 +872,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps = phase_stft_outer_redesign(rec, dev)
     steps.update(phase_welch_redesign(rec, dev))
     steps.update(phase_istft_peel_redesign(rec, dev))
+    steps.update(phase_lane_cluster_redesign(rec, dev))
     return steps
 
 
@@ -872,13 +884,14 @@ K5_REDESIGN = (("complex", 256), ("power", 512), ("mel", 256))
 
 def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: str, op, radix2,
                   library, copy, view, want, nbytes: float, flops: float,
-                  extra: tuple | None = None) -> float:
+                  extra: tuple | None = None, yard_label: str = "radix-2") -> float:
     """One redesign line: view(op()) held against want (float64 on the
-    card, >= 120 dB), then op, the yardstick radix2 (wrapper `yard`) and
-    (where not None) library, K12's copy of the same planes and extra
-    (label, op) timed by chain (time_chain_diff); the yardstick's chains
-    run as a counted session of their own, which must launch `yard` and
-    nothing else.  Returns the kernel's ms."""
+    card, >= 120 dB), then op, the yardstick radix2 (wrapper `yard`, the
+    first design, printed as yard_label) and (where not None) library,
+    K12's copy of the same planes and extra (label, op) timed by chain
+    (time_chain_diff); the yardstick's chains run as a counted session of
+    their own, which must launch `yard` and nothing else.  Returns the
+    kernel's ms."""
     from godsp_tpu_torch.probes._common import chained
     from godsp_tpu_torch.utils.metrics import time_chain_diff
 
@@ -904,8 +917,8 @@ def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: s
     cp = "" if copy is None else f"  K12 copy {chain_ms(copy):.4f} ms"
     ex = "" if extra is None else f"  {extra[0]} {chain_ms(extra[1]):.4f} ms"
     log(f"  redesign {name:15s} {shape:34s} {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
-        f"library {lib}{cp}{ex}  radix-2 {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
-        f"faster than radix-2: {ms < r2}")
+        f"library {lib}{cp}{ex}  {yard_label} {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
+        f"faster than {yard_label}: {ms < r2}")
     return ms
 
 
@@ -1256,6 +1269,96 @@ def istft_margins(dev, g: torch.Generator) -> None:
             raise AssertionError(f"istft at nfft {nfft}: {dbs['K6']['whole']:.2f} dB over the "
                                  f"whole signal < {SNR_DB} dB")
         del want, s32, runs
+
+
+# K14c gmm_concat and K14f ls_full on thread-block clusters beside
+# their first designs, by chain: gmm_concat at the probes' 16384 x 1024,
+# ls_full there and at the ragged 1001 x 512.
+LANE_REDESIGN = (("gmm_concat", 16384, 1024), ("ls_full", 16384, 1024), ("ls_full", 1001, 512))
+
+
+def phase_lane_cluster_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """gmm_concat and ls_full's cluster kernels at each LANE_REDESIGN entry,
+    held against the float64 plain version (>= 120 dB; gmm_concat also
+    torch.equal to K13, ls_full to its first design) and timed by chain
+    and alone (the profiler's events) beside their first designs
+    (gmm_concat_stream, ls_full_stream: G streamed a tile; a counted session
+    of their own), the library call (torch.matmul of the complex64 slices
+    with K13's G, TF32 off; torch.fft.fft of the rows), K13 and the bound,
+    with the plan's clusters and shared bytes.  First the plan the C side
+    exports (gdsp_lane_cluster_geometry, from the resident clusters the card
+    reports) is held to the host's (cuda_probes.lane_cluster_plan) at every
+    n and setting kind.  The yardsticks are checked and timed for the
+    kernels line at their first line."""
+    import ctypes
+
+    from godsp_tpu_torch.ops import _build, cuda_metrics
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes._common import complex_matmul, lane_planes
+    from godsp_tpu_torch.probes._common import planes_equal as equal
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    settings = (("gmm_concat", 16, 16, 0), ("ls_full", 16, 16, 0), ("ls_full", 64, 2, 1))
+    for kind, rows_per_block, chunk_rows, store_rows in settings:
+        ns = (128, 384, 1024, 2048) if kind == "gmm_concat" else (128, 256, 512, 1024)
+        for n in ns:
+            resident = cp._cluster_resident(kind, n, dev)
+            for b in (1, 1001, 16384):
+                plan = tuple(cp.lane_cluster_plan(kind, b, n, rows_per_block, chunk_rows,
+                                                  store_rows, resident))
+                rc = lib.gdsp_lane_cluster_geometry(cp.LANE_KINDS.index(kind), b, n,
+                                                    rows_per_block, chunk_rows, store_rows,
+                                                    resident, out)
+                if rc != 0 or tuple(out) != plan:
+                    raise AssertionError(f"{kind}'s plan at {b} x {n}: {tuple(out)} against "
+                                         f"the host's {plan}")
+    log("gmm_concat's and ls_full's cluster plans equal the host's; resident clusters: " +
+        ", ".join(f"{k} n {n}: {cp._cluster_resident(k, n, dev)}"
+                  for k in ("gmm_concat", "ls_full") for n in (128, 512, 1024)))
+    steps: dict[str, dict[str, int]] = {}
+    log("gmm_concat/ls_full cluster redesign vs the first designs (G streamed a tile), "
+        "by chain:")
+    for name, b, n in LANE_REDESIGN:
+        xr, xi = lane_planes(dev, b, n, seed=18)
+        x64 = (xr.double(), xi.double())
+        pts = float(b * n)
+        plan = cp.lane_cluster_plan(name, b, n, resident=cp._cluster_resident(name, n, dev))
+        shape = (f"{b} x {n}, {plan.clusters} clusters of {plan.cluster}, {plan.smem} B "
+                 f"shared a CTA")
+        k13 = lambda: cuda_metrics.gmm_floor(xr, xi)
+        if name == "gmm_concat":
+            op = lambda: cp.gmm_concat(xr, xi)
+            yard, first = "gmm_concat_stream", lambda: cp.gmm_concat_stream(xr, xi)
+            plain = lambda: cuda_metrics.gmm_floor_plain(xr, xi)
+            want = cplx(cuda_metrics.gmm_floor_plain(*x64))
+            if not equal(op(), k13()):
+                raise AssertionError(f"gmm_concat {shape}: not equal to K13's result")
+            library = complex_matmul(xr, xi)
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("gmm_concat's library call: TF32 is on")
+            flops = 768.0 * pts
+        else:
+            op = lambda: cp.ls_full(xr, xi)
+            yard, first = "ls_full_stream", lambda: cp.ls_full_stream(xr, xi)
+            plain = lambda: cp.ls_full_plain(xr, xi)
+            want = cplx(cp.ls_full_plain(*x64))
+            if not equal(op(), first()):
+                raise AssertionError(f"ls_full {shape}: not equal to its first design")
+            z = torch.complex(xr, xi)
+            library = lambda: torch.fft.fft(z)
+            flops = 5.0 * float(np.log2(n)) * pts  # the function is the row's DFT
+        ms = redesign_line(rec, steps, name, yard, shape, op, first, library, None, cplx, want,
+                           16.0 * pts, flops, extra=("K13", k13), yard_label="first design")
+        alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+            (name, f"{name}_kernel", op), ("first design", f"{yard}_kernel", first))]
+        log(f"  redesign alone (profiler events), {name} {shape}: " + "  ".join(
+            f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+            f"  (by chain {ms:.4f} ms)")
+        if yard not in rec.times:
+            rec.check(yard, lambda: cplx(first()), want, f"{b} x {n}")
+            rec.time(yard, f"{b} x {n}", first, plain, library, 16.0 * pts, flops)
+        del xr, xi, x64, want, library
+    return steps
 
 
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:

@@ -36,25 +36,39 @@
 //   concatstore_kernel (_concatstore_kernel): a copy whose block loads its
 //     rows' chunk slice by slice into shared memory, then stores whole
 //     rows of the chunk (16 B a thread, one row's 4 KB a pass);
-//   gmm_concat_kernel  (_gmm_concat_kernel): K13's contraction, but one
-//     block covers every slice of a 16-row tile: the tile waits in shared
-//     memory (128 KB), each slice's outputs overwrite its inputs there, and
-//     the block stores whole rows at the end.  G[k1] (192 KB a slice, the
-//     three Karatsuba planes of gmm_tables) no longer fits beside the tile,
-//     so it streams through shared memory 32 rows of i2 at a time (48 KB,
-//     from L2: each block reads every slice's G once a tile, where K13
-//     stages one slice's G once for ~500 rows).  Each output is the same
-//     chain of fmaf over i2 = 0..127 as in K13, so the result equals K13's
-//     bit for bit.
+//   gmm_concat_kernel  (_gmm_concat_kernel): K13's contraction, every
+//     slice of a 16-row tile waiting on chip and leaving as whole rows, on
+//     a thread-block cluster of min(n1, 8) CTAs a 1024-column chunk, a CTA
+//     a slice (lane_contract.cuh: G[k1] resident, 4 x 4 register tiles).
+//     As many clusters as the card holds walk the chunk's tiles; a CTA's
+//     slice of the next tile arrives by cp.async in a second buffer while
+//     it contracts the current one, its outputs overwrite its inputs, and
+//     after a cluster barrier each CTA stores its share of the tile's rows
+//     as whole rows read from every CTA's buffer over distributed shared
+//     memory (cluster_group::map_shared_rank): the probe's concat store at
+//     the cluster's scale.  Each output is the same chain of fmaf over i2
+//     = 0..127 as in K13, so the result equals K13's bit for bit.  Two
+//     16-row buffers (33 KB at a pitch of 132 words) beside G (192 KB)
+//     take 230,400 of a CTA's 232,448 bytes.
+//   gmm_concat_stream_kernel: gmm_concat's first design, kept as the
+//     redesign's yardstick: one block covers every slice of a 16-row tile,
+//     the tile waits in shared memory (128 KB) and G[k1] streams through
+//     32 rows of i2 at a time (48 KB from L2, again every tile); equal to
+//     the redesign.
 // Bounds on the H100 at 1024 x 16384: the copies 268 MB, 0.080 ms
 // (bytes); gmm_concat K13's 768 x 2^24 = 1.29e10 operations, 0.192 ms.
 // The copies' design keeps K12's bytes and changes only the order of the
-// stores; gmm_concat keeps K13's arithmetic and changes only where its
-// outputs wait and how G arrives.
+// stores; gmm_concat keeps K13's arithmetic and changes where its outputs
+// wait, how G arrives and the register tiles.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fft_block.cuh"
+#include "lane_contract.cuh"
+
+namespace cg = cooperative_groups;
+namespace ln = gdsp::lane;
 
 namespace {
 
@@ -261,7 +275,7 @@ concatstore_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // g: K13's (n1, 3, 128, 128) tables, plane p of slice k1 at
 // g + (3 k1 + p) * kPlane, entry [i2][k2].
 __global__ void __launch_bounds__(kThreads, 1)
-gmm_concat_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+gmm_concat_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ g,
                   long long b, int n) {
   extern __shared__ float4 smem4[];
@@ -352,6 +366,103 @@ gmm_concat_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// ---------------------------------------------------------------------------
+// gmm_concat on a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// Rows of tile `tile` and columns c0 .. c0 + 127 of both planes into buf
+// (two planes at ln::kPitch) by cp.async, rows past b zero: 8 copies of 16
+// bytes a thread.  The caller commits.
+__device__ __forceinline__ void load_slice(float* buf, const float* __restrict__ xr,
+                                           const float* __restrict__ xi, long long b, int n,
+                                           long long tile, int c0) {
+  constexpr int kQuads = ln::kLanes / 4;
+  for (int e = threadIdx.x; e < 2 * ln::kTileRows * kQuads; e += ln::kThreads) {
+    const int plane = e / (ln::kTileRows * kQuads);
+    const int r = (e / kQuads) % ln::kTileRows, q = e % kQuads;
+    const long long row = tile * ln::kTileRows + r;
+    const bool valid = row < b;
+    const size_t off = valid ? static_cast<size_t>(row) * n + c0 + 4 * q : 0;
+    const float* src = (plane ? xi : xr) + off;
+    ln::cp_async16(buf + plane * ln::kTileWords + r * ln::kPitch + 4 * q, src, valid);
+  }
+}
+
+// Cluster cl of the grid serves 1024-column chunk cl % chunks and its row
+// tiles first, first + per_chunk, ... (first = cl / chunks); CTA `rank`
+// holds G[k1] of slice k1 = 8 chunk + rank for its whole life (a rank past
+// a ragged chunk's slices only stores).  Tile buffers alternate: tile i
+// arrives in buffer i & 1 while tile i - 1 is contracted, its outputs
+// overwrite its inputs there, and while tile i + 1 is contracted every CTA
+// stores its rows of tile i as whole rows, gathered from the cluster's
+// buffers.  The contraction's i2 loop runs in three segments with the
+// barriers' waits between them, so no wait is on the critical path:
+//   [0, 32)   then wait (tile i - 1 out everywhere), gather its rows,
+//             arrive (relaxed: only reads to order);
+//   [32, 96)  then wait (every CTA gathered), load tile i + 1 into the
+//             freed buffer;
+//   [96, 128) then the outputs over the inputs, arrive.
+// (Holding the gather's loads in registers across [0, 32), with tile i + 1
+// loaded after [0, 64), measured slower on the H100: PERF.md, section 6.)
+__global__ void __launch_bounds__(ln::kThreads, 1)
+gmm_concat_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ g,
+                  long long b, int n, int per_chunk) {
+  extern __shared__ float4 smem4[];
+  float* sg = reinterpret_cast<float*>(smem4);  // G[k1]: three planes
+  float* bufs = sg + 3 * ln::kPlane;            // two tile buffers of two planes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int chunks = (n + ln::kChunk - 1) / ln::kChunk;
+  const long long cl = blockIdx.x / cs;
+  const int chunk = static_cast<int>(cl % chunks);
+  const long long first = cl / chunks;
+  const int c0 = chunk * ln::kChunk;
+  const int cols = n - c0 < ln::kChunk ? n - c0 : ln::kChunk;
+  const bool live = rank < cols / ln::kLanes;
+  const int cr = c0 + rank * ln::kLanes;  // this CTA's slice
+  const long long tiles = (b + ln::kTileRows - 1) / ln::kTileRows;
+  const long long steps = first < tiles ? (tiles - 1 - first) / per_chunk + 1 : 0;
+  const ln::Place pl = ln::place();
+
+  if (live && steps > 0) {
+    ln::stage_g(sg, g + static_cast<size_t>(cr / ln::kLanes) * 3 * ln::kPlane);
+    load_slice(bufs, xr, xi, b, n, first, cr);
+  }
+  ln::cp_async_commit();
+  for (long long i = 0; i < steps; ++i) {
+    const long long tile = first + i * per_chunk;
+    float* cur = bufs + (i & 1) * 2 * ln::kTileWords;
+    float* other = bufs + ((i + 1) & 1) * 2 * ln::kTileWords;
+    ln::cp_async_wait_all();
+    __syncthreads();  // tile i (and G) staged
+    ln::Acc acc;
+    ln::zero(acc);
+    if (live) ln::contract<0, 32>(acc, cur, cur + ln::kTileWords, sg, pl.row, pl.bin);
+    if (i > 0) {
+      ln::cluster_wait();  // tile i - 1's outputs wait in every CTA's `other`
+      ln::gather_rows(other, yr, yi, b, n, tile - per_chunk, c0, cols, rank, cs);
+      ln::cluster_arrive_relaxed();  // done reading the cluster's `other`
+    }
+    if (live) ln::contract<32, 96>(acc, cur, cur + ln::kTileWords, sg, pl.row, pl.bin);
+    if (i > 0) ln::cluster_wait();  // every CTA has read `other`
+    if (live && i + 1 < steps) load_slice(other, xr, xi, b, n, tile + per_chunk, cr);
+    ln::cp_async_commit();
+    if (live) ln::contract<96, 128>(acc, cur, cur + ln::kTileWords, sg, pl.row, pl.bin);
+    __syncthreads();  // every thread has read `cur`
+    if (live) ln::put_outputs(cur, acc, pl, ln::kTileRows);
+    ln::cluster_arrive();  // this slice of tile i waits in `cur`
+  }
+  if (steps > 0) {
+    ln::cluster_wait();
+    ln::gather_rows(bufs + ((steps - 1) & 1) * 2 * ln::kTileWords, yr, yi, b, n,
+                    first + (steps - 1) * per_chunk, c0, cols, rank, cs);
+    ln::cluster_arrive_relaxed();
+    ln::cluster_wait();  // no CTA leaves while another reads its shared memory
+  }
+}
+
 bool bad_shape(long long b, int n) { return b < 0 || n < kLanes || n % kLanes != 0; }
 
 dim3 tile_grid(int n, long long b, int rows) {
@@ -397,16 +508,61 @@ int gdsp_concatstore(const float* xr, const float* xi, float* yr, float* yi, lon
   return static_cast<int>(cudaGetLastError());
 }
 
-// g: K13's (n / 128, 3, 128, 128) tables.
-int gdsp_gmm_concat(const float* xr, const float* xi, float* yr, float* yi, const float* g,
-                    long long b, int n, void* stream) {
+// gmm_concat's first design, the yardstick: g K13's (n / 128, 3, 128, 128)
+// tables.
+int gdsp_gmm_concat_stream(const float* xr, const float* xi, float* yr, float* yi,
+                           const float* g, long long b, int n, void* stream) {
   if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  cudaError_t e = gdsp::allow_smem(gmm_concat_kernel, kGcSmem);
+  cudaError_t e = gdsp::allow_smem(gmm_concat_stream_kernel, kGcSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  gmm_concat_kernel<<<tile_grid(n, b, kGcRows), kThreads, kGcSmem,
-                      static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, g, b, n);
+  gmm_concat_stream_kernel<<<tile_grid(n, b, kGcRows), kThreads, kGcSmem,
+                             static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, g, b, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// gmm_concat on clusters: g K13's (n / 128, 3, 128, 128) tables; resident
+// the clusters of the kernel the card holds at once (gdsp_gmm_concat_resident).
+// Returns cudaErrorLaunchOutOfResources where resident < 1.
+int gdsp_gmm_concat(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                    long long b, int n, int resident, void* stream) {
+  ln::Plan p;
+  const int rc = ln::make_plan(ln::kGmmConcat, b, n, 0, 0, 0, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  cudaError_t e = gdsp::allow_smem(gmm_concat_kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ln::ClusterLaunch l(p.cluster, p.ctas, static_cast<size_t>(p.smem),
+                      static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&l.cfg, gmm_concat_kernel, xr, xi, yr, yi, g, b, n,
+                         p.clusters / p.chunks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of gmm_concat_kernel at n points (min(n / 128, 8) CTAs a
+// cluster) the card holds at once with the plan's shared memory plus
+// extra_smem bytes a CTA: 0 where none fits, or -(CUDA error).
+int gdsp_gmm_concat_resident(int n, int extra_smem) {
+  if (n < kLanes || n % kLanes != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  const int n1 = n / kLanes;
+  return ln::resident_clusters(gmm_concat_kernel, n1 < ln::kMaxCluster ? n1 : ln::kMaxCluster,
+                               ln::kSmem + extra_smem);
+}
+
+// The cluster plan of gmm_concat (kind 0) or ls_full (kind 1) at b x n
+// with ls_full's settings and `resident` clusters the card holds:
+// out[0..9] = cluster, clusters, CTAs, rows a tile, tiles a unit, tile
+// buffers, shared bytes, store_rows, chunk_rows, 1024-column chunks
+// (lane_contract.cuh: Plan).  ops/cuda_probes.py: lane_cluster_plan holds
+// the same; the GPU tests compare.
+int gdsp_lane_cluster_geometry(int kind, long long b, int n, int rows_per_block, int chunk_rows,
+                               int store_rows, int resident, int* out) {
+  ln::Plan p;
+  const int rc = ln::make_plan(kind, b, n, rows_per_block, chunk_rows, store_rows, resident, &p);
+  if (rc != 0) return rc;
+  ln::plan_fields(p, out);
+  return 0;
 }
 
 }  // extern "C"

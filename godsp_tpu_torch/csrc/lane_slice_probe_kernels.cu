@@ -35,30 +35,41 @@
 // n1 = 8: the TPU's K1 in digit order), k_full_concat (:245),
 // make_subtiled(2/4/8) (:279) and k_full at bt = 512 and 1024 (:318-319):
 // the n-point DFT of every row, position 128 k1 + k2 holding bin
-// k1 + N1 k2 (pallas_fft._digit_to_natural's digit order).  A block owns
-// rows_per_block rows and walks them in 16-row tiles: the tile of both
-// planes waits in shared memory (128 KB at n = 1024); the slice network
-// runs there, a thread a (row, point); then K13's float32 CUDA-core
-// contraction with G[k1] (unscaled: K13's tables times 128, exactly
-// pallas_fft._ls_tables' G) streamed through shared memory 32 rows of i2 at
-// a time (48 KB), as gmm_concat_kernel does.  Launch parameters pick the
-// TPU body:
-//   store_rows 0 (k_full): each slice's outputs go to device memory as its
-//     contraction ends; 1 (k_full_concat): they overwrite the slice's
-//     inputs in shared memory, and whole rows are stored after the tile;
+// k1 + N1 k2 (pallas_fft._digit_to_natural's digit order).  It runs on a
+// thread-block cluster of N1 CTAs, CTA k1 keeping G[k1] resident (unscaled:
+// K13's tables times 128, exactly pallas_fft._ls_tables' G) and
+// contracting its slice with lane_contract.cuh's routine.  The slice
+// network needs every slice of a point, so it runs as an all-to-all, as
+// K9's column step does: CTA c's points c P .. c P + P - 1 (P = 128 / N1) of
+// every slice of a 16-row tile arrive by cp.async in a staging buffer
+// while the last tile is contracted; a thread a (row, point) runs
+// slice_network.cuh's slice_dft (the same code as ls_network_kernel, so
+// the same bits) and stores output slice k1 into CTA k1's tile buffer
+// over distributed shared memory; a cluster barrier; then the
+// contraction.  Launch parameters pick the TPU body:
+//   store_rows 0 (k_full): each CTA stores its 512-byte run of each row
+//     as its contraction ends; 1 (k_full_concat): the outputs overwrite
+//     the inputs and, after a cluster barrier, each CTA stores its share
+//     of the tile's rows as whole rows gathered from every CTA's buffer;
 //   chunk_rows 16, 8, 4, 2 (make_subtiled(1, 2, 4, 8)): network then
-//     contraction on that many rows of the tile at a time, a barrier
-//     between chunks (G is streamed again for every chunk);
-//   rows_per_block 16, 32, 64: the TPU's bt 256, 512, 1024 mapped x1, x2,
-//     x4 (the TPU's bt is its rows a grid step; here a block's rows, walked
-//     16 at a time: 1024, 512, 256 blocks at 16384 rows).
+//     contraction on that many rows of the tile at a time, a cluster
+//     barrier between chunks;
+//   rows_per_block 16, 32, 64: the rows a cluster takes as one unit of
+//     work, the TPU's bt 256, 512, 1024 mapped x1, x2, x4 (a cluster walks
+//     units cl, cl + clusters, ...).
+// ls_full_stream_kernel<N1> is the first design, kept as the yardstick: a
+// block owns rows_per_block rows walked in 16-row tiles, the tile of both
+// planes waits in shared memory (128 KB at n = 1024), the network runs
+// there, then the contraction with G streamed through shared memory 32
+// rows of i2 at a time (48 KB, again every tile and chunk), with the same
+// store, chunk and rows-a-block parameters.
 // Every output is the same fmaf chain over i2 = 0..127 (then the same
 // subtractions) whatever thread computes it, and the network the same
-// code for every setting, so every setting's result equals the default's
-// bit for bit.  Bound: bytes, 268 MB, 0.080 ms: the function is the
-// n-point DFT, 5 log2 n = 50 float32 operations a point (0.013 ms).  The
-// method does 768 + 15 a point, 1.31e10 at 16384 x 1024: 0.196 ms at
-// 67 TFLOP/s, the floor of this design, not of the function.
+// code for every setting, so every setting of both kernels equals the
+// default's bit for bit.  Bound: bytes, 268 MB, 0.080 ms: the function is
+// the n-point DFT, 5 log2 n = 50 float32 operations a point (0.013 ms).
+// The method does 768 + 15 a point, 1.31e10 at 16384 x 1024: 0.196 ms at
+// 67 TFLOP/s, the floor of this method, not of the function.
 //
 // lane_flip_kernel replaces tools/probe_r4.py:67 (kf :61): y[r, 127 - c] =
 // 2 x[r, c] over a (rows, 128) float32 view, exactly.  One warp a row: lane
@@ -67,13 +78,18 @@
 // stores them at 4 l.  Bound: bytes, one plane read and written, 134 MB,
 // 0.040 ms.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "lane_contract.cuh"
 #include "mma_tf32.cuh"
 #include "slice_network.cuh"
+
+namespace cg = cooperative_groups;
+namespace ln = gdsp::lane;
 
 namespace {
 
@@ -203,7 +219,7 @@ gmm_tf32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
-// ls_full
+// ls_full's first design (the yardstick)
 // ---------------------------------------------------------------------------
 
 // g: (N1, 3, 128, 128) unscaled tables, plane p of slice k1 at
@@ -212,7 +228,7 @@ gmm_tf32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // a multiple of kTile, chunk_rows divides kTile and is even.
 template <int N1>
 __global__ void __launch_bounds__(kThreads, 1)
-ls_full_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+ls_full_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ g,
                long long b, int rows_per_block, int chunk_rows, int store_rows) {
   constexpr int kBits = gdsp::log2_small(N1);
@@ -327,6 +343,139 @@ ls_full_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
+// ls_full on a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// CTA `rank`'s points p = rank P .. rank P + P - 1 (P = 128 / N1) of every
+// slice of tile `tile`'s rows into ss (two planes at ln::kPitch, row r's
+// slice j1 at words j1 P ..) by cp.async, rows past b zero: 8 copies of 16
+// bytes a thread at every N1.  The caller commits.
+template <int N1>
+__device__ __forceinline__ void load_points(float* ss, const float* __restrict__ xr,
+                                            const float* __restrict__ xi, long long b,
+                                            long long tile, int rank) {
+  constexpr int n = N1 * ln::kLanes;
+  constexpr int P = ln::kLanes / N1;
+  constexpr int kQuads = ln::kLanes / 4;  // 16-byte words a staged row
+  for (int e = threadIdx.x; e < 2 * ln::kTileRows * kQuads; e += ln::kThreads) {
+    const int plane = e / (ln::kTileRows * kQuads);
+    const int r = (e / kQuads) % ln::kTileRows, w = e % kQuads;
+    const int col = (4 * w / P) * ln::kLanes + rank * P + 4 * w % P;  // slice j1 = 4 w / P
+    const long long row = tile * ln::kTileRows + r;
+    const bool valid = row < b;
+    const float* src = (plane ? xi : xr) + (valid ? static_cast<size_t>(row) * n + col : 0);
+    ln::cp_async16(ss + plane * ln::kTileWords + r * ln::kPitch + 4 * w, src, valid);
+  }
+}
+
+// g: (N1, 3, 128, 128) unscaled tables.  A cluster of N1 CTAs takes units
+// of tiles_unit 16-row tiles (cluster cl: units cl, cl + clusters, ...);
+// CTA `rank` holds G[rank] for its whole life.  A tile: CTA c's points
+// p in [c P, c P + P) of every slice arrive in ss by cp.async (during the
+// last tile's contraction); then, chunk_rows rows at a time, a thread a
+// (row, point) runs slice_network.cuh's slice_dft as ls_network_kernel
+// does and stores output slice k1 into CTA k1's buffer sx over distributed
+// shared memory (an all-to-all, as K9's column step), a cluster barrier,
+// and each CTA contracts its slice with its resident G; store_rows 0
+// stores each row's 512-byte run of the slice from registers, 1 leaves
+// the outputs over the inputs in sx and, after a cluster barrier, stores
+// whole rows gathered from every CTA's sx.  The barrier that frees sx for
+// the next tile's stores arrives after the contraction (or the gather)
+// and waits before the next tile's network, once ss has landed.
+template <int N1>
+__global__ void __launch_bounds__(ln::kThreads, 1)
+ls_full_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+               float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ g,
+               long long b, int tiles_unit, int chunk_rows, int store_rows) {
+  constexpr int kBits = gdsp::log2_small(N1);
+  constexpr int n = N1 * ln::kLanes;
+  constexpr int P = ln::kLanes / N1;                        // points of a slice a CTA
+  extern __shared__ float4 smem4[];
+  float* sg = reinterpret_cast<float*>(smem4);  // G[rank]: three planes
+  float* sx = sg + 3 * ln::kPlane;              // slice `rank` of the tile's rows, two planes
+  float* ss = sx + 2 * ln::kTileWords;          // this CTA's points of every slice, two planes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long cl = blockIdx.x / N1, clusters = gridDim.x / N1;
+  const long long tiles = (b + ln::kTileRows - 1) / ln::kTileRows;
+  const long long units = (tiles + tiles_unit - 1) / tiles_unit;
+  const ln::Place pl = ln::place();
+  const bool on = pl.row < chunk_rows;  // the contraction's rows of a chunk
+  const int pairs = chunk_rows * P;     // the network's (row, point) of a chunk
+
+  long long tile = cl < units ? cl * tiles_unit : -1;
+  ln::cluster_arrive_relaxed();  // every sx is free: the first stores into it wait on this
+  if (tile >= 0) {
+    ln::stage_g(sg, g + static_cast<size_t>(rank) * 3 * ln::kPlane);
+    load_points<N1>(ss, xr, xi, b, tile, rank);
+  }
+  ln::cp_async_commit();
+  while (tile >= 0) {
+    long long next = tile + 1;  // the walk: the unit's tiles, then unit + clusters
+    if (next % tiles_unit == 0 || next >= tiles) {
+      const long long u = tile / tiles_unit + clusters;
+      next = u < units ? u * tiles_unit : -1;
+    }
+    ln::cp_async_wait_all();
+    __syncthreads();  // ss holds the tile (and G is staged)
+    for (int h0 = 0; h0 < ln::kTileRows; h0 += chunk_rows) {
+      if (h0 == 0) ln::cluster_wait();  // every CTA is done with its sx
+      for (int e = threadIdx.x; e < pairs; e += ln::kThreads) {
+        const int r = h0 + e / P, p = e % P;
+        float2 z[N1][1];
+#pragma unroll
+        for (int j1 = 0; j1 < N1; ++j1) {
+          const int at = r * ln::kPitch + j1 * P + p;
+          z[gdsp::rev_bits(j1, kBits)][0] = make_float2(ss[at], ss[ln::kTileWords + at]);
+        }
+        gdsp::slice_dft(z);
+        const float* at = sx + r * ln::kPitch + rank * P + p;
+#pragma unroll
+        for (int k1 = 0; k1 < N1; ++k1) {
+          ln::st_cluster(at, k1, z[k1][0].x);
+          ln::st_cluster(at + ln::kTileWords, k1, z[k1][0].y);
+        }
+      }
+      ln::cluster_arrive();
+      ln::cluster_wait();  // rows h0 .. h0 + chunk_rows of every sx are in
+      if (h0 + chunk_rows == ln::kTileRows) {  // every thread's reads of ss came before
+        if (next >= 0) load_points<N1>(ss, xr, xi, b, next, rank);
+        ln::cp_async_commit();
+      }
+      ln::Acc acc;
+      ln::zero(acc);
+      const int r0 = h0 + pl.row;
+      if (on) ln::contract<0, ln::kLanes>(acc, sx + h0 * ln::kPitch,
+                                          sx + ln::kTileWords + h0 * ln::kPitch, sg, pl.row,
+                                          pl.bin);
+      if (store_rows) {
+        __syncthreads();  // every thread has read the chunk's rows of sx
+        if (on) ln::put_outputs(sx + h0 * ln::kPitch, acc, pl, chunk_rows);
+      } else if (on) {
+#pragma unroll
+        for (int e = 0; e < ln::kR; ++e) {
+          const long long row = tile * ln::kTileRows + r0 + e;
+          if (pl.row + e >= chunk_rows || row >= b) break;
+          float4 vr, vi;
+          ln::outputs(acc, e, vr, vi);
+          const size_t off = static_cast<size_t>(row) * n + rank * ln::kLanes + pl.bin;
+          *reinterpret_cast<float4*>(yr + off) = vr;
+          *reinterpret_cast<float4*>(yi + off) = vi;
+        }
+      }
+    }
+    if (store_rows) {
+      ln::cluster_arrive();
+      ln::cluster_wait();  // every slice of the tile waits in its CTA's sx
+      ln::gather_rows(sx, yr, yi, b, n, tile, 0, n, rank, N1);
+    }
+    ln::cluster_arrive_relaxed();  // this CTA is done reading every sx of the tile
+    tile = next;
+  }
+  ln::cluster_wait();  // no CTA leaves while another reads or writes its shared memory
+}
+
+// ---------------------------------------------------------------------------
 // lane_flip
 // ---------------------------------------------------------------------------
 
@@ -354,14 +503,28 @@ bool bad_shape(long long b, int n) {
 int ls_full_smem(int n) { return (2 * kTile * n + 3 * kSteps * kLanes) * sizeof(float); }
 
 template <int N1>
-int launch_ls_full(const float* xr, const float* xi, float* yr, float* yi, const float* g,
-                   long long b, int rows_per_block, int chunk_rows, int store_rows,
-                   cudaStream_t s) {
+int launch_ls_full_stream(const float* xr, const float* xi, float* yr, float* yi,
+                          const float* g, long long b, int rows_per_block, int chunk_rows,
+                          int store_rows, cudaStream_t s) {
   const int smem = ls_full_smem(N1 * kLanes);
-  cudaError_t e = gdsp::allow_smem(ls_full_kernel<N1>, smem);
+  cudaError_t e = gdsp::allow_smem(ls_full_stream_kernel<N1>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ls_full_kernel<N1><<<gdsp::row_grid(1, (b + rows_per_block - 1) / rows_per_block), kThreads,
-                       smem, s>>>(xr, xi, yr, yi, g, b, rows_per_block, chunk_rows, store_rows);
+  ls_full_stream_kernel<N1><<<gdsp::row_grid(1, (b + rows_per_block - 1) / rows_per_block),
+                              kThreads, smem, s>>>(xr, xi, yr, yi, g, b, rows_per_block,
+                                                   chunk_rows, store_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N1>
+int launch_ls_full(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                   long long b, const ln::Plan& p, cudaStream_t s) {
+  auto kernel = &ls_full_kernel<N1>;
+  cudaError_t e = gdsp::allow_smem(kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ln::ClusterLaunch l(p.cluster, p.ctas, static_cast<size_t>(p.smem), s);
+  e = cudaLaunchKernelEx(&l.cfg, kernel, xr, xi, yr, yi, g, b, p.tiles_unit, p.chunk_rows,
+                         p.store_rows);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,22 +568,59 @@ int gdsp_gmm_tf32(const float* xr, const float* xi, float* yr, float* yi, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// g: (n / 128, 3, 128, 128) unscaled float32 tables; rows_per_block a
-// positive multiple of 16; chunk_rows 2, 4, 8 or 16; store_rows 0 or 1.
-int gdsp_ls_full(const float* xr, const float* xi, float* yr, float* yi, const float* g,
-                 long long b, int n, int rows_per_block, int chunk_rows, int store_rows,
-                 void* stream) {
+// ls_full's first design, the yardstick: g (n / 128, 3, 128, 128) unscaled
+// float32 tables; rows_per_block a positive multiple of 16; chunk_rows 2,
+// 4, 8 or 16; store_rows 0 or 1.
+int gdsp_ls_full_stream(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                        long long b, int n, int rows_per_block, int chunk_rows, int store_rows,
+                        void* stream) {
   if (bad_shape(b, n) || rows_per_block < kTile || rows_per_block % kTile != 0 ||
       (chunk_rows != 2 && chunk_rows != 4 && chunk_rows != 8 && chunk_rows != 16) ||
       (store_rows != 0 && store_rows != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto launch = n == 128 ? launch_ls_full_stream<1>
+                    : n == 256 ? launch_ls_full_stream<2>
+                    : n == 512 ? launch_ls_full_stream<4>
+                               : launch_ls_full_stream<8>;
+  return launch(xr, xi, yr, yi, g, b, rows_per_block, chunk_rows, store_rows, s);
+}
+
+// ls_full on clusters of n / 128 CTAs: g (n / 128, 3, 128, 128) unscaled
+// float32 tables; rows_per_block a positive multiple of 16; chunk_rows 2,
+// 4, 8 or 16; store_rows 0 or 1; resident the clusters of the kernel the
+// card holds at once (gdsp_ls_full_resident).  Returns
+// cudaErrorLaunchOutOfResources where resident < 1.
+int gdsp_ls_full(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                 long long b, int n, int rows_per_block, int chunk_rows, int store_rows,
+                 int resident, void* stream) {
+  ln::Plan p;
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = ln::make_plan(ln::kLsFull, b, n, rows_per_block, chunk_rows, store_rows,
+                               resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto launch = n == 128 ? launch_ls_full<1>
                     : n == 256 ? launch_ls_full<2>
                     : n == 512 ? launch_ls_full<4>
                                : launch_ls_full<8>;
-  return launch(xr, xi, yr, yi, g, b, rows_per_block, chunk_rows, store_rows, s);
+  return launch(xr, xi, yr, yi, g, b, p, s);
+}
+
+// Clusters of ls_full_kernel at n points (n / 128 CTAs a cluster) the
+// card holds at once with the plan's shared memory plus extra_smem bytes a
+// CTA: 0 where none fits, or -(CUDA error).
+int gdsp_ls_full_resident(int n, int extra_smem) {
+  if (bad_shape(0, n)) return -static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ln::kSmem + extra_smem;
+  switch (n) {
+    case 128: return ln::resident_clusters(ls_full_kernel<1>, 1, smem);
+    case 256: return ln::resident_clusters(ls_full_kernel<2>, 2, smem);
+    case 512: return ln::resident_clusters(ls_full_kernel<4>, 4, smem);
+    default: return ln::resident_clusters(ls_full_kernel<8>, 8, smem);
+  }
 }
 
 // y[r, 127 - c] = 2 x[r, c] over `rows` rows of 128 float32, both pointers

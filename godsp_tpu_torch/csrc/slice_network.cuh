@@ -1,8 +1,8 @@
 // The slice network: the n1-point DFT across a row's n1 slices of 128
 // points (godsp_tpu/ops/pallas_fft.py: _dft_slices, radix-2 DIT with the
 // slices taken in bit-reversed order, natural k1 out), kept in registers.
-// Used by vdif_kernel (dif_probe_kernels.cu) and by ls_network_kernel and
-// ls_full_kernel (lane_slice_probe_kernels.cu).
+// Used by vdif_kernel (dif_probe_kernels.cu) and by ls_network_kernel,
+// ls_full_kernel and ls_full_stream_kernel (lane_slice_probe_kernels.cu).
 //
 // z[j][q] holds value q of slice j; a caller loads slice j1 into
 // z[rev_bits(j1, log2 n1)] and, after slice_dft, finds output k1 in z[k1].

@@ -122,8 +122,15 @@ def _declare(lib) -> None:
     lib.gdsp_slicestore.restype = i
     lib.gdsp_concatstore.argtypes = [p, p, p, p, i64, i, p]
     lib.gdsp_concatstore.restype = i
-    lib.gdsp_gmm_concat.argtypes = [p, p, p, p, p, i64, i, p]
+    lib.gdsp_gmm_concat.argtypes = [p, p, p, p, p, i64, i, i, p]
     lib.gdsp_gmm_concat.restype = i
+    lib.gdsp_gmm_concat_stream.argtypes = [p, p, p, p, p, i64, i, p]
+    lib.gdsp_gmm_concat_stream.restype = i
+    for name in ("gdsp_gmm_concat_resident", "gdsp_ls_full_resident"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = i
+    lib.gdsp_lane_cluster_geometry.argtypes = [i, i64, i, i, i, i, i, p]
+    lib.gdsp_lane_cluster_geometry.restype = i
     for name in ("gdsp_half3", "gdsp_slice8_add", "gdsp_reshape_add"):
         getattr(lib, name).argtypes = [p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
@@ -142,8 +149,10 @@ def _declare(lib) -> None:
     lib.gdsp_ls_network.restype = i
     lib.gdsp_gmm_tf32.argtypes = [p, p, p, p, p, i64, i, i, p]
     lib.gdsp_gmm_tf32.restype = i
-    lib.gdsp_ls_full.argtypes = [p, p, p, p, p, i64, i, i, i, i, p]
+    lib.gdsp_ls_full.argtypes = [p, p, p, p, p, i64, i, i, i, i, i, p]
     lib.gdsp_ls_full.restype = i
+    lib.gdsp_ls_full_stream.argtypes = [p, p, p, p, p, i64, i, i, i, i, p]
+    lib.gdsp_ls_full_stream.restype = i
     lib.gdsp_lane_flip.argtypes = [p, p, i64, p]
     lib.gdsp_lane_flip.restype = i
     lib.gdsp_i8_dot.argtypes = [p, p, p, i64, i, i, p]

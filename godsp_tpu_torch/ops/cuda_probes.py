@@ -45,7 +45,10 @@ at column 128 k1 + k2):
       cuda_metrics.copy_split_plain;
   gmm_concat(xr, xi)   replaces _call (_gmm_concat_kernel)
       K13's contraction with the outputs of every slice of a row tile
-      stored as whole rows; plain version cuda_metrics.gmm_floor_plain.
+      stored as whole rows, on a thread-block cluster a 1024-column chunk
+      (a CTA a slice, its G[k1] resident, the tile's slices gathered over
+      distributed shared memory: csrc/lane_contract.cuh); plain version
+      cuda_metrics.gmm_floor_plain.
 
 K14d: the anatomy twins of tools/probe_anatomy2.py's run_kernel_variant
 (one pl.pallas_call at :87 over seven bodies), in
@@ -129,9 +132,11 @@ two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
   ls_full(xr, xi, store, chunks, rows_per_block)  replaces k_full,
       k_full_concat, make_subtiled(2/4/8) and k_full at bt 512 / 1024: the
       n-point DFT of every row, the network then K13's contraction with
-      unscaled G (ls_tables) in one kernel, position 128 k1 + k2 holding bin
-      k1 + n1 k2 (ls_digit_order); every setting gives the same result;
-      plain version ls_full_plain;
+      unscaled G (ls_tables) in one kernel on a cluster of n1 CTAs (the
+      network an all-to-all over distributed shared memory, then each
+      CTA's slice against its resident G[k1]), position 128 k1 + k2
+      holding bin k1 + n1 k2 (ls_digit_order); every setting gives the same
+      result; plain version ls_full_plain;
   fft_pow2_rows(xr, xi, rows_per_block)  K1 (csrc/fft_kernels.cu) at a
       given rows a CTA, the TPU probes' batch-tile sweep; equal to
       cuda_fft.fft_pow2; raises where the CTA passes the kernel's launch
@@ -173,6 +178,21 @@ they replace no TPU kernel of their own):
       and an R-point DFT, bit-reversed stores, block_fft_rows); plain
       version cuda_outer.peel_rows_fused_split_plain.
       Nothing under fft/, models/, spectral/ or parallel/ calls them.
+
+The first designs of K14c gmm_concat and K14f ls_full stay beside their
+cluster redesigns (csrc/lane_probe_kernels.cu, lane_slice_probe_kernels.cu)
+as their yardsticks: a CTA covers every slice of a 16-row tile and G[k1]
+streams through shared memory 32 rows of i2 at a time, again for every
+tile:
+
+  gmm_concat_stream(xr, xi)  equal to gmm_concat and K13;
+  ls_full_stream(xr, xi, store, chunks, rows_per_block)  equal to ls_full
+      at every setting.
+
+lane_cluster_plan is the cluster redesigns' launch plan (the kernels'
+gdsp_lane_cluster_geometry holds the same), lane_cluster_walk the tiles
+each cluster takes, lane_gather_map the whole-row stores over distributed
+shared memory and lane_network_scatter ls_full's network all-to-all.
 
 gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
 measures the TPU's one-pass DEFAULT matmul of the dense step and changes
@@ -219,6 +239,7 @@ from __future__ import annotations
 import math
 from contextlib import nullcontext
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -277,6 +298,12 @@ __all__ = [
     "fft_pow2_rows",
     "fft_rows_fit",
     "gmm_concat",
+    "gmm_concat_stream",
+    "LanePlan",
+    "lane_cluster_plan",
+    "lane_cluster_walk",
+    "lane_gather_map",
+    "lane_network_scatter",
     "gmm_tf32",
     "gmm_tf32_plain",
     "half3",
@@ -299,6 +326,7 @@ __all__ = [
     "ls_digit_order",
     "ls_full",
     "ls_full_plain",
+    "ls_full_stream",
     "ls_network",
     "ls_network_plain",
     "ls_tables",
@@ -342,7 +370,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "gmm_tf32": 0, "ls_full": 0, "lane_flip": 0, "fft_pow2_rows": 0, "i8_dot": 0,
             "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0,
             "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0,
-            "istft_radix2": 0, "peel_rows_radix2": 0}
+            "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
+            "ls_full_stream": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -627,11 +656,170 @@ def concatstore(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch
 
 def gmm_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K14c gmm_concat: K13's contraction, every slice of a row tile stored
-    as whole rows; equal to K13's result."""
-    _check_lane_planes(xr, xi, "gmm_concat")
+    as whole rows, on thread-block clusters (lane_cluster_plan); equal to
+    K13's result."""
+    b, n = _check_lane_planes(xr, xi, "gmm_concat")
     if not xr.is_cuda:
         return gmm_floor_plain(xr, xi)
-    return _lane_launch("gmm_concat", _build.library().gdsp_gmm_concat, xr, xi,
+    xr, xi = _cuda_planes(xr, xi, "gmm_concat")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("gmm_concat", _build.library().gdsp_gmm_concat, yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), gmm_tables(n, xr.device).data_ptr(), b, n,
+            _cluster_resident("gmm_concat", n, xr.device))
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# The cluster plan of gmm_concat and ls_full (csrc/lane_contract.cuh)
+# ---------------------------------------------------------------------------
+
+LANE_PITCH = 132  # words a staged tile row: rows 4 banks apart
+LANE_MAX_CLUSTER = 8  # portable cluster size
+LANE_CHUNK = LANE_MAX_CLUSTER * LANES  # columns a gmm_concat cluster covers
+LANE_TILE_WORDS = 16 * LANE_PITCH  # one plane of a tile buffer
+# G[k1]'s three planes and two two-plane tile buffers a CTA.
+LANE_SMEM = (3 * LANES * LANES + 4 * LANE_TILE_WORDS) * 4
+LANE_KINDS = ("gmm_concat", "ls_full")  # the kernels' kind 0 and 1
+
+
+class LanePlan(NamedTuple):
+    """The launch plan of gmm_concat's or ls_full's cluster kernel
+    (gdsp_lane_cluster_geometry returns the same fields in this order)."""
+
+    cluster: int  # CTAs a cluster: a CTA a 128-column slice
+    clusters: int  # clusters of the grid
+    ctas: int  # CTAs of the grid
+    rows_tile: int  # rows of a tile
+    tiles_unit: int  # tiles a cluster takes as one unit of work
+    buffers: int  # two-plane tile buffers a CTA
+    smem: int  # bytes of dynamic shared memory a CTA
+    store_rows: int  # 1: whole rows over distributed shared memory; 0: 512-byte runs
+    chunk_rows: int  # rows the network and contraction take at a time
+    chunks: int  # 1024-column chunks of a row, each its own clusters
+
+
+def lane_cluster_plan(kind: str, b: int, n: int, rows_per_block: int = 16,
+                      chunk_rows: int = 16, store_rows: int = 0,
+                      resident: int = 16) -> LanePlan:
+    """The cluster kernels' plan (csrc/lane_contract.cuh: make_plan) at b x n.
+
+    gmm_concat: n a multiple of 128; a cluster of min(n / 128, 8) CTAs
+    covers a 1024-column chunk, the resident clusters split evenly among
+    the chunks (at least one a chunk, at most one a tile), each walking its
+    chunk's 16-row tiles; two tile buffers; whole-row stores.  ls_full:
+    n = n1 x 128 with n1 in 1, 2, 4, 8, a cluster of n1 CTAs; a unit of
+    rows_per_block / 16 tiles (the TPU's bt 256/512/1024 as 16/32/64 rows);
+    at most `resident` clusters, each walking units cluster, cluster +
+    clusters, ...; the tile buffer and the network's staging buffer;
+    chunk_rows rows of a tile at a time; store_rows 0 (512-byte runs of
+    each slice) or 1 (whole rows).  Raises ValueError for what the kernels
+    do not take and RuntimeError where no cluster fits (resident < 1)."""
+    if b < 0 or n < LANES or n % LANES:
+        raise ValueError(f"lane_cluster_plan: bad shape {b} x {n}")
+    n1, tiles = n // LANES, -(-b // LS_TILE)
+    if kind == "gmm_concat":
+        cluster, chunks = min(n1, LANE_MAX_CLUSTER), -(-n // LANE_CHUNK)
+        tiles_unit, store, rows = 1, 1, LS_TILE
+    elif kind == "ls_full":
+        if (n1 not in LS_N1 or rows_per_block < LS_TILE or rows_per_block % LS_TILE
+                or chunk_rows not in (2, 4, 8, 16) or store_rows not in (0, 1)):
+            raise ValueError(f"lane_cluster_plan: ls_full does not take n {n}, rows_per_block "
+                             f"{rows_per_block}, chunk_rows {chunk_rows}, store_rows {store_rows}")
+        cluster, chunks = n1, 1
+        tiles_unit, store, rows = rows_per_block // LS_TILE, store_rows, chunk_rows
+    else:
+        raise ValueError(f"lane_cluster_plan: kind must be one of {LANE_KINDS}, got {kind!r}")
+    if resident < 1:
+        raise RuntimeError(f"{kind}: no cluster of {cluster} CTAs with {LANE_SMEM} bytes of "
+                           f"shared memory fits on the card")
+    units = -(-tiles // tiles_unit)
+    per = min(max(resident // chunks, 1), units)
+    clusters = per * chunks
+    return LanePlan(cluster, clusters, clusters * cluster, LS_TILE, tiles_unit, 2, LANE_SMEM,
+                    store, rows, chunks)
+
+
+def lane_cluster_walk(kind: str, plan: LanePlan, b: int) -> list[tuple[int, list[int]]]:
+    """(column chunk, tiles in order) of each cluster of the grid, as the
+    kernels walk them: gmm_concat's cluster cl serves chunk cl % chunks and
+    tiles cl // chunks, + clusters a chunk, ...; ls_full's takes units cl,
+    cl + clusters, ... of tiles_unit tiles each."""
+    tiles = -(-b // LS_TILE)
+    out = []
+    for cl in range(plan.clusters):
+        if kind == "gmm_concat":
+            per = plan.clusters // plan.chunks
+            out.append((cl % plan.chunks, list(range(cl // plan.chunks, tiles, per))))
+        else:
+            units = -(-tiles // plan.tiles_unit)
+            out.append((0, [t for u in range(cl, units, plan.clusters)
+                            for t in range(u * plan.tiles_unit,
+                                           min((u + 1) * plan.tiles_unit, tiles))]))
+    return out
+
+
+def lane_gather_map(cols: int, cluster: int) -> list[list[tuple[int, int, int, int]]]:
+    """The whole-row store of a tile over cols columns (lane_contract.cuh:
+    gather_rows): for each CTA rank of a cluster of `cluster`, the (tile
+    row, column, source CTA, source word in its buffer's plane) of every
+    16-byte store it makes, in the order its threads take them.  Rank r
+    stores rows r, r + cluster, ... < 16; column c comes from CTA c // 128,
+    word row x 132 + c % 128."""
+    quads = cols // 4
+    out = []
+    for rank in range(cluster):
+        mine = -(-(LS_TILE - rank) // cluster)
+        out.append([(rank + cluster * (e // quads), 4 * (e % quads), 4 * (e % quads) // LANES,
+                     (rank + cluster * (e // quads)) * LANE_PITCH + 4 * (e % quads) % LANES)
+                    for e in range(mine * quads)])
+    return out
+
+
+def lane_network_scatter(n1: int) -> dict[str, list]:
+    """ls_full's network all-to-all on a cluster of n1 CTAs (P = 128 / n1
+    points of a slice a CTA), as the kernel's load_points and network run:
+
+      loads[c]:  (tile row, staged word, input column) of CTA c's 16-byte
+                 copies: row r's slice j1 points c P .. c P + P - 1 at
+                 words r x 132 + j1 P ..;
+      reads[c]:  for each (row, point) thread pair, the staged words of its
+                 n1 inputs, slice j1 in order;
+      writes[c]: for each pair, (target CTA k1, word of its tile buffer)
+                 of output slice k1: row r, position c P + p."""
+    if n1 not in LS_N1:
+        raise ValueError(f"lane_network_scatter: n1 must be one of {LS_N1}, got {n1}")
+    P = LANES // n1
+    loads, reads, writes = [], [], []
+    for c in range(n1):
+        loads.append([(w // 32, (w // 32) * LANE_PITCH + 4 * (w % 32),
+                       (4 * (w % 32) // P) * LANES + c * P + 4 * (w % 32) % P)
+                      for w in range(LS_TILE * 32)])
+        pairs = [(e // P, e % P) for e in range(LS_TILE * P)]
+        reads.append([[r * LANE_PITCH + j1 * P + p for j1 in range(n1)] for r, p in pairs])
+        writes.append([[(k1, r * LANE_PITCH + c * P + p) for k1 in range(n1)] for r, p in pairs])
+    return {"loads": loads, "reads": reads, "writes": writes}
+
+
+@lru_cache(maxsize=None)
+def _cluster_resident(kind: str, n: int, device: torch.device) -> int:
+    """Clusters of kind's kernel at n points the card holds at once
+    (cudaOccupancyMaxActiveClusters with the plan's shared memory), asked
+    once a (kind, n, device); 0 or a negative CUDA error where none fits:
+    the launch then refuses."""
+    lib = _build.library()
+    fn = lib.gdsp_gmm_concat_resident if kind == "gmm_concat" else lib.gdsp_ls_full_resident
+    with torch.cuda.device(device):
+        return int(fn(n, 0))
+
+
+def gmm_concat_stream(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """gmm_concat's first design (csrc/lane_probe_kernels.cu: a CTA every
+    slice of a 16-row tile, G streamed through shared memory each tile): a
+    yardstick off the main path, equal to gmm_concat and K13."""
+    _check_lane_planes(xr, xi, "gmm_concat_stream")
+    if not xr.is_cuda:
+        return gmm_floor_plain(xr, xi)
+    return _lane_launch("gmm_concat_stream", _build.library().gdsp_gmm_concat_stream, xr, xi,
                         gmm_tables(xr.shape[1], xr.device))
 
 
@@ -1089,31 +1277,57 @@ def gmm_tf32(xr: torch.Tensor, xi: torch.Tensor,
     return yr, yi
 
 
+def _check_ls_full(xr: torch.Tensor, xi: torch.Tensor, store: str, chunks: int,
+                   rows_per_block: int, name: str) -> tuple[int, int]:
+    b, n = _check_ls(xr, xi, name)
+    if store not in LS_STORES:
+        raise ValueError(f"{name}: store must be one of {LS_STORES}, got {store!r}")
+    if chunks not in LS_CHUNKS:
+        raise ValueError(f"{name}: chunks must be one of {LS_CHUNKS}, got {chunks}")
+    if rows_per_block < LS_TILE or rows_per_block % LS_TILE:
+        raise ValueError(f"{name}: rows_per_block must be a positive multiple of {LS_TILE}, "
+                         f"got {rows_per_block}")
+    return b, n
+
+
 def ls_full(xr: torch.Tensor, xi: torch.Tensor, store: str = "slices", chunks: int = 1,
             rows_per_block: int = LS_TILE) -> tuple[torch.Tensor, torch.Tensor]:
     """K14f full: the n-point DFT (n = n1 x 128, n1 in 1, 2, 4, 8) of every
     row of two float32 planes, the TPU's lane-slice K1 (slice network, then
-    K13's contraction with unscaled G), in the lane-slice digit order.
-    store "slices" stores each slice as its contraction ends (k_full),
-    "rows" whole rows after a tile (k_full_concat); chunks 1, 2, 4, 8 runs
-    network and contraction on 16 / chunks rows of a tile at a time
-    (make_subtiled); rows_per_block 16, 32, 64 rows a block are the TPU's
-    bt 256, 512, 1024 (x1, x2, x4).  Every setting gives the same result."""
-    b, n = _check_ls(xr, xi, "ls_full")
-    if store not in LS_STORES:
-        raise ValueError(f"ls_full: store must be one of {LS_STORES}, got {store!r}")
-    if chunks not in LS_CHUNKS:
-        raise ValueError(f"ls_full: chunks must be one of {LS_CHUNKS}, got {chunks}")
-    if rows_per_block < LS_TILE or rows_per_block % LS_TILE:
-        raise ValueError(f"ls_full: rows_per_block must be a positive multiple of {LS_TILE}, "
-                         f"got {rows_per_block}")
+    K13's contraction with unscaled G), in the lane-slice digit order, on
+    clusters of n1 CTAs (lane_cluster_plan).  store "slices" stores each
+    slice's 512-byte run of a row as its contraction ends (k_full), "rows"
+    whole rows of a tile gathered over the cluster (k_full_concat); chunks
+    1, 2, 4, 8 runs network and contraction on 16 / chunks rows of a tile
+    at a time, a cluster barrier between (make_subtiled); rows_per_block
+    16, 32, 64 rows a cluster takes as one unit of work are the TPU's bt
+    256, 512, 1024 (x1, x2, x4).  Every setting gives the same result."""
+    b, n = _check_ls_full(xr, xi, store, chunks, rows_per_block, "ls_full")
     if not xr.is_cuda:
         return ls_full_plain(xr, xi)
     xr, xi = _cuda_planes(xr, xi, "ls_full")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch("ls_full", _build.library().gdsp_ls_full, yr, xr.data_ptr(), xi.data_ptr(),
             yr.data_ptr(), yi.data_ptr(), ls_tables(n, xr.device).data_ptr(), b, n,
-            rows_per_block, LS_TILE // chunks, int(store == "rows"))
+            rows_per_block, LS_TILE // chunks, int(store == "rows"),
+            _cluster_resident("ls_full", n, xr.device))
+    return yr, yi
+
+
+def ls_full_stream(xr: torch.Tensor, xi: torch.Tensor, store: str = "slices", chunks: int = 1,
+                   rows_per_block: int = LS_TILE) -> tuple[torch.Tensor, torch.Tensor]:
+    """ls_full's first design (csrc/lane_slice_probe_kernels.cu: a CTA
+    rows_per_block rows walked in 16-row tiles, the network in shared
+    memory, G streamed through shared memory each tile and chunk): a
+    yardstick off the main path, equal to ls_full at every setting."""
+    b, n = _check_ls_full(xr, xi, store, chunks, rows_per_block, "ls_full_stream")
+    if not xr.is_cuda:
+        return ls_full_plain(xr, xi)
+    xr, xi = _cuda_planes(xr, xi, "ls_full_stream")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("ls_full_stream", _build.library().gdsp_ls_full_stream, yr, xr.data_ptr(),
+            xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), ls_tables(n, xr.device).data_ptr(), b,
+            n, rows_per_block, LS_TILE // chunks, int(store == "rows"))
     return yr, yi
 
 

@@ -23,6 +23,10 @@
   r4      — the lane flip by warp shuffles (K14e) and K3 beside K12, then
             K1 at 2048 x 8192 and 1024 x 16384:
             python3 -m godsp_tpu_torch.probes.r4
+  contract — K13's contraction chain from shared memory alone at several
+            register tiles (gmm_concat's and ls_full's among them), no
+            device-memory traffic in the loop:
+            python3 -m godsp_tpu_torch.probes.contract
   int8    — K13's function by the exact int8-limb contraction on the int8
             tensor cores (K14g: i8mm, i8dec, i8full, i8_concat, after
             i8_dot's exactness and i8full's dB against float64) beside K12

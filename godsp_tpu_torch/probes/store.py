@@ -1,5 +1,6 @@
 """Store-pattern twins of K12 and K13 (K14c) on the card: do whole-row
-stores close the gap between a contraction and the copy ceiling?
+stores close the gap between a contraction and the copy ceiling, and what
+does a cluster design of the same contraction cost?
 
     python3 -m godsp_tpu_torch.probes.store
 
@@ -19,8 +20,14 @@ events; their difference over the extra launches):
                whole rows;
   gmm          K13 gmm_floor: one block a (slice, row group), per-slice
                stores;
-  gmm_concat   K13's contraction over every slice of a row tile, stored
-               as whole rows;
+  gmm_concat   K13's arithmetic over every slice of a row tile, stored
+               as whole rows, on a thread-block cluster: a CTA a slice
+               with its G[k1] resident, 4 x 4 register tiles, the tile's
+               slices gathered over distributed shared memory
+               (csrc/lane_contract.cuh).  It differs from the gmm row in
+               how G arrives and in its register tiles as well as in its
+               stores, so the two rows compare two designs of the same
+               arithmetic (equal bit for bit), not the stores alone;
   i8_concat    K13's function by the int8-limb contraction
                (godsp_tpu/ops/_int8_contract.py's scheme, K14g's kernel),
                a 16-row tile's every slice stored as whole rows;

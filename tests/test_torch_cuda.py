@@ -1946,3 +1946,131 @@ def test_k14g_wrappers_raise_on_card(cuda):
         cuda_probes.i8_dot(torch.zeros(4, 8, **i8), torch.zeros(7, 4, **i8))
     with pytest.raises(ValueError):
         cuda_probes.i8_dot(torch.zeros(4, 8, **i8), torch.zeros(8, 4, dtype=torch.int8))
+
+
+# ------------------------------------------------- K14c/K14f on thread-block clusters
+
+_LANE_SETTINGS = (("gmm_concat", 16, 16, 0), ("ls_full", 16, 16, 0), ("ls_full", 16, 16, 1),
+                  ("ls_full", 64, 2, 1), ("ls_full", 32, 4, 0))
+
+
+def test_lane_cluster_geometry_matches_the_host_plan(cuda):
+    """gdsp_lane_cluster_geometry (the cluster kernels' own plan, from the
+    resident clusters the card reports) equals ops/cuda_probes.py's
+    lane_cluster_plan at every n the kernels take and every ls_full setting
+    kind."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    for kind, rows_per_block, chunk_rows, store_rows in _LANE_SETTINGS:
+        ns = (128, 256, 384, 1024, 1152, 2048) if kind == "gmm_concat" else (128, 256, 512, 1024)
+        for n in ns:
+            resident = cuda_probes._cluster_resident(kind, n, cuda)
+            print(f"{kind} n {n}: {resident} clusters resident")
+            assert resident >= 1
+            for b in (1, 15, 17, 1001, 16384):
+                rc = lib.gdsp_lane_cluster_geometry(cuda_probes.LANE_KINDS.index(kind), b, n,
+                                                    rows_per_block, chunk_rows, store_rows,
+                                                    resident, out)
+                plan = cuda_probes.lane_cluster_plan(kind, b, n, rows_per_block, chunk_rows,
+                                                     store_rows, resident)
+                assert rc == 0 and tuple(out) == tuple(plan), (kind, b, n)
+
+
+@pytest.mark.parametrize("n1", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [1, 15, 17, 1001])
+def test_lane_clusters_on_ragged_tiles(cuda, b, n1):
+    """Ragged row tiles: gmm_concat equal to K13, every ls_full setting
+    equal to the default, and the default equal to 128 x gmm_concat of
+    ls_network's output, >= 120 dB against float64."""
+    from godsp_tpu_torch.probes import r3
+
+    n = 128 * n1
+    xr, xi = _lane_planes(cuda, b, n, 7 * b + n1)
+    gc = cuda_probes.gmm_concat(xr, xi)
+    k13 = cuda_metrics.gmm_floor(xr, xi)
+    assert torch.equal(gc[0], k13[0]) and torch.equal(gc[1], k13[1])
+    full = cuda_probes.ls_full(xr, xi)
+    assert dsputils.snr_db(_c(full), _c(cuda_probes.ls_full_plain(xr.double(), xi.double()))) \
+        >= SNR_CARD_DB
+    for name, kw in r3.FULL_SETTINGS.items():
+        got = cuda_probes.ls_full(xr, xi, **kw)
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1]), name
+    net = cuda_probes.gmm_concat(*cuda_probes.ls_network(xr, xi))
+    assert torch.equal(full[0], net[0] * 128) and torch.equal(full[1], net[1] * 128)
+
+
+@pytest.mark.parametrize("b,n", [(1001, 2048), (33, 1152), (17, 384)])
+def test_gmm_concat_clusters_over_column_chunks(cuda, b, n):
+    """Rows of more than one 1024-column chunk (two clusters' chunks at
+    2048, a ragged one-slice chunk at 1152) and a cluster of three at 384:
+    equal to K13."""
+    xr, xi = _lane_planes(cuda, b, n, n)
+    gc = cuda_probes.gmm_concat(xr, xi)
+    k13 = cuda_metrics.gmm_floor(xr, xi)
+    assert torch.equal(gc[0], k13[0]) and torch.equal(gc[1], k13[1])
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 512)])
+def test_lane_yardsticks_on_card(cuda, b, n):
+    """The first designs, gmm_concat_stream and ls_full_stream (G streamed
+    a tile), >= 120 dB against float64 and equal to the cluster kernels at
+    every ls_full setting; one launch a call."""
+    from godsp_tpu_torch.probes import r3
+
+    xr, xi = _lane_planes(cuda, b, n, b)
+    x64 = (xr.double(), xi.double())
+    reset_launch_counts()
+    gs = cuda_probes.gmm_concat_stream(xr, xi)
+    assert dsputils.snr_db(_c(gs), _c(cuda_metrics.gmm_floor_plain(*x64))) >= SNR_CARD_DB
+    gc = cuda_probes.gmm_concat(xr, xi)
+    assert torch.equal(gs[0], gc[0]) and torch.equal(gs[1], gc[1])
+    for name, kw in r3.FULL_SETTINGS.items():
+        st = cuda_probes.ls_full_stream(xr, xi, **kw)
+        assert dsputils.snr_db(_c(st), _c(cuda_probes.ls_full_plain(*x64))) >= SNR_CARD_DB
+        got = cuda_probes.ls_full(xr, xi, **kw)
+        assert torch.equal(st[0], got[0]) and torch.equal(st[1], got[1]), name
+    counts = launch_counts()
+    assert counts["gmm_concat_stream"] == 1 and counts["gmm_concat"] == 1
+    assert counts["ls_full_stream"] == counts["ls_full"] == len(r3.FULL_SETTINGS)
+
+
+def test_lane_cluster_occupancy_of_zero_raises(cuda, monkeypatch):
+    """A plan no cluster of which fits (more shared memory than a CTA may
+    hold) gives 0 resident clusters; a launch told 0 refuses in the C entry
+    and the wrapper raises without counting a launch."""
+    lib = _build.library()
+    assert lib.gdsp_gmm_concat_resident(1024, 4096) <= 0
+    assert lib.gdsp_ls_full_resident(1024, 4096) <= 0
+    xr, xi = _lane_planes(cuda, 32, 1024, 1)
+    monkeypatch.setattr(cuda_probes, "_cluster_resident", lambda kind, n, device: 0)
+    before = launch_counts()
+    for fn in (cuda_probes.gmm_concat, cuda_probes.ls_full):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fn(xr, xi)
+    after = launch_counts()
+    assert after["gmm_concat"] == before["gmm_concat"] and after["ls_full"] == before["ls_full"]
+    torch.cuda.synchronize()
+
+
+def test_lane_cluster_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v on the two sources: the cluster kernels (gmm_concat_kernel,
+    ls_full_kernel<1, 2, 4, 8>) spill nothing (their registers and stack
+    frames are printed: ls_full_kernel<8> keeps its network's eight complex
+    values in a 64-byte frame)."""
+    import subprocess
+
+    seen = 0
+    for src in ("lane_probe_kernels.cu", "lane_slice_probe_kernels.cu"):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and (
+                    "17gmm_concat_kernel" in line or "14ls_full_kernel" in line):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
+    assert seen == 5
