@@ -77,7 +77,17 @@ final line):
      torch.matmul / torch.fft.fft, K13 and the bound, by chain and alone,
      with the clusters and shared bytes of the plan, after the plan
      is held to the host's (gdsp_lane_cluster_geometry,
-     cuda_probes.lane_cluster_plan);
+     cuda_probes.lane_cluster_plan); then (phase_i8_tf32_redesign)
+     i8_concat and gmm_tf32 at 16384 x 1024, i8_concat on its cluster of
+     slices with the int8 tables resident (torch.equal to i8full and to
+     its first design i8_concat_stream) and gmm_tf32 on wgmma fed by TMA
+     (its tensor cores chaining 4 k-steps; its dB against the
+     TF32-rounded float64 plain version within 3 dB of its first design's
+     in the same run), each by chain and alone beside its first design (a
+     counted session of its own), its library call, i8full (for
+     i8_concat) and the bound, with the plan's clusters (pairs of CTAs
+     for gmm_tf32) and shared bytes, after both plans are held to the host's
+     (gdsp_lane_cluster_geometry kind 2, gdsp_gmm_tf32_geometry);
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -299,10 +309,11 @@ final line):
      the float64 product printed, the scheme's ~120, not gated; i8mm and
      i8dec exact on identity and cyclic-shift digit tables); each timed at
      16384 x 1024 (i8_dot at (256, 128) @ (128, 128)) beside its plain
-     version, bound and library call;
+     version, bound and library call, i8_dot and torch._int_mm also alone
+     (the profiler's events of each call's device work);
  22. probes.int8.run at its full shape as one counted session: the five
      K14g wrappers, copy_split and gmm_floor; nothing else;
- 23. prints {"kernels": [...]} (44 wrappers) and, last, {"ok": true,
+ 23. prints {"kernels": [...]} (52 wrappers) and, last, {"ok": true,
      "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
@@ -526,6 +537,8 @@ REPLACES = {
     "i8_concat": "tools/probe_store.py:53",
     "gmm_concat_stream": "tools/probe_store.py:53",
     "ls_full_stream": "tools/probe_r3.py:157",
+    "i8_concat_stream": "tools/probe_store.py:53",
+    "gmm_tf32_sync": "tools/probe_r3.py:157",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -567,6 +580,8 @@ SOURCES = {
     **{name: "godsp_tpu_torch/csrc/int8_probe_kernels.cu" for name in INT8_TWINS},
     "gmm_concat_stream": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
     "ls_full_stream": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
+    "i8_concat_stream": "godsp_tpu_torch/csrc/int8_probe_kernels.cu",
+    "gmm_tf32_sync": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
 }
 
 
@@ -873,6 +888,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_welch_redesign(rec, dev))
     steps.update(phase_istft_peel_redesign(rec, dev))
     steps.update(phase_lane_cluster_redesign(rec, dev))
+    steps.update(phase_i8_tf32_redesign(rec, dev))
     return steps
 
 
@@ -1358,6 +1374,135 @@ def phase_lane_cluster_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, i
             rec.check(yard, lambda: cplx(first()), want, f"{b} x {n}")
             rec.time(yard, f"{b} x {n}", first, plain, library, 16.0 * pts, flops)
         del xr, xi, x64, want, library
+    return steps
+
+
+# K14c i8_concat and K14f gmm_tf32 redesigned (the int8 tables resident on
+# a cluster of slices; wgmma fed by TMA) beside their first designs, at the
+# probes' 16384 x 1024.  gmm_tf32's dB against the TF32-rounded float64
+# plain version stays within GMM_TF32_DB_SLACK of its first design's, both
+# measured in the same run.
+I8_TF32_REDESIGN = (16384, 1024)
+GMM_TF32_DB_SLACK = 3.0
+
+
+def phase_i8_tf32_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """i8_concat and gmm_tf32 at I8_TF32_REDESIGN: first the plans the C
+    side exports (gdsp_lane_cluster_geometry kind 2, gdsp_gmm_tf32_geometry)
+    held to the host's (lane_cluster_plan "i8_concat", gmm_tf32_plan) at
+    ragged b; then i8_concat torch.equal to i8full and to i8_concat_stream;
+    gmm_tf32 (its tensor cores chaining GMM_TF32_CHAIN k-steps) and its
+    first design gmm_tf32_sync against the TF32-rounded float64 plain
+    version and the exact product, gmm_tf32 within GMM_TF32_DB_SLACK of the
+    first design; then a redesign line each (by chain beside the first
+    design as a counted session of its own, the library call: K13's
+    torch.matmul of the complex64 slices with TF32 off for i8_concat, the
+    three TF32 torch.matmul for gmm_tf32; i8full or K13 as the extra; the
+    bound) and each alone by the profiler's events.  The yardsticks are
+    checked and timed for the kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch.ops import _build, cuda_metrics
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import int8, r3
+    from godsp_tpu_torch.probes._common import INT8_OPS, TF32_FLOPS, complex_matmul, lane_planes
+    from godsp_tpu_torch.probes._common import planes_equal as equal
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    tf32_resident = cp._tf32_resident(dev)
+    for n in (128, 256, 512, 1024, 2048):
+        i8_resident = cp._cluster_resident("i8_concat", n, dev) if n <= 1024 else None
+        for b in (1, 65, 1001, 16384):
+            if i8_resident is not None:
+                plan = tuple(cp.lane_cluster_plan("i8_concat", b, n, resident=i8_resident))
+                rc = lib.gdsp_lane_cluster_geometry(2, b, n, 0, 0, 0, i8_resident, out)
+                if rc != 0 or tuple(out) != plan:
+                    raise AssertionError(f"i8_concat's plan at {b} x {n}: {tuple(out)} "
+                                         f"against the host's {plan}")
+            plan = tuple(cp.gmm_tf32_plan(b, n, tf32_resident))
+            rc = lib.gdsp_gmm_tf32_geometry(b, n, tf32_resident, out)
+            if rc != 0 or tuple(out) != plan:
+                raise AssertionError(f"gmm_tf32's plan at {b} x {n}: {tuple(out)} against "
+                                     f"the host's {plan}")
+    log("i8_concat's and gmm_tf32's plans equal the host's; resident clusters: " +
+        ", ".join(f"i8_concat n {n}: {cp._cluster_resident('i8_concat', n, dev)}"
+                  for n in (128, 512, 1024)) + f"; gmm_tf32: {tf32_resident} pairs of CTAs")
+    steps: dict[str, dict[str, int]] = {}
+    b, n = I8_TF32_REDESIGN
+    xr, xi = lane_planes(dev, b, n, seed=19)
+    x64 = (xr.double(), xi.double())
+    pts = float(b * n)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("i8_concat's library call: TF32 is on")
+    matmul = complex_matmul(xr, xi)
+
+    # i8_concat: the int8 tables resident on a cluster of slices.
+    plan = cp.lane_cluster_plan("i8_concat", b, n, resident=cp._cluster_resident("i8_concat", n,
+                                                                                    dev))
+    shape = f"{b} x {n}, {plan.clusters} clusters of {plan.cluster}, {plan.smem} B shared a CTA"
+    full = cp.i8full(xr, xi)
+    plain8 = cp.i8full_plain(xr, xi)
+    for label, got in (("i8full", full), ("i8_concat_stream", cp.i8_concat_stream(xr, xi)),
+                       ("its plain version", plain8)):
+        if not equal(cp.i8_concat(xr, xi), got):
+            raise AssertionError(f"i8_concat {shape}: not equal to {label}")
+    want = cplx(plain8)
+    del full, plain8
+    tc8 = FP32_FLOPS / INT8_OPS
+    flops8 = max(int8.OPS_PER_POINT["i8_concat"], int8.INT8_PER_POINT["i8_concat"] * tc8) * pts
+    first8 = lambda: cp.i8_concat_stream(xr, xi)
+    ms = redesign_line(rec, steps, "i8_concat", "i8_concat_stream", shape,
+                       lambda: cp.i8_concat(xr, xi), first8, matmul, None, cplx, want,
+                       16.0 * pts, flops8, extra=("i8full", lambda: cp.i8full(xr, xi)),
+                       yard_label="first design")
+    alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+        ("i8_concat", "i8_concat_kernel", lambda: cp.i8_concat(xr, xi)),
+        ("first design", "i8_probe_kernel<2, true>", first8),
+        ("i8full", "i8_probe_kernel<2, false>", lambda: cp.i8full(xr, xi)))]
+    log(f"  redesign alone (profiler events), i8_concat {shape}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+        f"  (by chain {ms:.4f} ms)")
+    rec.check("i8_concat_stream", lambda: cplx(first8()), want, f"{b} x {n}")
+    rec.time("i8_concat_stream", f"{b} x {n}", first8, lambda: cp.i8full_plain(xr, xi), matmul,
+             16.0 * pts, flops8)
+    del want
+
+    # gmm_tf32 and its first design against the same references.
+    want = cplx(cp.gmm_tf32_plain(*x64, tf32=True))
+    exact = cplx(cp.gmm_tf32_plain(*x64))
+    dbs = {}
+    for label, fn in (("gmm_tf32", cp.gmm_tf32), ("first design", cp.gmm_tf32_sync)):
+        got = cplx(fn(xr, xi))
+        dbs[label] = (snr_on_card(got, want), snr_on_card(got, exact))
+        del got
+    chosen, first_db = dbs["gmm_tf32"][0], dbs["first design"][0]
+    log(f"  gmm_tf32 {b} x {n}, chain {cp.GMM_TF32_CHAIN}: " + ", ".join(
+        f"{label} {db:.2f} dB against the TF32-rounded plain version, {db_exact:.2f} dB "
+        f"against the exact product" for label, (db, db_exact) in dbs.items()))
+    if not chosen >= first_db - GMM_TF32_DB_SLACK:
+        raise AssertionError(f"gmm_tf32 chain {cp.GMM_TF32_CHAIN}: {chosen:.2f} dB, more than "
+                             f"{GMM_TF32_DB_SLACK} dB under the first design's {first_db:.2f}")
+    tplan = cp.gmm_tf32_plan(b, n, tf32_resident)
+    shape = (f"{b} x {n}, {tplan.pairs} pairs of CTAs, {tplan.smem} B shared a CTA, chain "
+             f"{tplan.chain} ({chosen:.2f} dB)")
+    tf32_lib = r3.ops(xr, xi)["gmm_default"][1]
+    flops32 = 768.0 * pts * FP32_FLOPS / TF32_FLOPS
+    first32 = lambda: cp.gmm_tf32_sync(xr, xi)
+    ms = redesign_line(rec, steps, "gmm_tf32", "gmm_tf32_sync", shape,
+                       lambda: cp.gmm_tf32(xr, xi), first32, tf32_lib, None, cplx, want,
+                       16.0 * pts, flops32, extra=("K13", lambda: cuda_metrics.gmm_floor(xr, xi)),
+                       yard_label="first design")
+    alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+        ("gmm_tf32", "gmm_tf32_kernel", lambda: cp.gmm_tf32(xr, xi)),
+        ("first design", "gmm_tf32_sync_kernel", first32))]
+    log(f"  redesign alone (profiler events), gmm_tf32 {shape}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+        f"  (by chain {ms:.4f} ms)")
+    rec.check("gmm_tf32_sync", lambda: cplx(first32()), want, f"{b} x {n}")
+    rec.time("gmm_tf32_sync", f"{b} x {n}", first32,
+             lambda: cp.gmm_tf32_plain(xr, xi, tf32=True), tf32_lib, 16.0 * pts, flops32)
+    del xr, xi, x64, want, exact, matmul
     return steps
 
 
@@ -3385,6 +3530,18 @@ def phase_int8_kernels(rec: KernelRecord, dev) -> None:
     rec.time("i8_dot", f"{m} x {k} @ {k} x {n}", lambda: cp.i8_dot(a, b_),
              lambda: cp.i8_dot_plain(a, b_), lambda: torch._int_mm(a, b_),
              float(m * k + k * n + 4 * m * n), 2.0 * m * k * n * tc)
+    # Each alone: the profiler's events of i8_dot_kernel, and of every
+    # device kernel torch._int_mm launches, a call.
+    rec.device_time("i8_dot", "i8_dot_kernel", lambda: cp.i8_dot(a, b_))
+    reps = 50
+    # The library's GEMM kernel alone, its events averaged as i8_dot's are.
+    lib_alone, rows = kernel_alone_ms("gemm", lambda: torch._int_mm(a, b_), reps)
+    rec.times["i8_dot"]["library_device_ms"] = lib_alone
+    own = rec.times["i8_dot"]["kernel_device_ms"]
+    log(f"  i8_dot alone (profiler events) {m} x {k} @ {k} x {n}: i8_dot_kernel "
+        f"{'not measured' if own is None else f'{own:.4f} ms'}, torch._int_mm "
+        f"{'not measured' if lib_alone is None else f'{lib_alone:.4f} ms'} a call " +
+        " ".join(f"[{e.key[:60]}]" for e in rows))
 
 
 def phase_int8_probe(dev) -> dict[str, dict[str, int]]:
@@ -3474,7 +3631,8 @@ def main() -> int:
             launches=sum(launched_by.values()), max_abs_err=rec.err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], launched_by=launched_by,
-            **{k: t[k] for k in ("kernel_device_ms", "separate_route_ms") if k in t},
+            **{k: t[k] for k in ("kernel_device_ms", "separate_route_ms", "library_device_ms")
+               if k in t},
         ))
         if not launched_by:
             raise AssertionError(f"{name} was not launched by the main path")

@@ -60,13 +60,40 @@
 //     fill one wave (occupancy x SMs blocks), so at 16384 x 1024 a kFULL
 //     block walks 1024 rows and the tables cost 128 x 144 KB = 18.9 MB of
 //     L2 reads, 7 % of the 268 MB the planes move;
-//   true (_i8_concat_kernel: whole rows stored once a plane): block owns one
-//     16-row tile and walks its slices; the tile's outputs wait in shared
-//     memory (2 x 16 rows x (n + 8) floats, 132 KB at n = 1024) and go out
-//     as whole rows.  With them, a slice's 144 KB of tables no longer fits,
-//     so each product's three planes (48 KB) are staged in turn: every tile
-//     reads all 8 x 144 KB of tables again, 1.2 GB of L2 reads at 16384 rows,
-//     4.4 x the planes' bytes.  That is the price of whole-row stores here.
+//   true (i8_concat_stream, the first design of _i8_concat_kernel, kept as
+//     the yardstick: whole rows stored once a plane): block owns one 16-row
+//     tile and walks its slices; the tile's outputs wait in shared memory
+//     (2 x 16 rows x (n + 8) floats, 132 KB at n = 1024) and go out as
+//     whole rows.  With them, a slice's 144 KB of tables no longer fits, so
+//     each product's three planes (48 KB) are staged in turn: every tile
+//     reads all 8 x 144 KB of tables again, 1.2 GB of L2 reads at 16384
+//     rows, 4.4 x the planes' bytes, with six block barriers a slice and
+//     no overlap of staging and products.
+// i8_concat_kernel (_i8_concat_kernel, the redesign) keeps the whole-row
+// store without re-staging: a thread-block cluster of n1 CTAs (n1 <= 8)
+// covers a 16-row tile, CTA k1 holding slice k1's nine table planes
+// (144 KB) for its whole life, staged once by cp.async.  As many clusters
+// as the card holds (cudaOccupancyMaxActiveClusters) walk the tiles
+// cl, cl + clusters, ...  A tile's slice arrives by cp.async in an input
+// buffer while the last tile's products run; eight compute warps run
+// i8full's digit_step and products<kFULL, 0..2> on it and push each output
+// row r into the rows buffer of its owner, CTA r % n1, over distributed
+// shared memory (st.shared::cluster), then arrive on the owner's full
+// mbarrier (release at cluster scope).  A ninth, storer warp of the owner
+// waits for it, stores its rows whole by bulk copies (the TMA) from its
+// shared memory to device memory, and arrives on every CTA's empty
+// mbarrier; the pushes of the tile after next wait for that (two rows
+// buffers alternate), so the compute warps never wait on a cluster-wide
+// barrier.  Tried on the way on the H100 and slower (development runs, not
+// kept): the outputs over the inputs in three rotating buffers with each
+// CTA gathering its rows from the cluster's buffers by remote loads behind
+// two split cluster barriers a tile; that gather on a storer warp; the
+// pushes above behind one cluster barrier a tile; and the rows sent from
+// shared memory to the owner by bulk copies.  The same digit_step, mma_s8
+// products and recombine in the same order make it equal to i8full and to
+// i8_concat_stream bit for bit.  Shared memory: 182,336 bytes a CTA, two
+// rows buffers of ceil(16 / n1) rows and four mbarriers (215,136 at
+// n1 = 8, 225,376 at 7; lane_contract.cuh: i8_smem).
 // Bound: bytes, 16 B a point, 268 MB, 0.080 ms (4608 int8 operations a
 // point for kMM and kFULL, 2304 for kDEC: 0.039 / 0.020 ms at 1,979 TOPS).
 
@@ -74,8 +101,16 @@
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
+
 #include "fft_block.cuh"
+#include "hopper_async.cuh"
+#include "lane_contract.cuh"
 #include "mma_s8.cuh"
+
+namespace cg = cooperative_groups;
+namespace hp = gdsp::hopper;
+namespace ln = gdsp::lane;
 
 namespace {
 
@@ -441,6 +476,154 @@ i8_probe_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// ---------------------------------------------------------------------------
+// i8_concat on a thread-block cluster
+// ---------------------------------------------------------------------------
+
+static_assert(kThreads == ln::kI8Threads && kTile == ln::kTileRows,
+              "lane_contract.cuh's i8_concat plan");
+constexpr int kBufWords = 2 * kTile * kLanes;  // the input tile buffer: two planes
+
+// Slice k1 of tile `tile`'s rows into buf (plane re then im, 16 rows of
+// 128) by cp.async, rows past b zero: four 16-byte copies a thread.  The
+// caller commits.
+__device__ __forceinline__ void load_tile(float* buf, const float* __restrict__ xr,
+                                          const float* __restrict__ xi, long long b, int n,
+                                          long long tile, int k1) {
+  for (int e = threadIdx.x; e < 2 * kTile * (kLanes / 4); e += kThreads) {
+    const int plane = e / (kTile * kLanes / 4);
+    const int r = (e / (kLanes / 4)) % kTile, q = e % (kLanes / 4);
+    const long long row = tile * kTile + r;
+    const bool valid = row < b;
+    const float* src =
+        (plane ? xi : xr) + (valid ? static_cast<size_t>(row) * n + k1 * kLanes + 4 * q : 0);
+    ln::cp_async16(buf + plane * kTile * kLanes + r * kLanes + 4 * q, src, valid);
+  }
+}
+
+// load_step's values (row threadIdx.x / 16, columns 8 (threadIdx.x % 16)
+// .. + 7 of the slice) from a tile buffer.
+__device__ __forceinline__ void read_step(StepIn& s, const float* buf) {
+  const float* p = buf + (threadIdx.x >> 4) * kLanes + 8 * (threadIdx.x & 15);
+  s.r[0] = *reinterpret_cast<const float4*>(p);
+  s.r[1] = *reinterpret_cast<const float4*>(p + 4);
+  s.i[0] = *reinterpret_cast<const float4*>(p + kTile * kLanes);
+  s.i[1] = *reinterpret_cast<const float4*>(p + kTile * kLanes + 4);
+}
+
+// tables: (n1, 9, 16384) bytes in B-fragment order.  Cluster cl (n1 CTAs,
+// CTA k1 slice k1) takes tiles cl, cl + clusters, ...; row r of a tile
+// belongs to CTA r % n1 (the header above says how its rows travel).
+constexpr int kI8Warps = kThreads / 32;            // compute warps
+constexpr int kI8AllThreads = kThreads + 32;       // and the storer warp
+
+__global__ void __launch_bounds__(kI8AllThreads, 1)
+i8_concat_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ yr, float* __restrict__ yi,
+                 const uint4* __restrict__ tables, long long b, int n) {
+  constexpr int kData = data_planes(kFULL);
+  extern __shared__ uint4 smem[];
+  uint4* st = smem;
+  uint4* sd = st + table_planes(kFULL) * kPlane4;
+  float* s_row = reinterpret_cast<float*>(sd + kData * kDigit4);
+  float* in_buf = s_row + kTile;            // the next tile's slice
+  float* rows_buf = in_buf + kBufWords;     // two buffers of this CTA's rows, re then im
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int k1 = static_cast<int>(cluster.block_rank());
+  const int rl_max = ln::i8_rows(cs);
+  const int rows_words = 2 * rl_max * n;  // one buffer: two planes of rl_max rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_buf + 2 * rows_words);
+  uint64_t* empty = full + 2;
+  const long long cl = blockIdx.x / cs, clusters = gridDim.x / cs;
+  const long long tiles = (b + kTile - 1) / kTile;
+  const long long steps = cl < tiles ? (tiles - 1 - cl) / clusters + 1 : 0;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      hp::mbar_init(full + k, kI8Warps * cs);  // every compute warp of every CTA
+      hp::mbar_init(empty + k, cs);            // every CTA's storer warp
+    }
+    hp::mbar_init_fence();
+  }
+  ln::cluster_arrive();
+  ln::cluster_wait();  // every CTA's barriers exist before any remote arrival
+
+  if (w == kI8Warps) {
+    // The storer warp: tile i's rows k1, k1 + cs, ... whole, once every
+    // CTA's pushes of them landed.
+    const int mine = (kTile - k1 + cs - 1) / cs;
+    for (long long i = 0; i < steps; ++i) {
+      const int k = static_cast<int>(i & 1);
+      hp::mbar_wait_cluster(full + k, static_cast<uint32_t>(i >> 1) & 1u);
+      if (lane == 0) {
+        hp::fence_proxy_async();  // the pushes, to the bulk copies' reads
+        const float* rb = rows_buf + k * rows_words;
+        for (int rl = 0; rl < mine; ++rl) {
+          const long long row = (cl + i * clusters) * kTile + k1 + cs * rl;
+          if (row >= b) break;
+          const size_t off = static_cast<size_t>(row) * n;
+          hp::bulk_store(yr + off, rb + rl * n, static_cast<uint32_t>(n * 4));
+          hp::bulk_store(yi + off, rb + (rl_max + rl) * n, static_cast<uint32_t>(n * 4));
+        }
+        hp::bulk_commit();
+        hp::bulk_wait_read();
+      }
+      __syncwarp();
+      if (lane < cs) hp::mbar_arrive_cluster(empty + k, lane);  // buffer k is free here
+    }
+    if (lane == 0) hp::bulk_wait_all();
+  } else {
+    const uint2* st2 = reinterpret_cast<const uint2*>(st);
+    uint32_t* sd1 = reinterpret_cast<uint32_t*>(sd);
+    const int g = lane >> 2, t = lane & 3;
+    if (steps > 0) {
+      const uint4* tk = tables + static_cast<size_t>(k1) * table_planes(kFULL) * kPlane4;
+      for (int e = threadIdx.x; e < table_planes(kFULL) * kPlane4; e += kThreads)
+        ln::cp_async16(st + e, tk + e, true);
+      load_tile(in_buf, xr, xi, b, n, cl, k1);
+    }
+    ln::cp_async_commit();
+    for (long long i = 0; i < steps; ++i) {
+      const long long tile = cl + i * clusters;
+      const int k = static_cast<int>(i & 1);
+      ln::cp_async_wait_all();
+      hp::named_sync(1, kThreads);  // tile i landed; every warp is done with the last products
+      StepIn in;
+      read_step(in, in_buf);
+      digit_step<kFULL>(in, sd1, s_row);
+      hp::named_sync(1, kThreads);  // digits and row scales in; in_buf is free
+      if (i + 1 < steps) load_tile(in_buf, xr, xi, b, n, tile + clusters, k1);
+      ln::cp_async_commit();
+      int acc[accumulators(kFULL)][2][4] = {};
+      products<kFULL, 0>(sd, st2, 0, acc);
+      products<kFULL, 1>(sd, st2, 0, acc);
+      products<kFULL, 2>(sd, st2, 0, acc);
+      // Every owner has stored tile i - 2 from buffer k.
+      if (i >= 2) hp::mbar_wait_cluster(empty + k, (static_cast<uint32_t>(i >> 1) & 1u) ^ 1u);
+      float* rb = rows_buf + k * rows_words;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k1 * kLanes + 16 * w + 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h;
+          const float2 v0 = outputs<kFULL>(acc, j, 2 * h, s_row[r]);
+          const float2 v1 = outputs<kFULL>(acc, j, 2 * h + 1, s_row[r]);
+          const float* at = rb + (r / cs) * n + col;
+          ln::st_cluster2(at, r % cs, v0.x, v1.x);
+          ln::st_cluster2(at + rl_max * n, r % cs, v0.y, v1.y);
+        }
+      }
+      __syncwarp();
+      if (lane < cs) hp::mbar_arrive_cluster(full + k, lane);  // this warp's pushes to CTA lane
+    }
+  }
+  ln::cluster_arrive();
+  ln::cluster_wait();  // no CTA leaves while another may push into it or arrive on it
+}
+
 template <int kMode, bool kRows>
 int probe_smem(int n) {
   const int staged = kRows ? 3 : table_planes(kMode);
@@ -483,6 +666,21 @@ int launch_probe(const float* xr, const float* xi, float* yr, float* yi, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_i8_concat(const float* xr, const float* xi, float* yr, float* yi,
+                     const void* tables, long long b, int n, int resident, cudaStream_t s) {
+  ln::Plan p;
+  const int rc = ln::make_plan(ln::kI8Concat, b, n, 0, 0, 0, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  cudaError_t e = gdsp::allow_smem(i8_concat_kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ln::ClusterLaunch l(p.cluster, p.ctas, static_cast<size_t>(p.smem), s, kI8AllThreads);
+  e = cudaLaunchKernelEx(&l.cfg, i8_concat_kernel, xr, xi, yr, yi,
+                         static_cast<const uint4*>(tables), b, n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -517,14 +715,35 @@ int gdsp_i8dec(const float* xr, const float* xi, float* yr, float* yi, const voi
                                    static_cast<cudaStream_t>(stream));
 }
 
-// store_rows 0: each slice stored as it ends (i8full); 1: whole rows after
-// a tile (i8_concat).
+// store_rows 0: each slice stored as it ends (i8full, resident ignored);
+// 1: whole rows of a 16-row tile gathered over a thread-block cluster
+// (i8_concat), resident the clusters of i8_concat_kernel the card holds at
+// once (gdsp_i8_concat_resident); returns cudaErrorLaunchOutOfResources
+// where resident < 1.
 int gdsp_i8full(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
-                long long b, int n, int store_rows, void* stream) {
+                long long b, int n, int store_rows, int resident, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (store_rows == 0) return launch_probe<kFULL, false>(xr, xi, yr, yi, tables, b, n, s);
-  if (store_rows == 1) return launch_probe<kFULL, true>(xr, xi, yr, yi, tables, b, n, s);
+  if (store_rows == 1) return launch_i8_concat(xr, xi, yr, yi, tables, b, n, resident, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// i8_concat's first design, the yardstick: a block a 16-row tile walking
+// its slices, each product's three table planes staged in turn.
+int gdsp_i8_concat_stream(const float* xr, const float* xi, float* yr, float* yi,
+                          const void* tables, long long b, int n, void* stream) {
+  return launch_probe<kFULL, true>(xr, xi, yr, yi, tables, b, n,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of i8_concat_kernel at n points (n / 128 CTAs a cluster) the
+// card holds at once with the plan's shared memory plus extra_smem bytes a
+// CTA: 0 where none fits, or -(CUDA error).
+int gdsp_i8_concat_resident(int n, int extra_smem) {
+  if (n < kLanes || n % kLanes != 0 || n / kLanes > ln::kMaxCluster)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return ln::resident_clusters(i8_concat_kernel, n / kLanes, ln::i8_smem(n / kLanes) + extra_smem,
+                               kI8AllThreads);
 }
 
 }  // extern "C"

@@ -1,7 +1,10 @@
 // K13's Karatsuba contraction of a row tile of one 128-point slice
 // against a resident G[k1], shared by the cluster redesigns of K14c
 // gmm_concat (lane_probe_kernels.cu) and K14f ls_full
-// (lane_slice_probe_kernels.cu), and their launch plan.
+// (lane_slice_probe_kernels.cu), the whole-row gather over distributed
+// shared memory they store with, the remote stores K14c i8_concat
+// (int8_probe_kernels.cu) pushes its rows with, and the three kernels'
+// launch plan and cluster launch.
 //
 // The function, for the rows of a tile and one slice k1:
 //   m1 = a G_r,  m2 = b G_i,  m3 = (a + b) G_s   (a = Re x, b = Im x),
@@ -55,6 +58,17 @@ constexpr int kChunk = kMaxCluster * kLanes;       // columns a cluster covers
 // G[k1] and two two-plane tile buffers: 196,608 + 33,792 = 230,400 bytes of
 // the 232,448 a CTA may hold.
 constexpr int kSmem = (3 * kPlane + 4 * kTileWords) * static_cast<int>(sizeof(float));
+// i8_concat's CTA (256 compute threads and a storer warp): its slice's nine
+// 16 KB int8 table planes, the step's nine 2 KB digit planes, 16 row
+// scales, a two-plane 16-row input tile buffer (147,456 + 18,432 + 64 +
+// 16,384 = 182,336 bytes), two rows buffers of the ceil(16 / n1) whole
+// rows of a tile it stores and their four mbarriers.
+constexpr int kI8Threads = 256;
+__host__ __device__ constexpr int i8_rows(int n1) { return (kTileRows + n1 - 1) / n1; }
+__host__ __device__ constexpr int i8_smem(int n1) {
+  return 9 * 16384 + 9 * 2048 + kTileRows * 4 + 2 * kTileRows * kLanes * 4 +
+         2 * 2 * i8_rows(n1) * n1 * kLanes * 4 + 4 * 8;
+}
 
 // ---------------------------------------------------------------------------
 // Device side
@@ -85,6 +99,15 @@ __device__ __forceinline__ void st_cluster(const float* at, int rank, float v) {
   unsigned remote;
   asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v));
+}
+
+// Two floats stored at `at` (8-byte aligned) in CTA `rank`'s shared memory,
+// as st_cluster.
+__device__ __forceinline__ void st_cluster2(const float* at, int rank, float x, float y) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(at));
+  unsigned remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote), "f"(x), "f"(y));
 }
 
 // The cluster barrier in its two halves: every thread of the cluster
@@ -249,7 +272,7 @@ __device__ __forceinline__ void gather_rows(float* buf, float* __restrict__ yr,
 // the same; the GPU tests compare through gdsp_lane_cluster_geometry).
 // ---------------------------------------------------------------------------
 
-enum Kind { kGmmConcat = 0, kLsFull = 1 };
+enum Kind { kGmmConcat = 0, kLsFull = 1, kI8Concat = 2 };
 
 struct Plan {
   int cluster;     // CTAs a cluster: a CTA a 128-column slice
@@ -268,7 +291,8 @@ constexpr int kPlanFields = 10;
 // kind kGmmConcat: n a multiple of 128 (rows_per_block, chunk_rows,
 // store_rows ignored); kLsFull: n = n1 x 128, n1 in 1, 2, 4, 8,
 // rows_per_block a positive multiple of 16, chunk_rows 2, 4, 8 or 16,
-// store_rows 0 or 1.  resident: clusters of the kernel the card holds at
+// store_rows 0 or 1; kI8Concat: n = n1 x 128, 1 <= n1 <= 8 (the rest
+// ignored), a cluster of n1 CTAs, two rows buffers.  resident: clusters of the kernel the card holds at
 // once (cudaOccupancyMaxActiveClusters).  Returns cudaErrorInvalidValue for
 // a shape or setting the kernel does not take, cudaErrorLaunchOutOfResources
 // where resident < 1.
@@ -298,6 +322,14 @@ inline int make_plan(int kind, long long b, int n, int rows_per_block, int chunk
     p->tiles_unit = rows_per_block / kTileRows;
     p->store_rows = store_rows;
     p->chunk_rows = chunk_rows;
+  } else if (kind == kI8Concat) {
+    if (n1 > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    p->cluster = n1;
+    p->chunks = 1;
+    p->tiles_unit = 1;
+    p->store_rows = 1;
+    p->chunk_rows = kTileRows;
+    p->smem = i8_smem(n1);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -319,13 +351,15 @@ inline void plan_fields(const Plan& p, int* out) {
   for (int i = 0; i < kPlanFields; ++i) out[i] = v[i];
 }
 
-// The launch configuration of a plan's cluster kernel.
+// The launch configuration of a cluster kernel: ctas CTAs of `threads`
+// threads in clusters of `cluster`.
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(int cluster, int ctas, size_t smem, cudaStream_t stream) : cfg{}, attr{} {
+  ClusterLaunch(int cluster, int ctas, size_t smem, cudaStream_t stream, int threads = kThreads)
+      : cfg{}, attr{} {
     cfg.gridDim = dim3(static_cast<unsigned>(ctas));
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(static_cast<unsigned>(threads));
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -337,15 +371,17 @@ struct ClusterLaunch {
   }
 };
 
-// Clusters of `cluster` CTAs of `kernel` with smem bytes of dynamic shared
-// memory each that the card holds at once (0 where none fits), or
-// -(CUDA error).  The kernel's attribute is set for the plan's kSmem.
+// Clusters of `cluster` CTAs of `kernel` (`threads` threads, smem bytes of
+// dynamic shared memory each) that the card holds at once (0 where none
+// fits), or -(CUDA error).  The kernel's shared-memory attribute is set to
+// smem first, so a CTA asking for more than the card allows reports the
+// error here.
 template <typename Kernel>
-inline int resident_clusters(Kernel kernel, int cluster, int smem) {
-  cudaError_t e = allow_smem(kernel, static_cast<size_t>(kSmem));
+inline int resident_clusters(Kernel kernel, int cluster, int smem, int threads = kThreads) {
+  cudaError_t e = allow_smem(kernel, static_cast<size_t>(smem));
   int clusters = 0;
   if (e == cudaSuccess) {
-    ClusterLaunch l(cluster, cluster, static_cast<size_t>(smem), nullptr);
+    ClusterLaunch l(cluster, cluster, static_cast<size_t>(smem), nullptr, threads);
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &l.cfg);
   }
   if (e != cudaSuccess) {

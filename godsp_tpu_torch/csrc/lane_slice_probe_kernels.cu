@@ -18,19 +18,45 @@
 //
 // gmm_tf32_kernel replaces k_gmm_default (:259): K13's Karatsuba
 // contraction of every slice (m1 = a G_r, m2 = b G_i, m3 = (a + b) G_s,
-// yr = m1 - m2, yi = m3 - m1 - m2, G = K13's tables) with each product in
+// yr = m1 - m2, yi = (m3 - m1) - m2, G = K13's tables) with each product in
 // ONE TF32 pass on the tensor cores, the card's counterpart of the TPU's
-// one-bf16-pass DEFAULT matmul.  A block owns one slice k1 and a group of
-// rows: it stages G[k1]'s three planes once, rounded by cvt.rna.tf32.f32,
-// 128 rows 136 words apart (204 KB: a B fragment's 32 reads fall in 32
-// banks), then its warps walk 16-row tiles, 64 output columns at a time.
-// A comes from device memory, a, b and a + b (an IEEE float32 add) each
-// rounded by cvt.rna.  Each k-step's product is summed on the tensor cores
-// from zero and added to the running sum on the CUDA cores in IEEE
-// float32: the tensor cores' own accumulation of chained mma truncates.
-// Bound: bytes, 0.080 ms (768 TF32 operations a point: 0.026 ms).  It
-// changes no TF32 or matmul flag; nothing at the 120 dB bar uses it.
-//
+// one-bf16-pass DEFAULT matmul, by wgmma.  A pair of CTAs (2 p and 2 p + 1
+// of a plain grid) serves one slice k1: CTA h of the pair keeps bins
+// 64 h .. 64 h + 63 of G[k1]'s three planes resident (96 KB), staged once,
+// rounded by cvt.rna.tf32.f32 and laid out as wgmma's K-major B operand (G
+// transposed to [k2][i2]) in the 128-byte swizzle.  Rows come in 64-row
+// tiles (wgmma's M), each in two stages of 64 columns.  A producer warp
+// brings a stage by TMA tensor copies (boxes of 64 rows x 32 columns in the
+// 128-byte swizzle, rows past b arriving as zeros): each CTA copies both
+// planes' two boxes itself (L2 serves the pair's second read; a multicast
+// of each plane to both CTAs of a cluster, tried first, tied the two CTAs'
+// rings together and was slower on the H100), into a ring of three 32 KB
+// stages with full and empty mbarriers.  The landed boxes are already
+// wgmma's K-major A operand in the 128-byte swizzle, so both operands come
+// from shared memory: the two consumer warpgroups round a and b in place
+// by cvt.rna.tf32.f32 and write round(a + b) (an IEEE float32 add) beside
+// them, once a stage for both, then each issues the stage's m64n32k8
+// products for its 32 of the CTA's 64 bins.  Accumulation: the tensor
+// cores chain kWgChain = 4 k-steps (scale-d 1) from zero, then that partial
+// sum is added to the running sum on the CUDA cores in IEEE float32 (the
+// first design adds each k8 product; chains of 1, 2, 4, 8 and 16 were
+// measured once, PERF.md section 6, and 4 is the longest within 3 dB of
+// the first design).  The pairs are persistent: as many as the card holds
+// (one CTA an SM) split evenly among the slices, each walking its slice's
+// tiles.  Epilogue: the same two subtractions into the two a + b buffers,
+// laid out as the 64-row boxes of 32 bins a TMA store takes (rows past b
+// dropped), stored by TMA, four boxes a tile.  Shared memory: 98,304 (G) +
+// 98,304 (stages) + 32,768 (two stages' a + b) + 48 (barriers) + 1,024
+// (alignment) = 230,448 bytes.  Bound: bytes, 0.080 ms (768 TF32
+// operations a point: 0.026 ms).  It changes no TF32 or matmul flag;
+// nothing at the 120 dB bar uses it.
+// gmm_tf32_sync_kernel is the first design, kept as the yardstick: a block
+// owns one slice k1 and a group of rows, stages G[k1]'s three planes
+// rounded (204 KB at 136 words a row), and its warps walk 16-row tiles 64
+// output columns at a time with mma.sync m16n8k8, A read from device
+// memory in fragment order (a slice of A twice, once a half), each k-step
+// summed from zero and added on the CUDA cores.
+
 // ls_full_kernel<N1> replaces k_full (:239, pallas_fft._fft_kernel_ls at
 // n1 = 8: the TPU's K1 in digit order), k_full_concat (:245),
 // make_subtiled(2/4/8) (:279) and k_full at bt = 512 and 1024 (:318-319):
@@ -84,11 +110,13 @@
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "hopper_async.cuh"
 #include "lane_contract.cuh"
 #include "mma_tf32.cuh"
 #include "slice_network.cuh"
 
 namespace cg = cooperative_groups;
+namespace hp = gdsp::hopper;
 namespace ln = gdsp::lane;
 
 namespace {
@@ -146,7 +174,7 @@ ls_network_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // checks pass permutations).  Block (k1, group) serves rows
 // [group * rows_per_block, min(b, (group + 1) * rows_per_block)).
 __global__ void __launch_bounds__(kThreads, 1)
-gmm_tf32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+gmm_tf32_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ g,
                 long long b, int n, long long rows_per_block) {
   extern __shared__ float4 smem4[];
@@ -215,6 +243,230 @@ gmm_tf32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         gdsp::store_c(yi + base, n, rows, col, i[0], i[1], i[2], i[3]);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gmm_tf32 on wgmma, fed by TMA (the plan: Tf32Plan below)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;        // rows of a tile: wgmma's M
+constexpr int kWgBins = 64;        // bins a CTA: half a slice
+constexpr int kWgN = 32;           // bins a consumer warpgroup: wgmma's N
+constexpr int kWgK = 64;           // columns of a slice a stage
+constexpr int kWgBoxK = 32;        // columns of a TMA box: one 128-byte swizzled row
+constexpr int kWgStages = 3;       // the ring of stages
+constexpr int kWgChain = 4;        // k-steps the tensor cores sum before an add
+constexpr int kWgConsumers = 256;  // two warpgroups, kWgN bins each
+constexpr int kWgThreads = kWgConsumers + 32;  // and one producer warp
+constexpr int kWgPlaneB = kWgBins * kLanes * 4;          // bytes of one resident plane of G
+constexpr int kWgBox = kWgRows * kWgBoxK * 4;            // bytes of a box: 64 rows x 128 bytes
+constexpr int kWgHalf = (kWgK / kWgBoxK) * kWgBox;       // one plane of a stage: 16 KB
+constexpr int kWgStage = 2 * kWgHalf;                    // a and b of a stage: 32 KB
+constexpr int kWgSmem =
+    3 * kWgPlaneB + kWgStages * kWgStage + 2 * kWgHalf + 2 * kWgStages * 8 + 1024;
+
+// Byte offset of an element (row r, column k) of a K-major operand laid out
+// in the 128-byte swizzle: chunks of 32 columns, each `rows` rows of 128
+// bytes, the 16-byte units of a row XORed with the row's index mod 8 (as a
+// TMA box of 32 columns lands; G's resident planes take it with the CTA's
+// bins as rows).
+__device__ __forceinline__ int wg_offset(int r, int k, int rows) {
+  return (k >> 5) * (rows * 128) + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) + (k & 3) * 4;
+}
+
+__device__ __forceinline__ float4 wg_round(float4 v) {
+  return make_float4(__uint_as_float(gdsp::tf32(v.x)), __uint_as_float(gdsp::tf32(v.y)),
+                     __uint_as_float(gdsp::tf32(v.z)), __uint_as_float(gdsp::tf32(v.w)));
+}
+
+// yr = m1 - m2, yi = (m3 - m1) - m2 from m (the accumulator layout of
+// wgmma_m64n32k8_tf32: rows r0 and r0 + 8, columns col0 + 8 jn of the
+// CTA's 64 bins) into out (yr's 16 KB, then yi's) laid out as TMA boxes of
+// 32 bins land (wg_offset over 64 rows).
+__device__ __forceinline__ void wg_put(const float (&m)[3][16], char* out, int r0, int col0) {
+#pragma unroll
+  for (int jn = 0; jn < kWgN / 8; ++jn) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q = 4 * jn + 2 * hh, at = wg_offset(r0 + 8 * hh, col0 + 8 * jn, kWgRows);
+      *reinterpret_cast<float2*>(out + at) =
+          make_float2(__fsub_rn(m[0][q], m[1][q]), __fsub_rn(m[0][q + 1], m[1][q + 1]));
+      *reinterpret_cast<float2*>(out + kWgHalf + at) =
+          make_float2(__fsub_rn(__fsub_rn(m[2][q], m[0][q]), m[1][q]),
+                      __fsub_rn(__fsub_rn(m[2][q + 1], m[0][q + 1]), m[1][q + 1]));
+    }
+  }
+}
+
+// ta, tb, tyr, tyi: tensor maps of the (b, n) planes a, b, yr and yi, boxes
+// of 32 columns x 64 rows in the 128-byte swizzle; g: (n1, 3, 128, 128)
+// float32 tables.
+// Pair cl (CTAs 2 cl + h, h = 0, 1: bins 64 h ..) serves slice cl % n1 and
+// its 64-row tiles cl / n1, + per, ...  Warpgroup c of a CTA's two consumer
+// warpgroups takes its bins 32 c .. 32 c + 31; warp 8 is the producer.
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_tf32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                const __grid_constant__ CUtensorMap tyr, const __grid_constant__ CUtensorMap tyi,
+                const float* __restrict__ g, long long b, int n, int per) {
+  static_assert((kWgK / 8) % kWgChain == 0, "a chain ends within its stage");
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~static_cast<uintptr_t>(1023));
+  char* sg = base;                         // G's three half planes, swizzled
+  char* stages = base + 3 * kWgPlaneB;     // the ring: [stage][plane][box][64 rows][128 bytes]
+  char* sums = stages + kWgStages * kWgStage;  // round(a + b) of a stage, two of them
+  uint64_t* full = reinterpret_cast<uint64_t*>(sums + 2 * kWgHalf);
+  uint64_t* empty = full + kWgStages;
+  const int h = static_cast<int>(blockIdx.x & 1);
+  const int n1 = n / kLanes;
+  const long long cl = blockIdx.x / 2;
+  const int k1 = static_cast<int>(cl % n1);
+  const long long first = cl / n1;
+  const long long tiles = (b + kWgRows - 1) / kWgRows;
+  const long long steps = first < tiles ? (tiles - 1 - first) / per + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hp::mbar_init(full + s, 1);                       // the producer's arrive.expect_tx
+      hp::mbar_init(empty + s, kWgConsumers / 32);  // every consumer warp
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();  // the barriers exist before any copy or arrival
+
+  if (threadIdx.x >= kWgConsumers) {
+    // The producer warp's lane 0: the two boxes (the tile's rows, 32
+    // columns each) of planes a and b a stage.
+    if ((threadIdx.x & 31) == 0) {
+      long long c = 0;  // stages filled
+      for (long long i = 0; i < steps; ++i) {
+        const int row = static_cast<int>((first + i * per) * kWgRows);
+        for (int half = 0; half < kLanes / kWgK; ++half, ++c) {
+          const int s = static_cast<int>(c % kWgStages);
+          hp::mbar_wait(empty + s, (static_cast<uint32_t>(c / kWgStages) & 1u) ^ 1u);
+          hp::mbar_arrive_expect_tx(full + s, kWgStage);
+          for (int pl = 0; pl < 2; ++pl) {
+            for (int box = 0; box < kWgK / kWgBoxK; ++box)
+              hp::tma_load_2d(stages + s * kWgStage + pl * kWgHalf + box * kWgBox,
+                              pl == 0 ? &ta : &tb, k1 * kLanes + half * kWgK + box * kWgBoxK, row,
+                              full + s);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // The consumer warpgroups.  First G's bins 64 h .. of slice k1, rounded,
+    // into the B layout (the CTA's bins as rows, i2 as k), four bins a load.
+    const float* gk = g + static_cast<size_t>(k1) * 3 * kPlane + kWgBins * h;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < (steps > 0 ? 3 * kLanes * kWgBins / 4 : 0);
+         e += kWgConsumers) {
+      const int p = e / (kLanes * kWgBins / 4), i2 = (e / (kWgBins / 4)) % kLanes;
+      const int nb = 4 * (e % (kWgBins / 4));
+      const float4 v = __ldg(reinterpret_cast<const float4*>(gk + p * kPlane + i2 * kLanes + nb));
+      char* at = sg + p * kWgPlaneB;
+      *reinterpret_cast<uint32_t*>(at + wg_offset(nb, i2, kWgBins)) = gdsp::tf32(v.x);
+      *reinterpret_cast<uint32_t*>(at + wg_offset(nb + 1, i2, kWgBins)) = gdsp::tf32(v.y);
+      *reinterpret_cast<uint32_t*>(at + wg_offset(nb + 2, i2, kWgBins)) = gdsp::tf32(v.z);
+      *reinterpret_cast<uint32_t*>(at + wg_offset(nb + 3, i2, kWgBins)) = gdsp::tf32(v.w);
+    }
+
+    const int wg = threadIdx.x >> 7;  // this warpgroup: bins 32 wg .. of the CTA's 64
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, gq = lane >> 2, t = lane & 3;
+    long long c = 0;  // stages consumed
+    float d[3][16];   // the tensor cores' sums (scale-d 0 ignores them at a chain's start)
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) d[p][q] = 0.f;
+    }
+    for (long long i = 0; i < steps; ++i) {
+      const long long t0 = (first + i * per) * kWgRows;
+      float run[3][16];  // the running sums on the CUDA cores
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int q = 0; q < 16; ++q) run[p][q] = 0.f;
+      }
+#pragma unroll
+      for (int half = 0; half < kLanes / kWgK; ++half, ++c) {
+        const int s = static_cast<int>(c % kWgStages);
+        char* sa = stages + s * kWgStage;  // a, then b at + kWgHalf
+        char* ss = sums + (c & 1) * kWgHalf;
+        hp::mbar_wait(full + s, static_cast<uint32_t>(c / kWgStages) & 1u);
+        // a and b rounded in place by cvt.rna.tf32.f32, round(a + b) (an IEEE
+        // float32 add) beside them: four 16-byte units of each plane a thread.
+#pragma unroll
+        for (int q = 0; q < kWgHalf / 16 / kWgConsumers; ++q) {
+          const int off = 16 * (threadIdx.x + kWgConsumers * q);
+          const float4 va = *reinterpret_cast<const float4*>(sa + off);
+          const float4 vb = *reinterpret_cast<const float4*>(sa + kWgHalf + off);
+          *reinterpret_cast<float4*>(sa + off) = wg_round(va);
+          *reinterpret_cast<float4*>(sa + kWgHalf + off) = wg_round(vb);
+          *reinterpret_cast<float4*>(ss + off) =
+              wg_round(make_float4(__fadd_rn(va.x, vb.x), __fadd_rn(va.y, vb.y),
+                                   __fadd_rn(va.z, vb.z), __fadd_rn(va.w, vb.w)));
+        }
+        hp::fence_proxy_async();           // the rounded operands, to wgmma's reads
+        hp::named_sync(1, kWgConsumers);   // (and G's, at the first stage)
+#pragma unroll
+        for (int jj = 0; jj < kWgK / 8; ++jj) {
+          const int j = (kWgK / 8) * half + jj;  // the k-step of the slice
+          if (jj % kWgChain == 0) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+#pragma unroll
+              for (int q = 0; q < 16; ++q) hp::fence_operand(d[p][q]);
+            }
+            hp::wgmma_fence();
+          }
+          const int ka = (jj >> 2) * kWgBox + (jj & 3) * 32;  // this k-step in a stage's plane
+          const char* gb = sg + (j >> 2) * (kWgBins * 128) + kWgN * 128 * wg + (j & 3) * 32;
+          const bool acc = jj % kWgChain != 0;
+          hp::wgmma_m64n32k8_tf32(d[0], hp::desc_b128(sa + ka), hp::desc_b128(gb), acc);
+          hp::wgmma_m64n32k8_tf32(d[1], hp::desc_b128(sa + kWgHalf + ka),
+                                  hp::desc_b128(gb + kWgPlaneB), acc);
+          hp::wgmma_m64n32k8_tf32(d[2], hp::desc_b128(ss + ka),
+                                  hp::desc_b128(gb + 2 * kWgPlaneB), acc);
+          if ((jj + 1) % kWgChain == 0) {
+            hp::wgmma_commit();
+            hp::wgmma_wait<0>();
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+#pragma unroll
+              for (int q = 0; q < 16; ++q) {
+                hp::fence_operand(d[p][q]);
+                run[p][q] = __fadd_rn(run[p][q], d[p][q]);
+              }
+            }
+          }
+        }
+        // The stage's products are done: release it to the producer.
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(empty + s);
+      }
+      // The outputs into the two a + b buffers (free once both warpgroups'
+      // products of the tile are done) as two 64-row boxes of 32 bins each a
+      // plane, then stored by TMA; the buffers are written again only after
+      // the store has read them.
+      hp::named_sync(1, kWgConsumers);
+      wg_put(run, sums, 16 * w + gq, kWgN * wg + 2 * t);
+      hp::fence_proxy_async();
+      hp::named_sync(1, kWgConsumers);
+      if (threadIdx.x == 0) {
+        const int col = k1 * kLanes + kWgBins * h, row = static_cast<int>(t0);
+        for (int box = 0; box < kWgBins / kWgN; ++box) {
+          hp::tma_store_2d(&tyr, sums + box * kWgBox, col + box * kWgN, row);
+          hp::tma_store_2d(&tyi, sums + kWgHalf + box * kWgBox, col + box * kWgN, row);
+        }
+        hp::bulk_commit();
+        hp::bulk_wait_read();
+      }
+      hp::named_sync(1, kWgConsumers);
+    }
+    if (threadIdx.x == 0) hp::bulk_wait_all();
   }
 }
 
@@ -528,6 +780,54 @@ int launch_ls_full(const float* xr, const float* xi, float* yr, float* yi, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// gmm_tf32's launch plan (ops/cuda_probes.py: gmm_tf32_plan holds the
+// same; the GPU tests compare through gdsp_gmm_tf32_geometry).
+struct Tf32Plan {
+  int pair;       // CTAs a slice's tile: the two halves of its bins
+  int pairs;      // pairs of the grid: per_slice x n1
+  int ctas;       // CTAs of the grid
+  int rows_tile;  // rows of a tile (wgmma's M)
+  int bins_cta;   // bins a CTA (wgmma's N)
+  int stages;     // the ring of stages a CTA
+  int k_stage;    // columns of a slice a stage
+  int smem;       // bytes of dynamic shared memory a CTA
+  int per_slice;  // pairs a slice, each walking tiles first, first + per_slice, ...
+  int chain;      // k-steps the tensor cores sum before an add on the CUDA cores
+};
+constexpr int kTf32PlanFields = 10;
+
+// b >= 0, n a multiple of 128; resident the pairs the card holds at once.
+// The resident pairs split evenly among the n1 slices (at least one a
+// slice, at most one a tile).
+int make_tf32_plan(long long b, int n, int resident, Tf32Plan* p) {
+  if (b < 0 || n < kLanes || n % kLanes != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (resident < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const int n1 = n / kLanes;
+  const long long tiles = (b + kWgRows - 1) / kWgRows;
+  long long per = resident / n1;
+  if (per < 1) per = 1;
+  if (per > tiles) per = tiles > 0 ? tiles : 1;
+  if (per * n1 * 2 > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *p = Tf32Plan{2, static_cast<int>(per * n1), static_cast<int>(per * n1 * 2), kWgRows, kWgBins,
+                kWgStages, kWgK, kWgSmem, static_cast<int>(per), kWgChain};
+  return 0;
+}
+
+int launch_gmm_tf32(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                    long long b, int n, const Tf32Plan& p, cudaStream_t s) {
+  CUtensorMap maps[4];
+  const float* planes[4] = {xr, xi, yr, yi};
+  for (int i = 0; i < 4; ++i) {
+    const int rc = hp::encode_tensor_map_2d(maps + i, planes[i], b, n, kWgBoxK, kWgRows);
+    if (rc != 0) return rc;
+  }
+  cudaError_t e = gdsp::allow_smem(gmm_tf32_kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gmm_tf32_kernel<<<static_cast<unsigned>(p.ctas), kWgThreads, static_cast<size_t>(p.smem), s>>>(
+      maps[0], maps[1], maps[2], maps[3], g, b, n, p.per_slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -551,21 +851,67 @@ int gdsp_ls_network(const float* xr, const float* xi, float* yr, float* yi, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// g: (n / 128, 3, 128, 128) float32 tables; groups: row groups a slice
+// gmm_tf32's first design, the yardstick (mma.sync, A from device memory):
+// g (n / 128, 3, 128, 128) float32 tables; groups: row groups a slice
 // (grid.y, <= 65535).
-int gdsp_gmm_tf32(const float* xr, const float* xi, float* yr, float* yi, const float* g,
-                  long long b, int n, int groups, void* stream) {
+int gdsp_gmm_tf32_sync(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                       long long b, int n, int groups, void* stream) {
   if (b < 0 || n < kLanes || n % kLanes != 0 || groups < 1 || groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  cudaError_t e = gdsp::allow_smem(gmm_tf32_kernel, kTf32Smem);
+  cudaError_t e = gdsp::allow_smem(gmm_tf32_sync_kernel, kTf32Smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   long long per = (b + groups - 1) / groups;
   per = (per + 15) / 16 * 16;
   const dim3 grid(n / kLanes, static_cast<unsigned>((b + per - 1) / per));
-  gmm_tf32_kernel<<<grid, kThreads, kTf32Smem, static_cast<cudaStream_t>(stream)>>>(
+  gmm_tf32_sync_kernel<<<grid, kThreads, kTf32Smem, static_cast<cudaStream_t>(stream)>>>(
       xr, xi, yr, yi, g, b, n, per);
   return static_cast<int>(cudaGetLastError());
+}
+
+// gmm_tf32 on wgmma: g (n / 128, 3, 128, 128) float32 tables (any n1);
+// resident the pairs of gmm_tf32_kernel's CTAs the card holds at once
+// (gdsp_gmm_tf32_resident).  Returns cudaErrorLaunchOutOfResources where
+// resident < 1.
+int gdsp_gmm_tf32(const float* xr, const float* xi, float* yr, float* yi, const float* g,
+                  long long b, int n, int resident, void* stream) {
+  Tf32Plan p;
+  const int rc = make_tf32_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  return launch_gmm_tf32(xr, xi, yr, yi, g, b, n, p, static_cast<cudaStream_t>(stream));
+}
+
+// Pairs of gmm_tf32_kernel's CTAs the card holds at once with the plan's
+// shared memory plus extra_smem bytes a CTA (the CTAs resident an SM times
+// the SMs, halved): 0 where none fits, or -(CUDA error).
+int gdsp_gmm_tf32_resident(int extra_smem) {
+  const int smem = kWgSmem + extra_smem;
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t e = gdsp::allow_smem(gmm_tf32_kernel, static_cast<size_t>(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gmm_tf32_kernel, kWgThreads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch's check
+    return -static_cast<int>(e);
+  }
+  return blocks * sms / 2;
+}
+
+// gmm_tf32's plan at b x n with `resident` pairs: out[0..9] = pair, pairs,
+// CTAs, rows a tile, bins a CTA, stages, columns a stage, shared bytes,
+// pairs a slice, chain (Tf32Plan).  ops/cuda_probes.py: gmm_tf32_plan holds
+// the same; the GPU tests compare.
+int gdsp_gmm_tf32_geometry(long long b, int n, int resident, int* out) {
+  Tf32Plan p;
+  const int rc = make_tf32_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  const int v[kTf32PlanFields] = {p.pair,     p.pairs,   p.ctas, p.rows_tile, p.bins_cta,
+                                  p.stages,   p.k_stage, p.smem, p.per_slice, p.chain};
+  for (int i = 0; i < kTf32PlanFields; ++i) out[i] = v[i];
+  return 0;
 }
 
 // ls_full's first design, the yardstick: g (n / 128, 3, 128, 128) unscaled

@@ -149,6 +149,12 @@ def _declare(lib) -> None:
     lib.gdsp_ls_network.restype = i
     lib.gdsp_gmm_tf32.argtypes = [p, p, p, p, p, i64, i, i, p]
     lib.gdsp_gmm_tf32.restype = i
+    lib.gdsp_gmm_tf32_sync.argtypes = [p, p, p, p, p, i64, i, i, p]
+    lib.gdsp_gmm_tf32_sync.restype = i
+    lib.gdsp_gmm_tf32_resident.argtypes = [i]
+    lib.gdsp_gmm_tf32_resident.restype = i
+    lib.gdsp_gmm_tf32_geometry.argtypes = [i64, i, i, p]
+    lib.gdsp_gmm_tf32_geometry.restype = i
     lib.gdsp_ls_full.argtypes = [p, p, p, p, p, i64, i, i, i, i, i, p]
     lib.gdsp_ls_full.restype = i
     lib.gdsp_ls_full_stream.argtypes = [p, p, p, p, p, i64, i, i, i, i, p]
@@ -160,8 +166,12 @@ def _declare(lib) -> None:
     for name in ("gdsp_i8mm", "gdsp_i8dec"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
-    lib.gdsp_i8full.argtypes = [p, p, p, p, p, i64, i, i, p]
+    lib.gdsp_i8full.argtypes = [p, p, p, p, p, i64, i, i, i, p]
     lib.gdsp_i8full.restype = i
+    lib.gdsp_i8_concat_stream.argtypes = [p, p, p, p, p, i64, i, p]
+    lib.gdsp_i8_concat_stream.restype = i
+    lib.gdsp_i8_concat_resident.argtypes = [i, i]
+    lib.gdsp_i8_concat_resident.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -127,8 +127,12 @@ two float32 planes (b, n), n = n1 x 128 with n1 in 1, 2, 4, 8:
       128 k1 ..); plain version ls_network_plain;
   gmm_tf32(xr, xi)     replaces k_gmm_default: K13's Karatsuba contraction
       with each product in one TF32 pass on the tensor cores (or with any
-      (n1, 3, 128, 128) tables g); plain version gmm_tf32_plain, which with
-      tf32=True rounds a, b, a + b and the tables as cvt.rna.tf32.f32 does;
+      (n1, 3, 128, 128) tables g), by wgmma on a pair of CTAs a slice
+      (each half the slice's bins of G resident), the 64-row tiles of
+      a and b brought by TMA tensor copies, both operands read from shared
+      memory, the outputs stored by TMA (gmm_tf32_plan); plain version
+      gmm_tf32_plain, which with tf32=True
+      rounds a, b, a + b and the tables as cvt.rna.tf32.f32 does;
   ls_full(xr, xi, store, chunks, rows_per_block)  replaces k_full,
       k_full_concat, make_subtiled(2/4/8) and k_full at bt 512 / 1024: the
       n-point DFT of every row, the network then K13's contraction with
@@ -189,10 +193,22 @@ tile:
   ls_full_stream(xr, xi, store, chunks, rows_per_block)  equal to ls_full
       at every setting.
 
-lane_cluster_plan is the cluster redesigns' launch plan (the kernels'
-gdsp_lane_cluster_geometry holds the same), lane_cluster_walk the tiles
-each cluster takes, lane_gather_map the whole-row stores over distributed
-shared memory and lane_network_scatter ls_full's network all-to-all.
+So do the first designs of K14c i8_concat and K14f gmm_tf32:
+
+  i8_concat_stream(xr, xi)  a block a 16-row tile walking its slices, each
+      product's three int8 table planes staged in turn; equal to i8_concat;
+  gmm_tf32_sync(xr, xi, g)  a block a slice and a row group, mma.sync
+      m16n8k8 with A read from device memory; >= 120 dB against gmm_tf32.
+
+lane_cluster_plan is the cluster redesigns' launch plan (gmm_concat,
+ls_full and i8_concat; the kernels' gdsp_lane_cluster_geometry holds the
+same), lane_cluster_walk the tiles each cluster takes, lane_gather_map the
+whole-row stores over distributed shared memory, i8_push_map i8_concat's
+pushes of its rows to their owners and lane_network_scatter ls_full's
+network all-to-all.  gmm_tf32_plan is gmm_tf32's
+(gdsp_gmm_tf32_geometry), gmm_tf32_walk its pairs' slices and tiles,
+gmm_tf32_bins its CTAs' bins and gmm_tf32_offset its operands' swizzled
+layout.
 
 gmm_tf32 is the port's second TF32 path on purpose (after bd_tf32): it
 measures the TPU's one-pass DEFAULT matmul of the dense step and changes
@@ -220,7 +236,11 @@ n1 <= 8:
       make_i8full_tables) and extra_scale 1/128: K13's function to ~127
       dB against float64; plain version i8full_plain;
   i8_concat(xr, xi)     replaces _i8_concat_kernel (probe_store.py:101):
-      i8full's kernel storing whole rows of a 16-row tile; equal to i8full.
+      i8full's arithmetic storing whole rows of a 16-row tile, on a
+      thread-block cluster of n1 CTAs, each a slice with its 144 KB of int8
+      tables resident, each row's slices pushed to the CTA that stores it
+      over distributed shared memory (lane_cluster_plan "i8_concat",
+      i8_push_map); equal to i8full.
 
 The port keeps its own copy of godsp_tpu/ops/_int8_contract.py's
 arithmetic (K_I8, digits3, row_quant_scales, table_digits_np,
@@ -300,16 +320,25 @@ __all__ = [
     "gmm_concat",
     "gmm_concat_stream",
     "LanePlan",
+    "i8_push_map",
     "lane_cluster_plan",
     "lane_cluster_walk",
     "lane_gather_map",
+    "lane_i8_smem",
     "lane_network_scatter",
+    "Tf32Plan",
     "gmm_tf32",
+    "gmm_tf32_bins",
+    "gmm_tf32_offset",
     "gmm_tf32_plain",
+    "gmm_tf32_plan",
+    "gmm_tf32_sync",
+    "gmm_tf32_walk",
     "half3",
     "half3_plain",
     "hi_tables",
     "i8_concat",
+    "i8_concat_stream",
     "i8_dot",
     "i8_dot_plain",
     "i8dec",
@@ -371,7 +400,7 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0,
             "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0,
             "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
-            "ls_full_stream": 0}
+            "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -670,7 +699,7 @@ def gmm_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.
 
 
 # ---------------------------------------------------------------------------
-# The cluster plan of gmm_concat and ls_full (csrc/lane_contract.cuh)
+# The cluster plan of gmm_concat, ls_full and i8_concat (csrc/lane_contract.cuh)
 # ---------------------------------------------------------------------------
 
 LANE_PITCH = 132  # words a staged tile row: rows 4 banks apart
@@ -679,12 +708,22 @@ LANE_CHUNK = LANE_MAX_CLUSTER * LANES  # columns a gmm_concat cluster covers
 LANE_TILE_WORDS = 16 * LANE_PITCH  # one plane of a tile buffer
 # G[k1]'s three planes and two two-plane tile buffers a CTA.
 LANE_SMEM = (3 * LANES * LANES + 4 * LANE_TILE_WORDS) * 4
-LANE_KINDS = ("gmm_concat", "ls_full")  # the kernels' kind 0 and 1
+LANE_KINDS = ("gmm_concat", "ls_full", "i8_concat")  # the kernels' kind 0, 1 and 2
+
+
+def lane_i8_smem(n1: int) -> int:
+    """i8_concat's bytes of shared memory a CTA at n1 slices: nine 16 KB
+    table planes, nine 2 KB digit planes, 16 row scales, a two-plane 16-row
+    input tile, two rows buffers of the ceil(16 / n1) whole rows of a tile
+    the CTA stores and their four mbarriers (lane_contract.cuh: i8_smem)."""
+    return (9 * 16384 + 9 * 2048 + 16 * 4 + 2 * 16 * LANES * 4
+            + 2 * 2 * -(-16 // n1) * n1 * LANES * 4 + 4 * 8)
 
 
 class LanePlan(NamedTuple):
-    """The launch plan of gmm_concat's or ls_full's cluster kernel
-    (gdsp_lane_cluster_geometry returns the same fields in this order)."""
+    """The launch plan of gmm_concat's, ls_full's or i8_concat's cluster
+    kernel (gdsp_lane_cluster_geometry returns the same fields in this
+    order)."""
 
     cluster: int  # CTAs a cluster: a CTA a 128-column slice
     clusters: int  # clusters of the grid
@@ -712,8 +751,12 @@ def lane_cluster_plan(kind: str, b: int, n: int, rows_per_block: int = 16,
     at most `resident` clusters, each walking units cluster, cluster +
     clusters, ...; the tile buffer and the network's staging buffer;
     chunk_rows rows of a tile at a time; store_rows 0 (512-byte runs of
-    each slice) or 1 (whole rows).  Raises ValueError for what the kernels
-    do not take and RuntimeError where no cluster fits (resident < 1)."""
+    each slice) or 1 (whole rows).  i8_concat: n = n1 x 128 with
+    1 <= n1 <= 8, a cluster of n1 CTAs (a slice's int8 tables resident in
+    each), at most `resident` clusters walking tiles cluster, cluster +
+    clusters, ...; two rows buffers (lane_i8_smem); whole-row stores.  Raises ValueError
+    for what the kernels do not take and RuntimeError where no cluster fits
+    (resident < 1)."""
     if b < 0 or n < LANES or n % LANES:
         raise ValueError(f"lane_cluster_plan: bad shape {b} x {n}")
     n1, tiles = n // LANES, -(-b // LS_TILE)
@@ -727,15 +770,21 @@ def lane_cluster_plan(kind: str, b: int, n: int, rows_per_block: int = 16,
                              f"{rows_per_block}, chunk_rows {chunk_rows}, store_rows {store_rows}")
         cluster, chunks = n1, 1
         tiles_unit, store, rows = rows_per_block // LS_TILE, store_rows, chunk_rows
+    elif kind == "i8_concat":
+        if n1 > LANE_MAX_CLUSTER:
+            raise ValueError(f"lane_cluster_plan: i8_concat takes n1 <= {LANE_MAX_CLUSTER}, "
+                             f"got n {n}")
+        cluster, chunks, tiles_unit, store, rows = n1, 1, 1, 1, LS_TILE
     else:
         raise ValueError(f"lane_cluster_plan: kind must be one of {LANE_KINDS}, got {kind!r}")
+    smem = lane_i8_smem(n1) if kind == "i8_concat" else LANE_SMEM
     if resident < 1:
-        raise RuntimeError(f"{kind}: no cluster of {cluster} CTAs with {LANE_SMEM} bytes of "
+        raise RuntimeError(f"{kind}: no cluster of {cluster} CTAs with {smem} bytes of "
                            f"shared memory fits on the card")
     units = -(-tiles // tiles_unit)
     per = min(max(resident // chunks, 1), units)
     clusters = per * chunks
-    return LanePlan(cluster, clusters, clusters * cluster, LS_TILE, tiles_unit, 2, LANE_SMEM,
+    return LanePlan(cluster, clusters, clusters * cluster, LS_TILE, tiles_unit, 2, smem,
                     store, rows, chunks)
 
 
@@ -743,7 +792,8 @@ def lane_cluster_walk(kind: str, plan: LanePlan, b: int) -> list[tuple[int, list
     """(column chunk, tiles in order) of each cluster of the grid, as the
     kernels walk them: gmm_concat's cluster cl serves chunk cl % chunks and
     tiles cl // chunks, + clusters a chunk, ...; ls_full's takes units cl,
-    cl + clusters, ... of tiles_unit tiles each."""
+    cl + clusters, ... of tiles_unit tiles each (i8_concat's: tiles cl,
+    cl + clusters, ..., a unit a tile)."""
     tiles = -(-b // LS_TILE)
     out = []
     for cl in range(plan.clusters):
@@ -775,6 +825,28 @@ def lane_gather_map(cols: int, cluster: int) -> list[list[tuple[int, int, int, i
     return out
 
 
+def i8_push_map(n1: int) -> list[list[tuple[int, int, int, int]]]:
+    """i8_concat's pushes of a tile (csrc/int8_probe_kernels.cu): for each
+    CTA k1 of a cluster of n1, the (tile row, column, owner CTA, word in the
+    owner's rows-buffer plane) of every two-float store its threads make
+    (warp w, lane 4 g + t: rows g and g + 8, columns 128 k1 + 16 w + 8 j +
+    2 t).  Row r's owner is CTA r % n1, at its local row r // n1 of
+    ceil(16 / n1); the owner then stores its rows whole."""
+    n = n1 * LANES
+    out = []
+    for k1 in range(n1):
+        stores = []
+        for w in range(8):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for j in range(2):
+                    for h in range(2):
+                        r, c = g + 8 * h, LANES * k1 + 16 * w + 8 * j + 2 * t
+                        stores.append((r, c, r % n1, (r // n1) * n + c))
+        out.append(stores)
+    return out
+
+
 def lane_network_scatter(n1: int) -> dict[str, list]:
     """ls_full's network all-to-all on a cluster of n1 CTAs (P = 128 / n1
     points of a slice a CTA), as the kernel's load_points and network run:
@@ -802,13 +874,14 @@ def lane_network_scatter(n1: int) -> dict[str, list]:
 
 @lru_cache(maxsize=None)
 def _cluster_resident(kind: str, n: int, device: torch.device) -> int:
-    """Clusters of kind's kernel at n points the card holds at once
-    (cudaOccupancyMaxActiveClusters with the plan's shared memory), asked
-    once a (kind, n, device); 0 or a negative CUDA error where none fits:
-    the launch then refuses."""
+    """Clusters of kind's kernel (gmm_concat, ls_full, i8_concat) at n
+    points the card holds at once (cudaOccupancyMaxActiveClusters with the
+    plan's shared memory), asked once a (kind, n, device); 0 or a negative
+    CUDA error where none fits: the launch then refuses."""
     lib = _build.library()
-    fn = lib.gdsp_gmm_concat_resident if kind == "gmm_concat" else lib.gdsp_ls_full_resident
     with torch.cuda.device(device):
+        fn = {"gmm_concat": lib.gdsp_gmm_concat_resident, "ls_full": lib.gdsp_ls_full_resident,
+              "i8_concat": lib.gdsp_i8_concat_resident}[kind]
         return int(fn(n, 0))
 
 
@@ -1258,23 +1331,134 @@ def ls_network(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.
     return _lane_launch("ls_network", _build.library().gdsp_ls_network, xr, xi)
 
 
+def _check_gmm_tf32(xr: torch.Tensor, xi: torch.Tensor, g, name: str) -> tuple[int, int]:
+    b, n = _check_lane_planes(xr, xi, name)
+    if g is not None and tuple(g.shape) != (n // LANES, 3, LANES, LANES):
+        raise ValueError(f"{name}: g must be ({n // LANES}, 3, {LANES}, {LANES}), "
+                         f"got {tuple(g.shape)}")
+    return b, n
+
+
+def _gmm_tf32_cuda(name: str, xr: torch.Tensor, xi: torch.Tensor, g, *extra) -> tuple:
+    """Launch C entry `name` (gdsp_<name>) on the card: the planes, the
+    tables (K13's by default), b, n and extra."""
+    b, n = xr.shape
+    g = gmm_tables(n, xr.device) if g is None else _cuda_args(name, xr, g)[1]
+    if g.data_ptr() % 16:  # gmm_tf32 reads the tables 16 bytes at a time
+        g = g.clone()
+    xr, xi = _cuda_planes(xr, xi, name)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch(name, getattr(_build.library(), f"gdsp_{name}"), yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), g.data_ptr(), b, n, *extra)
+    return yr, yi
+
+
+# k-steps the tensor cores sum before each add on the CUDA cores (the
+# kernel's kWgChain; PERF.md, section 6: the dB of each chain measured).
+GMM_TF32_CHAIN = 4
+
+
+@lru_cache(maxsize=None)
+def _tf32_resident(device: torch.device) -> int:
+    """Pairs of gmm_tf32's CTAs (288 threads and 230,448 bytes each) the
+    card holds at once, asked once a device; 0 or a negative CUDA error
+    where none fits: the launch then refuses."""
+    with torch.cuda.device(device):
+        return int(_build.library().gdsp_gmm_tf32_resident(0))
+
+
 def gmm_tf32(xr: torch.Tensor, xi: torch.Tensor,
              g: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K14f gmm_default: K13's contraction (or with the (n1, 3, 128, 128)
     float32 tables g) with each Karatsuba product in one TF32 pass on the
-    tensor cores; no TF32 flag is touched."""
-    b, n = _check_lane_planes(xr, xi, "gmm_tf32")
-    if g is not None and tuple(g.shape) != (n // LANES, 3, LANES, LANES):
-        raise ValueError(f"gmm_tf32: g must be ({n // LANES}, 3, {LANES}, {LANES}), "
-                         f"got {tuple(g.shape)}")
+    tensor cores, by wgmma on pairs of CTAs a slice (gmm_tf32_plan), the
+    tensor cores chaining GMM_TF32_CHAIN k-steps; no TF32 flag is
+    touched."""
+    _check_gmm_tf32(xr, xi, g, "gmm_tf32")
     if not xr.is_cuda:
         return gmm_tf32_plain(xr, xi, tf32=True, g=g)
-    g = gmm_tables(n, xr.device) if g is None else _cuda_args("gmm_tf32", xr, g)[1]
-    xr, xi = _cuda_planes(xr, xi, "gmm_tf32")
-    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch("gmm_tf32", _build.library().gdsp_gmm_tf32, yr, xr.data_ptr(), xi.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), g.data_ptr(), b, n, gmm_groups(b, n))
-    return yr, yi
+    return _gmm_tf32_cuda("gmm_tf32", xr, xi, g, _tf32_resident(xr.device))
+
+
+def gmm_tf32_sync(xr: torch.Tensor, xi: torch.Tensor,
+                  g: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """gmm_tf32's first design (csrc/lane_slice_probe_kernels.cu: mma.sync
+    m16n8k8, A read from device memory in fragment order, each k-step
+    summed from zero and added on the CUDA cores): a yardstick off the main
+    path, >= 120 dB against gmm_tf32."""
+    b, n = _check_gmm_tf32(xr, xi, g, "gmm_tf32_sync")
+    if not xr.is_cuda:
+        return gmm_tf32_plain(xr, xi, tf32=True, g=g)
+    return _gmm_tf32_cuda("gmm_tf32_sync", xr, xi, g, gmm_groups(b, n))
+
+
+# ---------------------------------------------------------------------------
+# gmm_tf32's plan (csrc/lane_slice_probe_kernels.cu: make_tf32_plan)
+# ---------------------------------------------------------------------------
+
+TF32_ROWS = 64  # rows of a tile: wgmma's M
+TF32_BINS = 64  # bins a CTA: half a slice (two warpgroups of wgmma's N = 32)
+TF32_STAGES = 3  # the ring of stages
+TF32_K_STAGE = 64  # columns of a slice a stage: two TMA boxes of 32 (128 bytes)
+# G's three half planes, the stages (a and b), two stages' round(a + b), six
+# mbarriers, 1 KB to align the 128-byte swizzle's atoms.
+TF32_SMEM = (3 * TF32_BINS * LANES * 4 + TF32_STAGES * 2 * TF32_ROWS * TF32_K_STAGE * 4
+             + 2 * TF32_ROWS * TF32_K_STAGE * 4 + 48 + 1024)
+
+
+class Tf32Plan(NamedTuple):
+    """gmm_tf32's launch plan (gdsp_gmm_tf32_geometry returns the same
+    fields in this order)."""
+
+    pair: int  # CTAs a slice's tile: the two halves of its bins
+    pairs: int  # pairs of the grid: per_slice x n1
+    ctas: int  # CTAs of the grid
+    rows_tile: int  # rows of a tile
+    bins_cta: int  # bins a CTA
+    stages: int  # the ring of stages a CTA
+    k_stage: int  # columns of a slice a stage
+    smem: int  # bytes of dynamic shared memory a CTA
+    per_slice: int  # pairs a slice
+    chain: int  # k-steps the tensor cores sum before an add on the CUDA cores
+
+
+def gmm_tf32_plan(b: int, n: int, resident: int = 66) -> Tf32Plan:
+    """gmm_tf32's plan at b x n (any multiple of 128): pairs of CTAs (2 p
+    and 2 p + 1 of a plain grid), the `resident` pairs the card holds (one
+    CTA an SM) split evenly among the n1 slices (at least one a slice, at
+    most one a 64-row tile).  Raises ValueError for what the kernel does not
+    take and RuntimeError where no CTA fits (resident < 1)."""
+    if b < 0 or n < LANES or n % LANES:
+        raise ValueError(f"gmm_tf32_plan: bad shape {b} x {n}")
+    if resident < 1:
+        raise RuntimeError(f"gmm_tf32: no pair of CTAs with {TF32_SMEM} bytes of shared "
+                           f"memory fits on the card")
+    n1, tiles = n // LANES, -(-b // TF32_ROWS)
+    per = min(max(resident // n1, 1), max(tiles, 1))
+    return Tf32Plan(2, per * n1, 2 * per * n1, TF32_ROWS, TF32_BINS, TF32_STAGES, TF32_K_STAGE,
+                    TF32_SMEM, per, GMM_TF32_CHAIN)
+
+
+def gmm_tf32_walk(plan: Tf32Plan, b: int, n: int) -> list[tuple[int, list[int]]]:
+    """(slice, 64-row tiles in order) of each pair of the grid, as the
+    kernel walks them: pair p serves slice p % n1 and tiles
+    p // n1, + per_slice, ..."""
+    n1, tiles = n // LANES, -(-b // TF32_ROWS)
+    return [(p % n1, list(range(p // n1, tiles, plan.per_slice))) for p in range(plan.pairs)]
+
+
+def gmm_tf32_bins(plan: Tf32Plan) -> list[range]:
+    """The bins of a slice each CTA h = 0, 1 of a pair contracts and stores."""
+    return [range(h * plan.bins_cta, (h + 1) * plan.bins_cta) for h in range(plan.pair)]
+
+
+def gmm_tf32_offset(r: int, k: int, rows: int) -> int:
+    """Byte offset of element (row r, column k) of a K-major wgmma operand
+    in the 128-byte swizzle (the kernel's wg_offset): chunks of 32 columns,
+    each `rows` rows of 128 bytes, the 16-byte units of a row XORed with the
+    row's index mod 8.  A stage's plane (64 rows, as a 32-column TMA box
+    lands it) and G's resident planes (the CTA's 64 bins as rows) share it."""
+    return (k >> 5) * rows * 128 + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) + (k & 3) * 4
 
 
 def _check_ls_full(xr: torch.Tensor, xi: torch.Tensor, store: str, chunks: int,
@@ -1852,24 +2036,38 @@ def i8dec(xr: torch.Tensor, xi: torch.Tensor, tables=None) -> tuple[torch.Tensor
                       _i8mm_packed_for(tables, xr.shape[1], True, xr.device, "i8dec"))
 
 
-def _i8_contract(name: str, xr: torch.Tensor, xi: torch.Tensor,
-                 store_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    _check_i8(xr, xi, name)
-    if not xr.is_cuda:
-        return i8full_plain(xr, xi)
-    return _i8_launch(name, _build.library().gdsp_i8full, xr, xi,
-                      _i8full_packed(xr.shape[1], xr.device), store_rows)
-
-
 def i8full(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K14g i8full: K13's function (gmm_floor: the twiddled 128-point DFT of
     every slice, over 128) by the exact int8-limb Karatsuba contraction,
     each slice's outputs stored as they come; equal to i8full_plain."""
-    return _i8_contract("i8full", xr, xi, 0)
+    _check_i8(xr, xi, "i8full")
+    if not xr.is_cuda:
+        return i8full_plain(xr, xi)
+    return _i8_launch("i8full", _build.library().gdsp_i8full, xr, xi,
+                      _i8full_packed(xr.shape[1], xr.device), 0, 0)
 
 
 def i8_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K14c i8_concat: i8full's kernel with a 16-row tile's outputs of every
-    slice gathered in shared memory and stored as whole rows; equal to
-    i8full."""
-    return _i8_contract("i8_concat", xr, xi, 1)
+    """K14c i8_concat: i8full's arithmetic with a 16-row tile's outputs of
+    every slice stored as whole rows, on thread-block clusters of n1 CTAs
+    (lane_cluster_plan "i8_concat": a slice's int8 tables resident a CTA,
+    each row's slices pushed to the CTA that stores it over distributed
+    shared memory); equal to i8full."""
+    _check_i8(xr, xi, "i8_concat")
+    if not xr.is_cuda:
+        return i8full_plain(xr, xi)
+    n = xr.shape[1]
+    return _i8_launch("i8_concat", _build.library().gdsp_i8full, xr, xi,
+                      _i8full_packed(n, xr.device), 1,
+                      _cluster_resident("i8_concat", n, xr.device))
+
+
+def i8_concat_stream(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """i8_concat's first design (csrc/int8_probe_kernels.cu: a block a
+    16-row tile walking its slices, each product's three table planes
+    staged in turn): a yardstick off the main path, equal to i8_concat."""
+    _check_i8(xr, xi, "i8_concat_stream")
+    if not xr.is_cuda:
+        return i8full_plain(xr, xi)
+    return _i8_launch("i8_concat_stream", _build.library().gdsp_i8_concat_stream, xr, xi,
+                      _i8full_packed(xr.shape[1], xr.device))

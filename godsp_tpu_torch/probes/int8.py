@@ -30,7 +30,8 @@ Its three stages:
                plane (1152 MACs a point; none, for the same reason);
     i8full     K13's function by the int8-limb Karatsuba contraction, each
                slice stored as it ends (torch.matmul, as gmm);
-    i8_concat  the same with whole-row stores (probe_store.py's twin).
+    i8_concat  the same with whole-row stores (probe_store.py's twin), on
+               a thread-block cluster of slices with the tables resident.
 
 Before the rows, the numerics (check_numerics, at the timed planes): i8mm
 torch.equal to its plain version; i8dec, i8full and i8_concat equal to

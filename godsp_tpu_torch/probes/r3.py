@@ -23,7 +23,8 @@ between CUDA events; their difference over the extra launches):
   sliced       K14c slicestore (k_copy_sliced);
   network      ls_network (k_step1_only);
   gmm_hi       K13 gmm_floor (k_gmm_only: G at HIGHEST, float32 here);
-  gmm_default  gmm_tf32 (k_gmm_default: one TF32 pass a product);
+  gmm_default  gmm_tf32 (k_gmm_default: one TF32 pass a product, by
+               wgmma fed by TMA);
   full         ls_full, slices stored as each contraction ends (k_full);
   full_concat  ls_full(store="rows"): whole rows after the tile
                (k_full_concat);

@@ -29,8 +29,10 @@ events; their difference over the extra launches):
                stores, so the two rows compare two designs of the same
                arithmetic (equal bit for bit), not the stores alone;
   i8_concat    K13's function by the int8-limb contraction
-               (godsp_tpu/ops/_int8_contract.py's scheme, K14g's kernel),
-               a 16-row tile's every slice stored as whole rows;
+               (godsp_tpu/ops/_int8_contract.py's scheme, K14g's
+               arithmetic), a 16-row tile's every slice stored as whole
+               rows, on a thread-block cluster: a CTA a slice with its int8
+               tables resident, each row pushed to the CTA that stores it;
 
 each beside its bound (utils.metrics.bound_ms; i8_concat's 4608 int8
 operations a point over 1,979 TOPS too) and its library yardstick (copy_

@@ -2074,3 +2074,123 @@ def test_lane_cluster_kernels_do_not_spill(cuda, tmp_path):
                 print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
                 assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
     assert seen == 5
+
+
+# ---------------------------------- K14c i8_concat and K14f gmm_tf32 redesigned
+
+_RAGGED_B = (1, 15, 17, 63, 65, 1001)
+
+
+def test_i8_concat_and_gmm_tf32_geometry_match_the_host_plans(cuda):
+    """gdsp_lane_cluster_geometry for i8_concat (kind 2) and
+    gdsp_gmm_tf32_geometry, from the resident clusters (pairs of CTAs for
+    gmm_tf32) the card reports, equal ops/cuda_probes.py's
+    lane_cluster_plan("i8_concat") and gmm_tf32_plan at every n1 and ragged
+    b; the kernel's chain is the mirror's GMM_TF32_CHAIN."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    tf32 = cuda_probes._tf32_resident(cuda)
+    print(f"gmm_tf32: {tf32} pairs of CTAs resident")
+    assert tf32 >= 1
+    for n1 in (1, 2, 4, 8, 16):
+        n = 128 * n1
+        if n1 <= 8:
+            resident = cuda_probes._cluster_resident("i8_concat", n, cuda)
+            print(f"i8_concat n {n}: {resident} clusters of {n1} resident")
+            assert resident >= 1
+        for b in _RAGGED_B + (16384,):
+            if n1 <= 8:
+                rc = lib.gdsp_lane_cluster_geometry(2, b, n, 0, 0, 0, resident, out)
+                plan = cuda_probes.lane_cluster_plan("i8_concat", b, n, resident=resident)
+                assert rc == 0 and tuple(out) == tuple(plan), (b, n)
+            rc = lib.gdsp_gmm_tf32_geometry(b, n, tf32, out)
+            plan = cuda_probes.gmm_tf32_plan(b, n, tf32)
+            assert rc == 0 and tuple(out) == tuple(plan), (b, n)
+            assert plan.chain == cuda_probes.GMM_TF32_CHAIN
+
+
+@pytest.mark.parametrize("n1", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", _RAGGED_B)
+def test_i8_concat_and_gmm_tf32_on_ragged_shapes(cuda, b, n1):
+    """Ragged row tiles: i8_concat torch.equal to i8full, to its plain
+    version and to its first design i8_concat_stream; gmm_tf32 >= 120 dB
+    against its TF32-rounded float64 plain version and against its first
+    design gmm_tf32_sync."""
+    n = 128 * n1
+    xr, xi = (v * 0.01 for v in _lane_planes(cuda, b, n, 5 * b + n1))
+    got = cuda_probes.i8_concat(xr, xi)
+    for want in (cuda_probes.i8full(xr, xi), cuda_probes.i8full_plain(xr, xi),
+                 cuda_probes.i8_concat_stream(xr, xi)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    x64 = (xr.double(), xi.double())
+    g = cuda_probes.gmm_tf32(xr, xi)
+    assert dsputils.snr_db(_c(g), _c(cuda_probes.gmm_tf32_plain(*x64, tf32=True))) \
+        >= SNR_CARD_DB
+    assert dsputils.snr_db(_c(g), _c(cuda_probes.gmm_tf32_sync(xr, xi))) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 1024), (17, 16384)])
+def test_i8_concat_and_gmm_tf32_yardsticks_on_card(cuda, b, n):
+    """The first designs beside the redesigns: i8_concat_stream equal to
+    i8_concat (n1 <= 8); gmm_tf32_sync and gmm_tf32 >= 120 dB against the
+    TF32-rounded float64 plain version, gmm_tf32 within 3 dB of the first
+    design (both dB printed); one launch a call."""
+    xr, xi = _lane_planes(cuda, b, n, b + 3)
+    reset_launch_counts()
+    if n <= 1024:
+        s8 = (xr * 0.01, xi * 0.01)
+        st, got = cuda_probes.i8_concat_stream(*s8), cuda_probes.i8_concat(*s8)
+        assert torch.equal(st[0], got[0]) and torch.equal(st[1], got[1])
+    want = _c(cuda_probes.gmm_tf32_plain(xr.double(), xi.double(), tf32=True))
+    sync = cuda_probes.gmm_tf32_sync(xr, xi)
+    dbs = {"sync": dsputils.snr_db(_c(sync), want),
+           "gmm_tf32": dsputils.snr_db(_c(cuda_probes.gmm_tf32(xr, xi)), want)}
+    print(f"gmm_tf32 {b} x {n} dB against the TF32-rounded plain version: {dbs}")
+    assert all(db >= SNR_CARD_DB for db in dbs.values())
+    assert dbs["gmm_tf32"] >= dbs["sync"] - 3.0
+    counts = launch_counts()
+    assert counts["gmm_tf32_sync"] == counts["gmm_tf32"] == 1
+    if n <= 1024:
+        assert counts["i8_concat_stream"] == counts["i8_concat"] == 1
+
+
+def test_i8_concat_and_gmm_tf32_occupancy_of_zero_raises(cuda, monkeypatch):
+    """No cluster (no pair of CTAs, for gmm_tf32) fits a CTA asking for more
+    shared memory than the card allows (0 or an error); a launch told 0
+    refuses in the C entry and the wrapper raises without counting a
+    launch."""
+    lib = _build.library()
+    assert lib.gdsp_i8_concat_resident(1024, 32768) <= 0
+    assert lib.gdsp_gmm_tf32_resident(32768) <= 0
+    xr, xi = _lane_planes(cuda, 64, 1024, 2)
+    monkeypatch.setattr(cuda_probes, "_cluster_resident", lambda kind, n, device: 0)
+    monkeypatch.setattr(cuda_probes, "_tf32_resident", lambda device: 0)
+    before = launch_counts()
+    for fn in (cuda_probes.i8_concat, cuda_probes.gmm_tf32):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fn(xr, xi)
+    after = launch_counts()
+    assert after["i8_concat"] == before["i8_concat"] and after["gmm_tf32"] == before["gmm_tf32"]
+    torch.cuda.synchronize()
+
+
+def test_i8_concat_and_gmm_tf32_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v on the two sources: i8_concat_kernel and gmm_tf32_kernel
+    spill nothing (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("int8_probe_kernels.cu", ("16i8_concat_kernel",)),
+                       ("lane_slice_probe_kernels.cu", ("15gmm_tf32_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
+    assert seen == 2

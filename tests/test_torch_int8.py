@@ -327,3 +327,33 @@ def test_int8_probe_main_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert int8.main() == 1
+
+
+@pytest.mark.parametrize("b", [1, 15, 17, 63, 65, 1001])
+@pytest.mark.parametrize("n1", [1, 2, 4, 8])
+def test_i8_concat_and_its_yardstick_on_cpu_tensors_are_i8full_plain(n1, b):
+    """On CPU tensors i8_concat (the cluster redesign) and i8_concat_stream
+    (its first design) take i8full's plain version, ragged b included; no
+    launch is counted."""
+    rng = np.random.default_rng(17 * b + n1)
+    xr, xi = (torch.from_numpy(v) for v in rng.normal(size=(2, b, 128 * n1)).astype(np.float32))
+    want = cp.i8full_plain(xr, xi)
+    before = launch_counts()
+    for fn in (cp.i8_concat, cp.i8_concat_stream):
+        got = fn(xr, xi)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    after = launch_counts()
+    assert after["i8_concat"] == before["i8_concat"]
+    assert after["i8_concat_stream"] == before["i8_concat_stream"]
+
+
+def test_i8_concat_yardstick_checks_dtype_shape_and_device():
+    fn = cp.i8_concat_stream
+    for a, b in ((torch.zeros(2, 1000), torch.zeros(2, 1000)),
+                 (torch.zeros(2, 2048), torch.zeros(2, 2048)),
+                 (torch.zeros(2, 256), torch.zeros(3, 256)), (torch.zeros(256), torch.zeros(256)),
+                 (torch.zeros(2, 256), torch.zeros(2, 256, device="meta"))):
+        with pytest.raises(ValueError):
+            fn(a, b)
+    with pytest.raises(TypeError):
+        fn(torch.zeros(2, 256, dtype=torch.float64), torch.zeros(2, 256, dtype=torch.float64))

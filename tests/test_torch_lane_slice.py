@@ -179,6 +179,34 @@ def test_gmm_tf32_rounds_where_the_kernel_rounds():
         assert torch.equal(yr, a - b) and torch.equal(yi, s - a - b)
 
 
+@pytest.mark.parametrize("b", [1, 15, 17, 63, 65, 1001])
+@pytest.mark.parametrize("n1", [1, 2, 4, 8])
+def test_gmm_tf32_and_yardstick_on_cpu_are_the_rounded_plain_version(n1, b):
+    """On CPU tensors gmm_tf32 and its first design gmm_tf32_sync take the
+    TF32-rounded plain version, with K13's tables and with any others,
+    ragged b included; no launch is counted."""
+    rng = np.random.default_rng(13 * b + n1)
+    xr, xi = _t(*(rng.normal(size=(2, b, 128 * n1)).astype(np.float32)))
+    want = cp.gmm_tf32_plain(xr, xi, tf32=True)
+    before = dict(cp.launches)
+    g = torch.from_numpy(rng.normal(size=(n1, 3, 128, 128)).astype(np.float32))
+    want_g = cp.gmm_tf32_plain(xr, xi, tf32=True, g=g)
+    for got, ref in ((cp.gmm_tf32_sync(xr, xi), want), (cp.gmm_tf32(xr, xi), want),
+                     (cp.gmm_tf32_sync(xr, xi, g), want_g), (cp.gmm_tf32(xr, xi, g), want_g)):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert cp.launches == before
+
+
+def test_gmm_tf32_yardstick_checks_shapes():
+    x = torch.zeros(2, 256)
+    with pytest.raises(ValueError, match="g must be"):
+        cp.gmm_tf32_sync(x, x, torch.zeros(1, 3, 128, 128))
+    for a, b in ((torch.zeros(2, 1000), torch.zeros(2, 1000)),
+                 (torch.zeros(2, 256), torch.zeros(3, 256))):
+        with pytest.raises(ValueError):
+            cp.gmm_tf32_sync(a, b)
+
+
 @pytest.mark.parametrize("name", TWINS)
 def test_lane_slice_wrappers_check_shapes(name):
     fn = getattr(cp, name)
