@@ -41,7 +41,8 @@ final line):
      kernel (utils.profiling.trace_to), printed beside the events time; K12 copy_split equal to its plain
      version at 1024 x 16384 and at 7 x 4099 (the scalar tail), and K13
      gmm_floor against its float64 plain version at 1024 x 16384 and at
-     n = 128, 8192 and 16384 (n1 = 1 .. 128), both timed at 1024 x 16384;
+     n = 128, 8192 and 16384 (n1 = 1 .. 128) and torch.equal to
+     gmm_floor_sync at each, both timed at 1024 x 16384;
      and the redesign lines (phase_fft_redesign): K1 at 16384 x 1024,
      65536 x 256, 4096 x 4096, 2048 x 8192 and 1024 x 16384, K2 and K3 at
      16384 x 1024, each >= 120 dB against float64 and timed by chain
@@ -87,7 +88,18 @@ final line):
      counted session of its own), its library call, i8full (for
      i8_concat) and the bound, with the plan's clusters (pairs of CTAs
      for gmm_tf32) and shared bytes, after both plans are held to the host's
-     (gdsp_lane_cluster_geometry kind 2, gdsp_gmm_tf32_geometry);
+     (gdsp_lane_cluster_geometry kind 2, gdsp_gmm_tf32_geometry); then
+     (phase_floor_dot_redesign) K13 gmm_floor at 16384 x 1024 and 1024 x
+     16384 on its persistent grid (8 x 4 register tiles, x through a TMA
+     ring; torch.equal to its first design gmm_floor_sync) and i8_dot at
+     both probes.int8.DOT_SHAPES on 32 x 32 tiles loaded in one round
+     (torch.equal to the exact product and to its first design
+     i8_dot_bytes), each by chain and alone beside its first design (a
+     counted session of its own), its library call (torch.matmul of the
+     complex64 slices, TF32 off; torch._int_mm, whose GEMM kernel alone
+     is averaged as i8_dot's is) and the bound, after both plans are held
+     to the host's (gdsp_gmm_floor_geometry, gdsp_i8_dot_geometry) and
+     printed;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -539,6 +551,8 @@ REPLACES = {
     "ls_full_stream": "tools/probe_r3.py:157",
     "i8_concat_stream": "tools/probe_store.py:53",
     "gmm_tf32_sync": "tools/probe_r3.py:157",
+    "gmm_floor_sync": "godsp_tpu/utils/metrics.py:294",
+    "i8_dot_bytes": "tools/probe_int8.py:213",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -582,6 +596,8 @@ SOURCES = {
     "ls_full_stream": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
     "i8_concat_stream": "godsp_tpu_torch/csrc/int8_probe_kernels.cu",
     "gmm_tf32_sync": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
+    "gmm_floor_sync": "godsp_tpu_torch/csrc/metrics_kernels.cu",
+    "i8_dot_bytes": "godsp_tpu_torch/csrc/int8_probe_kernels.cu",
 }
 
 
@@ -889,6 +905,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_istft_peel_redesign(rec, dev))
     steps.update(phase_lane_cluster_redesign(rec, dev))
     steps.update(phase_i8_tf32_redesign(rec, dev))
+    steps.update(phase_floor_dot_redesign(rec, dev))
     return steps
 
 
@@ -1506,6 +1523,117 @@ def phase_i8_tf32_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     return steps
 
 
+# K13 gmm_floor and K14g i8_dot redesigned (8 x 4 register tiles fed by a
+# TMA ring on a persistent grid; 32 x 32 tiles loaded in one round of
+# 16-byte copies) beside their first designs, at the bench's two K13
+# shapes and at both probes.int8.DOT_SHAPES.
+FLOOR_REDESIGN = ((16384, 1024), (1024, 16384))
+
+
+def phase_floor_dot_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K13 and i8_dot: first the plans the C side exports
+    (gdsp_gmm_floor_geometry from the resident CTAs the card reports,
+    gdsp_i8_dot_geometry on both load paths) held to the host's
+    (cuda_metrics.gmm_floor_plan, cuda_probes.i8_dot_plan) and printed; then
+    K13 at each FLOOR_REDESIGN shape torch.equal to its first design
+    gmm_floor_sync and >= 120 dB against float64, a redesign line (by chain
+    beside gmm_floor_sync as a counted session of its own, torch.matmul of
+    the complex64 slices with G, TF32 off, and the bound) and each alone
+    by the profiler's events (torch.matmul's GEMM kernel too); then i8_dot
+    at both DOT_SHAPES torch.equal to the exact product and to i8_dot_bytes,
+    a redesign line (torch._int_mm by chain) and each alone beside
+    torch._int_mm's GEMM kernel, all three averaged over their events.  The
+    yardsticks are checked and timed for the kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch.ops import _build, cuda_metrics
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import int8
+    from godsp_tpu_torch.probes._common import INT8_OPS, complex_matmul, lane_planes
+    from godsp_tpu_torch.probes._common import planes_equal as equal
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    resident = cuda_metrics._floor_resident(dev)
+    for b in (1, 129, 1001, 16384, 1 << 17):
+        for n in (128, 384, 1024, 16384):
+            plan = tuple(cuda_metrics.gmm_floor_plan(b, n, resident))
+            rc = lib.gdsp_gmm_floor_geometry(b, n, resident, out)
+            if rc != 0 or tuple(out)[:7] != plan:
+                raise AssertionError(f"K13's plan at {b} x {n}: {tuple(out)[:7]} against the "
+                                     f"host's {plan}")
+    dot_shapes = int8.DOT_SHAPES + ((17, 33, 5), (300, 256, 72), (64, 1024, 48),
+                                    (32 * 65535 + 40, 16, 16))
+    for m, k, n in dot_shapes:
+        for aligned in (0, 1):
+            plan = tuple(cp.i8_dot_plan(m, k, n, bool(aligned)))
+            rc = lib.gdsp_i8_dot_geometry(m, k, n, aligned, out)
+            if rc != 0 or tuple(out) != plan:
+                raise AssertionError(f"i8_dot's plan at ({m}, {k}, {n}), aligned {aligned}: "
+                                     f"{tuple(out)} against the host's {plan}")
+    log(f"K13's and i8_dot's plans equal the host's; K13: {resident} resident CTAs, " + "; ".join(
+        f"{b} x {n}: {cuda_metrics.gmm_floor_plan(b, n, resident)}" for b, n in FLOOR_REDESIGN))
+    log("  i8_dot: " + "; ".join(f"({m}, {k}) @ ({k}, {n}): {cp.i8_dot_plan(m, k, n)}"
+                                 for m, k, n in int8.DOT_SHAPES))
+    steps: dict[str, dict[str, int]] = {}
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("K13's library call: TF32 is on")
+    log("K13 and i8_dot redesigned vs their first designs, by chain and alone:")
+    for b, n in FLOOR_REDESIGN:
+        xr, xi = lane_planes(dev, b, n, seed=20)
+        pts = float(b * n)
+        plan = cuda_metrics.gmm_floor_plan(b, n, resident)
+        shape = f"{b} x {n}, {plan.ctas} CTAs, {plan.items} items, {plan.smem} B shared a CTA"
+        op = lambda: cuda_metrics.gmm_floor(xr, xi)
+        first = lambda: cp.gmm_floor_sync(xr, xi)
+        if not equal(op(), first()):
+            raise AssertionError(f"K13 {shape}: not equal to gmm_floor_sync")
+        want = cplx(cuda_metrics.gmm_floor_plain(xr.double(), xi.double()))
+        library = complex_matmul(xr, xi)
+        ms = redesign_line(rec, steps, "gmm_floor", "gmm_floor_sync", shape, op, first, library,
+                           None, cplx, want, 16.0 * pts, 768.0 * pts, yard_label="first design")
+        alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+            ("K13", "gmm_floor_kernel", op), ("first design", "gmm_floor_sync_kernel", first),
+            ("torch.matmul", "gemm", library))]
+        log(f"  redesign alone (profiler events), gmm_floor {shape}: " + "  ".join(
+            f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+            f"  (by chain {ms:.4f} ms)")
+        if "gmm_floor_sync" not in rec.times:
+            rec.check("gmm_floor_sync", lambda: cplx(first()), want, f"{b} x {n}")
+            rec.time("gmm_floor_sync", f"{b} x {n}", first,
+                     lambda: cuda_metrics.gmm_floor_plain(xr, xi), library, 16.0 * pts,
+                     768.0 * pts)
+        del xr, xi, want, library
+    tc = FP32_FLOPS / INT8_OPS  # the products run on the int8 tensor cores
+    for m, k, n in int8.DOT_SHAPES:
+        a, b_ = int8.dot_inputs(dev, m, k, n)
+        plan = cp.i8_dot_plan(m, k, n)
+        shape = f"({m}, {k}) @ ({k}, {n}), {plan.ctas} CTAs"
+        op = lambda: cp.i8_dot(a, b_)
+        first = lambda: cp.i8_dot_bytes(a, b_)
+        exact = cp.i8_dot_plain(a, b_)
+        for label, got in (("the exact product", op()), ("i8_dot_bytes", first())):
+            if not torch.equal(got, exact):
+                raise AssertionError(f"i8_dot {shape}: not equal to {label}")
+        want = exact.double()
+        nbytes, flops = float(m * k + k * n + 4 * m * n), 2.0 * m * k * n * tc
+        library = lambda: torch._int_mm(a, b_)
+        ms = redesign_line(rec, steps, "i8_dot", "i8_dot_bytes", shape, op, first, library, None,
+                           lambda c: c.double(), want, nbytes, flops, yard_label="first design")
+        alone = [(label, kernel_alone_ms(symbol, run)[0]) for label, symbol, run in (
+            ("i8_dot", "i8_dot_kernel", op), ("first design", "i8_dot_bytes_kernel", first),
+            ("torch._int_mm", "gemm", library))]
+        log(f"  redesign alone (profiler events), i8_dot {shape}: " + "  ".join(
+            f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+            f"  (by chain {ms:.4f} ms)")
+        if "i8_dot_bytes" not in rec.times:
+            rec.check("i8_dot_bytes", lambda: first().double(), want, shape)
+            rec.time("i8_dot_bytes", f"{m} x {k} @ {k} x {n}", first,
+                     lambda: cp.i8_dot_plain(a, b_), library, nbytes, flops)
+        del a, b_, exact, want
+    return steps
+
+
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
     """K5 in its three modes and K6 against their float64 plain versions,
     at the shapes of phase 5, plus an odd hop with pad > nfft."""
@@ -1773,9 +1901,10 @@ def phase_metrics_kernels(rec: KernelRecord, dev) -> None:
     """K12 equal to its plain version at the flagship planes (1024 x 16384)
     and at an odd point count (the scalar tail); K13 against its float64
     plain version at 1024 x 16384 and at n = 128, 8192 and 16384 (n1 = 1
-    .. 128), both timed at the flagship planes beside their bound and
-    library yardstick."""
-    from godsp_tpu_torch.ops import cuda_metrics, launch_counts
+    .. 128), and torch.equal to its first design gmm_floor_sync at each,
+    both timed at the flagship planes beside their bound and library
+    yardstick."""
+    from godsp_tpu_torch.ops import cuda_metrics, cuda_probes, launch_counts
 
     g = torch.Generator(device=dev).manual_seed(12)
     for b, n in ((PLANE // 1024, 1024), (7, 4099)):
@@ -1805,6 +1934,11 @@ def phase_metrics_kernels(rec: KernelRecord, dev) -> None:
         want = cplx(cuda_metrics.gmm_floor_plain(xr.double(), xi.double()))
         rec.check("gmm_floor", lambda: cplx(cuda_metrics.gmm_floor(xr, xi)), want, shape)
         del want
+        got, first = cuda_metrics.gmm_floor(xr, xi), cuda_probes.gmm_floor_sync(xr, xi)
+        if not (torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])):
+            raise AssertionError(f"gmm_floor {shape}: not equal to gmm_floor_sync")
+        log(f"  {'gmm_floor':22s} {shape:34s} equal to gmm_floor_sync (torch.equal)")
+        del got, first
         if n == 1024:
             # torch.matmul of the complex64 slices with the complex64 G:
             # one call, TF32 off (fault class a).

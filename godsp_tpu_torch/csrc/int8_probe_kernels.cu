@@ -9,12 +9,30 @@
 // twins the running sum may stay there.  Bounds below are at 16384 x 1024 on
 // the H100 (3.35 TB/s, 1,979 TOPS dense int8, 67 TFLOP/s float32).
 //
-// i8_dot_kernel replaces :213 (the body `tiny` :204): c = a b for int8 a
-// (m, k) and b (k, n), row-major, into int32 c (m, n), exactly.  A block of
-// four warps owns a 64 x 64 tile of c; a k-step stages 64 x 32 bytes of a
-// and 32 x 64 of b (b transposed, 48 bytes a staged row so the fragment
-// reads hit 32 banks), bytes past m, k or n read as 0.  At the probe's
-// (256, 128) @ (128, 128) the bound is the bytes, 0.1 MB: launch time.
+// i8_dot_kernel<kVec> replaces :213 (the body `tiny` :204): c = a b for
+// int8 a (m, k) and b (k, n), row-major, into int32 c (m, n), exactly.  At
+// the probe's (256, 128) @ (128, 128) the bound is the bytes, 0.1 MB, so
+// the time is latency: the launch and the dependent trips to memory.  A
+// CTA of four warps owns a 32 x 32 tile of c (32 CTAs at the probe's
+// shape), each warp 16 x 16 of it (two m16n8k32 tiles).  k comes in chunks
+// of 128 through a ring of four stages: where k <= 512 every byte of the
+// tile's a and b is asked for at once (kVec: 16-byte cp.async, rows and
+// k past the edge zero-filled) and waited for once; deeper k refills a
+// stage as soon as its chunk is used.  a lands row-major at a 144-byte
+// pitch (the A fragments' words hit 32 banks); b lands row-major with its
+// rows permuted so that one pass transposes each 4 x 4 block of bytes by
+// byte permutes (prmt) into b^T at the same pitch, both sides on 32 banks;
+// the B fragments then read four k-consecutive bytes a column as a word.
+// c is stored as 8-byte runs.  kVec = false (k or n not a multiple of 16,
+// or an operand not 16-byte aligned: a view with a storage offset) takes
+// the same ring with predicated byte loads, bytes past m, k or n read as
+// 0, and scalar stores: the same integers.  gdsp_i8_dot_geometry exports
+// the plan (ops/cuda_probes.py: i8_dot_plan mirrors it).
+// i8_dot_bytes_kernel, its first design, kept as the yardstick: a block of
+// four warps a 64 x 64 tile of c (8 CTAs at the probe's shape); each
+// 32-deep k-step stages 64 x 32 bytes of a and 32 x 64 of b one byte a
+// load between two barriers (b transposed byte by byte, 48 bytes a staged
+// row), four dependent rounds of scalar loads at k = 128.
 //
 // i8_probe_kernel<kMode, kRows> takes two float32 planes (b, n), n = n1 x
 // 128 with n1 <= 8, contiguous and 16-byte aligned, and int8 tables packed
@@ -169,8 +187,8 @@ constexpr int kDotRow = 48;   // bytes a staged row
 constexpr int kDotThreads = 128;
 
 __global__ void __launch_bounds__(kDotThreads)
-i8_dot_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bm, int32_t* __restrict__ c,
-              long long m, int k, int n) {
+i8_dot_bytes_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bm,
+                    int32_t* __restrict__ c, long long m, int k, int n) {
   __shared__ __align__(16) int8_t sa[kDot * kDotRow];  // [row][k]
   __shared__ __align__(16) int8_t sb[kDot * kDotRow];  // [column][k]
   const long long r0 = gdsp::block_row() * kDot;
@@ -208,6 +226,204 @@ i8_dot_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bm, int32
       const long long r = r0 + 16 * w + g + 8 * (q >> 1);
       const int col = c0 + 8 * nt + 2 * t + (q & 1);
       if (r < m && col < n) c[static_cast<size_t>(r) * n + col] = acc[nt][q];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// i8_dot: 32 x 32 tiles, the tile's bytes in one round of 16-byte copies
+// ---------------------------------------------------------------------------
+
+constexpr int kDotTile = 32;                        // rows and columns of a CTA's tile of c
+constexpr int kDotChunk = 128;                      // k of a chunk of the ring
+constexpr int kDotStages = 4;                       // chunks in flight: k <= 512 in one round
+constexpr int kDotPitch = kDotChunk + 16;           // bytes a staged row of a and of b^T
+constexpr int kDotA = kDotTile * kDotPitch;         // a's chunk: 4,608 bytes
+constexpr int kDotB = kDotChunk * kDotTile;         // b's chunk, row-major: 4,096 bytes
+constexpr int kDotStage = kDotA + kDotB;
+constexpr int kDotBt = kDotTile * kDotPitch;        // b's chunk transposed
+constexpr int kDotWarps = 4;                        // a 2 x 2 grid of 16 x 16 warp tiles
+constexpr int kDotPlanFields = 10;
+
+// i8_dot's launch plan (ops/cuda_probes.py: I8DotPlan holds the same
+// fields in this order).
+struct DotPlan {
+  int tile;     // rows and columns of a CTA's tile of c
+  int ctas;     // CTAs of the grid (gx gy gz; past the last row tile they return)
+  int gx, gy, gz;
+  int vec;      // 1: 16-byte cp.async; 0: predicated byte loads
+  int k_chunk;  // k of a chunk
+  int stages;   // chunks in flight: min(chunks, 4)
+  int smem;     // bytes of dynamic shared memory a CTA
+  int threads;  // threads a CTA
+};
+
+// m, k, n >= 0; aligned: both operands 16-byte aligned.
+int make_dot_plan(long long m, int k, int n, int aligned, DotPlan* p) {
+  if (m < 0 || k < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (k + kDotChunk - 1) / kDotChunk;
+  const int stages = chunks < kDotStages ? chunks : kDotStages;
+  dim3 grid(0, 0, 0);
+  if (m > 0 && n > 0)
+    grid = gdsp::row_grid((n + kDotTile - 1) / kDotTile, (m + kDotTile - 1) / kDotTile);
+  const long long ctas = static_cast<long long>(grid.x) * grid.y * grid.z;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *p = DotPlan{kDotTile,
+               static_cast<int>(ctas),
+               static_cast<int>(grid.x),
+               static_cast<int>(grid.y),
+               static_cast<int>(grid.z),
+               aligned && k % 16 == 0 && n % 16 == 0 ? 1 : 0,
+               kDotChunk,
+               stages,
+               stages * kDotStage + kDotBt,
+               kDotWarps * 32};
+  return 0;
+}
+
+__device__ __forceinline__ uint32_t ld_word(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Chunk ch of the tile's a and b into stage ch % kDotStages: a's 32 rows x
+// 128 k at kDotPitch, b's 128 k-rows x 32 columns with k-row r at slot
+// (r % 4) (kDotChunk / 4) + r / 4 (so the transposing pass reads 32 banks).
+template <bool kVec>
+__device__ __forceinline__ void dot_issue(unsigned char* sm, int ch, const int8_t* a,
+                                          const int8_t* bm, long long m, int k, int n,
+                                          long long r0, int c0) {
+  unsigned char* sa = sm + (ch % kDotStages) * kDotStage;
+  unsigned char* sb = sa + kDotA;
+  const int k0 = ch * kDotChunk;
+  if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < kDotTile * kDotChunk / 16 / (kDotWarps * 32); ++i) {
+      const int e = threadIdx.x + kDotWarps * 32 * i, r = e >> 3, p = e & 7, kk = k0 + 16 * p;
+      const bool ok = r0 + r < m && kk < k;
+      ln::cp_async16(sa + r * kDotPitch + 16 * p,
+                     ok ? a + static_cast<size_t>(r0 + r) * k + kk : a, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kDotChunk * kDotTile / 16 / (kDotWarps * 32); ++i) {
+      const int e = threadIdx.x + kDotWarps * 32 * i, kr = e >> 1, p = e & 1;
+      const int col = c0 + 16 * p;
+      const bool ok = k0 + kr < k && col < n;
+      const int slot = (kr & 3) * (kDotChunk / 4) + (kr >> 2);
+      ln::cp_async16(sb + slot * kDotTile + 16 * p,
+                     ok ? bm + static_cast<size_t>(k0 + kr) * n + col : bm, ok);
+    }
+  } else {
+#pragma unroll 8
+    for (int e = threadIdx.x; e < kDotTile * kDotChunk; e += kDotWarps * 32) {
+      const int r = e / kDotChunk, kc = e % kDotChunk;
+      sa[r * kDotPitch + kc] =
+          r0 + r < m && k0 + kc < k
+              ? static_cast<unsigned char>(a[static_cast<size_t>(r0 + r) * k + k0 + kc])
+              : 0;
+    }
+#pragma unroll 8
+    for (int e = threadIdx.x; e < kDotChunk * kDotTile; e += kDotWarps * 32) {
+      const int kr = e / kDotTile, cc = e % kDotTile;
+      const int slot = (kr & 3) * (kDotChunk / 4) + (kr >> 2);
+      sb[slot * kDotTile + cc] =
+          k0 + kr < k && c0 + cc < n
+              ? static_cast<unsigned char>(bm[static_cast<size_t>(k0 + kr) * n + c0 + cc])
+              : 0;
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDotWarps * 32)
+i8_dot_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bm, int32_t* __restrict__ c,
+              long long m, int k, int n) {
+  extern __shared__ uint4 dot_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(dot_smem);
+  const long long r0 = gdsp::block_row() * kDotTile;
+  if (r0 >= m) return;
+  const int c0 = blockIdx.x * kDotTile;
+  const int chunks = (k + kDotChunk - 1) / kDotChunk;
+  const int stages = chunks < kDotStages ? chunks : kDotStages;
+  unsigned char* bt = sm + stages * kDotStage;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wr = w >> 1, wc = w & 1;
+
+  for (int ch = 0; ch < stages; ++ch) {
+    dot_issue<kVec>(sm, ch, a, bm, m, k, n, r0, c0);
+    if constexpr (kVec) ln::cp_async_commit();
+  }
+  int acc[2][4] = {};
+  for (int ch = 0; ch < chunks; ++ch) {
+    if constexpr (kVec) {
+      // Group j holds chunk j.  One round (chunks <= stages): wait once for
+      // all; the ring: chunk ch is done when at most the newest stages - 1
+      // (at ch = 0) or stages - 2 (later: one refill a step) are pending.
+      if (chunks <= kDotStages) {
+        if (ch == 0) ln::cp_async_wait<0>();
+      } else if (ch == 0) {
+        ln::cp_async_wait<kDotStages - 1>();
+      } else {
+        ln::cp_async_wait<kDotStages - 2>();
+      }
+    }
+    __syncthreads();  // chunk ch is in; every thread is done with chunk ch - 1
+    if (chunks > kDotStages && ch >= 1) {
+      if (ch - 1 + kDotStages < chunks)
+        dot_issue<kVec>(sm, ch - 1 + kDotStages, a, bm, m, k, n, r0, c0);
+      if constexpr (kVec) ln::cp_async_commit();
+    }
+    // b's chunk transposed: a thread a 4 x 4 block of bytes (k-rows 4 blk ..,
+    // columns 4 q ..) at a time, the four words written in a rotated order
+    // so a warp's stores hit 32 banks.
+    const unsigned char* sa = sm + (ch % kDotStages) * kDotStage;
+    const unsigned char* sb = sa + kDotA;
+#pragma unroll
+    for (int i = 0; i < kDotChunk * kDotTile / 16 / (kDotWarps * 32); ++i) {
+      const int e = threadIdx.x + kDotWarps * 32 * i, blk = e >> 3, q = e & 7;
+      uint32_t r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[j] = ld_word(sb + (j * (kDotChunk / 4) + blk) * kDotTile + 4 * q);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int jc = (jj + (q >> 1)) & 3;
+        const uint32_t sel = static_cast<uint32_t>(jc | ((jc + 4) << 4));
+        const uint32_t lo = __byte_perm(r[0], r[1], sel), hi = __byte_perm(r[2], r[3], sel);
+        *reinterpret_cast<uint32_t*>(bt + (4 * q + jc) * kDotPitch + 4 * blk) =
+            __byte_perm(lo, hi, 0x5410);
+      }
+    }
+    __syncthreads();
+    const int left = k - ch * kDotChunk;
+    const int steps = left < kDotChunk ? (left + 31) / 32 : kDotChunk / 32;
+#pragma unroll
+    for (int ks = 0; ks < kDotChunk / 32; ++ks) {
+      if (ks < steps) {
+        const unsigned char* pa = sa + (16 * wr + g) * kDotPitch + 32 * ks + 4 * t;
+        const uint4 fa = make_uint4(ld_word(pa), ld_word(pa + 8 * kDotPitch), ld_word(pa + 16),
+                                    ld_word(pa + 8 * kDotPitch + 16));
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const unsigned char* pb = bt + (16 * wc + 8 * nt + g) * kDotPitch + 32 * ks + 4 * t;
+          gdsp::mma_s8(acc[nt], fa, make_uint2(ld_word(pb), ld_word(pb + 16)));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long row = r0 + 16 * wr + g + 8 * hh;
+      const int col = c0 + 16 * wc + 8 * nt + 2 * t;
+      if (row >= m || col >= n) continue;
+      int32_t* at = c + static_cast<size_t>(row) * n + col;
+      if constexpr (kVec) {
+        *reinterpret_cast<int2*>(at) = make_int2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+      } else {
+        at[0] = acc[nt][2 * hh];
+        if (col + 1 < n) at[1] = acc[nt][2 * hh + 1];
+      }
     }
   }
 }
@@ -686,14 +902,49 @@ int launch_i8_concat(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" {
 
 // c (m, n) int32 = a (m, k) int8 @ b (k, n) int8, all row-major and
-// contiguous.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// negative extent.
+// contiguous, c 8-byte aligned; the 16-byte path where both operands are
+// 16-byte aligned and k and n are multiples of 16, else the byte path.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a negative extent.
 int gdsp_i8_dot(const int8_t* a, const int8_t* b, int32_t* c, long long m, int k, int n,
                 void* stream) {
+  DotPlan p;
+  const int aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const int rc = make_dot_plan(m, k, n, aligned, &p);
+  if (rc != 0) return rc;
+  if (p.ctas == 0) return 0;
+  const dim3 grid(p.gx, p.gy, p.gz);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.vec)
+    i8_dot_kernel<true><<<grid, p.threads, p.smem, s>>>(a, b, c, m, k, n);
+  else
+    i8_dot_kernel<false><<<grid, p.threads, p.smem, s>>>(a, b, c, m, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// i8_dot's plan at (m, k, n), aligned: both operands 16-byte aligned:
+// out[0..9] = tile, CTAs, grid x, y, z, 16-byte path, k a chunk, stages,
+// shared bytes, threads (DotPlan).  ops/cuda_probes.py: i8_dot_plan holds
+// the same; the GPU tests and phase 3 compare.
+int gdsp_i8_dot_geometry(long long m, int k, int n, int aligned, int* out) {
+  DotPlan p;
+  const int rc = make_dot_plan(m, k, n, aligned, &p);
+  if (rc != 0) return rc;
+  const int v[kDotPlanFields] = {p.tile,    p.ctas,   p.gx,     p.gy,   p.gz,
+                                 p.vec,     p.k_chunk, p.stages, p.smem, p.threads};
+  for (int i = 0; i < kDotPlanFields; ++i) out[i] = v[i];
+  return 0;
+}
+
+// i8_dot's first design, the yardstick: 64 x 64 tiles, each 32-deep k-step
+// staged a byte a load.
+int gdsp_i8_dot_bytes(const int8_t* a, const int8_t* b, int32_t* c, long long m, int k, int n,
+                      void* stream) {
   if (m < 0 || k < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
   const dim3 grid = gdsp::row_grid((n + kDot - 1) / kDot, (m + kDot - 1) / kDot);
-  i8_dot_kernel<<<grid, kDotThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, m, k, n);
+  i8_dot_bytes_kernel<<<grid, kDotThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, m, k,
+                                                                                    n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,6 +88,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// Waits until at most N of this thread's newest cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // v stored at `at`, an address of this CTA's shared memory, in the shared
 // memory of CTA `rank` of the cluster (mapa, then st.shared::cluster: a

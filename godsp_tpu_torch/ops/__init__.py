@@ -16,7 +16,9 @@
   cuda_fused_halo — K11 pwelch_power_partials_halo (K4 reading the right
                  neighbour shard's head past its block's end)
   cuda_metrics — K12 copy_split (the copy ceiling) and K13 gmm_floor (the
-                 dense G-matmul step of a four-step FFT), the bench's yardsticks
+                 dense G-matmul step of a four-step FFT: 8 x 4 register
+                 tiles on a persistent grid fed by a TMA ring), the bench's
+                 yardsticks
   cuda_probes  — K14a pwfloor_loadonly / _frameonly / _noframe / _staged, the
                  fused-Welch floor twins (K4's body with one part changed),
                  driven by godsp_tpu_torch.probes.pwfloor; K14b fac_dft (K13's
@@ -45,7 +47,10 @@
                  stft_radix2, istft_radix2, csd_radix2, outer_dft_radix2
                  and peel_rows_radix2, the first (radix-2) designs of K1,
                  K4, K5, K6, K7, K8 and K9, the yardsticks of their
-                 redesigns
+                 redesigns, beside gmm_concat_stream, ls_full_stream,
+                 i8_concat_stream, gmm_tf32_sync, i8_dot_bytes and
+                 gmm_floor_sync, the first designs of K14c, K14f, K14g's
+                 i8_dot and K13
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and

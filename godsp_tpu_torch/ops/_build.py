@@ -106,8 +106,13 @@ def _declare(lib) -> None:
     lib.gdsp_peel_rows_geometry.restype = i
     lib.gdsp_copy_split.argtypes = [p, p, p, p, i64, p]
     lib.gdsp_copy_split.restype = i
-    lib.gdsp_gmm_floor.argtypes = [p, p, p, p, p, i64, i, i, p]
-    lib.gdsp_gmm_floor.restype = i
+    for name in ("gdsp_gmm_floor", "gdsp_gmm_floor_sync"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, i, p]
+        getattr(lib, name).restype = i
+    lib.gdsp_gmm_floor_resident.argtypes = [i]
+    lib.gdsp_gmm_floor_resident.restype = i
+    lib.gdsp_gmm_floor_geometry.argtypes = [i64, i, i, p]
+    lib.gdsp_gmm_floor_geometry.restype = i
     lib.gdsp_pwfloor_loadonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
     lib.gdsp_pwfloor_loadonly.restype = i
     lib.gdsp_pwfloor_frameonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
@@ -161,8 +166,11 @@ def _declare(lib) -> None:
     lib.gdsp_ls_full_stream.restype = i
     lib.gdsp_lane_flip.argtypes = [p, p, i64, p]
     lib.gdsp_lane_flip.restype = i
-    lib.gdsp_i8_dot.argtypes = [p, p, p, i64, i, i, p]
-    lib.gdsp_i8_dot.restype = i
+    for name in ("gdsp_i8_dot", "gdsp_i8_dot_bytes"):
+        getattr(lib, name).argtypes = [p, p, p, i64, i, i, p]
+        getattr(lib, name).restype = i
+    lib.gdsp_i8_dot_geometry.argtypes = [i64, i, i, i, p]
+    lib.gdsp_i8_dot_geometry.restype = i
     for name in ("gdsp_i8mm", "gdsp_i8dec"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i

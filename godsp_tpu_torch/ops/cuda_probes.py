@@ -223,7 +223,11 @@ int32 sum.  The plane twins take two float32 planes (b, n), n = n1 x 128,
 n1 <= 8:
 
   i8_dot(a, b)          replaces :213 (tiny :204): int8 a (m, k) @ b (k, n)
-      into int32, exactly; plain version i8_dot_plain;
+      into int32, exactly, on 32 x 32 tiles of c whose whole depth (k <=
+      512; deeper k through a ring of 128-deep chunks) arrives in one round
+      of 16-byte copies, or of predicated byte loads where k or n is not a
+      multiple of 16 or an operand is not 16-byte aligned (i8_dot_plan,
+      i8_dot_tiles); plain version i8_dot_plain;
   i8mm(xr, xi, tables)  replaces _i8mm_kernel (:93): each slice's a, b,
       a + b quantized (x 100, x 100, x 50, truncated, saturated to int8)
       against random tables (i8mm_tables: default_rng(7) as
@@ -241,6 +245,15 @@ n1 <= 8:
       tables resident, each row's slices pushed to the CTA that stores it
       over distributed shared memory (lane_cluster_plan "i8_concat",
       i8_push_map); equal to i8full.
+
+The first designs of i8_dot and of K13 (cuda_metrics.gmm_floor) stay as
+the yardsticks of their redesigns:
+
+  i8_dot_bytes(a, b)     64 x 64 tiles of c, each 32-deep k-step staged a
+      byte a load; equal to i8_dot;
+  gmm_floor_sync(xr, xi) a block a slice and a row group (gmm_groups) with
+      all of G[k1] resident, 4 x 4 register tiles over 32-row tiles loaded
+      synchronously; equal to gmm_floor.
 
 The port keeps its own copy of godsp_tpu/ops/_int8_contract.py's
 arithmetic (K_I8, digits3, row_quant_scales, table_digits_np,
@@ -278,6 +291,7 @@ from godsp_tpu_torch.ops.cuda_fft import (
 )
 from godsp_tpu_torch.ops.cuda_metrics import (
     LANES,
+    _check_gmm,
     _cuda_planes,
     _g_host,
     copy_split_plain,
@@ -319,6 +333,8 @@ __all__ = [
     "fft_rows_fit",
     "gmm_concat",
     "gmm_concat_stream",
+    "gmm_floor_sync",
+    "I8DotPlan",
     "LanePlan",
     "i8_push_map",
     "lane_cluster_plan",
@@ -340,7 +356,10 @@ __all__ = [
     "i8_concat",
     "i8_concat_stream",
     "i8_dot",
+    "i8_dot_bytes",
     "i8_dot_plain",
+    "i8_dot_plan",
+    "i8_dot_tiles",
     "i8dec",
     "i8dec_plain",
     "i8full",
@@ -400,7 +419,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "i8mm": 0, "i8dec": 0, "i8full": 0, "i8_concat": 0, "fft_pow2_radix2": 0,
             "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0,
             "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
-            "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0}
+            "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
+            "gmm_floor_sync": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -1987,16 +2007,101 @@ def _check_i8_dot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
     return a.shape[0], a.shape[1], b.shape[1]
 
 
+def _i8_dot_cuda(name: str, a: torch.Tensor, b: torch.Tensor, m: int, k: int,
+                 n: int) -> torch.Tensor:
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty(m, n, dtype=torch.int32, device=a.device)
+    return _launch(name, getattr(_build.library(), f"gdsp_{name}"), c, a.data_ptr(),
+                   b.data_ptr(), c.data_ptr(), m, k, n)
+
+
 def i8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K14g's dot: a (m, k) int8 @ b (k, n) int8 into int32, exactly, on the
-    int8 tensor cores."""
+    int8 tensor cores (i8_dot_plan: 32 x 32 tiles of c, the tile's bytes in
+    one round of 16-byte copies where k % 16 == n % 16 == 0 and both
+    operands are 16-byte aligned, else predicated byte loads)."""
     m, k, n = _check_i8_dot(a, b)
     if not a.is_cuda:
         return i8_dot_plain(a, b)
-    a, b = a.contiguous(), b.contiguous()
-    c = torch.empty(m, n, dtype=torch.int32, device=a.device)
-    return _launch("i8_dot", _build.library().gdsp_i8_dot, c, a.data_ptr(), b.data_ptr(),
-                   c.data_ptr(), m, k, n)
+    return _i8_dot_cuda("i8_dot", a, b, m, k, n)
+
+
+def i8_dot_bytes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """i8_dot's first design (64 x 64 tiles of c, each 32-deep k-step staged
+    a byte a load): a yardstick off the main path, equal to i8_dot."""
+    m, k, n = _check_i8_dot(a, b)
+    if not a.is_cuda:
+        return i8_dot_plain(a, b)
+    return _i8_dot_cuda("i8_dot_bytes", a, b, m, k, n)
+
+
+# i8_dot's plan (csrc/int8_probe_kernels.cu: make_dot_plan).
+I8_DOT_TILE = 32  # rows and columns of a CTA's tile of c
+I8_DOT_CHUNK = 128  # k of a chunk of the ring
+I8_DOT_STAGES = 4  # chunks in flight: k <= 512 in one round
+I8_DOT_PITCH = I8_DOT_CHUNK + 16  # bytes a staged row of a and of b transposed
+I8_DOT_THREADS = 128  # four warps of 16 x 16
+
+
+class I8DotPlan(NamedTuple):
+    """i8_dot's launch plan (gdsp_i8_dot_geometry returns the same fields
+    in this order)."""
+
+    tile: int  # rows and columns of a CTA's tile of c
+    ctas: int  # CTAs of the grid, gx gy gz
+    gx: int  # column tiles
+    gy: int  # row tiles a z slice (<= 65535)
+    gz: int  # z slices: past the last row tile a CTA returns
+    vec: int  # 1: 16-byte cp.async; 0: predicated byte loads
+    k_chunk: int  # k of a chunk
+    stages: int  # chunks in flight: min(chunks, I8_DOT_STAGES)
+    smem: int  # bytes of dynamic shared memory a CTA
+    threads: int  # threads a CTA
+
+
+def i8_dot_plan(m: int, k: int, n: int, aligned: bool = True) -> I8DotPlan:
+    """i8_dot's plan at a (m, k) @ b (k, n), `aligned` where both operands'
+    pointers are 16-byte aligned: ceil(n / 32) x ceil(m / 32) tiles on a
+    launch.cuh row_grid, the 16-byte path exactly where aligned and k and n
+    are multiples of 16.  Raises ValueError for a negative extent."""
+    if m < 0 or k < 0 or n < 0:
+        raise ValueError(f"i8_dot_plan: bad shape ({m}, {k}) @ ({k}, {n})")
+    chunks = -(-k // I8_DOT_CHUNK)
+    stages = min(chunks, I8_DOT_STAGES)
+    gx = gy = gz = 0
+    if m and n:
+        rows = -(-m // I8_DOT_TILE)
+        gx, gy = -(-n // I8_DOT_TILE), min(rows, 65535)
+        gz = -(-rows // gy)
+    stage = I8_DOT_TILE * I8_DOT_PITCH + I8_DOT_CHUNK * I8_DOT_TILE
+    return I8DotPlan(I8_DOT_TILE, gx * gy * gz, gx, gy, gz,
+                     int(aligned and k % 16 == 0 and n % 16 == 0), I8_DOT_CHUNK, stages,
+                     stages * stage + I8_DOT_TILE * I8_DOT_PITCH, I8_DOT_THREADS)
+
+
+def i8_dot_tiles(plan: I8DotPlan, m: int) -> list[tuple[int, int] | None]:
+    """The (first row, first column) of c that each CTA of the grid owns, in
+    block order (x fastest, then y, then z); None for a CTA past the last
+    row tile, which returns at once."""
+    rows = -(-m // plan.tile)
+    return [(r * plan.tile, x * plan.tile) if (r := y + plan.gy * z) < rows else None
+            for z in range(plan.gz) for y in range(plan.gy) for x in range(plan.gx)]
+
+
+def gmm_floor_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K13's first design (csrc/metrics_kernels.cu: a block a slice and a
+    row group, all of G[k1] resident, 4 x 4 register tiles over 32-row tiles
+    loaded synchronously): a yardstick off the main path, equal to
+    cuda_metrics.gmm_floor."""
+    b, n = _check_gmm(xr, xi, "gmm_floor_sync")
+    if not xr.is_cuda:
+        return gmm_floor_plain(xr, xi)
+    xr, xi = _cuda_planes(xr, xi, "gmm_floor_sync")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    g = gmm_tables(n, xr.device)
+    _launch("gmm_floor_sync", _build.library().gdsp_gmm_floor_sync, yr, xr.data_ptr(),
+            xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), g.data_ptr(), b, n, gmm_groups(b, n))
+    return yr, yi
 
 
 def _i8_launch(name: str, fn, xr: torch.Tensor, xi: torch.Tensor, packed: torch.Tensor,

@@ -22,9 +22,12 @@ redesign (a frame a warp after K3's split run backwards; a thread-block
 cluster over distributed shared memory) at their edge geometries, two
 calls bit-equal, their plans equal to the host's, beside istft_radix2 and
 peel_rows_radix2; K14g i8_dot
-equal to the exact int32 product, i8mm, i8dec, i8full and i8_concat equal
+equal to the exact int32 product and to its first design i8_dot_bytes on
+both load paths, i8mm, i8dec, i8full and i8_concat equal
 to their plain versions, which do the same integer and float32 arithmetic,
-and i8full > 100 dB against the float64 product), and between
+and i8full > 100 dB against the float64 product; K13 equal to its first
+design gmm_floor_sync and to gmm_concat at ragged shapes, its plan and
+i8_dot's equal to the host's), and between
 the public entry points on the card and the CPU in float64 (a synthesized
 signal over its interior, away from the NOLA-divided ends); the fused
 peel + rows route (K9) also against the unfused plan.
@@ -2194,3 +2197,138 @@ def test_i8_concat_and_gmm_tf32_kernels_do_not_spill(cuda, tmp_path):
                 print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
                 assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
     assert seen == 2
+
+
+# ------------------------------------------------- K14g i8_dot and K13 redesigned
+
+_DOT_SHAPES = [(1, 1, 1), (17, 33, 5), (1001, 128, 384), (300, 256, 72), (256, 128, 128),
+               (64, 1024, 48), (40, 640, 32), (33, 100, 70)]
+
+
+def _dot_operands(cuda, m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(cuda)
+    return a, b
+
+
+@pytest.mark.parametrize("m,k,n", _DOT_SHAPES)
+def test_i8_dot_redesign_on_card(cuda, m, k, n):
+    """i8_dot torch.equal to the exact int32 product and to its first design
+    i8_dot_bytes at ragged shapes (the byte path where k or n is not a
+    multiple of 16, the ring where k > 512); one launch a call each."""
+    a, b = _dot_operands(cuda, m, k, n, m * k + n)
+    want = cuda_probes.i8_dot_plain(a, b)
+    reset_launch_counts()
+    got = cuda_probes.i8_dot(a, b)
+    first = cuda_probes.i8_dot_bytes(a, b)
+    assert got.dtype == torch.int32 and torch.equal(got, want) and torch.equal(first, want)
+    counts = launch_counts()
+    assert counts["i8_dot"] == 1 and counts["i8_dot_bytes"] == 1
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_i8_dot_on_views_with_a_storage_offset(cuda, offset):
+    """A view whose pointer is not 16-byte aligned takes the byte path (the
+    plan says so) and gives the same integers."""
+    m, k, n = 256, 128, 128
+    a0, b0 = _dot_operands(cuda, m, k, n, offset)
+    a = torch.empty(m * k + offset, dtype=torch.int8, device=cuda)[offset:].view(m, k)
+    b = torch.empty(k * n + offset, dtype=torch.int8, device=cuda)[offset:].view(k, n)
+    a.copy_(a0)
+    b.copy_(b0)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    assert cuda_probes.i8_dot_plan(m, k, n, aligned=False).vec == 0
+    assert torch.equal(cuda_probes.i8_dot(a, b), cuda_probes.i8_dot_plain(a0, b0))
+    assert torch.equal(cuda_probes.i8_dot(a0, b), cuda_probes.i8_dot(a0, b0))
+
+
+def test_i8_dot_past_grid_y(cuda):
+    """Rows past grid.y's 65535 tiles go through the row grid's z slices."""
+    m, k, n = 32 * 65535 + 40, 16, 16
+    a, b = _dot_operands(cuda, m, k, n, 5)
+    assert cuda_probes.i8_dot_plan(m, k, n).gz == 2
+    got = cuda_probes.i8_dot(a, b)
+    assert torch.equal(got, cuda_probes.i8_dot_plain(a, b))
+
+
+def test_i8_dot_geometry_matches_the_host_plan(cuda):
+    """gdsp_i8_dot_geometry equals cuda_probes.i8_dot_plan on both paths."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    for m, k, n in _DOT_SHAPES + [(0, 4, 4), (32 * 65535 + 40, 16, 16), (5, 0, 3)]:
+        for aligned in (0, 1):
+            assert lib.gdsp_i8_dot_geometry(m, k, n, aligned, out) == 0
+            assert tuple(out) == tuple(cuda_probes.i8_dot_plan(m, k, n, bool(aligned)))
+
+
+_K13_B = [1, 15, 17, 63, 65, 129, 1001]
+_K13_N1 = [1, 2, 3, 8, 9, 128]
+
+
+@pytest.mark.parametrize("n1", _K13_N1)
+def test_k13_redesign_on_card(cuda, n1):
+    """K13 torch.equal to its first design gmm_floor_sync and >= 120 dB
+    against float64 at ragged b, n1 = 1 .. 128; torch.equal to gmm_concat
+    where n <= 2048; one launch a call each."""
+    n = 128 * n1
+    for b in _K13_B:
+        xr, xi = _lane_planes(cuda, b, n, b + n)
+        reset_launch_counts()
+        got = cuda_metrics.gmm_floor(xr, xi)
+        first = cuda_probes.gmm_floor_sync(xr, xi)
+        counts = launch_counts()
+        assert counts["gmm_floor"] == 1 and counts["gmm_floor_sync"] == 1
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1]), b
+        if n <= 2048:
+            gc = cuda_probes.gmm_concat(xr, xi)
+            assert torch.equal(got[0], gc[0]) and torch.equal(got[1], gc[1]), b
+        want = _c(cuda_metrics.gmm_floor_plain(xr.double(), xi.double()))
+        assert dsputils.snr_db(_c(got), want) >= SNR_CARD_DB, b
+
+
+def test_gmm_floor_geometry_matches_the_host_plan(cuda):
+    """gdsp_gmm_floor_geometry (from the resident CTAs the card reports)
+    equals cuda_metrics.gmm_floor_plan; one CTA an SM fits."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 7)()
+    resident = cuda_metrics._floor_resident(cuda)
+    assert resident == torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b in (0, 1, 127, 128, 129, 1001, 16384, 1 << 17):
+        for n1 in (1, 2, 3, 8, 128):
+            assert lib.gdsp_gmm_floor_geometry(b, 128 * n1, resident, out) == 0
+            assert tuple(out) == tuple(cuda_metrics.gmm_floor_plan(b, 128 * n1, resident))
+
+
+def test_k13_refuses_without_a_resident_cta(cuda, monkeypatch):
+    """A resident count of 0: the launch refuses and nothing is counted."""
+    monkeypatch.setattr(cuda_metrics, "_floor_resident", lambda device: 0)
+    xr, xi = _lane_planes(cuda, 64, 256, 3)
+    before = launch_counts()["gmm_floor"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_metrics.gmm_floor(xr, xi)
+    assert launch_counts()["gmm_floor"] == before
+    torch.cuda.synchronize()
+
+
+def test_i8_dot_and_k13_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v on the two sources: i8_dot_kernel (both paths) and
+    gmm_floor_kernel spill nothing (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("int8_probe_kernels.cu", ("13i8_dot_kernel",)),
+                       ("metrics_kernels.cu", ("16gmm_floor_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
+    assert seen == 3

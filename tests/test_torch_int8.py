@@ -357,3 +357,53 @@ def test_i8_concat_yardstick_checks_dtype_shape_and_device():
             fn(a, b)
     with pytest.raises(TypeError):
         fn(torch.zeros(2, 256, dtype=torch.float64), torch.zeros(2, 256, dtype=torch.float64))
+
+
+_DOT_PLAN_SHAPES = [(256, 128, 128), (1, 1, 1), (17, 33, 5), (1001, 128, 384), (300, 256, 72),
+                    (64, 1024, 48), (40, 640, 32), (0, 8, 8), (32 * 65535 + 40, 16, 16)]
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("m,k,n", _DOT_PLAN_SHAPES)
+def test_i8_dot_plan_covers_c_once(m, k, n, aligned):
+    """i8_dot's plan: 32 x 32 tiles on a row grid (grid.y <= 65535, the z
+    slices past the last row tile idle), every element of c in exactly one
+    CTA's tile; the 16-byte path exactly where both operands are aligned
+    and k % 16 == n % 16 == 0; the whole depth in one round where k <= 512
+    (at most four 128-deep chunks), within 48 KB of shared memory."""
+    plan = cp.i8_dot_plan(m, k, n, aligned)
+    assert plan.vec == int(aligned and k % 16 == 0 and n % 16 == 0)
+    assert plan.stages == min(-(-k // 128), 4) and plan.smem <= 48 * 1024
+    assert plan.gy <= 65535 and plan.threads == 128 and plan.tile == 32
+    tiles = cp.i8_dot_tiles(plan, m)
+    assert len(tiles) == plan.ctas == plan.gx * plan.gy * plan.gz
+    owned = [t for t in tiles if t is not None]
+    assert len(owned) == len(set(owned))
+    assert set(owned) == {(32 * r, 32 * c) for r in range(-(-m // 32)) for c in range(-(-n // 32))}
+    assert all(t is None for t in tiles[len(owned):])  # the idle CTAs come last
+
+
+def test_i8_dot_plan_fills_the_card_at_the_probes_shape():
+    """At the TPU probe's (256, 128) @ (128, 128): at least 32 CTAs, the
+    16-byte path, one chunk."""
+    plan = cp.i8_dot_plan(256, 128, 128)
+    assert plan.ctas >= 32 and plan.vec == 1 and plan.stages == 1
+
+
+def test_i8_dot_plan_refuses_a_negative_extent():
+    with pytest.raises(ValueError):
+        cp.i8_dot_plan(-1, 4, 4)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 7, 3), (33, 100, 70), (64, 128, 32)])
+def test_i8_dot_bytes_on_cpu_tensors_is_the_plain_version(m, k, n):
+    """i8_dot's first design (the yardstick) takes the plain version for CPU
+    tensors and checks its operands as i8_dot does."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8))
+    assert torch.equal(cp.i8_dot_bytes(a, b), cp.i8_dot(a, b))
+    with pytest.raises(TypeError):
+        cp.i8_dot_bytes(a.float(), b)
+    with pytest.raises(ValueError):
+        cp.i8_dot_bytes(a, b[1:])

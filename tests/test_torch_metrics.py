@@ -223,6 +223,72 @@ def test_gmm_groups(b, n, groups):
     assert cuda_metrics.gmm_groups(b, n) == groups
 
 
+@pytest.mark.parametrize("n1", [1, 2, 3, 8, 128])
+@pytest.mark.parametrize("b", [0, 1, 127, 128, 129, 1001, 1 << 17])
+def test_gmm_floor_plan_walks_every_tile_and_half_once(b, n1):
+    """K13's plan: min(132, items) CTAs, each a contiguous run of
+    (slice, half, row tile) items in slice-major order; every (row tile,
+    slice, half) visited once, by one CTA; the rows of each (slice, half)
+    cover [0, b) once, the last tile ragged where b % 128; a CTA loads G at
+    most once a (slice, half) of its run; shared bytes within 227 KB."""
+    n = 128 * n1
+    plan = cuda_metrics.gmm_floor_plan(b, n)
+    tiles = -(-b // 128)
+    assert plan.items == 2 * n1 * tiles and plan.ctas == min(132, plan.items)
+    assert plan.smem <= 232448 and plan.threads == 256 and plan.rows_tile == 128
+    walk = cuda_metrics.gmm_floor_walk(plan, b)
+    assert len(walk) == plan.ctas and all(walk)
+    seen = [(k1, h, rows.start // 128) for cta in walk for k1, h, rows in cta]
+    assert len(seen) == len(set(seen)) == plan.items
+    assert set(seen) == {(k1, h, t) for k1 in range(n1) for h in (0, 1) for t in range(tiles)}
+    assert seen == sorted(seen)  # slice-major: (k1, h) major, row tile minor, CTA after CTA
+    for k1, h in {(k1, h) for k1, h, _ in seen}:
+        rows = sorted((r for c in walk for kk, hh, r in c if (kk, hh) == (k1, h)),
+                      key=lambda r: r.start)
+        assert [r.start for r in rows] == list(range(0, b, 128))
+        assert rows[-1].stop == b and all(len(r) == 128 for r in rows[:-1])
+        assert len(rows[-1]) == (b % 128 or 128)
+    for cta in walk:
+        pairs = [(k1, h) for k1, h, _ in cta]
+        assert len(set(pairs)) <= -(-len(cta) // tiles) + 1
+
+
+def test_gmm_floor_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        cuda_metrics.gmm_floor_plan(4, 100)
+    with pytest.raises(RuntimeError):
+        cuda_metrics.gmm_floor_plan(4, 128, resident=0)
+
+
+@pytest.mark.parametrize("b, n", [(1, 128), (17, 384), (129, 256)])
+def test_gmm_floor_sync_on_cpu_tensors_is_the_plain_version(b, n):
+    """K13's first design (the yardstick) takes the plain version for CPU
+    tensors, as gmm_floor does."""
+    from godsp_tpu_torch.ops import cuda_probes
+
+    rng = np.random.default_rng(b + n)
+    xr, xi = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)) for _ in "ri")
+    got = cuda_probes.gmm_floor_sync(xr, xi)
+    want = cuda_metrics.gmm_floor(xr, xi)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        cuda_probes.gmm_floor_sync(xr[:, :100], xi[:, :100])
+
+
+def test_floor_dot_probe_finds_its_lines_in_the_sources():
+    """probes.floor_dot's instrumented and variant copies find the lines
+    they change in csrc/int8_probe_kernels.cu and csrc/metrics_kernels.cu
+    (once each), so the probe does not silently measure an unchanged
+    kernel."""
+    from godsp_tpu_torch.probes import floor_dot
+
+    split = floor_dot.split_source()
+    assert split.count("gdsp_dot_stamps[cta * 8 +") == 7
+    for _, edits, _ in floor_dot.VARIANTS:
+        src = floor_dot.variant_source(edits)
+        assert all(repl in src for _, repl in edits)
+
+
 # ---------------------------------------------------------------- profiling
 
 
