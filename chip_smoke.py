@@ -99,7 +99,16 @@ final line):
      complex64 slices, TF32 off; torch._int_mm, whose GEMM kernel alone
      is averaged as i8_dot's is) and the bound, after both plans are held
      to the host's (gdsp_gmm_floor_geometry, gdsp_i8_dot_geometry) and
-     printed;
+     printed; then (phase_halo_slice8_redesign) K10 ring_halo at phase
+     8's chunk, the blocks as coll.shard_time gives them (ring_plan's
+     view route held), beside its table route ring_halo_table (a counted
+     session of its own) and torch.stack of the same blocks' heads, by
+     chain, by events and alone; and K14d's slice8_add at 16384 x 1024
+     (every slice's loads first) beside its first design slice8_add_sync
+     (a counted session of its own), torch.add, K12's copy and
+     reshape_add, by chain and alone, both designs torch.equal to
+     add_one_plain; K10's library call is that stack of heads in its
+     row too;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -553,6 +562,8 @@ REPLACES = {
     "gmm_tf32_sync": "tools/probe_r3.py:157",
     "gmm_floor_sync": "godsp_tpu/utils/metrics.py:294",
     "i8_dot_bytes": "tools/probe_int8.py:213",
+    "ring_halo_table": "godsp_tpu/parallel/halo.py:63",
+    "slice8_add_sync": "tools/probe_anatomy2.py:87",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -598,6 +609,8 @@ SOURCES = {
     "gmm_tf32_sync": "godsp_tpu_torch/csrc/lane_slice_probe_kernels.cu",
     "gmm_floor_sync": "godsp_tpu_torch/csrc/metrics_kernels.cu",
     "i8_dot_bytes": "godsp_tpu_torch/csrc/int8_probe_kernels.cu",
+    "ring_halo_table": "godsp_tpu_torch/csrc/halo_kernel.cu",
+    "slice8_add_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
 }
 
 
@@ -906,6 +919,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_lane_cluster_redesign(rec, dev))
     steps.update(phase_i8_tf32_redesign(rec, dev))
     steps.update(phase_floor_dot_redesign(rec, dev))
+    steps.update(phase_halo_slice8_redesign(rec, dev))
     return steps
 
 
@@ -1634,6 +1648,94 @@ def phase_floor_dot_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]
     return steps
 
 
+def phase_halo_slice8_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K10 and K14d's slice8_add redesigned.  K10 at phase 8's chunk shape,
+    the blocks as coll.shard_time gives them on one card: ring_plan's route
+    "view" held and printed; ring_halo and its yardstick ring_halo_table (the
+    pointer table) torch.equal to ring_halo_plain, one launch each; a
+    redesign line (by chain beside ring_halo_table as a counted session of
+    its own, the same-input library call torch.stack of the heads, the
+    bound), then each by events and alone (the profiler's events of its
+    kernel; of every kernel the stack launches).  slice8_add at 16384 x 1024
+    torch.equal to add_one_plain and to slice8_add_sync; a redesign line
+    beside slice8_add_sync, torch.add a plane, K12's copy and reshape_add;
+    then each alone.  The yardsticks are checked and timed for the kernels
+    line here."""
+    from godsp_tpu_torch.ops import cuda_halo, cuda_metrics, launch_counts
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.parallel import _collectives as coll
+    from godsp_tpu_torch.probes._common import lane_planes
+
+    steps: dict[str, dict[str, int]] = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    block, halo = SEGS * 512, 512
+    ext = torch.rand(1, SP * block + halo, generator=g, device=dev) * 2 - 1
+    blocks = coll.shard_time(ext[:, : SP * block], [dev] * SP)
+    plan = cuda_halo.ring_plan(blocks, halo)
+    if plan.route != "view":
+        raise AssertionError(f"ring_halo: shard_time's blocks take the {plan.route} route")
+    shape = f"{SP} blocks x 1 row x {block}, halo {halo}"
+    want = torch.stack(cuda_halo.ring_halo_plain(blocks, halo))
+    op = lambda: cuda_halo.ring_halo(blocks, halo)
+    first = lambda: cuda_halo.ring_halo_table(blocks, halo)
+    heads = lambda: torch.stack([b[..., :halo] for b in blocks[1:] + blocks[:1]])
+    for name, run in (("ring_halo", op), ("ring_halo_table", first)):
+        before = launch_counts()[name]
+        if not torch.equal(torch.stack(run()), want) or launch_counts()[name] != before + 1:
+            raise AssertionError(f"{name} {shape}: not one launch equal to its plain version")
+    if not torch.equal(heads(), want):
+        raise AssertionError("ring_halo's library call differs from its plain version")
+    log(f"K10 and slice8_add redesigned vs their first designs; K10's plan at {shape}: {plan}")
+    nbytes = 8.0 * SP * halo
+    ms = redesign_line(rec, steps, "ring_halo", "ring_halo_table", shape, op, first, heads, None,
+                       torch.stack, want.double(), nbytes, 0.0, yard_label="table route")
+    events = [(label, time_ms(run)) for label, run in (
+        ("K10", op), ("table route", first), ("torch.stack of the heads", heads))]
+    alone = [(label, kernel_alone_ms(symbol, run)[0]) for label, symbol, run in (
+        ("K10", "ring_halo_view_kernel", op), ("table route", "ring_halo_table_kernel", first))]
+    rows = kernel_alone_ms("", heads)[1]  # every kernel the stack launches, 50 calls
+    alone.append(("torch.stack of the heads",
+                  sum(e.self_device_time_total for e in rows) / 1e3 / 50 if rows else None))
+    log(f"  redesign by events, ring_halo {shape}: " + "  ".join(
+        f"{label} {t:.4f} ms" for label, t in events) + f"  (by chain {ms:.4f} ms)")
+    log(f"  redesign alone (profiler events), ring_halo {shape}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone))
+    rec.err["ring_halo_table"] = 0.0
+    rec.time("ring_halo_table", shape, first,
+             lambda: torch.stack(cuda_halo.ring_halo_plain(blocks, halo)), heads, nbytes, 0.0)
+    del ext, blocks, want
+    b, n = LANE_B, LANE_N
+    xr, xi = lane_planes(dev, b, n, seed=21)
+    pts = float(b * n)
+    shape = f"{b} x {n}"
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    op = lambda: cp.slice8_add(xr, xi)
+    first = lambda: cp.slice8_add_sync(xr, xi)
+    library = lambda: (torch.add(xr, 1.0, out=yr), torch.add(xi, 1.0, out=yi))
+    plain = cp.add_one_plain(xr, xi)
+    for name, run in (("slice8_add", op), ("slice8_add_sync", first)):
+        got = run()
+        if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+            raise AssertionError(f"{name} {shape}: not equal to add_one_plain")
+    copy = lambda: cuda_metrics.copy_split(xr, xi)
+    reshape = lambda: cp.reshape_add(xr, xi)
+    # Held to the float32 plain version, which both designs equal bit for bit.
+    ms = redesign_line(rec, steps, "slice8_add", "slice8_add_sync", shape, op, first, library,
+                       copy, cplx, cplx(plain), 16.0 * pts, 2.0 * pts,
+                       extra=("reshape_add", reshape), yard_label="first design")
+    alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+        ("slice8_add", "slice8_kernel", op), ("first design", "add_one_kernel", first),
+        ("reshape_add", "add_one_kernel", reshape), ("K12 copy", "copy_split_kernel", copy))]
+    log(f"  redesign alone (profiler events), slice8_add {shape}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+        f"  (by chain {ms:.4f} ms)")
+    rec.err["slice8_add_sync"] = 0.0
+    rec.time("slice8_add_sync", f"{b} x {n}", first, lambda: cp.add_one_plain(xr, xi), library,
+             16.0 * pts, 2.0 * pts)
+    del xr, xi, yr, yi, plain
+    return steps
+
+
 def phase_stft_kernels(rec: KernelRecord, dev) -> None:
     """K5 in its three modes and K6 against their float64 plain versions,
     at the shapes of phase 5, plus an odd hop with pad > nfft."""
@@ -1852,12 +1954,14 @@ def phase_halo_kernels(rec: KernelRecord, dev) -> None:
         raise AssertionError("ring_halo: differs from its plain version")
     rec.err["ring_halo"] = 0.0
     log(f"  {'ring_halo':22s} {shape:34s} equal to its plain version (torch.equal)")
-    stacked = torch.stack([b for b in blocks])
+    # The library call: one torch.stack of the heads of the same eight blocks.
     rec.time("ring_halo", shape, lambda: cuda_halo.ring_halo(blocks, halo),
              lambda: torch.stack(cuda_halo.ring_halo_plain(blocks, halo)),
-             lambda: torch.roll(stacked[..., :halo], -1, 0), 8.0 * SP * halo, 0.0)
-    rec.device_time("ring_halo", "ring_halo_kernel", lambda: cuda_halo.ring_halo(blocks, halo))
-    del ext, blocks, stacked
+             lambda: torch.stack([b[..., :halo] for b in blocks[1:] + blocks[:1]]),
+             8.0 * SP * halo, 0.0)
+    rec.device_time("ring_halo", "ring_halo_view_kernel",
+                    lambda: cuda_halo.ring_halo(blocks, halo))
+    del ext, blocks
     # K11: one shard of phase 8's chunk and its neighbour's head (views of
     # one signal), the last shard with an injected tail, and hop 160 with
     # nfft 1000 and pad 1024 (an 840-sample halo).

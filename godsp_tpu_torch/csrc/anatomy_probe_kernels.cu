@@ -17,13 +17,27 @@
 // value is the same IEEE add or subtract as the plain version's, in the
 // same order, so the result equals it bit for bit.
 //
-// add_one_kernel<false> replaces v2slice8 (:140) and add_one_kernel<true>
+// slice8_kernel replaces v2slice8 (:140) and add_one_kernel<true>
 // v3reshape (:148): x + 1, both planes.  Bound: bytes, 0.080 ms (2
-// operations a point).  The slice map walks a row's chunk of up to 1024
-// columns one 128-column slice a pass (512 B of each row a pass), as
-// lane_probe_kernels.cu: slicestore_kernel stores; the reshape map reads
-// the planes as a (b n / 128, 128) view, one warp a 128-float row, 16 B a
-// thread.  One body, two thread maps: the difference is the map.
+// operations a point).  The reshape map reads the planes as a (b n / 128,
+// 128) view, one warp a 128-float row, 16 B a thread.  The slice map walks
+// a row's chunk of up to 1024 columns one 128-column slice a pass, one
+// warp a row, eight rows a block.  Its first design, add_one_kernel<false>
+// (gdsp_slice8_add_sync, kept as the yardstick), is the reshape map's body
+// in a loop over the slices, and took 0.127 ms by chain where the reshape
+// map took 0.092.  As compiled (probes/slice8.py reads the SASS) the loop
+// is unrolled by four; a slice's two 16-byte loads issue only after the
+// previous slice's stores, each float4 is stored as four 4-byte stores,
+// and at 40 registers a SM holds 6 blocks: 48 KB of loads in flight a SM.
+// No one of these costs much alone (probes/slice8.py's variants: 16-byte
+// stores, or the loop not unrolled, at 8 blocks a SM 0.095-0.096 ms, at 6
+// blocks 0.097; the reshape map stores 4 bytes at a time too), together
+// they cost a third.  slice8_kernel keeps the grid and the walk and
+// issues every slice's loads of the warp's chunk before its first add and
+// store: 16 loads a thread, at 80 registers 3 blocks and 192 KB of loads a
+// SM in flight, stored 16 bytes at a time; it runs at the reshape map's
+// speed.  Each value is one IEEE float32 add, as in the plain version, so
+// both designs equal it bit for bit.
 //
 // bd_tf32_kernel replaces v4bd1 (:176): each plane's 128-point slices times
 // Re F128 (F[j, k] = exp(-2 pi i j k / 128), unscaled) in ONE TF32 pass on
@@ -202,6 +216,38 @@ add_one_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float
       for (int s = 0; s < slices; ++s)
         add_one4(xr, xi, yr, yi, static_cast<size_t>(row) * n + c0 + s * kLanes + 4 * lane);
     }
+  }
+}
+
+// The slice map redesigned: add_one_kernel<false>'s grid and walk, every
+// slice's loads of the warp's row chunk issued before its first add and
+// store, so a warp has 2 x slices 16-byte loads a thread in flight.
+__global__ void __launch_bounds__(kThreads)
+slice8_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
+              float* __restrict__ yi, long long b, int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * kChunk;
+  const int slices = (n - c0 < kChunk ? n - c0 : kChunk) / kLanes;
+  const long long tiles = (b + kWarps - 1) / kWarps;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long row = tile * kWarps + warp;
+    if (row >= b) continue;
+    const size_t at = static_cast<size_t>(row) * n + c0 + 4 * lane;
+    float4 a[kChunk / kLanes], c[kChunk / kLanes];
+#pragma unroll
+    for (int s = 0; s < kChunk / kLanes; ++s)
+      if (s < slices) {
+        a[s] = __ldg(reinterpret_cast<const float4*>(xr + at + s * kLanes));
+        c[s] = __ldg(reinterpret_cast<const float4*>(xi + at + s * kLanes));
+      }
+#pragma unroll
+    for (int s = 0; s < kChunk / kLanes; ++s)
+      if (s < slices) {
+        *reinterpret_cast<float4*>(yr + at + s * kLanes) =
+            make_float4(a[s].x + 1.f, a[s].y + 1.f, a[s].z + 1.f, a[s].w + 1.f);
+        *reinterpret_cast<float4*>(yi + at + s * kLanes) =
+            make_float4(c[s].x + 1.f, c[s].y + 1.f, c[s].z + 1.f, c[s].w + 1.f);
+      }
   }
 }
 
@@ -433,8 +479,19 @@ int gdsp_half3(const float* xr, const float* xi, float* yr, float* yi, long long
   return static_cast<int>(cudaGetLastError());
 }
 
+// The redesign, slice8_kernel, on the first design's grid.
 int gdsp_slice8_add(const float* xr, const float* xi, float* yr, float* yi, long long b, int n,
                     void* stream) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  slice8_kernel<<<dim3((n + kChunk - 1) / kChunk, tile_blocks((b + kWarps - 1) / kWarps)),
+                  kThreads, 0, static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design, the yardstick: add_one_kernel<false>.
+int gdsp_slice8_add_sync(const float* xr, const float* xi, float* yr, float* yi, long long b,
+                         int n, void* stream) {
   if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
   add_one_kernel<false><<<dim3((n + kChunk - 1) / kChunk, tile_blocks((b + kWarps - 1) / kWarps)),

@@ -12,7 +12,10 @@
                  register-radix passes down a tile of columns)
                  and K9 peel_rows_fused_split (its last 128-point peel fused
                  with the row FFT, the route of fft.large.set_fuse_rows_enabled)
-  cuda_halo    — K10 ring_halo (the sharded Welch's overlap halo, one launch a ring)
+  cuda_halo    — K10 ring_halo (the sharded Welch's overlap halo, one launch a ring:
+                 the blocks found from one pointer where they are views of one
+                 signal, else through a pointer table), and ring_halo_table,
+                 the table route alone, its yardstick
   cuda_fused_halo — K11 pwelch_power_partials_halo (K4 reading the right
                  neighbour shard's head past its block's end)
   cuda_metrics — K12 copy_split (the copy ceiling) and K13 gmm_floor (the
@@ -48,9 +51,9 @@
                  and peel_rows_radix2, the first (radix-2) designs of K1,
                  K4, K5, K6, K7, K8 and K9, the yardsticks of their
                  redesigns, beside gmm_concat_stream, ls_full_stream,
-                 i8_concat_stream, gmm_tf32_sync, i8_dot_bytes and
-                 gmm_floor_sync, the first designs of K14c, K14f, K14g's
-                 i8_dot and K13
+                 i8_concat_stream, gmm_tf32_sync, i8_dot_bytes,
+                 gmm_floor_sync and slice8_add_sync, the first designs of
+                 K14c, K14f, K14g's i8_dot, K13 and K14d's slice8_add
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and

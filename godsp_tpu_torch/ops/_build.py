@@ -75,6 +75,8 @@ def _declare(lib) -> None:
     lib.gdsp_pwelch_partials_halo.restype = i
     lib.gdsp_ring_halo.argtypes = [p, p, i, i, i, p, i64, i, i, p]
     lib.gdsp_ring_halo.restype = i
+    lib.gdsp_ring_halo_view.argtypes = [p, i64, i64, i, p, i64, i, i, p]
+    lib.gdsp_ring_halo_view.restype = i
     lib.gdsp_enable_peer.argtypes = [i, i]
     lib.gdsp_enable_peer.restype = i
     for name in ("gdsp_csd_partials", "gdsp_csd_radix2"):
@@ -136,7 +138,7 @@ def _declare(lib) -> None:
         getattr(lib, name).restype = i
     lib.gdsp_lane_cluster_geometry.argtypes = [i, i64, i, i, i, i, i, p]
     lib.gdsp_lane_cluster_geometry.restype = i
-    for name in ("gdsp_half3", "gdsp_slice8_add", "gdsp_reshape_add"):
+    for name in ("gdsp_half3", "gdsp_slice8_add", "gdsp_slice8_add_sync", "gdsp_reshape_add"):
         getattr(lib, name).argtypes = [p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
     for name in ("gdsp_bd_tf32", "gdsp_bd_hi"):

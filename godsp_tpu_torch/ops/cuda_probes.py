@@ -399,6 +399,7 @@ __all__ = [
     "sdif_peel_plain",
     "sdif_tables",
     "slice8_add",
+    "slice8_add_sync",
     "slicestore",
     "stack_tables_np",
     "staged_segs_per_tile",
@@ -420,7 +421,7 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0,
             "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
             "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
-            "gmm_floor_sync": 0}
+            "gmm_floor_sync": 0, "slice8_add_sync": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -1036,11 +1037,21 @@ def half3(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
 
 
 def slice8_add(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K14d slice8: x + 1, one 128-column slice of each row a pass."""
+    """K14d slice8: x + 1, one 128-column slice of each row a pass, a warp
+    a row, every slice's loads issued before the first add and store."""
     _check_lane_planes(xr, xi, "slice8_add")
     if not xr.is_cuda:
         return add_one_plain(xr, xi)
     return _lane_launch("slice8_add", _build.library().gdsp_slice8_add, xr, xi)
+
+
+def slice8_add_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """slice8_add's first design, its yardstick: one warp a row, a slice's
+    load, add and store in turn."""
+    _check_lane_planes(xr, xi, "slice8_add_sync")
+    if not xr.is_cuda:
+        return add_one_plain(xr, xi)
+    return _lane_launch("slice8_add_sync", _build.library().gdsp_slice8_add_sync, xr, xi)
 
 
 def reshape_add(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -32,4 +32,9 @@
             i8_dot's exactness and i8full's dB against float64) beside K12
             and K13:
             python3 -m godsp_tpu_torch.probes.int8
+  slice8  — K14d's slice8_add and its first design taken apart: the SASS,
+            store width, blocks a SM and loads in flight of each and of
+            variants of the first design, beside reshape_add, K12 and
+            torch.add:
+            python3 -m godsp_tpu_torch.probes.slice8
 """

@@ -19,6 +19,7 @@ as for the other probes.
 import ast
 import functools
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from godsp_tpu_torch import default_device, dsputils, set_default_device
 from godsp_tpu_torch.fft.four_step import dft_matrix
 from godsp_tpu_torch.ops import cuda_probes as cp
 from godsp_tpu_torch.ops import launch_counts
-from godsp_tpu_torch.probes import anatomy2
+from godsp_tpu_torch.probes import anatomy2, slice8
 
 TOOL = pathlib.Path(__file__).resolve().parent.parent / "tools" / "probe_anatomy2.py"
 BODIES = ("half3", "slice8", "resh", "bd1", "bd_hi", "full")
@@ -266,3 +267,46 @@ def test_anatomy2_main_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert anatomy2.main() == 1
+
+
+# ---------------------------------------------------------------- slice8_add redesigned
+
+@pytest.mark.parametrize("b,n", [(64, 1024), (13, 384), (9, 1152), (1, 128)])
+def test_slice8_add_and_its_first_design_on_the_cpu(b, n):
+    """Both designs give add_one_plain on CPU tensors, at fewer slices than
+    a chunk (384), a ragged chunk (1152) and rows that are not a multiple
+    of a stage's SLICE8_ROWS."""
+    rng = np.random.default_rng(b + n)
+    xr, xi = _t(*(rng.normal(size=(2, b, n)).astype(np.float32)))
+    want = cp.add_one_plain(xr, xi)
+    before = launch_counts()
+    for fn in (cp.slice8_add, cp.slice8_add_sync):
+        got = fn(xr, xi)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert launch_counts() == before
+    with pytest.raises(ValueError):
+        cp.slice8_add_sync(torch.zeros(2, 1000), torch.zeros(2, 1000))
+
+
+def test_slice8_probe_reads_its_kernel():
+    """probes.slice8's variant copies find the first design's slice loop
+    once and leave the redesign; sass_order reads a loop's loads and
+    stores in issue order; in_flight counts blocks and bytes a SM."""
+    for _, edits in slice8.VARIANTS:
+        s = slice8.variant_source(edits)
+        assert all(s.count(repl) == 1 for _, repl in edits) and "slice8_kernel(" in s
+    with pytest.raises(LookupError):
+        slice8.variant_source((("no such line", ""),))
+    assert slice8.in_flight(40, 2) == (6, 6 * 8 * 2 * 512)
+    assert slice8.in_flight(80, 16) == (3, 3 * 8 * 16 * 512)
+    assert slice8.in_flight(26, 2) == (8, 8 * 8 * 2 * 512)
+    assert slice8.in_flight(26, 2, 36 * 1024) == (6, 6 * 8 * 2 * 512)
+    listing = "\n".join(f"        /*{a:04x}*/  {t} ;" for a, t in (
+        (0x100, "LDG.E.128.CONSTANT R4, desc[UR4][R2.64]"),
+        (0x110, "LDG.E.128.CONSTANT R8, desc[UR4][R2.64+0x200]"),
+        (0x120, "FADD R4, R4, 1"), (0x130, "STG.E.128 desc[UR4][R6.64], R4"),
+        (0x140, "STG.E desc[UR4][R6.64+0x4], R5"), (0x150, "@P0 BRA 0x100")))
+    assert slice8.sass_order(listing) == ("LDG16 LDG16 STG16 STG4 BRA", 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            slice8.main([])

@@ -1009,6 +1009,40 @@ def test_k10_on_card(cuda, shape, n_sp, halo):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("shape,n_sp,halo", [((8 * 512,), 8, 96), ((3, 4 * 256), 4, 128),
+                                             ((2, 8 * 130), 8, 7), ((3, 8 * 130), 8, 38),
+                                             ((2, 300), 1, 100), ((64 * 64,), 64, 33),
+                                             ((2, 64 * 40), 64, 40)],
+                         ids=["single_row", "batched_rows", "unaligned", "halo_38", "one_shard",
+                              "64_shards", "64_shards_rows"])
+def test_k10_routes_on_card(cuda, shape, n_sp, halo):
+    """K10's view route (the views of one signal, also in reverse order),
+    its table route (separate copies of them) and the yardstick
+    ring_halo_table on the views, each torch.equal to ring_halo_plain with
+    one launch of its wrapper and nothing else; a float64 CUDA ring raises
+    rather than taking the plain version."""
+    x = torch.from_numpy(np.random.default_rng(n_sp + halo).normal(size=shape)).float().to(cuda)
+    views = list(x.chunk(n_sp, dim=-1))
+    apart = [v.clone() for v in views]
+    assert cuda_halo.ring_plan(views, halo).route == "view"
+    assert cuda_halo.ring_plan(views[::-1], halo).route == "view"
+    if n_sp > 1:
+        assert cuda_halo.ring_plan(apart, halo).route == "table"
+    for blocks, fn, name in ((views, cuda_halo.ring_halo, "ring_halo"),
+                             (views[::-1], cuda_halo.ring_halo, "ring_halo"),
+                             (apart, cuda_halo.ring_halo, "ring_halo"),
+                             (views, cuda_halo.ring_halo_table, "ring_halo_table")):
+        reset_launch_counts()
+        got = fn(blocks, halo)
+        counts = launch_counts()
+        assert counts[name] == 1 and sum(counts.values()) == 1
+        want = cuda_halo.ring_halo_plain(blocks, halo)
+        assert len(got) == n_sp and all(torch.equal(g, w) for g, w in zip(got, want))
+    for fn in (cuda_halo.ring_halo, cuda_halo.ring_halo_table):
+        with pytest.raises(TypeError):
+            fn([v.double() for v in views], halo)
+
+
 @pytest.mark.parametrize("nfft,stride,pad,last", [(1024, 512, 1024, False),
                                                   (1024, 512, 1024, True),
                                                   (1000, 160, 1024, False)],
@@ -1478,6 +1512,25 @@ def test_k14d_on_card(cuda, b, n):
     counts = launch_counts()
     assert all(counts[k] == 1 for k in _K14D)
     assert _tf32_flags() == flags
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 384), (1001, 1152), (13, 1024),
+                                 (1, 128), (524289, 128)])
+def test_slice8_add_redesign_on_card(cuda, b, n):
+    """slice8_add (every slice's loads first) and its first design
+    slice8_add_sync torch.equal to add_one_plain, one launch each: at the
+    probe's shape, at fewer slices than a chunk (384), a ragged chunk
+    (1152), rows that are not a multiple of a block's eight and more row
+    tiles than grid.y's 65535 blocks."""
+    xr, xi = _lane_planes(cuda, b, n, b + n)
+    want = cuda_probes.add_one_plain(xr, xi)
+    for name in ("slice8_add", "slice8_add_sync"):
+        reset_launch_counts()
+        got = getattr(cuda_probes, name)(xr, xi)
+        assert launch_counts()[name] == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+    with pytest.raises(TypeError):
+        cuda_probes.slice8_add(xr.double(), xi.double())
 
 
 @pytest.mark.parametrize("b", [1001, 16])
