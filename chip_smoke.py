@@ -108,7 +108,16 @@ final line):
      (a counted session of its own), torch.add, K12's copy and
      reshape_add, by chain and alone, both designs torch.equal to
      add_one_plain; K10's library call is that stack of heads in its
-     row too;
+     row too; then (phase_hi_store_redesign) K14d's bd_hi at 16384 x 1024
+     on wgmma fed by TMA (its plan held to the host's through
+     gdsp_bd_hi_geometry; it and its first design bd_hi_sync >= 120 dB
+     against the float64 plain version and against each other) beside
+     bd_hi_sync (a counted session of its own), torch.matmul of the
+     complex64 slices and F128 (TF32 off) and the bound, and K14c's
+     slicestore (every slice's loads first, the walk slice8_add runs)
+     beside its first design slicestore_sync (a counted session of its
+     own), copy_, K12's copy and concatstore, both designs torch.equal to
+     their input, each by chain and alone;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -564,6 +573,8 @@ REPLACES = {
     "i8_dot_bytes": "tools/probe_int8.py:213",
     "ring_halo_table": "godsp_tpu/parallel/halo.py:63",
     "slice8_add_sync": "tools/probe_anatomy2.py:87",
+    "bd_hi_sync": "tools/probe_anatomy2.py:87",
+    "slicestore_sync": "tools/probe_store.py:53",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -611,6 +622,8 @@ SOURCES = {
     "i8_dot_bytes": "godsp_tpu_torch/csrc/int8_probe_kernels.cu",
     "ring_halo_table": "godsp_tpu_torch/csrc/halo_kernel.cu",
     "slice8_add_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
+    "bd_hi_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
+    "slicestore_sync": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
 }
 
 
@@ -920,6 +933,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_i8_tf32_redesign(rec, dev))
     steps.update(phase_floor_dot_redesign(rec, dev))
     steps.update(phase_halo_slice8_redesign(rec, dev))
+    steps.update(phase_hi_store_redesign(rec, dev))
     return steps
 
 
@@ -1733,6 +1747,102 @@ def phase_halo_slice8_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, in
     rec.time("slice8_add_sync", f"{b} x {n}", first, lambda: cp.add_one_plain(xr, xi), library,
              16.0 * pts, 2.0 * pts)
     del xr, xi, yr, yi, plain
+    return steps
+
+
+def phase_hi_store_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K14d's bd_hi and K14c's slicestore redesigned.  bd_hi's plan as the C
+    side exports it (gdsp_bd_hi_geometry from the resident pairs the card
+    reports) held to the host's (cuda_probes.bd_hi_plan) at ragged b and
+    n1 = 1, 3, 8, 16; at 16384 x 1024 bd_hi and its first design
+    bd_hi_sync >= 120 dB against the float64 plain version and against
+    each other (all three printed), the TF32 flags untouched; a redesign
+    line (by chain beside bd_hi_sync as a counted session of its own,
+    torch.matmul of the complex64 slices and F128 with TF32 off, the
+    bound), then each alone by the profiler's events (the GEMM kernel
+    too).  slicestore and slicestore_sync torch.equal to their input; a
+    redesign line beside slicestore_sync, copy_ a plane, K12's copy and
+    concatstore; then each alone.  The yardsticks are checked and timed
+    for the kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch.ops import _build, cuda_metrics
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import anatomy2
+    from godsp_tpu_torch.probes._common import TF32_FLOPS, lane_planes
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    resident = cp._hi_resident(dev)
+    for n in (128, 384, 1024, 2048):
+        for b in (1, 65, 1001, 16384):
+            plan = tuple(cp.bd_hi_plan(b, n, resident))
+            rc = lib.gdsp_bd_hi_geometry(b, n, resident, out)
+            if rc != 0 or tuple(out) != plan:
+                raise AssertionError(f"bd_hi's plan at {b} x {n}: {tuple(out)} against the "
+                                     f"host's {plan}")
+    steps: dict[str, dict[str, int]] = {}
+    b, n = LANE_B, LANE_N
+    xr, xi = lane_planes(dev, b, n, seed=22)
+    pts = float(b * n)
+    plan = cp.bd_hi_plan(b, n, resident)
+    log(f"bd_hi and slicestore redesigned vs their first designs; bd_hi's plan equals the "
+        f"host's, at {b} x {n}: {plan}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("bd_hi's library call: TF32 is on")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    want = cplx(cp.bd_hi_plain(xr.double(), xi.double()))
+    op = lambda: cp.bd_hi(xr, xi)
+    first = lambda: cp.bd_hi_sync(xr, xi)
+    new_c, first_c = cplx(op()), cplx(first())
+    dbs = (snr_on_card(new_c, want), snr_on_card(first_c, want), snr_on_card(new_c, first_c))
+    del new_c, first_c
+    log(f"  bd_hi {b} x {n}, chain {plan.chain}: {dbs[0]:.2f} dB against float64, first design "
+        f"{dbs[1]:.2f}, against each other {dbs[2]:.2f}")
+    if not min(dbs) >= SNR_DB:
+        raise AssertionError(f"bd_hi {b} x {n}: {dbs} dB, not all >= {SNR_DB}")
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
+        raise AssertionError("bd_hi changed a TF32 flag")
+    shape = (f"{b} x {n}, {plan.pairs} pairs of CTAs, {plan.smem} B shared a CTA, chain "
+             f"{plan.chain} ({dbs[0]:.2f} dB)")
+    library = anatomy2.ops(xr, xi, anatomy2.tw_row(dev, n))["bd_hi"][1]
+    flops = 2304.0 * pts * FP32_FLOPS / TF32_FLOPS  # TF32 operations, at the float32 rate
+    ms = redesign_line(rec, steps, "bd_hi", "bd_hi_sync", shape, op, first, library, None, cplx,
+                       want, 16.0 * pts, flops, yard_label="first design")
+    alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+        ("bd_hi", "bd_hi_kernel", op), ("first design", "bd_hi_sync_kernel", first),
+        ("torch.matmul", "gemm", library))]
+    log(f"  redesign alone (profiler events), bd_hi {shape}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+        f"  (by chain {ms:.4f} ms)")
+    rec.check("bd_hi_sync", lambda: cplx(first()), want, f"{b} x {n}")
+    rec.time("bd_hi_sync", f"{b} x {n}", first, lambda: cp.bd_hi_plain(xr, xi), library,
+             16.0 * pts, flops)
+    del want, library
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    op = lambda: cp.slicestore(xr, xi)
+    first = lambda: cp.slicestore_sync(xr, xi)
+    for name, run in (("slicestore", op), ("slicestore_sync", first)):
+        got = run()
+        if not (torch.equal(got[0], xr) and torch.equal(got[1], xi)):
+            raise AssertionError(f"{name} {b} x {n}: differs from its input")
+    library = lambda: (yr.copy_(xr), yi.copy_(xi))
+    copy = lambda: cuda_metrics.copy_split(xr, xi)
+    concat = lambda: cp.concatstore(xr, xi)
+    ms = redesign_line(rec, steps, "slicestore", "slicestore_sync", f"{b} x {n}", op, first,
+                       library, copy, cplx, cplx((xr, xi)), 16.0 * pts, 0.0,
+                       extra=("concatstore", concat), yard_label="first design")
+    alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+        ("slicestore", "slicestore_kernel", op),
+        ("first design", "slicestore_sync_kernel", first),
+        ("K12 copy", "copy_split_kernel", copy), ("concatstore", "concatstore_kernel", concat))]
+    log(f"  redesign alone (profiler events), slicestore {b} x {n}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone) +
+        f"  (by chain {ms:.4f} ms)")
+    rec.err["slicestore_sync"] = 0.0
+    rec.time("slicestore_sync", f"{b} x {n}", first,
+             lambda: cuda_metrics.copy_split_plain(xr, xi), library, 16.0 * pts, 0.0)
+    del xr, xi, yr, yi
     return steps
 
 

@@ -34,10 +34,11 @@
 // blocks 0.097; the reshape map stores 4 bytes at a time too), together
 // they cost a third.  slice8_kernel keeps the grid and the walk and
 // issues every slice's loads of the warp's chunk before its first add and
-// store: 16 loads a thread, at 80 registers 3 blocks and 192 KB of loads a
-// SM in flight, stored 16 bytes at a time; it runs at the reshape map's
-// speed.  Each value is one IEEE float32 add, as in the plain version, so
-// both designs equal it bit for bit.
+// store (slice_walk.cuh, which slicestore_kernel runs too): 16 loads a
+// thread, at 80 registers 3 blocks and 192 KB of loads a SM in flight,
+// stored 16 bytes at a time; it runs at the reshape map's speed.  Each
+// value is one IEEE float32 add, as in the plain version, so both designs
+// equal it bit for bit.
 //
 // bd_tf32_kernel replaces v4bd1 (:176): each plane's 128-point slices times
 // Re F128 (F[j, k] = exp(-2 pi i j k / 128), unscaled) in ONE TF32 pass on
@@ -61,19 +62,50 @@
 // by Karatsuba, m1 = a F_r, m2 = b F_i, m3 = (a + b)(F_r + F_i), yr = m1 - m2,
 // yi = m3 - m1 - m2, each product in 3xTF32: big = cvt.rna(x), small =
 // cvt.rna(x - big), product = small big + big small + big big (small terms
-// first), where the TPU's HIGHEST made six bf16 limb passes; each k-step's
-// products are summed on the tensor cores from zero and added to the
-// running sum on the CUDA cores in IEEE float32.  Bound: bytes, 0.080 ms
-// (its products are 2304 TF32 operations a point on the tensor cores,
-// 0.078 ms at 495 TFLOP/s; K13 does the same function as 768 float32
-// operations a point on the CUDA cores).  Design: the three F planes' big and small halves
-// (six tables) would take 384 KB as 128 x 128 matrices; since F[j, k]
-// depends on j k mod 128 only, they are six 128-entry vectors (3 KB of
-// shared memory), split on the host from float64 (ops/cuda_probes.py:
-// hi_tables), and a B fragment reads entry (j k) & 127.  A warp owns a
-// 16-row tile of one slice, 64 output columns at a time (m1, m2, m3: 96
-// accumulators a thread); A fragments come from device memory and are
-// split in registers.
+// first), where the TPU's HIGHEST made six bf16 limb passes.  Bound: bytes,
+// 0.080 ms (its products are 2304 TF32 operations a point on the tensor
+// cores, 0.078 ms at 495 TFLOP/s; K13 does the same function as 768
+// float32 operations a point on the CUDA cores).  The three F planes' big
+// and small halves depend on j k mod 128 only: six 128-entry vectors split
+// on the host from float64 (ops/cuda_probes.py: hi_tables).
+//   Its first design, bd_hi_sync_kernel (gdsp_bd_hi_sync, kept as the
+// yardstick): a warp owns a 16-row tile of one slice, 64 output columns at
+// a time (m1, m2, m3: 96 accumulators a thread, 174 registers, one
+// 256-thread block a SM), mma.sync m16n8k8, A read from device memory in
+// fragment order (4-byte loads, each slice twice) and split in registers,
+// B gathered from the vectors at (j k) & 127 in shared memory; each
+// k-step's products summed on the tensor cores from zero and added to the
+// running sum in IEEE float32.  As compiled (probes/bd_hi.py) a k-step a
+// warp is 72 HMMA beside 96 LDS, 8 LDG, 34 IMAD and 112 FADD; with the
+// gather made conflict-free it ran 1.8x faster, with A made in registers
+// 1.2x, both 2.5x (wrong results, on purpose).
+//   The redesign: pairs of CTAs on a plain grid, one CTA an SM; CTA h of a
+// pair keeps bins 64 h .. 64 h + 63 of the six planes resident for its
+// life (expanded once from the vectors into wgmma's K-major B in the
+// 128-byte swizzle, 192 KB) and the pairs walk the (64-row tile, slice)
+// items in turn (F is the same for every slice).  a and b arrive by TMA
+// tensor copies, 64-row x 32-column boxes in a ring of two 16 KB stages;
+// the CTA's eight warps read each stage's A fragments into registers
+// (conflict-free through the swizzle), and the last of them to do so
+// refills the slot: no warp is set aside for copies, since a ninth warp
+// caps a thread at 168 registers (three warps on one scheduler) and the
+// kernel then spilled 208 bytes.  Each warpgroup forms a + b and the six
+// TF32 halves in registers, rounding by two integer operations (ptxas
+// emulates cvt.rna.tf32 in about five; with it the kernel took 1.2x as long),
+// and issues wgmma m64n32k8 with A from registers, 9 a k-step, on its 32
+// of the CTA's 64 bins; its walk is a template on the warpgroup, so the B
+// descriptors stay in uniform registers.  Two sets of A registers take
+// turns: k-step j + 1's halves are made while k-step j's products run.
+// The tensor cores chain kHiChain = 4 k-steps from zero, then the partial
+// sum is added to the running sum on the CUDA cores in IEEE float32 (a
+// chain of 1 gives the first design's result bit for bit; 2, 4, 8, 16 give
+// 135.39, 131.62, 126.45, 120.76 dB against float64 at 16384 x 1024: 4 is
+// the longest at >= 130).  Epilogue: yr = m1 - m2 and yi = (m3 - m1) - m2,
+// stored 8 bytes a thread.  Shared memory: 196,608 (planes) + 32,768
+// (stages) + 24 (barriers, counts) + 1,024 (alignment) = 230,424 bytes.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W, at 16384 x 1024 (probes/bd_hi.py):
+// 0.19 ms by chain against the first design's 0.47 and torch.matmul's 0.35;
+// without its products 0.15.  It changes no TF32 or matmul flag.
 //
 // anat_full_kernel replaces v6full (:203): half3, then ar = a tw - b tw and
 // ai = a tw + b tw with a row tw of n floats (the TPU probe's random row,
@@ -90,7 +122,11 @@
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "hopper_async.cuh"
 #include "mma_tf32.cuh"
+#include "slice_walk.cuh"
+
+namespace hp = gdsp::hopper;
 
 namespace {
 
@@ -221,34 +257,12 @@ add_one_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float
 
 // The slice map redesigned: add_one_kernel<false>'s grid and walk, every
 // slice's loads of the warp's row chunk issued before its first add and
-// store, so a warp has 2 x slices 16-byte loads a thread in flight.
+// store (slice_walk.cuh), so a warp has 2 x slices 16-byte loads a thread
+// in flight.
 __global__ void __launch_bounds__(kThreads)
 slice8_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
               float* __restrict__ yi, long long b, int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * kChunk;
-  const int slices = (n - c0 < kChunk ? n - c0 : kChunk) / kLanes;
-  const long long tiles = (b + kWarps - 1) / kWarps;
-  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
-    const long long row = tile * kWarps + warp;
-    if (row >= b) continue;
-    const size_t at = static_cast<size_t>(row) * n + c0 + 4 * lane;
-    float4 a[kChunk / kLanes], c[kChunk / kLanes];
-#pragma unroll
-    for (int s = 0; s < kChunk / kLanes; ++s)
-      if (s < slices) {
-        a[s] = __ldg(reinterpret_cast<const float4*>(xr + at + s * kLanes));
-        c[s] = __ldg(reinterpret_cast<const float4*>(xi + at + s * kLanes));
-      }
-#pragma unroll
-    for (int s = 0; s < kChunk / kLanes; ++s)
-      if (s < slices) {
-        *reinterpret_cast<float4*>(yr + at + s * kLanes) =
-            make_float4(a[s].x + 1.f, a[s].y + 1.f, a[s].z + 1.f, a[s].w + 1.f);
-        *reinterpret_cast<float4*>(yi + at + s * kLanes) =
-            make_float4(c[s].x + 1.f, c[s].y + 1.f, c[s].z + 1.f, c[s].w + 1.f);
-      }
-  }
+  gdsp::slice_walk::walk(xr, xi, yr, yi, b, n, gdsp::slice_walk::AddOne{});
 }
 
 // ---------------------------------------------------------------------------
@@ -385,10 +399,12 @@ __device__ __forceinline__ void stage_hi_table(uint32_t* st, const float* __rest
   for (int e = threadIdx.x; e < kHiTab; e += blockDim.x) st[e] = __float_as_uint(__ldg(tab + e));
 }
 
-// tab: the kHiTab split vectors (already TF32-exact).
+// tab: the kHiTab split vectors (already TF32-exact).  bd_hi's first design,
+// the yardstick (gdsp_bd_hi_sync).
 __global__ void __launch_bounds__(kThreads)
-bd_hi_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
-             float* __restrict__ yi, const float* __restrict__ tab, long long b, int n) {
+bd_hi_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tab,
+                  long long b, int n) {
   __shared__ uint32_t st[kHiTab];
   stage_hi_table(st, tab);
   __syncthreads();
@@ -403,6 +419,296 @@ bd_hi_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* 
     const size_t base = static_cast<size_t>(r0) * n + s * kLanes;
     karatsuba_tile(xr + base, xi + base, n, yr + base, yi + base, n, rows, st);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bd_hi on wgmma, fed by TMA (the plan: HiPlan below)
+// ---------------------------------------------------------------------------
+
+constexpr int kHiRows = 64;    // rows of a tile: wgmma's M
+constexpr int kHiBins = 64;    // bins a CTA: half a slice
+constexpr int kHiN = 32;       // bins a warpgroup: wgmma's N
+constexpr int kHiK = 32;       // columns of a stage: one TMA box, one 128-byte swizzled row
+constexpr int kHiStages = 2;   // the ring of stages
+constexpr int kHiChain = 4;    // k-steps the tensor cores sum before an add
+constexpr int kHiThreads = 256;  // two warpgroups, kHiN bins each
+constexpr int kHiPlanes = 6;     // kHiTab's six vectors, as matrices
+constexpr int kHiPlaneB = kHiBins * kLanes * 4;  // bytes of one resident plane: 32 KB
+constexpr int kHiBox = kHiRows * kHiK * 4;       // bytes of a box: 64 rows x 128 bytes
+constexpr int kHiStage = 2 * kHiBox;             // a and b of a stage: 16 KB
+constexpr int kHiSmem =
+    kHiPlanes * kHiPlaneB + kHiStages * kHiStage + kHiStages * (8 + 4) + 1024;
+
+// The A fragment of k-step kk (columns 8 kk .. 8 kk + 7) of a landed box
+// (64 rows x 32 columns, 128-byte swizzle) for this thread: rows r0 and
+// r0 + 8 (r0 % 8 = g), columns t and t + 4 (wgmma_m64n32k8_tf32_rs's A
+// layout).  A warp's eight rows read eight distinct 16-byte units of their
+// 128-byte rows, so its 32 lanes hit 32 banks.
+__device__ __forceinline__ void hi_fragment(float (&v)[4], const char* box, int r0, int kk,
+                                            int t) {
+  const int g = r0 & 7;
+  const char* p = box + r0 * 128 + 4 * t;
+  const int u0 = ((2 * kk) ^ g) << 4, u1 = ((2 * kk + 1) ^ g) << 4;
+  v[0] = *reinterpret_cast<const float*>(p + u0);
+  v[1] = *reinterpret_cast<const float*>(p + 8 * 128 + u0);
+  v[2] = *reinterpret_cast<const float*>(p + u1);
+  v[3] = *reinterpret_cast<const float*>(p + 8 * 128 + u1);
+}
+
+// cvt.rna.tf32.f32 of a finite x in two integer operations: half a TF32
+// unit added to the magnitude's bits, the 13 bits below TF32 cleared
+// (ties away from zero, as cvt.rna; ptxas emulates the cvt in about five).
+__device__ __forceinline__ uint32_t hi_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The TF32 halves of a k-step's A values: a, b and a + b (an IEEE float32
+// add), each x = big + small, big = round(x), small = round(x - big), as
+// split() makes them.
+struct HiA {
+  uint32_t ab[4], as[4], bb[4], bs[4], sb[4], ss[4];
+};
+
+__device__ __forceinline__ void hi_split(HiA& x, const float (&va)[4], const float (&vb)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float vs = __fadd_rn(va[q], vb[q]);
+    x.ab[q] = hi_round(va[q]);
+    x.as[q] = hi_round(__fsub_rn(va[q], __uint_as_float(x.ab[q])));
+    x.bb[q] = hi_round(vb[q]);
+    x.bs[q] = hi_round(__fsub_rn(vb[q], __uint_as_float(x.bb[q])));
+    x.sb[q] = hi_round(vs);
+    x.ss[q] = hi_round(__fsub_rn(vs, __uint_as_float(x.sb[q])));
+  }
+}
+
+// The descriptor of the warpgroup's bins of plane 0 at k-step 0, in two
+// words: the start address (bits 0-13, 16-byte units) moves by off / 16 for
+// an operand off bytes on, with no carry out (shared memory < 256 KB).
+struct HiDesc {
+  uint32_t lo, hi;
+  __device__ __forceinline__ uint64_t at(int off) const {
+    return (static_cast<uint64_t>(hi) << 32) | (lo + static_cast<uint32_t>(off >> 4));
+  }
+};
+
+// One k-step of the three products into d (m1, m2, m3), each small big +
+// big small + big big, small terms first; off: the k-step's bytes in a
+// plane; acc 0 starts a chain (scale-d 0).
+__device__ __forceinline__ void hi_products(float (&d)[3][16], const HiA& x, const HiDesc& f,
+                                            int off, int acc) {
+  hp::wgmma_m64n32k8_tf32_rs(d[0], x.as, f.at(off), acc);
+  hp::wgmma_m64n32k8_tf32_rs(d[0], x.ab, f.at(off + kHiPlaneB), 1);
+  hp::wgmma_m64n32k8_tf32_rs(d[0], x.ab, f.at(off), 1);
+  hp::wgmma_m64n32k8_tf32_rs(d[1], x.bs, f.at(off + 2 * kHiPlaneB), acc);
+  hp::wgmma_m64n32k8_tf32_rs(d[1], x.bb, f.at(off + 3 * kHiPlaneB), 1);
+  hp::wgmma_m64n32k8_tf32_rs(d[1], x.bb, f.at(off + 2 * kHiPlaneB), 1);
+  hp::wgmma_m64n32k8_tf32_rs(d[2], x.ss, f.at(off + 4 * kHiPlaneB), acc);
+  hp::wgmma_m64n32k8_tf32_rs(d[2], x.sb, f.at(off + 5 * kHiPlaneB), 1);
+  hp::wgmma_m64n32k8_tf32_rs(d[2], x.sb, f.at(off + 4 * kHiPlaneB), 1);
+}
+
+// A bd_hi CTA's walk: pair p (CTAs 2 p + h, h = 0, 1: bins 64 h .. 64 h + 63
+// of every slice) takes items p, p + pairs, ... of the (64-row tile, slice)
+// items, the slice fastest; a stage is the two boxes (the tile's rows, 32
+// columns of the slice) of planes a and b, four a slice, in slot c % 2.
+struct HiCta {
+  const CUtensorMap* maps[2];  // a and b: boxes of 32 columns x 64 rows, 128-byte swizzle
+  char* sf;                    // the six planes, swizzled
+  char* stages;                // the ring: [slot][plane][64 rows][128 bytes]
+  uint64_t* full;              // a slot's mbarrier
+  unsigned* reads;             // a slot's count of the warps that have read it
+  float* yr;
+  float* yi;
+  long long b, pair, pairs, mine, total;  // total: the stages this CTA reads
+  int n, n1, h;
+
+  // The copy of stage c (box c % 4 of item pair + (c / 4) pairs) into its slot.
+  __device__ __forceinline__ void issue(long long c) const {
+    const long long item = pair + c / (kLanes / kHiK) * pairs;
+    const int row = static_cast<int>(item / n1 * kHiRows);
+    const int col =
+        static_cast<int>(item % n1) * kLanes + static_cast<int>(c % (kLanes / kHiK)) * kHiK;
+    const int s = static_cast<int>(c % kHiStages);
+    hp::mbar_arrive_expect_tx(full + s, kHiStage);
+    for (int pl = 0; pl < 2; ++pl)
+      hp::tma_load_2d(stages + s * kHiStage + pl * kHiBox, maps[pl], col, row, full + s);
+  }
+};
+
+// Warpgroup WG of a bd_hi CTA: its bins 32 WG .. 32 WG + 31 of the CTA's
+// 64, every item of the walk.  WG is a template argument so that the B
+// descriptors depend on nothing that varies between threads and stay in
+// uniform registers.
+template <int WG>
+__device__ __forceinline__ void hi_walk(const HiCta& k) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // rows r0, r0 + 8 of a tile
+  const uint64_t d0 = hp::desc_b128(k.sf + kHiN * 128 * WG);   // its bins of plane 0
+  const HiDesc fb{static_cast<uint32_t>(d0), static_cast<uint32_t>(d0 >> 32)};
+  long long c = 0;                         // stages read
+  float va[kHiK / 8][4], vb[kHiK / 8][4];  // a stage's A values of a and b
+  // Stage c into va, vb; its slot released, and refilled with stage c + 2
+  // by the last of the CTA's eight warps to read it.
+  auto read_stage = [&]() {
+    const int s = static_cast<int>(c % kHiStages);
+    const char* sa = k.stages + s * kHiStage;
+    hp::mbar_wait(k.full + s, static_cast<uint32_t>(c / kHiStages) & 1u);
+#pragma unroll
+    for (int kk = 0; kk < kHiK / 8; ++kk) {
+      hi_fragment(va[kk], sa, r0, kk, t);
+      hi_fragment(vb[kk], sa + kHiBox, r0, kk, t);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();  // the warp's reads of the slot, before its count
+      if ((atomicAdd(k.reads + s, 1u) & (kHiThreads / 32 - 1)) == kHiThreads / 32 - 1 &&
+          c + kHiStages < k.total) {
+        __threadfence_block();
+        hp::fence_proxy_async();  // the generic reads, before the copy's writes
+        k.issue(c + kHiStages);
+      }
+    }
+    ++c;
+  };
+
+  float d[3][16];  // the tensor cores' sums of m1, m2, m3 (scale-d 0 at a chain's start)
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) d[p][q] = 0.f;
+  }
+  for (long long i = 0; i < k.mine; ++i) {
+    const long long item = k.pair + i * k.pairs;
+    float run[3][16];  // the running sums on the CUDA cores
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) run[p][q] = 0.f;
+    }
+    // Two sets of split A registers in turn: k-step j + 1's are made while
+    // k-step j's products run (wgmma_wait<1> frees the set k-step j - 1
+    // read).
+    HiA x[2];
+    read_stage();
+    hi_split(x[0], va[0], vb[0]);
+#pragma unroll
+    for (int j = 0; j < kLanes / 8; ++j) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int q = 0; q < 16; ++q) hp::fence_operand(d[p][q]);
+      }
+      hp::wgmma_fence();
+      hi_products(d, x[j & 1], fb, (j >> 2) * (kHiBins * 128) + (j & 3) * 32,
+                  j % kHiChain != 0);
+      hp::wgmma_commit();
+      if ((j + 1) % kHiChain == 0) {
+        hp::wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            hp::fence_operand(d[p][q]);
+            run[p][q] = __fadd_rn(run[p][q], d[p][q]);
+          }
+        }
+      } else {
+        hp::wgmma_wait<1>();
+      }
+      if (j + 1 < kLanes / 8) {
+        if ((j + 1) % (kHiK / 8) == 0) read_stage();
+        hi_split(x[(j + 1) & 1], va[(j + 1) % (kHiK / 8)], vb[(j + 1) % (kHiK / 8)]);
+      }
+    }
+    // yr = m1 - m2 and yi = (m3 - m1) - m2, 8 bytes a store: rows r0 and
+    // r0 + 8 of the tile, columns 8 jn + 2 t of the warpgroup's 32 bins
+    // (the accumulator layout of wgmma_m64n32k8_tf32).
+    const long long row = item / k.n1 * kHiRows + r0;
+    const size_t col =
+        static_cast<size_t>(item % k.n1) * kLanes + kHiBins * k.h + kHiN * WG + 2 * t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (row + 8 * hh >= k.b) continue;
+      const size_t at = static_cast<size_t>(row + 8 * hh) * k.n + col;
+#pragma unroll
+      for (int jn = 0; jn < kHiN / 8; ++jn) {
+        const int q = 4 * jn + 2 * hh;
+        *reinterpret_cast<float2*>(k.yr + at + 8 * jn) =
+            make_float2(__fsub_rn(run[0][q], run[1][q]), __fsub_rn(run[0][q + 1], run[1][q + 1]));
+        *reinterpret_cast<float2*>(k.yi + at + 8 * jn) =
+            make_float2(__fsub_rn(__fsub_rn(run[2][q], run[0][q]), run[1][q]),
+                        __fsub_rn(__fsub_rn(run[2][q + 1], run[0][q + 1]), run[1][q + 1]));
+      }
+    }
+  }
+}
+
+// ta, tb: tensor maps of the (b, n) planes a and b, boxes of 32 columns x 64
+// rows in the 128-byte swizzle (rows past b arrive as zeros); tab: the
+// kHiTab split vectors; the walk: HiCta.  No warp is set aside for the
+// copies: thread 0 issues the first two stages, and the last warp to read a
+// stage into registers issues the copy that refills its slot, so the 8
+// warps keep up to 255 registers a thread.
+__global__ void __launch_bounds__(kHiThreads, 1)
+bd_hi_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+             float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tab,
+             long long b, int n, int pairs) {
+  static_assert(kLanes / 8 % kHiChain == 0, "a chain ends within a slice");
+  extern __shared__ float4 smem4[];
+  // Aligned by an offset, not through an integer, so the compiler keeps
+  // shared loads (LDS) for the stages.
+  char* base = reinterpret_cast<char*>(smem4) + ((1024 - (hp::smem_addr(smem4) & 1023)) & 1023);
+  HiCta k;
+  k.maps[0] = &ta;
+  k.maps[1] = &tb;
+  k.sf = base;
+  k.stages = base + kHiPlanes * kHiPlaneB;
+  k.full = reinterpret_cast<uint64_t*>(k.stages + kHiStages * kHiStage);
+  k.reads = reinterpret_cast<unsigned*>(k.full + kHiStages);
+  k.yr = yr;
+  k.yi = yi;
+  k.b = b;
+  k.n = n;
+  k.n1 = n / kLanes;
+  k.h = static_cast<int>(blockIdx.x & 1);
+  k.pair = blockIdx.x >> 1;
+  k.pairs = pairs;
+  const long long items = (b + kHiRows - 1) / kHiRows * k.n1;
+  k.mine = k.pair < items ? (items - 1 - k.pair) / pairs + 1 : 0;
+  k.total = k.mine * (kLanes / kHiK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHiStages; ++s) {
+      hp::mbar_init(k.full + s, 1);  // the issuing thread's arrive.expect_tx
+      k.reads[s] = 0;
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();  // the barriers exist before any copy
+  if (threadIdx.x == 0) {
+    for (long long c = 0; c < k.total && c < kHiStages; ++c) k.issue(c);
+  }
+  // The six planes' bins 64 h .. of every j (F[j, k] = v[j k mod 128]) as
+  // wgmma's K-major B (the CTA's bins as rows, j as k), four j a 16-byte
+  // store, while the first stages land.
+  for (int e = threadIdx.x; e < (k.mine > 0 ? kHiPlanes * kHiBins * kLanes / 4 : 0);
+       e += kHiThreads) {
+    const int p = e / (kHiBins * kLanes / 4), bk = e / (kLanes / 4) % kHiBins;
+    const int j = 4 * (e % (kLanes / 4)), bin = kHiBins * k.h + bk;
+    const float* v = tab + p * kLanes;
+    *reinterpret_cast<float4*>(k.sf + p * kHiPlaneB + hp::b128_offset(bk, j, kHiBins)) =
+        make_float4(__ldg(v + ((j * bin) & (kLanes - 1))),
+                    __ldg(v + (((j + 1) * bin) & (kLanes - 1))),
+                    __ldg(v + (((j + 2) * bin) & (kLanes - 1))),
+                    __ldg(v + (((j + 3) * bin) & (kLanes - 1))));
+  }
+  hp::fence_proxy_async();  // the planes, to wgmma's reads
+  __syncthreads();
+  if (threadIdx.x < kHiThreads / 2)
+    hi_walk<0>(k);
+  else
+    hi_walk<1>(k);
 }
 
 // tw: n floats; tab: the kHiTab split vectors.  R rows a tile (<= 16).
@@ -458,6 +764,35 @@ cudaError_t resident_blocks(Kernel k, int smem, long long need, unsigned* out) {
   return cudaSuccess;
 }
 
+// bd_hi's launch plan (ops/cuda_probes.py: bd_hi_plan holds the same; the
+// GPU tests compare through gdsp_bd_hi_geometry).
+struct HiPlan {
+  int pair;       // CTAs an item: the two halves of a slice's bins
+  int pairs;      // pairs of the grid: the resident pairs, at most the items
+  int ctas;       // CTAs of the grid
+  int rows_tile;  // rows of a tile (wgmma's M)
+  int bins_cta;   // bins a CTA
+  int stages;     // the ring of stages a CTA
+  int k_stage;    // columns of a slice a stage
+  int smem;       // bytes of dynamic shared memory a CTA
+  int per_pair;   // items the busiest pair walks
+  int chain;      // k-steps the tensor cores sum before an add on the CUDA cores
+};
+constexpr int kHiPlanFields = 10;
+
+// b >= 0, n a multiple of 128; resident the pairs the card holds at once.
+int make_hi_plan(long long b, int n, int resident, HiPlan* p) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (resident < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const long long items = (b + kHiRows - 1) / kHiRows * (n / kLanes);
+  const long long pairs = items < 1 ? 1 : (items < resident ? items : resident);
+  const long long per = (items + pairs - 1) / pairs;
+  if (per > 0x7fffffffLL || b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *p = HiPlan{2,       static_cast<int>(pairs), static_cast<int>(2 * pairs),
+              kHiRows, kHiBins, kHiStages, kHiK, kHiSmem, static_cast<int>(per), kHiChain};
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -484,8 +819,8 @@ int gdsp_slice8_add(const float* xr, const float* xi, float* yr, float* yi, long
                     void* stream) {
   if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  slice8_kernel<<<dim3((n + kChunk - 1) / kChunk, tile_blocks((b + kWarps - 1) / kWarps)),
-                  kThreads, 0, static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
+  slice8_kernel<<<gdsp::slice_walk::grid(b, n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,17 +860,74 @@ int gdsp_bd_tf32(const float* xr, const float* xi, float* yr, float* yi, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// tab: the six 128-entry split vectors (ops/cuda_probes.py: hi_tables).
+// bd_hi on wgmma: tab the six 128-entry split vectors (ops/cuda_probes.py:
+// hi_tables); resident the pairs of bd_hi_kernel's CTAs the card holds at
+// once (gdsp_bd_hi_resident).  Returns cudaErrorLaunchOutOfResources where
+// resident < 1.
 int gdsp_bd_hi(const float* xr, const float* xi, float* yr, float* yi, const float* tab,
-               long long b, int n, void* stream) {
+               long long b, int n, int resident, void* stream) {
+  HiPlan p;
+  const int rc = make_hi_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  CUtensorMap maps[2];
+  const float* planes[2] = {xr, xi};
+  for (int i = 0; i < 2; ++i) {
+    const int m = hp::encode_tensor_map_2d(maps + i, planes[i], b, n, kHiK, kHiRows);
+    if (m != 0) return m;
+  }
+  cudaError_t e = gdsp::allow_smem(bd_hi_kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bd_hi_kernel<<<static_cast<unsigned>(p.ctas), kHiThreads, static_cast<size_t>(p.smem),
+                 static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], yr, yi, tab, b, n,
+                                                      p.pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pairs of bd_hi_kernel's CTAs the card holds at once with the plan's shared
+// memory plus extra_smem bytes a CTA (the CTAs resident an SM times the SMs,
+// halved): 0 where none fits, or -(CUDA error).
+int gdsp_bd_hi_resident(int extra_smem) {
+  const int smem = kHiSmem + extra_smem;
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t e = gdsp::allow_smem(bd_hi_kernel, static_cast<size_t>(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bd_hi_kernel, kHiThreads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch's check
+    return -static_cast<int>(e);
+  }
+  return blocks * sms / 2;
+}
+
+// bd_hi's plan at b x n with `resident` pairs: out[0..9] = pair, pairs,
+// CTAs, rows a tile, bins a CTA, stages, columns a stage, shared bytes,
+// items of the busiest pair, chain (HiPlan).  ops/cuda_probes.py: bd_hi_plan
+// holds the same; the GPU tests compare.
+int gdsp_bd_hi_geometry(long long b, int n, int resident, int* out) {
+  HiPlan p;
+  const int rc = make_hi_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  const int v[kHiPlanFields] = {p.pair,   p.pairs,   p.ctas, p.rows_tile, p.bins_cta,
+                                p.stages, p.k_stage, p.smem, p.per_pair,  p.chain};
+  for (int i = 0; i < kHiPlanFields; ++i) out[i] = v[i];
+  return 0;
+}
+
+// bd_hi's first design, the yardstick (mma.sync, A from device memory, the
+// tables gathered over j k mod 128): tab as gdsp_bd_hi.
+int gdsp_bd_hi_sync(const float* xr, const float* xi, float* yr, float* yi, const float* tab,
+                    long long b, int n, void* stream) {
   if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
   unsigned blocks = 0;
   const long long tasks = (b + 15) / 16 * (n / kLanes);
-  cudaError_t e = resident_blocks(bd_hi_kernel, 0, (tasks + kWarps - 1) / kWarps, &blocks);
+  cudaError_t e = resident_blocks(bd_hi_sync_kernel, 0, (tasks + kWarps - 1) / kWarps, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bd_hi_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tab,
-                                                                           b, n);
+  bd_hi_sync_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, yr, yi, tab, b, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,10 +2,11 @@
 // tensor copies by the Tensor Memory Accelerator (cp.async.bulk.tensor
 // loads and stores, with tensor maps encoded on the host by
 // cuTensorMapEncodeTiled), and the warpgroup
-// TF32 product (wgmma.mma_async m64n32k8, both operands in shared memory in
-// the 128-byte swizzled K-major layout).  Used by gmm_tf32_kernel
-// (lane_slice_probe_kernels.cu) and, for its cluster-scope mbarriers and
-// bulk stores, i8_concat_kernel (int8_probe_kernels.cu).
+// TF32 product (wgmma.mma_async m64n32k8, B in shared memory in the
+// 128-byte swizzled K-major layout, A there too or in registers).  Used by
+// gmm_tf32_kernel (lane_slice_probe_kernels.cu), bd_hi_kernel
+// (anatomy_probe_kernels.cu: A from registers) and, for its cluster-scope
+// mbarriers and bulk stores, i8_concat_kernel (int8_probe_kernels.cu).
 
 #pragma once
 
@@ -192,6 +193,15 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // wgmma
 // ---------------------------------------------------------------------------
 
+// Byte offset of element (row r, column k) of a K-major float32 operand of
+// `rows` rows laid out in the 128-byte swizzle: chunks of 32 columns, each
+// `rows` rows of 128 bytes, the 16-byte units of a row XORed with the row's
+// index mod 8, as a TMA box of 32 columns lands (gmm_tf32's and bd_hi's
+// resident planes take it too, with the CTA's bins as rows).
+__device__ __forceinline__ int b128_offset(int r, int k, int rows) {
+  return (k >> 5) * (rows * 128) + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) + (k & 3) * 4;
+}
+
 // A shared-memory matrix descriptor for the 128-byte swizzle: start address
 // (16-byte units), leading-byte offset 1 (unused by a K-major swizzled
 // operand whose k extent fits in one 128-byte row), stride-byte offset 1024
@@ -242,6 +252,28 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t des
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The same product with A from registers: a (this thread's four TF32
+// words of the 64 x 8 tile) in the mma.m16n8k8 A layout a warp at a time,
+// warp w of the warpgroup holding rows 16 w .. 16 w + 15: with g = lane / 4,
+// t = lane % 4, a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3]
+// (g + 8, t + 4).  The registers of a must not change until the product has
+// completed (wgmma_wait).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace hopper

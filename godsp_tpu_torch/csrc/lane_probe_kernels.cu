@@ -31,8 +31,14 @@
 // TPU whether K1's per-slice stores, not its contraction, kept it off
 // K12's copy ceiling:
 //   slicestore_kernel  (_slicestore_kernel): a copy whose block walks
-//     its rows' chunk in 128-column slices, loading and storing one slice
-//     of each row a pass (512 B a row a pass), as K13 stores;
+//     its rows' chunk in 128-column slices, storing one slice of each row
+//     a pass (512 B a row a pass), as K13 stores.  Its first design,
+//     slicestore_sync_kernel (gdsp_slicestore_sync, kept as the
+//     yardstick), loads and stores one slice at a time, one warp a row;
+//     the redesign keeps the grid and the walk and issues every slice's
+//     loads of the warp's chunk before its first store (slice_walk.cuh,
+//     the walk slice8_kernel runs in anatomy_probe_kernels.cu, whose
+//     header says why);
 //   concatstore_kernel (_concatstore_kernel): a copy whose block loads its
 //     rows' chunk slice by slice into shared memory, then stores whole
 //     rows of the chunk (16 B a thread, one row's 4 KB a pass);
@@ -66,6 +72,7 @@
 
 #include "fft_block.cuh"
 #include "lane_contract.cuh"
+#include "slice_walk.cuh"
 
 namespace cg = cooperative_groups;
 namespace ln = gdsp::lane;
@@ -219,9 +226,19 @@ fac_dft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// slicestore redesigned: the first design's grid and walk, every slice's
+// loads of the warp's row chunk issued before its first store
+// (slice_walk.cuh, as slice8_kernel), then the slices stored one at a time.
 __global__ void __launch_bounds__(kThreads)
 slicestore_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* __restrict__ yr, float* __restrict__ yi, long long b, int n) {
+  gdsp::slice_walk::walk(xr, xi, yr, yi, b, n, gdsp::slice_walk::Identity{});
+}
+
+// slicestore's first design, the yardstick: a slice's load and store in turn.
+__global__ void __launch_bounds__(kThreads)
+slicestore_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                       float* __restrict__ yr, float* __restrict__ yi, long long b, int n) {
   const Chunk ch = chunk_of(n);
   const int lane = threadIdx.x & 31;
   const long long tiles = (b + kStoreRows - 1) / kStoreRows;
@@ -488,12 +505,23 @@ int gdsp_fac_dft(const float* xr, const float* xi, float* yr, float* yi, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// The redesign, slicestore_kernel, on the first design's grid.
 int gdsp_slicestore(const float* xr, const float* xi, float* yr, float* yi, long long b, int n,
                     void* stream) {
   if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  slicestore_kernel<<<tile_grid(n, b, kStoreRows), kThreads, 0,
+  slicestore_kernel<<<gdsp::slice_walk::grid(b, n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design, the yardstick: slicestore_sync_kernel.
+int gdsp_slicestore_sync(const float* xr, const float* xi, float* yr, float* yi, long long b,
+                         int n, void* stream) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  slicestore_sync_kernel<<<tile_grid(n, b, kStoreRows), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, b, n);
   return static_cast<int>(cudaGetLastError());
 }
 

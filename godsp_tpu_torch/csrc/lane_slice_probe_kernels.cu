@@ -266,15 +266,6 @@ constexpr int kWgStage = 2 * kWgHalf;                    // a and b of a stage: 
 constexpr int kWgSmem =
     3 * kWgPlaneB + kWgStages * kWgStage + 2 * kWgHalf + 2 * kWgStages * 8 + 1024;
 
-// Byte offset of an element (row r, column k) of a K-major operand laid out
-// in the 128-byte swizzle: chunks of 32 columns, each `rows` rows of 128
-// bytes, the 16-byte units of a row XORed with the row's index mod 8 (as a
-// TMA box of 32 columns lands; G's resident planes take it with the CTA's
-// bins as rows).
-__device__ __forceinline__ int wg_offset(int r, int k, int rows) {
-  return (k >> 5) * (rows * 128) + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) + (k & 3) * 4;
-}
-
 __device__ __forceinline__ float4 wg_round(float4 v) {
   return make_float4(__uint_as_float(gdsp::tf32(v.x)), __uint_as_float(gdsp::tf32(v.y)),
                      __uint_as_float(gdsp::tf32(v.z)), __uint_as_float(gdsp::tf32(v.w)));
@@ -283,13 +274,13 @@ __device__ __forceinline__ float4 wg_round(float4 v) {
 // yr = m1 - m2, yi = (m3 - m1) - m2 from m (the accumulator layout of
 // wgmma_m64n32k8_tf32: rows r0 and r0 + 8, columns col0 + 8 jn of the
 // CTA's 64 bins) into out (yr's 16 KB, then yi's) laid out as TMA boxes of
-// 32 bins land (wg_offset over 64 rows).
+// 32 bins land (hp::b128_offset over 64 rows).
 __device__ __forceinline__ void wg_put(const float (&m)[3][16], char* out, int r0, int col0) {
 #pragma unroll
   for (int jn = 0; jn < kWgN / 8; ++jn) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int q = 4 * jn + 2 * hh, at = wg_offset(r0 + 8 * hh, col0 + 8 * jn, kWgRows);
+      const int q = 4 * jn + 2 * hh, at = hp::b128_offset(r0 + 8 * hh, col0 + 8 * jn, kWgRows);
       *reinterpret_cast<float2*>(out + at) =
           make_float2(__fsub_rn(m[0][q], m[1][q]), __fsub_rn(m[0][q + 1], m[1][q + 1]));
       *reinterpret_cast<float2*>(out + kWgHalf + at) =
@@ -367,10 +358,10 @@ gmm_tf32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
       const int nb = 4 * (e % (kWgBins / 4));
       const float4 v = __ldg(reinterpret_cast<const float4*>(gk + p * kPlane + i2 * kLanes + nb));
       char* at = sg + p * kWgPlaneB;
-      *reinterpret_cast<uint32_t*>(at + wg_offset(nb, i2, kWgBins)) = gdsp::tf32(v.x);
-      *reinterpret_cast<uint32_t*>(at + wg_offset(nb + 1, i2, kWgBins)) = gdsp::tf32(v.y);
-      *reinterpret_cast<uint32_t*>(at + wg_offset(nb + 2, i2, kWgBins)) = gdsp::tf32(v.z);
-      *reinterpret_cast<uint32_t*>(at + wg_offset(nb + 3, i2, kWgBins)) = gdsp::tf32(v.w);
+      *reinterpret_cast<uint32_t*>(at + hp::b128_offset(nb, i2, kWgBins)) = gdsp::tf32(v.x);
+      *reinterpret_cast<uint32_t*>(at + hp::b128_offset(nb + 1, i2, kWgBins)) = gdsp::tf32(v.y);
+      *reinterpret_cast<uint32_t*>(at + hp::b128_offset(nb + 2, i2, kWgBins)) = gdsp::tf32(v.z);
+      *reinterpret_cast<uint32_t*>(at + hp::b128_offset(nb + 3, i2, kWgBins)) = gdsp::tf32(v.w);
     }
 
     const int wg = threadIdx.x >> 7;  // this warpgroup: bins 32 wg .. of the CTA's 64

@@ -125,8 +125,9 @@ def _declare(lib) -> None:
     lib.gdsp_pwfloor_staged.restype = i
     lib.gdsp_fac_dft.argtypes = [p, p, p, p, p, i64, i, p]
     lib.gdsp_fac_dft.restype = i
-    lib.gdsp_slicestore.argtypes = [p, p, p, p, i64, i, p]
-    lib.gdsp_slicestore.restype = i
+    for name in ("gdsp_slicestore", "gdsp_slicestore_sync"):
+        getattr(lib, name).argtypes = [p, p, p, p, i64, i, p]
+        getattr(lib, name).restype = i
     lib.gdsp_concatstore.argtypes = [p, p, p, p, i64, i, p]
     lib.gdsp_concatstore.restype = i
     lib.gdsp_gmm_concat.argtypes = [p, p, p, p, p, i64, i, i, p]
@@ -141,9 +142,15 @@ def _declare(lib) -> None:
     for name in ("gdsp_half3", "gdsp_slice8_add", "gdsp_slice8_add_sync", "gdsp_reshape_add"):
         getattr(lib, name).argtypes = [p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
-    for name in ("gdsp_bd_tf32", "gdsp_bd_hi"):
+    for name in ("gdsp_bd_tf32", "gdsp_bd_hi_sync"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
+    lib.gdsp_bd_hi.argtypes = [p, p, p, p, p, i64, i, i, p]
+    lib.gdsp_bd_hi.restype = i
+    lib.gdsp_bd_hi_resident.argtypes = [i]
+    lib.gdsp_bd_hi_resident.restype = i
+    lib.gdsp_bd_hi_geometry.argtypes = [i64, i, i, p]
+    lib.gdsp_bd_hi_geometry.restype = i
     lib.gdsp_anat_full.argtypes = [p, p, p, p, p, p, i64, i, p]
     lib.gdsp_anat_full.restype = i
     lib.gdsp_vdif.argtypes = [p, p, p, p, p, i64, i, p]

@@ -40,8 +40,9 @@ at column 128 k1 + k2):
       cuda_metrics.gmm_floor_plain;
   slicestore(xr, xi)   replaces tools/probe_store.py:53 _call (_slicestore_kernel)
   concatstore(xr, xi)  replaces _call (_concatstore_kernel)
-      copies: one slice of each row a pass, or the tile staged in shared
-      memory and stored as whole rows; plain version
+      copies: one slice of each row a pass (every slice's loads of a row's
+      chunk issued first: csrc/slice_walk.cuh, as slice8_add), or the tile
+      staged in shared memory and stored as whole rows; plain version
       cuda_metrics.copy_split_plain;
   gmm_concat(xr, xi)   replaces _call (_gmm_concat_kernel)
       K13's contraction with the outputs of every slice of a row tile
@@ -69,8 +70,10 @@ takes two float32 planes (b, n), n = n1 x 128:
       which with tf32=True rounds both operands as cvt.rna.tf32.f32 does
       (round_tf32) and sums in the input's dtype;
   bd_hi(xr, xi)        replaces v5bd_hi (:190): the 128-point DFT of every
-      slice, unscaled, by Karatsuba in 3xTF32 (float32 accuracy); plain
-      version bd_hi_plain, the same Karatsuba in the input's dtype;
+      slice, unscaled, by Karatsuba in 3xTF32 (float32 accuracy), on
+      wgmma with A from registers, fed by TMA, on pairs of CTAs that keep
+      half a slice's bins of the six TF32 planes resident (bd_hi_plan);
+      plain version bd_hi_plain, the same Karatsuba in the input's dtype;
   anat_full(xr, xi, tw) replaces v6full (:203): half3, the row tw
       (ar = a tw - b tw, ai = a tw + b tw), then bd_hi, in one kernel;
       plain version anat_full_plain.
@@ -80,7 +83,12 @@ reduced-precision pass (the TPU's DEFAULT matmul) and changes no TF32
 flag; nothing held to the 120 dB bar goes through it.  bd_hi's tables
 are the big and small TF32 halves of Re F, Im F and Re F + Im F as
 128-entry vectors over j k mod 128, split from float64 on the host
-(hi_tables).
+(hi_tables); bd_hi expands them once a CTA into its resident planes.
+
+The first designs of slicestore and bd_hi stay as the yardsticks of their
+redesigns: slicestore_sync (one slice's load and store in turn) and
+bd_hi_sync (mma.sync m16n8k8, A read from device memory, the tables
+gathered over j k mod 128 from 3 KB of shared memory).
 
 The fac tables (W16 with 1/128 folded in, the mid twiddle W128^{j2 ka},
 W8, the outer twiddle T) are built in float64 from the port's
@@ -317,8 +325,14 @@ __all__ = [
     "add_one_plain",
     "anat_full",
     "anat_full_plain",
+    "BD_HI_CHAIN",
+    "HiPlan",
     "bd_hi",
+    "bd_hi_fragment_offsets",
     "bd_hi_plain",
+    "bd_hi_plan",
+    "bd_hi_sync",
+    "bd_hi_walk",
     "bd_tf32",
     "bd_tf32_plain",
     "brev7_perm",
@@ -401,6 +415,7 @@ __all__ = [
     "slice8_add",
     "slice8_add_sync",
     "slicestore",
+    "slicestore_sync",
     "stack_tables_np",
     "staged_segs_per_tile",
     "stft_radix2",
@@ -421,7 +436,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "stft_radix2": 0, "outer_dft_radix2": 0, "pwelch_radix2": 0, "csd_radix2": 0,
             "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
             "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
-            "gmm_floor_sync": 0, "slice8_add_sync": 0}
+            "gmm_floor_sync": 0, "slice8_add_sync": 0, "slicestore_sync": 0,
+            "bd_hi_sync": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -688,11 +704,21 @@ def fac_dft(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
 
 def slicestore(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K14c slicestore: (yr, yi) = (xr, xi), stored one 128-column slice of
-    each row a pass."""
+    each row a pass, every slice's loads of a warp's row chunk issued
+    before its first store."""
     _check_lane_planes(xr, xi, "slicestore")
     if not xr.is_cuda:
         return copy_split_plain(xr, xi)
     return _lane_launch("slicestore", _build.library().gdsp_slicestore, xr, xi)
+
+
+def slicestore_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """slicestore's first design, its yardstick: one warp a row, a slice's
+    load and store in turn."""
+    _check_lane_planes(xr, xi, "slicestore_sync")
+    if not xr.is_cuda:
+        return copy_split_plain(xr, xi)
+    return _lane_launch("slicestore_sync", _build.library().gdsp_slicestore_sync, xr, xi)
 
 
 def concatstore(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1077,11 +1103,112 @@ def bd_tf32(xr: torch.Tensor, xi: torch.Tensor,
 
 def bd_hi(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K14d bd_hi: the unscaled 128-point DFT of every slice, Karatsuba in
-    3xTF32 on the tensor cores."""
-    _check_lane_planes(xr, xi, "bd_hi")
+    3xTF32 on the tensor cores, by wgmma on pairs of CTAs (bd_hi_plan), the
+    tensor cores chaining BD_HI_CHAIN k-steps; no TF32 flag is touched."""
+    b, n = _check_lane_planes(xr, xi, "bd_hi")
     if not xr.is_cuda:
         return bd_hi_plain(xr, xi)
-    return _lane_launch("bd_hi", _build.library().gdsp_bd_hi, xr, xi, _hi_packed(xr.device))
+    xr, xi = _cuda_planes(xr, xi, "bd_hi")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("bd_hi", _build.library().gdsp_bd_hi, yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), _hi_packed(xr.device).data_ptr(), b, n,
+            _hi_resident(xr.device))
+    return yr, yi
+
+
+def bd_hi_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """bd_hi's first design, its yardstick: mma.sync m16n8k8, a warp a
+    16-row tile of one slice, A read from device memory in fragment order,
+    the tables gathered over j k mod 128, each k-step summed from zero and
+    added on the CUDA cores; >= 120 dB against bd_hi."""
+    _check_lane_planes(xr, xi, "bd_hi_sync")
+    if not xr.is_cuda:
+        return bd_hi_plain(xr, xi)
+    return _lane_launch("bd_hi_sync", _build.library().gdsp_bd_hi_sync, xr, xi,
+                        _hi_packed(xr.device))
+
+
+# ---------------------------------------------------------------------------
+# bd_hi's plan (csrc/anatomy_probe_kernels.cu: make_hi_plan)
+# ---------------------------------------------------------------------------
+
+# k-steps the tensor cores sum before each add on the CUDA cores (the
+# kernel's kHiChain; PERF.md, section 6: the dB of each chain measured).
+BD_HI_CHAIN = 4
+HI_ROWS = 64  # rows of a tile: wgmma's M
+HI_BINS = 64  # bins a CTA: half a slice (two warpgroups of wgmma's N = 32)
+HI_STAGES = 2  # the ring of stages
+HI_K_STAGE = 32  # columns of a slice a stage: one TMA box (128 bytes a row)
+# The six resident planes (64 bins x 128 j), the stages (a and b), an
+# mbarrier and a count of the warps that have read it a slot, 1 KB to align
+# the 128-byte swizzle's atoms.
+HI_SMEM = (6 * HI_BINS * LANES * 4 + HI_STAGES * 2 * HI_ROWS * HI_K_STAGE * 4 + HI_STAGES * 12
+           + 1024)
+
+
+class HiPlan(NamedTuple):
+    """bd_hi's launch plan (gdsp_bd_hi_geometry returns the same fields in
+    this order)."""
+
+    pair: int  # CTAs an item: the two halves of a slice's bins
+    pairs: int  # pairs of the grid: the resident pairs, at most the items
+    ctas: int  # CTAs of the grid
+    rows_tile: int  # rows of a tile
+    bins_cta: int  # bins a CTA
+    stages: int  # the ring of stages a CTA
+    k_stage: int  # columns of a slice a stage
+    smem: int  # bytes of dynamic shared memory a CTA
+    per_pair: int  # items the busiest pair walks
+    chain: int  # k-steps the tensor cores sum before an add on the CUDA cores
+
+
+def bd_hi_plan(b: int, n: int, resident: int = 66) -> HiPlan:
+    """bd_hi's plan at b x n (any multiple of 128): pairs of CTAs (2 p and
+    2 p + 1 of a plain grid), as many as the card holds (one CTA an SM) but
+    no more than the (64-row tile, slice) items, which they share out in
+    turn.  Raises ValueError for what the kernel does not take and
+    RuntimeError where no CTA fits (resident < 1)."""
+    if b < 0 or n < LANES or n % LANES or b >= 2**31:
+        raise ValueError(f"bd_hi_plan: bad shape {b} x {n}")
+    if resident < 1:
+        raise RuntimeError(f"bd_hi: no pair of CTAs with {HI_SMEM} bytes of shared memory "
+                           f"fits on the card")
+    items = -(-b // HI_ROWS) * (n // LANES)
+    pairs = max(1, min(resident, items))
+    return HiPlan(2, pairs, 2 * pairs, HI_ROWS, HI_BINS, HI_STAGES, HI_K_STAGE, HI_SMEM,
+                  -(-items // pairs), BD_HI_CHAIN)
+
+
+def bd_hi_walk(plan: HiPlan, b: int, n: int) -> list[list[tuple[int, int]]]:
+    """The (slice, 64-row tile) items of each pair of the grid, in the
+    order the kernel walks them: pair p takes items p, p + pairs, ..., item
+    i being tile i // n1 and slice i % n1; each of the pair's CTAs h = 0, 1
+    contracts and stores bins 64 h .. 64 h + 63 of each."""
+    n1 = n // LANES
+    items = -(-b // HI_ROWS) * n1
+    return [[(i % n1, i // n1) for i in range(p, items, plan.pairs)] for p in range(plan.pairs)]
+
+
+def bd_hi_fragment_offsets(kk: int) -> list[list[int]]:
+    """Byte offsets in a landed 64-row x 32-column box (the 128-byte
+    swizzle) of the four A values each lane of warp 0 reads at k-step kk
+    of a stage (the kernel's hi_fragment: rows g and g + 8, columns
+    8 kk + t and 8 kk + t + 4, lane = 4 g + t); warp w adds 2048 w."""
+    out = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        out.append([gmm_tf32_offset(r, 8 * kk + t + c, HI_ROWS)
+                    for r, c in ((g, 0), (g + 8, 0), (g, 4), (g + 8, 4))])
+    return out
+
+
+@lru_cache(maxsize=None)
+def _hi_resident(device: torch.device) -> int:
+    """Pairs of bd_hi's CTAs (256 threads and HI_SMEM bytes each) the card
+    holds at once, asked once a device; 0 or a negative CUDA error where
+    none fits: the launch then refuses."""
+    with torch.cuda.device(device):
+        return int(_build.library().gdsp_bd_hi_resident(0))
 
 
 def anat_full(xr: torch.Tensor, xi: torch.Tensor,
@@ -1485,9 +1612,9 @@ def gmm_tf32_bins(plan: Tf32Plan) -> list[range]:
 
 def gmm_tf32_offset(r: int, k: int, rows: int) -> int:
     """Byte offset of element (row r, column k) of a K-major wgmma operand
-    in the 128-byte swizzle (the kernel's wg_offset): chunks of 32 columns,
-    each `rows` rows of 128 bytes, the 16-byte units of a row XORed with the
-    row's index mod 8.  A stage's plane (64 rows, as a 32-column TMA box
+    in the 128-byte swizzle (hopper_async.cuh: b128_offset): chunks of 32
+    columns, each `rows` rows of 128 bytes, the 16-byte units of a row XORed
+    with the row's index mod 8.  A stage's plane (64 rows, as a 32-column TMA box
     lands it) and G's resident planes (the CTA's 64 bins as rows) share it."""
     return (k >> 5) * rows * 128 + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) + (k & 3) * 4
 

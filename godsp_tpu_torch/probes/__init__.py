@@ -37,4 +37,8 @@
             variants of the first design, beside reshape_add, K12 and
             torch.add:
             python3 -m godsp_tpu_torch.probes.slice8
+  bd_hi   — K14d's bd_hi and K14c's slicestore beside their first designs:
+            ptxas, the first designs' SASS and variants, times beside
+            torch.matmul, K12 and copy_, and bd_hi's chain of k-steps:
+            python3 -m godsp_tpu_torch.probes.bd_hi
 """

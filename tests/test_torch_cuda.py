@@ -2385,3 +2385,104 @@ def test_i8_dot_and_k13_kernels_do_not_spill(cuda, tmp_path):
                 print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
                 assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
     assert seen == 3
+
+
+# ----------------------------------------- K14d bd_hi and K14c slicestore redesigned
+
+_HI_SHAPES = [(16384, 1024), (1001, 2048), (1, 128), (65, 384), (100, 1024), (64, 2048)]
+
+
+@pytest.mark.parametrize("b,n", _HI_SHAPES)
+def test_bd_hi_redesign_on_card(cuda, b, n):
+    """bd_hi (wgmma, A from registers, fed by TMA) and its first design
+    bd_hi_sync each >= 120 dB against bd_hi_plain in float64 and against
+    each other, one launch a call, the TF32 flags untouched: at the probe's
+    shape, ragged rows (1001, 1, 65, 100: not a multiple of a 64-row tile)
+    and n1 = 1, 3, 8 and 16."""
+    xr, xi = _lane_planes(cuda, b, n, b + 7 * n)
+    want = _c(cuda_probes.bd_hi_plain(xr.double(), xi.double()))
+    flags = _tf32_flags()
+    reset_launch_counts()
+    new, first = cuda_probes.bd_hi(xr, xi), cuda_probes.bd_hi_sync(xr, xi)
+    dbs = {"bd_hi": dsputils.snr_db(_c(new), want),
+           "bd_hi_sync": dsputils.snr_db(_c(first), want),
+           "against each other": dsputils.snr_db(_c(new), _c(first))}
+    print(f"bd_hi {b} x {n}: {dbs}")
+    assert all(db >= SNR_CARD_DB for db in dbs.values()), dbs
+    counts = launch_counts()
+    assert counts["bd_hi"] == counts["bd_hi_sync"] == 1
+    assert _tf32_flags() == flags
+    with pytest.raises(TypeError):
+        cuda_probes.bd_hi(xr.double(), xi.double())
+
+
+def test_bd_hi_geometry_matches_the_host_plan(cuda):
+    """gdsp_bd_hi_geometry, from the resident pairs of CTAs the card
+    reports and at chosen counts, equals ops/cuda_probes.py's bd_hi_plan at
+    ragged b and n1 = 1, 3, 8, 16; the kernel's chain is BD_HI_CHAIN."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 10)()
+    resident = cuda_probes._hi_resident(cuda)
+    print(f"bd_hi: {resident} pairs of CTAs resident")
+    assert resident >= 1
+    for r in (resident, 1, 7):
+        for n1 in (1, 3, 8, 16):
+            for b in (0, 1, 64, 65, 1001, 16384):
+                rc = lib.gdsp_bd_hi_geometry(b, 128 * n1, r, out)
+                plan = cuda_probes.bd_hi_plan(b, 128 * n1, r)
+                assert rc == 0 and tuple(out) == tuple(plan), (b, n1, r)
+                assert plan.chain == cuda_probes.BD_HI_CHAIN
+
+
+def test_bd_hi_refuses_without_a_resident_pair(cuda, monkeypatch):
+    """No pair fits a CTA asking for more shared memory than the card
+    allows; a launch told 0 refuses in the C entry and the wrapper raises
+    without counting a launch."""
+    assert _build.library().gdsp_bd_hi_resident(32768) <= 0
+    monkeypatch.setattr(cuda_probes, "_hi_resident", lambda device: 0)
+    xr, xi = _lane_planes(cuda, 64, 256, 4)
+    before = launch_counts()["bd_hi"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_probes.bd_hi(xr, xi)
+    assert launch_counts()["bd_hi"] == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 384), (1001, 1152), (13, 1024),
+                                 (1, 128)])
+def test_slicestore_redesign_on_card(cuda, b, n):
+    """slicestore (every slice's loads first, csrc/slice_walk.cuh) and its
+    first design slicestore_sync torch.equal to their input, one launch
+    each: at the probe's shape, fewer slices than a chunk (384), a ragged
+    chunk (1152), rows that are not a multiple of a block's eight, one
+    slice of one row."""
+    xr, xi = _lane_planes(cuda, b, n, 3 * b + n)
+    for name in ("slicestore", "slicestore_sync"):
+        reset_launch_counts()
+        got = getattr(cuda_probes, name)(xr, xi)
+        assert launch_counts()[name] == 1
+        assert torch.equal(got[0], xr) and torch.equal(got[1], xi), name
+    with pytest.raises(TypeError):
+        cuda_probes.slicestore_sync(xr.double(), xi.double())
+
+
+def test_bd_hi_and_slice_walk_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v on the two sources: bd_hi_kernel, slice8_kernel and
+    slicestore_kernel spill nothing (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("anatomy_probe_kernels.cu", ("12bd_hi_kernel", "13slice8_kernel")),
+                       ("lane_probe_kernels.cu", ("17slicestore_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
+    assert seen == 3
