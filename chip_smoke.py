@@ -117,7 +117,18 @@ final line):
      slicestore (every slice's loads first, the walk slice8_add runs)
      beside its first design slicestore_sync (a counted session of its
      own), copy_, K12's copy and concatstore, both designs torch.equal to
-     their input, each by chain and alone;
+     their input, each by chain and alone; then (phase_bd1_vdif_redesign)
+     K14d's bd_tf32 on wgmma m64n128k8 fed by TMA and K14h's vdif a warp a
+     row through a cp.async buffer (both plans held to the host's through
+     gdsp_bd_tf32_geometry and gdsp_vdif_geometry): bd_tf32 and its first
+     design bd_tf32_sync >= 120 dB against the TF32-rounded float64 plain
+     version at 16384 x 1024 and 1001 x 2048, the identity and
+     cyclic-shift tables exact, the TF32 flags untouched; vdif and vdif_sync
+     >= 120 dB against float64 at 16384 x 1024, 1001 x 512 and once at n1 1
+     and 2, the digit order exact; at 16384 x 1024 each beside its first
+     design (a counted session of its own), its library call (torch.matmul
+     with TF32 on for that call; torch.fft.fft(norm="ortho")), K12's copy
+     and the bound, by chain and alone;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -286,7 +297,8 @@ final line):
      plain version, bound and library call; then probes.facdft.run and
      probes.store.run (with K14g's i8_concat row) as two counted sessions;
  15. K14d, the anatomy twins (ops/cuda_probes.py: half3, slice8_add,
-     reshape_add, bd_tf32, bd_hi, anat_full) against their plain versions
+     reshape_add, bd_tf32, bd_hi, anat_full; the redesigns where a twin
+     was redesigned) against their plain versions
      on the card at 16384 x 1024 and at 1001 x 2048 through
      probes.anatomy2.check_numerics, one launch a twin: half3 and the adds
      torch.equal to their float32 plain versions; bd_hi and anat_full
@@ -299,7 +311,7 @@ final line):
  16. probes.anatomy2.run at its full shape as one counted session: the six
      twins, copy_split (its copy row) and fft_pow2 (its K1 row) launched,
      nothing else;
- 17. K14h vdif and K14i sdif_peel (ops/cuda_probes.py) against their
+ 17. K14h vdif (the redesign) and K14i sdif_peel (ops/cuda_probes.py) against their
      float64 plain versions on the card (>= 120 dB), one launch a check:
      vdif at 16384 x 1024 (n1 8, scale 1/32) and at a ragged 1001 x 512
      (n1 4), its digit order exact at both (single exponentials peak at
@@ -343,7 +355,7 @@ final line):
      (the profiler's events of each call's device work);
  22. probes.int8.run at its full shape as one counted session: the five
      K14g wrappers, copy_split and gmm_floor; nothing else;
- 23. prints {"kernels": [...]} (52 wrappers) and, last, {"ok": true,
+ 23. prints {"kernels": [...]} (60 wrappers) and, last, {"ok": true,
      "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
@@ -575,6 +587,8 @@ REPLACES = {
     "slice8_add_sync": "tools/probe_anatomy2.py:87",
     "bd_hi_sync": "tools/probe_anatomy2.py:87",
     "slicestore_sync": "tools/probe_store.py:53",
+    "bd_tf32_sync": "tools/probe_anatomy2.py:87",
+    "vdif_sync": "tools/probe_vdif.py:116",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -624,6 +638,8 @@ SOURCES = {
     "slice8_add_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
     "bd_hi_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
     "slicestore_sync": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
+    "bd_tf32_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
+    "vdif_sync": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
 }
 
 
@@ -934,6 +950,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_floor_dot_redesign(rec, dev))
     steps.update(phase_halo_slice8_redesign(rec, dev))
     steps.update(phase_hi_store_redesign(rec, dev))
+    steps.update(phase_bd1_vdif_redesign(rec, dev))
     return steps
 
 
@@ -1843,6 +1860,154 @@ def phase_hi_store_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]
     rec.time("slicestore_sync", f"{b} x {n}", first,
              lambda: cuda_metrics.copy_split_plain(xr, xi), library, 16.0 * pts, 0.0)
     del xr, xi, yr, yi
+    return steps
+
+
+# K14d's bd_tf32 and K14h's vdif redesigned (PR 23): bd_tf32 at the probe's
+# shape (timed) and a ragged one; vdif at the probe's shape (timed), a
+# ragged n1 4 and once each at n1 1 and 2.
+BD1_REDESIGN = ((LANE_B, LANE_N), (1001, 2048))
+VDIF_REDESIGN = ((LANE_B, LANE_N), (1001, 512), (257, 128), (33, 256))
+
+
+def call_device_ms(run, reps: int = 20):
+    """ms of device time a call of run(), every kernel it launches summed, by
+    the profiler's events over reps calls (device events only: an operator's
+    row may repeat its kernels' time); None where none was recorded."""
+    rows = [e for e in kernel_alone_ms("", run, reps)[1]
+            if e.device_type != torch.autograd.DeviceType.CPU]
+    return sum(e.self_device_time_total for e in rows) / 1e3 / reps if rows else None
+
+
+def phase_bd1_vdif_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K14d's bd_tf32 and K14h's vdif redesigned.  bd_tf32's plan as the C
+    side exports it (gdsp_bd_tf32_geometry from the resident CTAs the card
+    reports) held to the host's (cuda_probes.bd_tf32_plan) at ragged b and
+    n1 = 1, 3, 8, 16; at each BD1_REDESIGN shape bd_tf32 and its first
+    design bd_tf32_sync >= 120 dB against bd_tf32_plain with TF32-rounded
+    operands summed in float64 (both printed), the identity and
+    cyclic-shift tables torch.equal to the rounded and rolled slices, the
+    TF32 flags untouched; at 16384 x 1024 a redesign line (by chain beside
+    bd_tf32_sync as a counted session of its own, torch.matmul of the
+    (b, 8, 128) views and Re F128 with TF32 on for that call, K12's copy,
+    the bound), then each alone by the profiler's events (a library call:
+    all its kernels' device time a call).  vdif's plan
+    (gdsp_vdif_geometry) held to vdif_plan at each width; at each
+    VDIF_REDESIGN shape vdif and vdif_sync >= 120 dB against the float64
+    plain version (both printed), the digit order exact; at 16384 x 1024 a
+    redesign line beside vdif_sync, torch.fft.fft(norm="ortho"), K12's copy
+    and the bound, then each alone.  The yardsticks are checked and timed
+    for the kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch.ops import _build, cuda_metrics
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import anatomy2, vdif
+    from godsp_tpu_torch.probes._common import TF32_FLOPS, lane_planes
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    lib = _build.library()
+    out, out64 = (ctypes.c_int * 8)(), (ctypes.c_int64 * 3)()
+    resident = cp._b1_resident(dev)
+    for n in (128, 384, 1024, 2048):
+        for b in (1, 65, 1001, 16384):
+            plan = tuple(cp.bd_tf32_plan(b, n, resident))
+            if lib.gdsp_bd_tf32_geometry(b, n, resident, out) != 0 or tuple(out) != plan:
+                raise AssertionError(f"bd_tf32's plan at {b} x {n}: {tuple(out)} against the "
+                                     f"host's {plan}")
+    for n in (128, 256, 512, 1024):
+        for b in (1, 5, 1001, 16384):
+            plan = tuple(cp.vdif_plan(b, n))
+            if lib.gdsp_vdif_geometry(b, n, out64) != 0 or tuple(out64) != plan:
+                raise AssertionError(f"vdif's plan at {b} x {n}: {tuple(out64)} against the "
+                                     f"host's {plan}")
+    steps: dict[str, dict[str, int]] = {}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    tc = FP32_FLOPS / TF32_FLOPS
+    log(f"bd_tf32 and vdif redesigned vs their first designs; both plans equal the host's; "
+        f"bd_tf32 at {LANE_B} x {LANE_N}: {cp.bd_tf32_plan(LANE_B, LANE_N, resident)}; vdif: "
+        f"{cp.vdif_plan(LANE_B, LANE_N)}")
+    for b, n in BD1_REDESIGN:
+        xr, xi = lane_planes(dev, b, n, seed=23)
+        pts = float(b * n)
+        shape = f"{b} x {n}"
+        want = cplx(cp.bd_tf32_plain(xr.double(), xi.double(), tf32=True))
+        op = lambda: cp.bd_tf32(xr, xi)
+        first = lambda: cp.bd_tf32_sync(xr, xi)
+        dbs = (snr_on_card(cplx(op()), want), snr_on_card(cplx(first()), want))
+        log(f"  bd_tf32 {shape}: {dbs[0]:.2f} dB against its TF32-rounded float64 plain "
+            f"version, first design {dbs[1]:.2f}")
+        if not min(dbs) >= SNR_DB:
+            raise AssertionError(f"bd_tf32 {shape}: {dbs} dB, not both >= {SNR_DB}")
+        eye = torch.eye(128, device=dev)
+        for table, what, planes in (
+                (eye, "identity", [cp.round_tf32(v) for v in (xr, xi)]),
+                (torch.roll(eye, 1, dims=1), "cyclic shift",
+                 [torch.roll(cp.round_tf32(v).view(b, -1, 128), 1, dims=2).reshape(b, n)
+                  for v in (xr, xi)])):
+            for name in ("bd_tf32", "bd_tf32_sync"):
+                got = getattr(cp, name)(xr, xi, table)
+                if not (torch.equal(got[0], planes[0]) and torch.equal(got[1], planes[1])):
+                    raise AssertionError(f"{name} {shape}: the {what} table is not exact")
+            log(f"  bd_tf32 and bd_tf32_sync {shape}: the {what} table torch.equal")
+        del got, planes
+        if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
+            raise AssertionError("bd_tf32 changed a TF32 flag")
+        if (b, n) == (LANE_B, LANE_N):
+            library = anatomy2.ops(xr, xi, anatomy2.tw_row(dev, n))["bd1"][1]
+            copy = lambda: cuda_metrics.copy_split(xr, xi)
+            flops = 512.0 * pts * tc
+            ms = redesign_line(rec, steps, "bd_tf32", "bd_tf32_sync", f"{shape} ({dbs[0]:.2f} dB)",
+                               op, first, library, copy, cplx, want, 16.0 * pts, flops,
+                               yard_label="first design")
+            alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+                ("bd_tf32", "bd_tf32_kernel", op), ("first design", "bd_tf32_sync_kernel", first),
+                ("K12 copy", "copy_split_kernel", copy))]
+            alone.insert(2, ("torch.matmul TF32", call_device_ms(library)))
+            log(f"  redesign alone (profiler events), bd_tf32 {shape}: " + "  ".join(
+                f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
+                + f"  (by chain {ms:.4f} ms)")
+            if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
+                raise AssertionError("bd_tf32's library call left a TF32 flag changed")
+            rec.check("bd_tf32_sync", lambda: cplx(first()), want, shape)
+            rec.time("bd_tf32_sync", shape, first, lambda: cp.bd_tf32_plain(xr, xi, tf32=True),
+                     library, 16.0 * pts, flops)
+            del library
+        del xr, xi, want
+    for b, n in VDIF_REDESIGN:
+        xr, xi = lane_planes(dev, b, n, seed=23)
+        pts = float(b * n)
+        s = n ** -0.5
+        shape = f"{b} x {n}"
+        want = cplx(cp.vdif_plain(xr.double(), xi.double(), s))
+        op = lambda: cp.vdif(xr, xi, s)
+        first = lambda: cp.vdif_sync(xr, xi, s)
+        dbs = (snr_on_card(cplx(op()), want), snr_on_card(cplx(first()), want))
+        exact = vdif.digit_order_exact(dev, n, s)
+        log(f"  vdif {shape} (n1 {n // 128}): {dbs[0]:.2f} dB against float64, first design "
+            f"{dbs[1]:.2f}; digit order exact: {exact}")
+        if not (min(dbs) >= SNR_DB and exact):
+            raise AssertionError(f"vdif {shape}: {dbs} dB, digit order exact {exact}")
+        if (b, n) == (LANE_B, LANE_N):
+            z = torch.complex(xr, xi)
+            library = lambda: torch.fft.fft(z, norm="ortho")
+            copy = lambda: cuda_metrics.copy_split(xr, xi)
+            flops = vdif.OPS_PER_POINT["vdif"] * pts
+            ms = redesign_line(rec, steps, "vdif", "vdif_sync", f"{shape} ({dbs[0]:.2f} dB)", op,
+                               first, library, copy, cplx, want, 16.0 * pts, flops,
+                               yard_label="first design")
+            alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+                ("vdif", "vdif_kernel", op), ("first design", "vdif_sync_kernel", first),
+                ("K12 copy", "copy_split_kernel", copy))]
+            alone.insert(2, ("torch.fft.fft", call_device_ms(library)))
+            log(f"  redesign alone (profiler events), vdif {shape}: " + "  ".join(
+                f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
+                + f"  (by chain {ms:.4f} ms)")
+            rec.check("vdif_sync", lambda: cplx(first()), want, shape)
+            rec.time("vdif_sync", shape, first, lambda: cp.vdif_plain(xr, xi, s), library,
+                     16.0 * pts, flops)
+            del z, library
+        del xr, xi, want
     return steps
 
 

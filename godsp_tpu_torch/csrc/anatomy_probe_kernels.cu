@@ -41,21 +41,48 @@
 // equal it bit for bit.
 //
 // bd_tf32_kernel replaces v4bd1 (:176): each plane's 128-point slices times
-// Re F128 (F[j, k] = exp(-2 pi i j k / 128), unscaled) in ONE TF32 pass on
-// the tensor cores, the card's counterpart of the TPU's DEFAULT-precision
-// (one bf16 pass) matmul.  The TPU multiplies the zeros of the 1024 x 1024
+// `table` (Re F128 by default: F[j, k] = exp(-2 pi i j k / 128), unscaled;
+// any (128, 128) table for the fragment-map checks: the identity returns
+// round_tf32(x), a cyclic shift shows the B map) in ONE TF32 pass on the
+// tensor cores, the card's counterpart of the TPU's DEFAULT-precision (one
+// bf16 pass) matmul.  The TPU multiplies the zeros of the 1024 x 1024
 // block-diagonal matrix too; here each slice meets its 128 x 128 block
-// only.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 by inline PTX,
-// both operands rounded by cvt.rna.tf32.f32 (the table as it is staged in
-// shared memory, 128 rows 136 words apart so that a B fragment's 32 reads
-// fall in 32 banks), float32 accumulation.  A warp owns a 16-row tile of
-// one slice: 16 k-steps of 8, each one A fragment read from device memory
-// and 16 mma over the slice's 128 outputs.  The table is an argument:
-// Re F128 by default, any (128, 128) table for the fragment-map checks
-// (the identity returns round_tf32(x); a cyclic shift shows the B map).
-// Bound: bytes, 0.080 ms (512 TF32 operations a point: 0.017 ms at 495
-// TFLOP/s).  This is the port's only TF32 path, on purpose: it measures
-// what one reduced-precision pass costs; nothing at the 120 dB bar uses it.
+// only.  Both operands are rounded as cvt.rna.tf32.f32 (round to nearest,
+// ties away; wgmma reading float32 truncates) and the products summed in
+// float32.  Bound: bytes, 0.080 ms at 16384 x 1024 (512 TF32 operations a
+// point: 0.017 ms at 495 TFLOP/s), so the design is a stream: the tensor
+// cores are busy a fifth of the time and the bytes must move at the copy's
+// speed.  This is the port's only TF32 path, on purpose: it measures what
+// one reduced-precision pass costs; nothing at the 120 dB bar uses it, and
+// it changes no TF32 or matmul flag.
+//   Its first design, bd_tf32_sync_kernel (gdsp_bd_tf32_sync, kept as the
+// yardstick): a warp owns a 16-row tile of one slice, 16 k-steps of
+// mma.sync m16n8k8 (the rounded table staged at 136 words a row), A read
+// from device memory in fragment order (4-byte loads, 8 rows x 16 bytes a
+// warp), 8-byte stores of the accumulator layout.  As compiled
+// (probes/bd1_vdif.py, on an NVIDIA H100 80GB HBM3 at 700.00 W): 124
+// registers, 2 blocks a SM, a k-step a warp 16 HMMA, 4 LDG and 32 LDS;
+// 0.134 ms by chain at 16384 x 1024, torch.matmul with TF32 0.117.
+// Staging A by 16-byte copies or the outputs through shared memory, a warp
+// at a time, did not pay (0.186, 0.169; both 0.127).
+//   The redesign: a persistent grid of one CTA an SM keeps round(table)
+// transposed as wgmma's K-major B in the 128-byte swizzle (64 KB, built
+// from `table` at every launch) and walks the (plane, 64-row tile, slice)
+// items in turn (Bd1Plan).  A producer warp brings each item, 64 rows x 128
+// columns of one slice of one plane, by four TMA boxes into a ring of five
+// 32 KB stages; item k of a CTA goes to warpgroup k % 2, whose warps read
+// their A fragments from the landed boxes (conflict-free through the
+// swizzle), round them by two integer operations (bd_hi's hi_round, equal
+// to cvt.rna), and issue 16 wgmma m64n128k8 with A from registers, all 128
+// bins, the tensor cores summing the 16 k-steps.  Each warp then writes its
+// 16 rows back into the stage as the boxes landed and stores them by TMA
+// (boxes of 32 columns x 16 rows; rows past b dropped); it frees the stage
+// when its warpgroup's next item has landed and its stores have read it.
+// Shared memory: 65,536 (B) + 163,840 (stages) + 80 (barriers) + 1,024
+// (alignment) = 230,480 bytes.  On the same card: 0.106 ms by chain at
+// 16384 x 1024 against the first design's 0.133 and torch.matmul's 0.118;
+// four stages in place of five 0.106 against 0.103 (probes/bd1_vdif.py
+// --tune).  It gives the first design's result bit for bit.
 //
 // bd_hi_kernel replaces v5bd_hi (:190): the complex product (a + i b)(F_r +
 // i F_i) of every slice at float32 accuracy (the 128-point DFT, unscaled)
@@ -275,10 +302,12 @@ using gdsp::mma_tf32;
 using gdsp::store_c;
 using gdsp::tf32;
 
-// table: (128, 128) float32, row j, column k.
+// table: (128, 128) float32, row j, column k.  bd_tf32's first design, the
+// yardstick (gdsp_bd_tf32_sync).
 __global__ void __launch_bounds__(kThreads)
-bd_tf32_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
-               float* __restrict__ yi, const float* __restrict__ table, long long b, int n) {
+bd_tf32_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                    float* __restrict__ yr, float* __restrict__ yi,
+                    const float* __restrict__ table, long long b, int n) {
   extern __shared__ float4 smem4[];
   uint32_t* sf = reinterpret_cast<uint32_t*>(smem4);
   for (int e = threadIdx.x; e < kLanes * kLanes; e += kThreads)
@@ -711,6 +740,159 @@ bd_hi_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
     hi_walk<1>(k);
 }
 
+// ---------------------------------------------------------------------------
+// bd_tf32 on wgmma, fed by TMA (the plan: Bd1Plan below)
+// ---------------------------------------------------------------------------
+
+constexpr int kB1Rows = 64;                  // rows of a tile: wgmma's M
+constexpr int kB1K = 32;                     // columns of a TMA box: one 128-byte swizzled row
+constexpr int kB1Box = kB1Rows * kB1K * 4;   // bytes of a box: 8 KB
+constexpr int kB1Stage = kLanes / kB1K * kB1Box;  // a tile of one slice of one plane: 32 KB
+constexpr int kB1Stages = 5;                 // the ring of stages
+constexpr int kB1Consumers = 256;            // two warpgroups, an item each
+constexpr int kB1Threads = kB1Consumers + 32;  // and a producer warp
+constexpr int kB1StoreRows = 16;             // rows of a store box: one warp's
+constexpr int kB1TableB = kLanes * kLanes * 4;  // round(table) as wgmma's B: 64 KB
+constexpr int kB1Smem = kB1TableB + kB1Stages * kB1Stage + 2 * kB1Stages * 8 + 1024;
+
+// Item i of a bd_tf32 launch: plane i / (tiles n1), then the 64-row tile,
+// then the slice (fastest).
+struct B1Item {
+  int plane, row, col;  // row: the tile's first row; col: the slice's first column
+  __device__ __forceinline__ B1Item(long long i, long long tiles, int n1) {
+    plane = static_cast<int>(i / (tiles * n1));
+    const long long r = i % (tiles * n1);
+    row = static_cast<int>(r / n1 * kB1Rows);
+    col = static_cast<int>(r % n1) * kLanes;
+  }
+};
+
+// ta, tb: tensor maps of the (b, n) planes a and b, boxes of 32 columns x 64
+// rows; tya, tyb: of the outputs, boxes of 32 columns x 16 rows; both in the
+// 128-byte swizzle (rows past b arrive as zeros and are not stored).
+// table: (128, 128) float32, row j, column k.  CTA c walks items c, c +
+// ctas, ... (B1Item); its k-th item lands in stage k % kB1Stages and
+// warpgroup k % 2 contracts it, all 128 bins (wgmma m64n128k8, 16 k-steps
+// chained on the tensor cores), writes it back into the stage as the boxes
+// landed and stores it by TMA, a warp its own 16 rows.  Warp 8 is the
+// producer: it refills a stage once the four warps that stored from it
+// have seen their stores read it, which each checks when its warpgroup's
+// next item has landed.
+__global__ void __launch_bounds__(kB1Threads, 1)
+bd_tf32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tya, const __grid_constant__ CUtensorMap tyb,
+               const float* __restrict__ table, long long b, int n) {
+  extern __shared__ float4 smem4[];
+  // Aligned by an offset, not through an integer, so the stages' reads stay LDS.
+  char* base = reinterpret_cast<char*>(smem4) + ((1024 - (hp::smem_addr(smem4) & 1023)) & 1023);
+  char* sb = base;                  // round(table) transposed: [bin][j], swizzled
+  char* stages = base + kB1TableB;  // the ring: [stage][box][64 rows][128 bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kB1Stages * kB1Stage);
+  uint64_t* empty = full + kB1Stages;
+  const int n1 = n / kLanes;
+  const long long tiles = (b + kB1Rows - 1) / kB1Rows;
+  const long long items = 2 * tiles * n1;
+  const long long mine =
+      blockIdx.x < items ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;  // this CTA's items
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kB1Stages; ++s) {
+      hp::mbar_init(full + s, 1);   // the producer's arrive.expect_tx
+      hp::mbar_init(empty + s, 4);  // the four warps that stored from it
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();  // the barriers exist before any copy or arrival
+
+  if (threadIdx.x >= kB1Consumers) {
+    if (lane == 0) {
+      for (long long c = 0; c < mine; ++c) {
+        const int s = static_cast<int>(c % kB1Stages);
+        hp::mbar_wait(empty + s, (static_cast<uint32_t>(c / kB1Stages) & 1u) ^ 1u);
+        const B1Item it(blockIdx.x + c * gridDim.x, tiles, n1);
+        hp::mbar_arrive_expect_tx(full + s, kB1Stage);
+        for (int box = 0; box < kLanes / kB1K; ++box)
+          hp::tma_load_2d(stages + s * kB1Stage + box * kB1Box, it.plane ? &tb : &ta,
+                          it.col + box * kB1K, it.row, full + s);
+      }
+    }
+    return;
+  }
+
+  // round(table) transposed into wgmma's K-major B (the bins as rows, j as
+  // k), four j a 16-byte store, the table read a row of bins at a time.
+  for (int e = threadIdx.x; e < (mine > 0 ? kLanes * kLanes / 4 : 0); e += kB1Consumers) {
+    const int bin = e % kLanes, j = 4 * (e / kLanes);
+    const float* col = table + j * kLanes + bin;
+    *reinterpret_cast<uint4*>(sb + hp::b128_offset(bin, j, kLanes)) =
+        make_uint4(hi_round(__ldg(col)), hi_round(__ldg(col + kLanes)),
+                   hi_round(__ldg(col + 2 * kLanes)), hi_round(__ldg(col + 3 * kLanes)));
+  }
+  hp::fence_proxy_async();  // B, to wgmma's reads
+  hp::named_sync(1, kB1Consumers);
+
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, t = lane & 3;
+  const int r0 = 16 * w + (lane >> 2);  // rows r0, r0 + 8 of a tile
+  float d[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) d[q] = 0.f;
+  for (long long c = wg; c < mine; c += 2) {
+    const int s = static_cast<int>(c % kB1Stages);
+    char* st = stages + s * kB1Stage;
+    hp::mbar_wait(full + s, static_cast<uint32_t>(c / kB1Stages) & 1u);
+    if (lane == 0 && c >= 2) {
+      // The warp's stores of its previous item have read their stage: free it.
+      hp::bulk_wait_read();
+      hp::mbar_arrive(empty + (c - 2) % kB1Stages);
+    }
+    // Every k-step's A values first, rounded as cvt.rna.tf32.f32 does.
+    uint32_t a[kLanes / 8][4];
+#pragma unroll
+    for (int j = 0; j < kLanes / 8; ++j) {
+      float v[4];
+      hi_fragment(v, st + (j >> 2) * kB1Box, r0, j & 3, t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[j][q] = hi_round(v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 64; ++q) hp::fence_operand(d[q]);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kLanes / 8; ++j)
+      hp::wgmma_m64n128k8_tf32_rs(
+          d, a[j], hp::desc_b128(sb + (j >> 2) * (kLanes * 128) + (j & 3) * 32), j != 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < 64; ++q) hp::fence_operand(d[q]);
+    // The warp's 16 rows back into the stage as the boxes landed (its reads
+    // of them are done: they fed its A registers), then stored by TMA.
+#pragma unroll
+    for (int j = 0; j < kLanes / 8; ++j) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(st + (j >> 2) * kB1Box +
+                                   hp::b128_offset(r0 + 8 * hh, 8 * (j & 3) + 2 * t, kB1Rows)) =
+            make_float2(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+    }
+    hp::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      const B1Item it(blockIdx.x + c * gridDim.x, tiles, n1);
+      const int row = it.row + kB1StoreRows * w;
+      if (row < b) {
+        for (int box = 0; box < kLanes / kB1K; ++box)
+          hp::tma_store_2d(it.plane ? &tyb : &tya,
+                           st + box * kB1Box + kB1StoreRows * w * 128, it.col + box * kB1K, row);
+      }
+      hp::bulk_commit();
+    }
+    __syncwarp();
+  }
+  if (lane == 0) hp::bulk_wait_all();
+}
+
 // tw: n floats; tab: the kHiTab split vectors.  R rows a tile (<= 16).
 __global__ void __launch_bounds__(kThreads)
 anat_full_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -793,6 +975,33 @@ int make_hi_plan(long long b, int n, int resident, HiPlan* p) {
   return 0;
 }
 
+// bd_tf32's launch plan (ops/cuda_probes.py: bd_tf32_plan holds the same;
+// the GPU tests compare through gdsp_bd_tf32_geometry).
+struct Bd1Plan {
+  int ctas;       // CTAs of the grid: the resident ones, at most the items
+  int per_cta;    // items the busiest CTA walks
+  int rows_tile;  // rows of a tile (wgmma's M)
+  int bins;       // bins a warpgroup's product (wgmma's N)
+  int stages;     // the ring of stages a CTA
+  int threads;    // threads a CTA: two warpgroups and a producer warp
+  int smem;       // bytes of dynamic shared memory a CTA
+  int store_rows; // rows of a TMA store box: one warp's
+};
+constexpr int kB1PlanFields = 8;
+
+// b >= 0, n a multiple of 128; resident the CTAs the card holds at once.
+int make_bd1_plan(long long b, int n, int resident, Bd1Plan* p) {
+  if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (resident < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const long long items = 2 * ((b + kB1Rows - 1) / kB1Rows) * (n / kLanes);
+  const long long ctas = items < 1 ? 1 : (items < resident ? items : resident);
+  const long long per = (items + ctas - 1) / ctas;
+  if (per > 0x7fffffffLL || b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *p = Bd1Plan{static_cast<int>(ctas), static_cast<int>(per), kB1Rows,  kLanes,
+               kB1Stages,              kB1Threads,            kB1Smem, kB1StoreRows};
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -844,18 +1053,73 @@ int gdsp_reshape_add(const float* xr, const float* xi, float* yr, float* yi, lon
   return static_cast<int>(cudaGetLastError());
 }
 
-// table: (128, 128) float32, row j, column k.
+// bd_tf32 on wgmma: table (128, 128) float32, row j, column k; resident the
+// CTAs of bd_tf32_kernel the card holds at once (gdsp_bd_tf32_resident).
+// Returns cudaErrorLaunchOutOfResources where resident < 1.
 int gdsp_bd_tf32(const float* xr, const float* xi, float* yr, float* yi, const float* table,
-                 long long b, int n, void* stream) {
+                 long long b, int n, int resident, void* stream) {
+  Bd1Plan p;
+  const int rc = make_bd1_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  CUtensorMap maps[4];
+  const float* planes[4] = {xr, xi, yr, yi};
+  for (int i = 0; i < 4; ++i) {
+    const int m = hp::encode_tensor_map_2d(maps + i, planes[i], b, n, kB1K,
+                                           i < 2 ? kB1Rows : kB1StoreRows);
+    if (m != 0) return m;
+  }
+  cudaError_t e = gdsp::allow_smem(bd_tf32_kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bd_tf32_kernel<<<static_cast<unsigned>(p.ctas), kB1Threads, static_cast<size_t>(p.smem),
+                   static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], maps[2], maps[3],
+                                                        table, b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of bd_tf32_kernel the card holds at once with the plan's shared
+// memory plus extra_smem bytes a CTA: 0 where none fits, or -(CUDA error).
+int gdsp_bd_tf32_resident(int extra_smem) {
+  const int smem = kB1Smem + extra_smem;
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t e = gdsp::allow_smem(bd_tf32_kernel, static_cast<size_t>(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bd_tf32_kernel, kB1Threads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch's check
+    return -static_cast<int>(e);
+  }
+  return blocks * sms;
+}
+
+// bd_tf32's plan at b x n with `resident` CTAs: out[0..7] = CTAs, items of
+// the busiest CTA, rows a tile, bins, stages, threads, shared bytes, rows a
+// store box (Bd1Plan).  ops/cuda_probes.py: bd_tf32_plan holds the same.
+int gdsp_bd_tf32_geometry(long long b, int n, int resident, int* out) {
+  Bd1Plan p;
+  const int rc = make_bd1_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  const int v[kB1PlanFields] = {p.ctas,    p.per_cta, p.rows_tile, p.bins,
+                                p.stages, p.threads, p.smem,      p.store_rows};
+  for (int i = 0; i < kB1PlanFields; ++i) out[i] = v[i];
+  return 0;
+}
+
+// bd_tf32's first design, the yardstick (mma.sync m16n8k8, A read from
+// device memory in fragment order): table as gdsp_bd_tf32's.
+int gdsp_bd_tf32_sync(const float* xr, const float* xi, float* yr, float* yi, const float* table,
+                      long long b, int n, void* stream) {
   if (bad_shape(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  cudaError_t e = gdsp::allow_smem(bd_tf32_kernel, kTf32Smem);
+  cudaError_t e = gdsp::allow_smem(bd_tf32_sync_kernel, kTf32Smem);
   unsigned blocks = 0;
   const long long tasks = (b + 15) / 16 * (n / kLanes);
   if (e == cudaSuccess)
-    e = resident_blocks(bd_tf32_kernel, kTf32Smem, (tasks + kWarps - 1) / kWarps, &blocks);
+    e = resident_blocks(bd_tf32_sync_kernel, kTf32Smem, (tasks + kWarps - 1) / kWarps, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bd_tf32_kernel<<<blocks, kThreads, kTf32Smem, static_cast<cudaStream_t>(stream)>>>(
+  bd_tf32_sync_kernel<<<blocks, kThreads, kTf32Smem, static_cast<cudaStream_t>(stream)>>>(
       xr, xi, yr, yi, table, b, n);
   return static_cast<int>(cudaGetLastError());
 }

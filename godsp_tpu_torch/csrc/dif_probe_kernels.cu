@@ -10,20 +10,44 @@
 // N1-point DFT across the row's slices (slice_network.cuh, after
 // pallas_fft._dft_slices: radix-2 DIT, bit-reversed slice order in), the
 // twiddle T[k1, p] = W_n^{k1 p} x scale, then a 128-point radix-2 DIF
-// along each slice (_lane_dft.lane_dif_128).  Position k1 128 + p of the output holds bin
-// k1 + N1 brev7(p): the vdif digit order.  Design: one warp owns a row;
-// lane l holds points p = l + 32 q, q = 0..3, of all N1 slices (4 N1 complex
-// values, 64 registers at N1 = 8), loaded and stored 32 consecutive floats
-// a (slice, q): every access is one 128-byte line a warp.  The slice DFT
-// and T run in registers; the DIF stages at w = 64 and 32 pair registers
-// q ^ 2 and q ^ 1 of one lane; the stages at w = 16 .. 1 pair lanes l ^ w
-// by __shfl_xor_sync, two shuffles (re, im) a value a stage, where the TPU
+// along each slice (_lane_dft.lane_dif_128).  Position k1 128 + p of the
+// output holds bin k1 + N1 brev7(p): the vdif digit order.  A warp owns a
+// row: lane l holds points p = l + 32 q, q = 0..3, of all N1 slices (4 N1
+// complex values, 64 registers at N1 = 8).  The slice DFT and T run in
+// registers; the DIF stages at w = 64 and 32 pair registers q ^ 2 and
+// q ^ 1 of one lane; the stages at w = 16 .. 1 pair lanes l ^ w by
+// __shfl_xor_sync, two shuffles (re, im) a value a stage, where the TPU
 // paid full-width lane rolls and selects.  The b element of a pair takes
 // W_{2w}^{p mod w}.  Bound on the H100 at 16384 x 1024: 268 MB of traffic,
 // 0.080 ms at 3.35 TB/s (5 log2 n + 6 = 56 float32 operations a point:
-// 0.014 ms at 67 TFLOP/s): bytes.  Its shuffles, 5 stages x 2 N1 x 4 a
-// lane, are ~5.2e6 warp instructions at 16384 rows: ~0.02 ms at one a
-// clock an SM.
+// 0.014 ms at 67 TFLOP/s): bytes.  Its 320 shuffles a lane a row are ~5.2e6
+// warp instructions at 16384 rows, ~0.02 ms at one a clock an SM.
+//   Its first design, vdif_sync_kernel (gdsp_vdif_sync, kept as the
+// yardstick): eight rows a block on a grid of every row, the row loaded
+// and stored 4 bytes a lane (one 128-byte line a warp), T and the stage
+// twiddles read from device memory for every row, each shuffle stage
+// computing both arms of `low ? a + b : (b - a) w`.  As compiled
+// (probes/bd1_vdif.py, on an NVIDIA H100 80GB HBM3 at 700.00 W): 114
+// registers, no stack frame, 4128 instructions a row (104 LDG, 320 SHFL, 64
+// STG, 1908 float32); 0.193 ms by chain, torch.fft.fft 0.184.  Its row by
+// 16-byte loads through shared memory took 0.120, T from shared memory
+// 0.161; two rows a warp put the second row in a stack frame (0.356).
+//   The redesign, vdif_kernel: blocks of four warps, a warp a row (VdPlan).
+// The row lands by 16-byte cp.async in the warp's 8 KB buffer (at N1 = 8)
+// while the block reads T into shared memory and each warp its stage
+// twiddles into registers; it is then read into registers.  The slice order
+// is reversed in the shared-memory address, not in the register index:
+// loaded into z[brev(j1)] as the first design loads it, z went to a
+// 256-byte stack frame and the kernel took 0.154 ms.  A lane-exchange
+// stage is one fma by a sign (u + v on the a lane, u - v on the b lane) and
+// one complex multiply by the lane's twiddle (1 on the a lane): 2752
+// instructions a warp, T's staging included (1588 of them float32).  On
+// the same card it took 0.097 ms by chain; a persistent grid whose warps
+// walk rows, each next row's copy issued before the current row's
+// butterflies, 0.111; the outputs staged for 16-byte stores 0.103
+// (probes/bd1_vdif.py --tune).
+// Shared memory: 8 KB of T and 8 KB a warp at N1 = 8, 40 KB a block, 16
+// warps an SM.  It gives the first design's result bit for bit.
 //
 // sdif_peel_kernel replaces tools/probe_sdif.py:116 (the pl.pallas_call of
 // sdif_peel, over _sdif_kernel :136): the 128-point peel of an N = 128 m
@@ -47,6 +71,7 @@
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "lane_contract.cuh"
 #include "slice_network.cuh"
 
 namespace {
@@ -71,21 +96,14 @@ using gdsp::rev_bits;
 // ---------------------------------------------------------------------------
 
 // tab: T (N1 x 128 float2, scale folded in), then the seven lane stages'
-// W_{2w}^j, j < w, stage w at 128 - 2 w (127 float2).
-template <int N1>
-__global__ void __launch_bounds__(kVdifThreads)
-vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
-            float* __restrict__ yi, const float2* __restrict__ tab, long long b) {
-  constexpr int kBits = log2_small(N1);
-  constexpr int n = N1 * kLanes;
-  const long long row = gdsp::block_row() * kVdifRows + (threadIdx.x >> 5);
-  if (row >= b) return;  // the whole warp: its shuffles keep all 32 lanes
-  const int lane = threadIdx.x & 31;
-  const float2* T = tab;
-  const float2* S = tab + n;
-  const size_t base = static_cast<size_t>(row) * n + lane;
+// W_{2w}^j, j < w, stage w at 128 - 2 w (127 float2).  A row is held as
+// z[slice][q], lane l holding points p = l + 32 q of every slice.
 
-  float2 z[N1][kQ];
+// The first design's load: a row's slices into z, slice j1 in z[brev(j1)].
+template <int N1>
+__device__ __forceinline__ void vdif_sync_load(float2 (&z)[N1][kQ], const float* __restrict__ xr,
+                                               const float* __restrict__ xi, size_t base) {
+  constexpr int kBits = log2_small(N1);
 #pragma unroll
   for (int j1 = 0; j1 < N1; ++j1) {
 #pragma unroll
@@ -94,7 +112,13 @@ vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* _
       z[rev_bits(j1, kBits)][q] = make_float2(__ldg(xr + g), __ldg(xi + g));
     }
   }
+}
 
+// The first design's arithmetic on a loaded row: the slice DFT, T, then the
+// DIF (each stage's twiddles read from S for the row).
+template <int N1>
+__device__ __forceinline__ void vdif_sync_row(float2 (&z)[N1][kQ], const float2* __restrict__ T,
+                                              const float2* __restrict__ S, int lane) {
   // The N1-point DFT across slices: radix-2 DIT in place, natural k1 out.
   gdsp::slice_dft(z);
 
@@ -136,7 +160,12 @@ vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* _
       }
     }
   }
+}
 
+// The row out, position k1 128 + p from z[k1][q].
+template <int N1>
+__device__ __forceinline__ void vdif_store(const float2 (&z)[N1][kQ], float* __restrict__ yr,
+                                           float* __restrict__ yi, size_t base) {
 #pragma unroll
   for (int k1 = 0; k1 < N1; ++k1) {
 #pragma unroll
@@ -146,6 +175,151 @@ vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* _
       yi[g] = z[k1][q].y;
     }
   }
+}
+
+// vdif's first design, the yardstick (gdsp_vdif_sync): one warp a row, one
+// row a warp, eight rows a block on row_grid.
+template <int N1>
+__global__ void __launch_bounds__(kVdifThreads)
+vdif_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ yr, float* __restrict__ yi, const float2* __restrict__ tab,
+                 long long b) {
+  constexpr int n = N1 * kLanes;
+  const long long row = gdsp::block_row() * kVdifRows + (threadIdx.x >> 5);
+  if (row >= b) return;  // the whole warp: its shuffles keep all 32 lanes
+  const int lane = threadIdx.x & 31;
+  const size_t base = static_cast<size_t>(row) * n + lane;
+  float2 z[N1][kQ];
+  vdif_sync_load(z, xr, xi, base);
+  vdif_sync_row(z, tab, tab + n, lane);
+  vdif_store(z, yr, yi, base);
+}
+
+// ---------------------------------------------------------------------------
+// K14h redesigned: a warp a row, the row brought by 16-byte cp.async into the
+// warp's buffer while the block reads T (the plan: VdPlan)
+// ---------------------------------------------------------------------------
+
+constexpr int kVdWarps = 4;      // warps a block, a row each
+constexpr int kVdThreads = 32 * kVdWarps;
+constexpr int kVdMinBlocks = 4;  // blocks an SM the registers are sized for: 16 warps
+
+// Bytes of shared memory a block of vdif_kernel<n1> takes: T, then each
+// warp's row buffer (both planes of a row).
+__host__ __device__ constexpr int vdif_smem(int n1) {
+  return n1 * kLanes * 8 + kVdWarps * n1 * kLanes * 8;
+}
+
+// The stage twiddles a lane uses on every row: W_128^p at w = 64 (p = lane,
+// lane + 32), W_64^lane at w = 32, and at w = 16 .. 1 W_{2w}^{lane mod w}
+// where lane & w (the b element), 1 where not.
+struct VdTw {
+  float2 w64a, w64b, w32, s[5];
+};
+
+// The slice DFT, T (from shared memory) and the DIF of a loaded row.  A
+// lane-exchange stage takes u from lane l ^ w and forms u + v on the a lane,
+// u - v on the b lane, as one fma by a sign; both then multiply by their
+// twiddle (1 on the a lane).
+template <int N1>
+__device__ __forceinline__ void vdif_butterflies(float2 (&z)[N1][kQ], const float2* sT,
+                                                 const VdTw& tw, int lane) {
+  gdsp::slice_dft(z);
+#pragma unroll
+  for (int k1 = 0; k1 < N1; ++k1) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) z[k1][q] = cmul(z[k1][q], sT[k1 * kLanes + lane + 32 * q]);
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < N1; ++k1) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // w = 64: p and p + 64 are q and q + 2
+      const float2 a = z[k1][q], c = z[k1][q + 2];
+      z[k1][q] = cadd(a, c);
+      z[k1][q + 2] = cmul(csub(a, c), q == 0 ? tw.w64a : tw.w64b);
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; q += 2) {  // w = 32: q and q + 1
+      const float2 a = z[k1][q], c = z[k1][q + 1];
+      z[k1][q] = cadd(a, c);
+      z[k1][q + 1] = cmul(csub(a, c), tw.w32);
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < 5; ++st) {  // w = 16 .. 1: lanes l and l ^ w
+    const int w = 16 >> st;
+    const float sg = (lane & w) ? -1.f : 1.f;
+#pragma unroll
+    for (int k1 = 0; k1 < N1; ++k1) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float2 v = z[k1][q];
+        const float2 u = make_float2(__shfl_xor_sync(0xffffffffu, v.x, w),
+                                     __shfl_xor_sync(0xffffffffu, v.y, w));
+        z[k1][q] = cmul(make_float2(fmaf(sg, v.x, u.x), fmaf(sg, v.y, u.y)), tw.s[st]);
+      }
+    }
+  }
+}
+
+// Row `row` of both planes (n floats each) into buf (re, then im) by 16-byte
+// cp.async, one commit group.
+template <int N1>
+__device__ __forceinline__ void vdif_fetch(float* buf, const float* __restrict__ xr,
+                                           const float* __restrict__ xi, long long row, int lane) {
+  constexpr int n = N1 * kLanes;
+  const size_t at = static_cast<size_t>(row) * n;
+#pragma unroll
+  for (int e = 4 * lane; e < n; e += 128) {
+    gdsp::lane::cp_async16(buf + e, xr + at + e, true);
+    gdsp::lane::cp_async16(buf + n + e, xi + at + e, true);
+  }
+  gdsp::lane::cp_async_commit();
+}
+
+// The redesign: warp g of the grid (block g / kVdWarps) takes row g.  The
+// row lands by 16-byte cp.async in the warp's buffer while the block reads T
+// into shared memory and each warp its stage twiddles into registers, is
+// read into registers as the first design holds it, and its outputs are
+// stored from there.
+template <int N1>
+__global__ void __launch_bounds__(kVdThreads, kVdMinBlocks)
+vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
+            float* __restrict__ yi, const float2* __restrict__ tab, long long b) {
+  constexpr int n = N1 * kLanes;
+  constexpr int kBits = log2_small(N1);
+  extern __shared__ float4 vsm[];
+  float2* sT = reinterpret_cast<float2*>(vsm);
+  float* buf = reinterpret_cast<float*>(vsm) + 2 * n + (threadIdx.x >> 5) * 2 * n;
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kVdWarps + (threadIdx.x >> 5);
+  if (row < b) vdif_fetch<N1>(buf, xr, xi, row, lane);
+  for (int e = threadIdx.x; e < n; e += kVdThreads) sT[e] = __ldg(tab + e);
+  const float2* S = tab + n;
+  VdTw tw;
+  tw.w64a = __ldg(&S[lane]);
+  tw.w64b = __ldg(&S[lane + 32]);
+  tw.w32 = __ldg(&S[64 + lane]);
+#pragma unroll
+  for (int st = 0; st < 5; ++st) {
+    const int w = 16 >> st;
+    tw.s[st] = (lane & w) ? __ldg(&S[kLanes - 2 * w + (lane & (w - 1))]) : make_float2(1.f, 0.f);
+  }
+  __syncthreads();
+  if (row >= b) return;  // the whole warp
+  gdsp::lane::cp_async_wait<0>();
+  __syncwarp();
+  float2 z[N1][kQ];
+#pragma unroll
+  for (int k = 0; k < N1; ++k) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {  // z[k] takes slice brev(k): the index in the address
+      const int at = rev_bits(k, kBits) * kLanes + lane + 32 * q;
+      z[k][q] = make_float2(buf[at], buf[n + at]);
+    }
+  }
+  vdif_butterflies(z, sT, tw, lane);
+  vdif_store(z, yr, yi, static_cast<size_t>(row) * n + lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -206,25 +380,85 @@ sdif_peel_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// vdif's launch plan (ops/cuda_probes.py: vdif_plan holds the same; the
+// GPU tests compare through gdsp_vdif_geometry).
+struct VdPlan {
+  int threads;       // threads a block
+  long long blocks;  // blocks of the grid: a warp a row
+  int smem;          // bytes of dynamic shared memory a block
+};
+
+// b >= 0 rows of n1 slices.
+int make_vdif_plan(long long b, int n1, VdPlan* p) {
+  if (b < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long need = (b + kVdWarps - 1) / kVdWarps;
+  const long long blocks = need < 1 ? 1 : need;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *p = VdPlan{kVdThreads, blocks, vdif_smem(n1)};
+  return 0;
+}
+
+template <int N1>
+int launch_vdif(const float* xr, const float* xi, float* yr, float* yi, const float2* tab,
+                long long b, const VdPlan& p, cudaStream_t s) {
+  cudaError_t e = gdsp::allow_smem(vdif_kernel<N1>, p.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  vdif_kernel<N1><<<static_cast<unsigned>(p.blocks), kVdThreads, p.smem, s>>>(xr, xi, yr, yi,
+                                                                               tab, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool vdif_width(int n) { return n == 128 || n == 256 || n == 512 || n == 1024; }
+
 }  // namespace
 
 extern "C" {
 
+// vdif's plan for b rows of n points: out[0..2] = threads a block, blocks,
+// shared bytes a block (VdPlan).
+int gdsp_vdif_geometry(long long b, int n, long long* out) {
+  if (!vdif_width(n)) return static_cast<int>(cudaErrorInvalidValue);
+  VdPlan p;
+  const int rc = make_vdif_plan(b, n / kLanes, &p);
+  if (rc != 0) return rc;
+  out[0] = p.threads;
+  out[1] = p.blocks;
+  out[2] = p.smem;
+  return 0;
+}
+
 // vdif of (b, n) float32 planes, n = N1 x 128 with N1 in 1, 2, 4, 8, every
-// pointer 16-byte aligned; tab as vdif_kernel's.  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a shape the kernel does not take.
+// pointer 16-byte aligned; tab as vdif_sync_kernel's.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
+// not take.
 int gdsp_vdif(const float* xr, const float* xi, float* yr, float* yi, const float2* tab,
               long long b, int n, void* stream) {
-  if (b < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!vdif_width(n)) return static_cast<int>(cudaErrorInvalidValue);
+  VdPlan p;
+  const int rc = make_vdif_plan(b, n / kLanes, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 128: return launch_vdif<1>(xr, xi, yr, yi, tab, b, p, s);
+    case 256: return launch_vdif<2>(xr, xi, yr, yi, tab, b, p, s);
+    case 512: return launch_vdif<4>(xr, xi, yr, yi, tab, b, p, s);
+    default: return launch_vdif<8>(xr, xi, yr, yi, tab, b, p, s);
+  }
+}
+
+// vdif's first design, the yardstick: the arguments as gdsp_vdif's.
+int gdsp_vdif_sync(const float* xr, const float* xi, float* yr, float* yi, const float2* tab,
+                   long long b, int n, void* stream) {
+  if (b < 0 || !vdif_width(n)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
   const dim3 grid = gdsp::row_grid(1, (b + kVdifRows - 1) / kVdifRows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-    case 128: vdif_kernel<1><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
-    case 256: vdif_kernel<2><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
-    case 512: vdif_kernel<4><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
-    case 1024: vdif_kernel<8><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 128: vdif_sync_kernel<1><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
+    case 256: vdif_sync_kernel<2><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
+    case 512: vdif_sync_kernel<4><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
+    default: vdif_sync_kernel<8><<<grid, kVdifThreads, 0, s>>>(xr, xi, yr, yi, tab, b); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

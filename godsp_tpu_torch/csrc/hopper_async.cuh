@@ -2,11 +2,12 @@
 // tensor copies by the Tensor Memory Accelerator (cp.async.bulk.tensor
 // loads and stores, with tensor maps encoded on the host by
 // cuTensorMapEncodeTiled), and the warpgroup
-// TF32 product (wgmma.mma_async m64n32k8, B in shared memory in the
-// 128-byte swizzled K-major layout, A there too or in registers).  Used by
-// gmm_tf32_kernel (lane_slice_probe_kernels.cu), bd_hi_kernel
-// (anatomy_probe_kernels.cu: A from registers) and, for its cluster-scope
-// mbarriers and bulk stores, i8_concat_kernel (int8_probe_kernels.cu).
+// TF32 product (wgmma.mma_async m64n32k8 and m64n128k8, B in shared memory
+// in the 128-byte swizzled K-major layout, A there too or in registers).
+// Used by gmm_tf32_kernel (lane_slice_probe_kernels.cu), bd_hi_kernel and
+// bd_tf32_kernel (anatomy_probe_kernels.cu: A from registers) and, for its
+// cluster-scope mbarriers and bulk stores, i8_concat_kernel
+// (int8_probe_kernels.cu).
 
 #pragma once
 
@@ -273,6 +274,37 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uin
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The same product at N = 128 with A from registers: d (64 x 128 f32, this
+// thread's 64) in the layout above for 8-column blocks j = 0 .. 15, a as
+// wgmma_m64n32k8_tf32_rs's (used by bd_tf32_kernel, anatomy_probe_kernels.cu).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

@@ -52,8 +52,9 @@
                  K4, K5, K6, K7, K8 and K9, the yardsticks of their
                  redesigns, beside gmm_concat_stream, ls_full_stream,
                  i8_concat_stream, gmm_tf32_sync, i8_dot_bytes,
-                 gmm_floor_sync and slice8_add_sync, the first designs of
-                 K14c, K14f, K14g's i8_dot, K13 and K14d's slice8_add
+                 gmm_floor_sync, slice8_add_sync, slicestore_sync,
+                 bd_hi_sync, bd_tf32_sync and vdif_sync, the first designs
+                 of K14c, K14f, K14g's i8_dot, K13, K14d and K14h
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and

@@ -142,9 +142,17 @@ def _declare(lib) -> None:
     for name in ("gdsp_half3", "gdsp_slice8_add", "gdsp_slice8_add_sync", "gdsp_reshape_add"):
         getattr(lib, name).argtypes = [p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
-    for name in ("gdsp_bd_tf32", "gdsp_bd_hi_sync"):
+    for name in ("gdsp_bd_tf32_sync", "gdsp_bd_hi_sync", "gdsp_vdif", "gdsp_vdif_sync"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
         getattr(lib, name).restype = i
+    lib.gdsp_bd_tf32.argtypes = [p, p, p, p, p, i64, i, i, p]
+    lib.gdsp_bd_tf32.restype = i
+    lib.gdsp_bd_tf32_resident.argtypes = [i]
+    lib.gdsp_bd_tf32_resident.restype = i
+    lib.gdsp_bd_tf32_geometry.argtypes = [i64, i, i, p]
+    lib.gdsp_bd_tf32_geometry.restype = i
+    lib.gdsp_vdif_geometry.argtypes = [i64, i, p]
+    lib.gdsp_vdif_geometry.restype = i
     lib.gdsp_bd_hi.argtypes = [p, p, p, p, p, i64, i, i, p]
     lib.gdsp_bd_hi.restype = i
     lib.gdsp_bd_hi_resident.argtypes = [i]
@@ -153,8 +161,6 @@ def _declare(lib) -> None:
     lib.gdsp_bd_hi_geometry.restype = i
     lib.gdsp_anat_full.argtypes = [p, p, p, p, p, p, i64, i, p]
     lib.gdsp_anat_full.restype = i
-    lib.gdsp_vdif.argtypes = [p, p, p, p, p, i64, i, p]
-    lib.gdsp_vdif.restype = i
     lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
     lib.gdsp_sdif_peel.restype = i
     lib.gdsp_fft_pow2_rows.argtypes = [p, p, p, p, p, i, i64, f, i, i, p]

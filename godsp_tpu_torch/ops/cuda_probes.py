@@ -66,9 +66,13 @@ takes two float32 planes (b, n), n = n1 x 128:
       version add_one_plain (equal);
   bd_tf32(xr, xi)      replaces v4bd1 (:176): each plane's 128-point
       slices times Re F128 in one TF32 pass on the tensor cores (or times
-      `table`, any (128, 128) float32 table); plain version bd_tf32_plain,
-      which with tf32=True rounds both operands as cvt.rna.tf32.f32 does
-      (round_tf32) and sums in the input's dtype;
+      `table`, any (128, 128) float32 table), by wgmma m64n128k8 with A
+      from registers on a persistent grid of one CTA an SM that keeps the
+      rounded table resident and walks the (plane, 64-row tile, slice)
+      items through a ring of TMA stages, storing each tile back by TMA
+      (bd_tf32_plan); plain version bd_tf32_plain, which with tf32=True
+      rounds both operands as cvt.rna.tf32.f32 does (round_tf32) and sums
+      in the input's dtype;
   bd_hi(xr, xi)        replaces v5bd_hi (:190): the 128-point DFT of every
       slice, unscaled, by Karatsuba in 3xTF32 (float32 accuracy), on
       wgmma with A from registers, fed by TMA, on pairs of CTAs that keep
@@ -85,10 +89,12 @@ are the big and small TF32 halves of Re F, Im F and Re F + Im F as
 128-entry vectors over j k mod 128, split from float64 on the host
 (hi_tables); bd_hi expands them once a CTA into its resident planes.
 
-The first designs of slicestore and bd_hi stay as the yardsticks of their
-redesigns: slicestore_sync (one slice's load and store in turn) and
+The first designs of slicestore, bd_hi and bd_tf32 stay as the yardsticks
+of their redesigns: slicestore_sync (one slice's load and store in turn),
 bd_hi_sync (mma.sync m16n8k8, A read from device memory, the tables
-gathered over j k mod 128 from 3 KB of shared memory).
+gathered over j k mod 128 from 3 KB of shared memory) and bd_tf32_sync
+(mma.sync m16n8k8, a warp a 16-row tile of one slice, A read from device
+memory in fragment order, 8-byte stores).
 
 The fac tables (W16 with 1/128 folded in, the mid twiddle W128^{j2 ka},
 W8, the outer twiddle T) are built in float64 from the port's
@@ -106,7 +112,12 @@ dense matrix:
       1, 2, 4, 8; per row the n1-point DFT across the slices, the twiddle
       T[k1, p] = W_n^{k1 p} x scale, then a 128-point radix-2 DIF along
       each slice; position k1 128 + p holds bin k1 + n1 brev7(p) (the vdif
-      digit order, vdif_digit_order); plain version vdif_plain;
+      digit order, vdif_digit_order); a warp a row, the row brought by
+      16-byte cp.async into the warp's shared buffer while the block reads
+      T into shared memory (vdif_plan); its first design, eight rows a
+      block loaded 4 bytes a lane with T and the stage twiddles read from
+      device memory, stays as the yardstick vdif_sync; plain version
+      vdif_plain;
   sdif_peel(xr, xi)    replaces tools/probe_sdif.py:116 (sdif_peel over
       _sdif_kernel): (..., 128, m) float32 planes; seven radix-2 DIF
       stages across the 128 rows, then the post twiddle
@@ -334,6 +345,10 @@ __all__ = [
     "bd_hi_sync",
     "bd_hi_walk",
     "bd_tf32",
+    "bd_tf32_plan",
+    "bd_tf32_store_offsets",
+    "bd_tf32_sync",
+    "bd_tf32_walk",
     "bd_tf32_plain",
     "brev7_perm",
     "concatstore",
@@ -423,7 +438,10 @@ __all__ = [
     "vdif",
     "vdif_digit_order",
     "vdif_plain",
+    "vdif_plan",
+    "vdif_sync",
     "vdif_tables",
+    "vdif_walk",
 ]
 
 # Kernel launches by wrapper, counted where each launches its kernel.
@@ -437,7 +455,7 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
             "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
             "gmm_floor_sync": 0, "slice8_add_sync": 0, "slicestore_sync": 0,
-            "bd_hi_sync": 0}
+            "bd_hi_sync": 0, "bd_tf32_sync": 0, "vdif_sync": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile whose staged span, FFT buffer and
@@ -1088,17 +1106,44 @@ def reshape_add(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch
     return _lane_launch("reshape_add", _build.library().gdsp_reshape_add, xr, xi)
 
 
+def _check_bd_tf32(xr: torch.Tensor, xi: torch.Tensor, table, name: str) -> tuple[int, int]:
+    b, n = _check_lane_planes(xr, xi, name)
+    if table is not None and tuple(table.shape) != (LANES, LANES):
+        raise ValueError(f"{name}: table must be ({LANES}, {LANES}), got {tuple(table.shape)}")
+    return b, n
+
+
+def _bd_tf32_table(xr: torch.Tensor, table, name: str) -> torch.Tensor:
+    return _re_f128_on(xr.device) if table is None else _cuda_args(name, xr, table)[1]
+
+
 def bd_tf32(xr: torch.Tensor, xi: torch.Tensor,
             table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K14d bd1: each plane's slices times Re F128 (or `table`, (128, 128)
-    float32) in one TF32 pass on the tensor cores."""
-    _check_lane_planes(xr, xi, "bd_tf32")
-    if table is not None and tuple(table.shape) != (LANES, LANES):
-        raise ValueError(f"bd_tf32: table must be ({LANES}, {LANES}), got {tuple(table.shape)}")
+    float32) in one TF32 pass on the tensor cores, by wgmma m64n128k8 with
+    A from registers on a persistent grid fed by TMA (bd_tf32_plan); no TF32
+    flag is touched."""
+    b, n = _check_bd_tf32(xr, xi, table, "bd_tf32")
     if not xr.is_cuda:
         return bd_tf32_plain(xr, xi, tf32=True, table=table)
-    t = _re_f128_on(xr.device) if table is None else _cuda_args("bd_tf32", xr, table)[1]
-    return _lane_launch("bd_tf32", _build.library().gdsp_bd_tf32, xr, xi, t)
+    xr, xi = _cuda_planes(xr, xi, "bd_tf32")
+    t = _bd_tf32_table(xr, table, "bd_tf32")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("bd_tf32", _build.library().gdsp_bd_tf32, yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), t.data_ptr(), b, n, _b1_resident(xr.device))
+    return yr, yi
+
+
+def bd_tf32_sync(xr: torch.Tensor, xi: torch.Tensor,
+                 table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """bd_tf32's first design, its yardstick: mma.sync m16n8k8, a warp a
+    16-row tile of one slice, A read from device memory in fragment order,
+    the rounded table staged in shared memory, 8-byte stores."""
+    _check_bd_tf32(xr, xi, table, "bd_tf32_sync")
+    if not xr.is_cuda:
+        return bd_tf32_plain(xr, xi, tf32=True, table=table)
+    t = _bd_tf32_table(xr, table, "bd_tf32_sync")
+    return _lane_launch("bd_tf32_sync", _build.library().gdsp_bd_tf32_sync, xr, xi, t)
 
 
 def bd_hi(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1126,6 +1171,79 @@ def bd_hi_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.
         return bd_hi_plain(xr, xi)
     return _lane_launch("bd_hi_sync", _build.library().gdsp_bd_hi_sync, xr, xi,
                         _hi_packed(xr.device))
+
+
+# ---------------------------------------------------------------------------
+# bd_tf32's plan (csrc/anatomy_probe_kernels.cu: make_bd1_plan)
+# ---------------------------------------------------------------------------
+
+B1_ROWS = 64  # rows of a tile: wgmma's M
+B1_K = 32  # columns of a TMA box: one 128-byte swizzled row
+B1_STAGES = 5  # the ring of stages, a (64-row, 128-column) tile of one plane each
+B1_THREADS = 288  # two warpgroups, an item each, and a producer warp
+B1_STORE_ROWS = 16  # rows of a TMA store box: one warp's
+# round(table) as wgmma's B (128 x 128), the stages, a full and an empty
+# mbarrier a stage, 1 KB to align the 128-byte swizzle's atoms.
+B1_SMEM = LANES * LANES * 4 + B1_STAGES * B1_ROWS * LANES * 4 + 2 * B1_STAGES * 8 + 1024
+
+
+class Bd1Plan(NamedTuple):
+    """bd_tf32's launch plan (gdsp_bd_tf32_geometry returns the same fields
+    in this order)."""
+
+    ctas: int  # CTAs of the grid: the resident ones, at most the items
+    per_cta: int  # items the busiest CTA walks
+    rows_tile: int  # rows of a tile
+    bins: int  # bins a warpgroup's product (wgmma's N)
+    stages: int  # the ring of stages a CTA
+    threads: int  # threads a CTA
+    smem: int  # bytes of dynamic shared memory a CTA
+    store_rows: int  # rows of a TMA store box
+
+
+def bd_tf32_plan(b: int, n: int, resident: int = 132) -> Bd1Plan:
+    """bd_tf32's plan at b x n (any multiple of 128): a persistent grid of
+    the CTAs the card holds (one an SM) but no more than the (plane, 64-row
+    tile, slice) items, which they take in turn.  Raises ValueError for what
+    the kernel does not take and RuntimeError where no CTA fits."""
+    if b < 0 or n < LANES or n % LANES or b >= 2**31:
+        raise ValueError(f"bd_tf32_plan: bad shape {b} x {n}")
+    if resident < 1:
+        raise RuntimeError(f"bd_tf32: no CTA with {B1_SMEM} bytes of shared memory fits on "
+                           f"the card")
+    items = 2 * -(-b // B1_ROWS) * (n // LANES)
+    ctas = max(1, min(resident, items))
+    return Bd1Plan(ctas, -(-items // ctas), B1_ROWS, LANES, B1_STAGES, B1_THREADS, B1_SMEM,
+                   B1_STORE_ROWS)
+
+
+def bd_tf32_walk(plan: Bd1Plan, b: int, n: int) -> list[list[tuple[int, int, int]]]:
+    """The (plane, 64-row tile, slice) items of each CTA in the order the
+    kernel walks them: CTA c takes items c, c + ctas, ..., item i being
+    plane i // (tiles n1), then the tile, then the slice (fastest); its k-th
+    item lands in stage k % stages and warpgroup k % 2 contracts it."""
+    n1, tiles = n // LANES, -(-b // B1_ROWS)
+    items = 2 * tiles * n1
+    return [[(i // (tiles * n1), i % (tiles * n1) // n1, i % n1)
+             for i in range(c, items, plan.ctas)] for c in range(plan.ctas)]
+
+
+def bd_tf32_store_offsets(j: int) -> list[list[int]]:
+    """Byte offsets in a 64-row x 32-column box (the 128-byte swizzle) of
+    the two float2 outputs each lane of warp 0 writes for the accumulators'
+    8-column block j (rows g and g + 8, columns 8 (j % 4) + 2 t, lane =
+    4 g + t); warp w adds 2048 w."""
+    return [[gmm_tf32_offset(g + 8 * hh, 8 * (j % 4) + 2 * t, B1_ROWS) for hh in (0, 1)]
+            for g, t in (divmod(lane, 4) for lane in range(32))]
+
+
+@lru_cache(maxsize=None)
+def _b1_resident(device: torch.device) -> int:
+    """CTAs of bd_tf32's kernel (B1_THREADS threads and B1_SMEM bytes each)
+    the card holds at once, asked once a device; 0 or a negative CUDA error
+    where none fits: the launch then refuses."""
+    with torch.cuda.device(device):
+        return int(_build.library().gdsp_bd_tf32_resident(0))
 
 
 # ---------------------------------------------------------------------------
@@ -1366,12 +1484,59 @@ def vdif(xr: torch.Tensor, xi: torch.Tensor,
          scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """K14h: the n-point DFT (n = n1 x 128, n1 in 1, 2, 4, 8) of every row of
     two float32 planes (b, n), times scale, by the slice network, T and a
-    warp-shuffle 128-point DIF; the vdif digit order out."""
+    warp-shuffle 128-point DIF; the vdif digit order out.  A warp a row,
+    the row brought by 16-byte cp.async into the warp's shared buffer
+    (vdif_plan)."""
     _, n = _check_vdif(xr, xi)
     if not xr.is_cuda:
         return vdif_plain(xr, xi, scale)
     return _lane_launch("vdif", _build.library().gdsp_vdif, xr, xi,
                         _vdif_packed(n // LANES, float(scale), xr.device))
+
+
+def vdif_sync(xr: torch.Tensor, xi: torch.Tensor,
+              scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """vdif's first design, its yardstick: one warp a row and one row a
+    warp, eight rows a block on a grid of every row, T and the stage
+    twiddles read from device memory."""
+    _, n = _check_vdif(xr, xi)
+    if not xr.is_cuda:
+        return vdif_plain(xr, xi, scale)
+    return _lane_launch("vdif_sync", _build.library().gdsp_vdif_sync, xr, xi,
+                        _vdif_packed(n // LANES, float(scale), xr.device))
+
+
+VD_WARPS = 4  # warps a block of vdif's kernel, a row each
+VD_MIN_BLOCKS = 4  # blocks an SM its registers are sized for (16 warps)
+
+
+def vdif_smem(n1: int) -> int:
+    """Bytes of shared memory a block of vdif's kernel takes at n1 slices:
+    T, then each warp's row buffer (both planes of a row)."""
+    return n1 * LANES * 8 + VD_WARPS * n1 * LANES * 8
+
+
+class VdifPlan(NamedTuple):
+    """vdif's launch plan (gdsp_vdif_geometry returns the same fields in
+    this order)."""
+
+    threads: int  # threads a block
+    blocks: int  # blocks of the grid: a warp a row
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def vdif_plan(b: int, n: int) -> VdifPlan:
+    """vdif's plan for b rows of n points: blocks of VD_WARPS warps, warp g
+    of the grid taking row g.  Raises ValueError for b < 0 or a width vdif
+    does not take."""
+    if b < 0 or n % LANES or n // LANES not in VDIF_N1:
+        raise ValueError(f"vdif_plan: bad shape {b} x {n}")
+    return VdifPlan(32 * VD_WARPS, max(1, -(-b // VD_WARPS)), vdif_smem(n // LANES))
+
+
+def vdif_walk(plan: VdifPlan, b: int) -> list[list[int]]:
+    """The rows each warp of the grid takes: warp g row g, if there is one."""
+    return [[g] if g < b else [] for g in range(plan.blocks * VD_WARPS)]
 
 
 def sdif_peel(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

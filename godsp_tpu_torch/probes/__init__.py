@@ -41,4 +41,9 @@
             ptxas, the first designs' SASS and variants, times beside
             torch.matmul, K12 and copy_, and bd_hi's chain of k-steps:
             python3 -m godsp_tpu_torch.probes.bd_hi
+  bd1_vdif — K14d's bd_tf32 and K14h's vdif beside their first designs:
+            ptxas, SASS counts a k-step, item or row, times beside the TF32
+            torch.matmul, torch.fft.fft and K12, the first designs'
+            variants and the redesigns' tuning copies:
+            python3 -m godsp_tpu_torch.probes.bd1_vdif
 """

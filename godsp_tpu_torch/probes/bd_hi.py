@@ -61,7 +61,8 @@ import torch
 from godsp_tpu_torch.probes.floor_dot import _chain_ms, _fmt, _nvcc, kernel_alone_ms
 from godsp_tpu_torch.probes.slice8 import in_flight, sass_order
 
-__all__ = ["B", "CHAINS", "N", "VARIANTS", "kstep_counts", "main", "variant_source"]
+__all__ = ["B", "CHAINS", "N", "VARIANTS", "kstep_counts", "main", "ptxas_info",
+           "variant_source"]
 
 B, N = 16384, 1024  # the anatomy and store probes' planes
 CHAINS = (1, 2, 4, 8, 16)
@@ -208,14 +209,20 @@ def _compile(source: str, tmp: str, name: str, keys) -> tuple[ctypes.CDLL, dict,
         raise RuntimeError(f"nvcc {name}: {res.stderr[-4000:]}")
     dump = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
                            cubin], capture_output=True, text=True, check=True).stdout
-    lines = res.stderr.splitlines()
+    return ctypes.CDLL(so), ptxas_info(res.stderr, keys), dump
+
+
+def ptxas_info(text: str, keys) -> dict:
+    """{key: (registers, the stack-frame and spill line)} from `-Xptxas -v`
+    output for each mangled-name part in keys that names a function."""
+    lines = text.splitlines()
     info = {}
     for i, line in enumerate(lines[:-2]):
         for key in keys:
             if "Function properties for" in line and key in line:
                 m = re.search(r"Used (\d+) registers", lines[i + 2])
                 info[key] = (int(m.group(1)) if m else 0, lines[i + 1].strip())
-    return ctypes.CDLL(so), info, dump
+    return info
 
 
 def _function(dump: str, key: str) -> str:

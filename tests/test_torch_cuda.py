@@ -2486,3 +2486,135 @@ def test_bd_hi_and_slice_walk_kernels_do_not_spill(cuda, tmp_path):
                 print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
                 assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
     assert seen == 3
+
+
+# ----------------------------------------- K14d bd_tf32 and K14h vdif redesigned
+
+_B1_SHAPES = [(16384, 1024), (1001, 2048), (1, 128), (65, 384), (100, 1024), (64, 2048)]
+
+
+@pytest.mark.parametrize("b,n", _B1_SHAPES)
+def test_bd_tf32_redesign_on_card(cuda, b, n):
+    """bd_tf32 (wgmma m64n128k8, A from registers, fed by TMA) and its first
+    design bd_tf32_sync each >= 120 dB against bd_tf32_plain with
+    TF32-rounded operands summed in float64, equal to each other, one
+    launch a call, the TF32
+    flags untouched; the identity table returns round_tf32(x) and a cyclic
+    shift the rolled slices, exactly (a transposed B would not): at the
+    probe's shape, ragged rows (1001, 1, 65, 100) and n1 = 1, 3, 8, 16."""
+    xr, xi = _lane_planes(cuda, b, n, b + 5 * n)
+    want = _c(cuda_probes.bd_tf32_plain(xr.double(), xi.double(), tf32=True))
+    flags = _tf32_flags()
+    reset_launch_counts()
+    new, first = cuda_probes.bd_tf32(xr, xi), cuda_probes.bd_tf32_sync(xr, xi)
+    assert torch.equal(new[0], first[0]) and torch.equal(new[1], first[1])
+    dbs = {"bd_tf32": dsputils.snr_db(_c(new), want),
+           "bd_tf32_sync": dsputils.snr_db(_c(first), want)}
+    print(f"bd_tf32 {b} x {n}: {dbs}")
+    assert all(db >= SNR_CARD_DB for db in dbs.values()), dbs
+    counts = launch_counts()
+    assert counts["bd_tf32"] == counts["bd_tf32_sync"] == 1
+    eye = torch.eye(128, device=cuda)
+    rolled = [torch.roll(cuda_probes.round_tf32(x).view(b, -1, 128), 1, dims=2).reshape(b, n)
+              for x in (xr, xi)]
+    for table, want_planes in ((eye, [cuda_probes.round_tf32(x) for x in (xr, xi)]),
+                               (torch.roll(eye, 1, dims=1), rolled)):
+        for fn in (cuda_probes.bd_tf32, cuda_probes.bd_tf32_sync):
+            got = fn(xr, xi, table)
+            assert torch.equal(got[0], want_planes[0]) and torch.equal(got[1], want_planes[1])
+    assert _tf32_flags() == flags
+    with pytest.raises(TypeError):
+        cuda_probes.bd_tf32(xr.double(), xi.double())
+
+
+def test_bd_tf32_geometry_matches_the_host_plan(cuda):
+    """gdsp_bd_tf32_geometry, from the resident CTAs the card reports and at
+    chosen counts, equals ops/cuda_probes.py's bd_tf32_plan at ragged b and
+    n1 = 1, 3, 8, 16."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 8)()
+    resident = cuda_probes._b1_resident(cuda)
+    print(f"bd_tf32: {resident} CTAs resident")
+    assert resident >= 1
+    for r in (resident, 1, 7):
+        for n1 in (1, 3, 8, 16):
+            for b in (0, 1, 64, 65, 1001, 16384):
+                rc = lib.gdsp_bd_tf32_geometry(b, 128 * n1, r, out)
+                assert rc == 0 and tuple(out) == tuple(cuda_probes.bd_tf32_plan(b, 128 * n1, r))
+
+
+def test_bd_tf32_refuses_without_a_resident_cta(cuda, monkeypatch):
+    """No CTA fits one asking for more shared memory than the card allows; a
+    launch told 0 refuses in the C entry and the wrapper raises without
+    counting a launch."""
+    assert _build.library().gdsp_bd_tf32_resident(32768) <= 0
+    monkeypatch.setattr(cuda_probes, "_b1_resident", lambda device: 0)
+    xr, xi = _lane_planes(cuda, 64, 256, 4)
+    before = launch_counts()["bd_tf32"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_probes.bd_tf32(xr, xi)
+    assert launch_counts()["bd_tf32"] == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 512), (9, 256), (5, 128),
+                                 (8 * 65535 + 9, 128), (3, 1024)])
+def test_vdif_redesign_on_card(cuda, b, n):
+    """vdif (a warp a row, the row by 16-byte cp.async into a shared buffer)
+    and its first design vdif_sync each >= 120 dB against the float64 plain
+    version, equal to each other, one launch a call; the redesign's digit
+    order exact: at the probe's shape, ragged rows, the four n1, more rows
+    than the first design's grid.y holds, fewer rows than a block's
+    warps."""
+    from godsp_tpu_torch.probes import vdif
+
+    xr, xi = _lane_planes(cuda, b, n, b + n)
+    s = n ** -0.5
+    want = _c(cuda_probes.vdif_plain(xr.double(), xi.double(), s))
+    reset_launch_counts()
+    got, first = cuda_probes.vdif(xr, xi, s), cuda_probes.vdif_sync(xr, xi, s)
+    assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+    dbs = {"vdif": dsputils.snr_db(_c(got), want), "vdif_sync": dsputils.snr_db(_c(first), want)}
+    print(f"vdif {b} x {n}: {dbs}")
+    assert all(db >= SNR_CARD_DB for db in dbs.values()), dbs
+    counts = launch_counts()
+    assert counts["vdif"] == counts["vdif_sync"] == 1
+    assert vdif.digit_order_exact(cuda, n, s)
+    with pytest.raises(TypeError):
+        cuda_probes.vdif_sync(xr.double(), xi.double())
+
+
+def test_vdif_geometry_matches_the_host_plan(cuda):
+    """gdsp_vdif_geometry equals ops/cuda_probes.py's vdif_plan at each width
+    and ragged b, and refuses a width vdif does not take."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int64 * 3)()
+    for n in (128, 256, 512, 1024):
+        for b in (0, 1, 5, 1001, 16384, 524289):
+            rc = lib.gdsp_vdif_geometry(b, n, out)
+            assert rc == 0 and tuple(out) == tuple(cuda_probes.vdif_plan(b, n))
+    assert lib.gdsp_vdif_geometry(16, 384, out) != 0
+
+
+def test_bd_tf32_and_vdif_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v on the two sources: bd_tf32_kernel and vdif_kernel at each
+    n1 spill nothing and keep no stack frame (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("anatomy_probe_kernels.cu", ("14bd_tf32_kernel",)),
+                       ("dif_probe_kernels.cu", ("11vdif_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in \
+                    lines[i + 1], line
+    assert seen == 5
