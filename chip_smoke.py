@@ -128,7 +128,23 @@ final line):
      and 2, the digit order exact; at 16384 x 1024 each beside its first
      design (a counted session of its own), its library call (torch.matmul
      with TF32 on for that call; torch.fft.fft(norm="ortho")), K12's copy
-     and the bound, by chain and alone;
+     and the bound, by chain and alone; then (phase_anat_staged_redesign)
+     K14d's anat_full on bd_hi's walk, each 32-column k-box brought by TMA
+     with its partner n / 2 columns away, half3's rounds and the row made
+     once a stage by the CTA in shared memory and the split in registers
+     (its plan held to the host's through
+     gdsp_anat_full_geometry), and K14a's pwfloor_staged, K4's body with
+     each tile's span staged once by a 1-D TMA copy (its CTA held to the
+     host's through gdsp_pwfloor_staged_geometry): anat_full and its first
+     design anat_full_sync >= 120 dB against float64 at 16384 x 1024, 1001
+     x 2048 and once at n1 1 and 3; pwfloor_staged torch.equal to K4 at the
+     same tiles and >= 120 dB against float64 at phase 12's two geometries,
+     hop 160 over 52,428 segments and pad 4096 (the block route); anat_full
+     at 16384 x 1024 beside anat_full_sync (a counted session of its own),
+     K12's copy, the unfused route (half3, the row as torch's elementwise
+     calls, bd_hi) and the bound, pwfloor_staged at the probe geometry and
+     at hop 160 beside pwfloor_staged_radix2 (a counted session of its
+     own), K4 and the bound, by chain and alone;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -266,9 +282,9 @@ final line):
  12. K14a, the fused-Welch floor twins (ops/cuda_probes.py): each held
      against its plain version on the card (loadonly and frameonly
      against float64, noframe against the float64 rfft -> |X|^2 ->
-     masked sum, staged against K4 on the same samples and against
-     float64), >= 120 dB, at the probe's geometry (16384 segments, nfft =
-     pad = 1024, hop 512) and at a ragged one; each timed there beside
+     masked sum, staged against K4 on the same samples, torch.equal to
+     it, and against float64), >= 120 dB, at the probe's geometry (16384
+     segments, nfft = pad = 1024, hop 512) and at a ragged one; each timed there beside
      its plain version and bound; then the probe
      (godsp_tpu_torch.probes.pwfloor.run) at its full geometry as one
      counted session: loadonly, frameonly, noframe, staged, K4 and K3,
@@ -307,7 +323,8 @@ final line):
      the exact product printed); bd_tf32 with an identity table equal to
      round_tf32(x) and with a cyclic shift equal to the rolled slices
      (the mma fragment maps); each timed at 16384 x 1024 beside its plain
-     version, bound and library call;
+     version, bound and library call, anat_full also beside the unfused
+     route (half3, the row, bd_hi: separate_route_ms);
  16. probes.anatomy2.run at its full shape as one counted session: the six
      twins, copy_split (its copy row) and fft_pow2 (its K1 row) launched,
      nothing else;
@@ -355,7 +372,7 @@ final line):
      (the profiler's events of each call's device work);
  22. probes.int8.run at its full shape as one counted session: the five
      K14g wrappers, copy_split and gmm_floor; nothing else;
- 23. prints {"kernels": [...]} (60 wrappers) and, last, {"ok": true,
+ 23. prints {"kernels": [...]} (62 wrappers) and, last, {"ok": true,
      "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
@@ -589,6 +606,8 @@ REPLACES = {
     "slicestore_sync": "tools/probe_store.py:53",
     "bd_tf32_sync": "tools/probe_anatomy2.py:87",
     "vdif_sync": "tools/probe_vdif.py:116",
+    "anat_full_sync": "tools/probe_anatomy2.py:87",
+    "pwfloor_staged_radix2": "tools/probe_pwfloor.py:229",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -640,6 +659,8 @@ SOURCES = {
     "slicestore_sync": "godsp_tpu_torch/csrc/lane_probe_kernels.cu",
     "bd_tf32_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
     "vdif_sync": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
+    "anat_full_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
+    "pwfloor_staged_radix2": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
 }
 
 
@@ -951,6 +972,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_halo_slice8_redesign(rec, dev))
     steps.update(phase_hi_store_redesign(rec, dev))
     steps.update(phase_bd1_vdif_redesign(rec, dev))
+    steps.update(phase_anat_staged_redesign(rec, dev))
     return steps
 
 
@@ -2008,6 +2030,139 @@ def phase_bd1_vdif_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]
                      16.0 * pts, flops)
             del z, library
         del xr, xi, want
+    return steps
+
+
+# K14d's anat_full and K14a's pwfloor_staged redesigned: anat_full
+# at the probe's shape (timed), a ragged one and once each at n1 1 (the
+# partner k-box in the same slice) and n1 3 (half a slice off);
+# pwfloor_staged (nfft, hop, pad, segments, kept, timed) at phase 12's two
+# geometries, at hop 160 over 52,428 segments (timed beside the probe
+# geometry) and once at pad 4096 (the block route).
+ANAT_REDESIGN = ((LANE_B, LANE_N), (1001, 2048), (257, 128), (33, 384))
+STAGED_REDESIGN = ((1024, 512, 1024, 16384, 16384, True),
+                   (1024, 160, 1024, (1 << 23) // 160, (1 << 23) // 160, True),
+                   (1000, 160, 1024, 5001, 4990, False), (4096, 1024, 4096, 5000, 5000, False))
+
+
+def phase_anat_staged_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K14d's anat_full and K14a's pwfloor_staged redesigned.  anat_full's
+    plan as the C side exports it (gdsp_anat_full_geometry from the resident
+    pairs the card reports) held to the host's (cuda_probes.anat_full_plan)
+    at ragged b and n1 = 1, 3, 8, 16, 128, and the staged CTA
+    (gdsp_pwfloor_staged_geometry) to cuda_probes.staged_cta; at each
+    ANAT_REDESIGN shape anat_full and its first design anat_full_sync >= 120
+    dB against the float64 plain version (both printed); at 16384 x 1024 a
+    redesign line (by chain beside anat_full_sync as a counted session of
+    its own, K12's copy, the unfused route half3 + the row as torch's
+    elementwise calls + bd_hi, the bound), then each alone by the profiler's
+    events (the unfused route: all its kernels' device time a call).  At
+    each STAGED_REDESIGN geometry pwfloor_staged torch.equal to K4 at the
+    same tiles and >= 120 dB against float64; at the two timed ones a
+    redesign line beside pwfloor_staged_radix2 (a counted session), K4 and
+    the bound, then each alone.  The yardsticks are checked and timed for
+    the kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import _build, cuda_metrics, cuda_pwelch
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import anat_staged, anatomy2
+    from godsp_tpu_torch.probes._common import TF32_FLOPS, lane_planes
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    lib = _build.library()
+    out, out64 = (ctypes.c_int * 12)(), (ctypes.c_int64 * 4)()
+    resident = cp._anat_resident(dev)
+    for n in (128, 384, 1024, 2048, 16384):
+        for b in (1, 65, 1001, 16384):
+            plan = tuple(cp.anat_full_plan(b, n, resident))
+            if lib.gdsp_anat_full_geometry(b, n, resident, out) != 0 or tuple(out) != plan:
+                raise AssertionError(f"anat_full's plan at {b} x {n}: {tuple(out)} against the "
+                                     f"host's {plan}")
+    for lg in (9, 10, 11, 12):
+        for tile, hop in ((1, 512), (16, 512), (50, 160), (5, 1024)):
+            want = cp.staged_cta(1 << lg, tile, 1 << lg, hop)
+            if lib.gdsp_pwfloor_staged_geometry(lg, tile, 1 << lg, hop, out64) != 0 or \
+                    tuple(out64) != want:
+                raise AssertionError(f"the staged CTA at pad {1 << lg}, tile {tile}: "
+                                     f"{tuple(out64)} against the host's {want}")
+    steps: dict[str, dict[str, int]] = {}
+    tc = FP32_FLOPS / TF32_FLOPS
+    log(f"anat_full and pwfloor_staged redesigned vs their first designs; both plans equal the "
+        f"host's; anat_full at {LANE_B} x {LANE_N}: {cp.anat_full_plan(LANE_B, LANE_N, resident)}")
+    for b, n in ANAT_REDESIGN:
+        xr, xi = lane_planes(dev, b, n, seed=24)
+        tw = anatomy2.tw_row(dev, n)
+        pts = float(b * n)
+        shape = f"{b} x {n}"
+        want = cplx(cp.anat_full_plain(xr.double(), xi.double(), tw))
+        op = lambda: cp.anat_full(xr, xi, tw)
+        first = lambda: cp.anat_full_sync(xr, xi, tw)
+        dbs = (snr_on_card(cplx(op()), want), snr_on_card(cplx(first()), want))
+        log(f"  anat_full {shape} (n1 {n // 128}): {dbs[0]:.2f} dB against float64, first "
+            f"design {dbs[1]:.2f}")
+        if not min(dbs) >= SNR_DB:
+            raise AssertionError(f"anat_full {shape}: {dbs} dB, not both >= {SNR_DB}")
+        if (b, n) == (LANE_B, LANE_N):
+            route = lambda: anat_staged.unfused_route(xr, xi, tw)
+            copy = lambda: cuda_metrics.copy_split(xr, xi)
+            flops = max(10.0 * pts, 2304.0 * pts * tc)
+            ms = redesign_line(rec, steps, "anat_full", "anat_full_sync",
+                               f"{shape} ({dbs[0]:.2f} dB)", op, first, None, copy, cplx, want,
+                               16.0 * pts, flops, extra=("unfused half3 + row + bd_hi", route),
+                               yard_label="first design")
+            alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+                ("anat_full", "anat_full_kernel", op),
+                ("first design", "anat_full_sync_kernel", first),
+                ("K12 copy", "copy_split_kernel", copy))]
+            alone.insert(2, ("unfused route", call_device_ms(route)))
+            log(f"  redesign alone (profiler events), anat_full {shape}: " + "  ".join(
+                f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
+                + f"  (by chain {ms:.4f} ms)")
+            rec.check("anat_full_sync", lambda: cplx(first()), want, shape)
+            rec.time("anat_full_sync", shape, first, lambda: cp.anat_full_plain(xr, xi, tw), None,
+                     16.0 * pts, flops)
+        del xr, xi, want
+    for nfft, hop, pad, S, keep, timed in STAGED_REDESIGN:
+        g = torch.Generator(device=dev).manual_seed(hop)
+        L = (S - 1) * hop + nfft
+        ext = torch.rand(1, L, generator=g, device=dev) * 2 - 1
+        mask = (torch.arange(S, device=dev) < keep).float()[None]
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cp.staged_segs_per_tile(S, 1, nfft, hop, pad)
+        if bt != cuda_pwelch.segs_per_tile(S, 1):
+            raise AssertionError(f"staged tiles {bt} differ from K4's")
+        shape = f"nfft {nfft} hop {hop} pad {pad}, {keep} of {S} segments"
+        op = lambda: cp.pwfloor_staged(ext, mask, w, nfft, hop, pad)
+        k4 = lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, hop, pad)
+        want = cp.pwfloor_staged_plain(ext.double(), mask.double(), w.double(), nfft, hop, pad, bt)
+        equal, db = torch.equal(op(), k4()), snr_on_card(op(), want)
+        log(f"  pwfloor_staged {shape}: torch.equal to K4 at tiles of {bt}: {equal}; {db:.2f} dB "
+            f"against float64")
+        if not (equal and db >= SNR_DB):
+            raise AssertionError(f"pwfloor_staged {shape}: equal to K4 {equal}, {db:.2f} dB")
+        if timed:
+            first = lambda: cp.pwfloor_staged_radix2(ext, mask, w, nfft, hop, pad, bt=bt)
+            tiles = -(-S // bt)
+            nbytes = 4.0 * (L + S + pad + tiles * (pad // 2 + 1))
+            flops = keep * (nfft + rfft_flops(pad) + 3.0 * (pad // 2 + 1))
+            ms = redesign_line(rec, steps, "pwfloor_staged", "pwfloor_staged_radix2",
+                               f"{shape} ({db:.2f} dB)", op, first, None, None, lambda t: t, want,
+                               nbytes, flops, extra=("K4", k4), yard_label="first design")
+            alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in (
+                ("pwfloor_staged", "staged_partials_kernel", op),
+                ("first design", "spectral_twin_kernel", first),
+                ("K4", "pwelch_partials_kernel", k4))]
+            log(f"  redesign alone (profiler events), pwfloor_staged {shape}: " + "  ".join(
+                f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
+                + f"  (by chain {ms:.4f} ms)")
+            if hop == 512:
+                rec.check("pwfloor_staged_radix2", first, want, shape)
+                rec.time("pwfloor_staged_radix2", shape, first,
+                         lambda: cp.pwfloor_staged_plain(ext, mask, w, nfft, hop, pad, bt), None,
+                         nbytes, flops)
+        del ext, mask, want
     return steps
 
 
@@ -3385,10 +3540,12 @@ def phase_probe_kernels(rec: KernelRecord, dev) -> None:
     hop 512) and at a ragged one (nfft 1000, hop 160, pad 1024, 5001
     segments of which 4990 count; noframe at pad 2048): loadonly and
     frameonly against their float64 plain versions, noframe against the
-    float64 rfft -> |X|^2 -> masked sum, staged against K4 on the same
-    samples and against the float64 plain version; each timed at the
-    probe's geometry beside its plain version and bound (no one PyTorch
-    call computes any twin's function)."""
+    float64 rfft -> |X|^2 -> masked sum, staged (K4's body with each
+    tile's span staged once by the TMA, the frames cut from shared
+    memory) against K4 on the same samples, torch.equal to it, and
+    against the float64 plain version; each timed at the probe's geometry
+    beside its plain version and bound (no one PyTorch call computes any
+    twin's function)."""
     from godsp_tpu_torch import window
     from godsp_tpu_torch.ops import cuda_probes as cp
     from godsp_tpu_torch.ops import cuda_pwelch
@@ -3424,10 +3581,10 @@ def phase_probe_kernels(rec: KernelRecord, dev) -> None:
         rec.check("pwfloor_staged", lambda: cp.pwfloor_staged(e, m, ww, nfft, hop, 1024),
                   cp.pwfloor_staged_plain(e64, m64, w64, nfft, hop, 1024, bt),
                   f"{what}, float64 plain")
-        same = torch.equal(cp.pwfloor_staged(e, m, ww, nfft, hop, 1024),
-                           cp.pwelch_radix2(e, m, ww, nfft, hop, 1024))
-        log(f"  {'pwfloor_staged':22s} {what}: torch.equal to K4's first design "
-            f"(pwelch_radix2): {same}")
+        same = torch.equal(cp.pwfloor_staged(e, m, ww, nfft, hop, 1024), k4)
+        log(f"  {'pwfloor_staged':22s} {what}: torch.equal to K4 at the same tiles: {same}")
+        if not same:
+            raise AssertionError(f"pwfloor_staged {what}: not equal to K4")
         del k4
     shape = "16384 segments, nfft = pad = 1024, hop 512"
     for name, (op, read, nbytes, flops) in pwfloor.ops(x).items():
@@ -3747,10 +3904,15 @@ def phase_anatomy_kernels(rec: KernelRecord, dev) -> None:
     launch of each twin; bd_tf32's mma fragment maps with an identity and
     a cyclic-shift table; then each twin timed at 16384 x 1024 beside its
     plain version, bound and the library yardstick of probes.anatomy2.ops
-    (none for half3 and anat_full)."""
+    (none for half3 and anat_full), anat_full also beside the unfused
+    route it is fused from (half3, the row as torch's elementwise calls,
+    bd_hi; the kernels line's separate_route_ms).  anat_full is bd_hi's
+    walk fed with each k-box and its partner n / 2 columns away, the
+    rounds and the row made once a stage in shared memory, the split in
+    registers."""
     from godsp_tpu_torch.ops import cuda_probes as cp
     from godsp_tpu_torch.ops import launch_counts
-    from godsp_tpu_torch.probes import anatomy2
+    from godsp_tpu_torch.probes import anat_staged, anatomy2
     from godsp_tpu_torch.probes._common import TF32_FLOPS, lane_planes
     from godsp_tpu_torch.utils.metrics import FP32_FLOPS
 
@@ -3803,6 +3965,8 @@ def phase_anatomy_kernels(rec: KernelRecord, dev) -> None:
             args = (xr, xi, tw) if name == "anat_full" else (xr, xi)
             rec.time(name, shape, lambda fn=fn, args=args: fn(*args), plain, library,
                      16.0 * pts, flops)
+        rec.times["anat_full"]["separate_route_ms"] = time_ms(
+            lambda: anat_staged.unfused_route(xr, xi, tw))
         del xr, xi, lib
 
 

@@ -136,13 +136,35 @@
 //
 // anat_full_kernel replaces v6full (:203): half3, then ar = a tw - b tw and
 // ai = a tw + b tw with a row tw of n floats (the TPU probe's random row,
-// not a twiddle), then bd_hi's contraction, in one kernel: the block stages
-// min(16, 16384 / n) whole rows of both planes in shared memory (128 KB),
-// runs half3's rounds and the tw row there (the same device functions),
-// and its warps read their A fragments from shared memory: nothing goes
-// back to device memory between the steps.  Bound: bytes, 0.080 ms
-// (bd_hi's 2304 TF32 operations a point, 0.078 ms, and 10 float32 ones
-// for the rounds and the row on the CUDA cores, 0.0025 ms).
+// not a twiddle), then bd_hi's contraction, in one kernel.  Bound: bytes,
+// 0.080 ms (bd_hi's 2304 TF32 operations a point, 0.078 ms, and 10 float32
+// ones for the rounds and the row on the CUDA cores, 0.0025 ms).
+//   Its first design, anat_full_sync_kernel (gdsp_anat_full_sync, kept as
+// the yardstick): a block stages min(16, 16384 / n) whole rows of both
+// planes by plain 16-byte loads (128 KB), runs half3's rounds and the row
+// there behind barriers, and its warps run bd_hi_sync's contraction from
+// shared memory: 170 registers, one block a SM, 0.633 ms by chain at 16384
+// x 1024, of which staging 0.13, the rounds and the row 0.10 and the
+// products the rest (probes/anat_staged.py, on an NVIDIA H100 80GB HBM3 at
+// 700.00 W); the unfused route half3 + the row + bd_hi took 0.558.
+//   The redesign runs on bd_hi's walk (hi_body<true>): each round maps
+// columns c and c + n / 2 to the same two columns, so a k-box's values
+// depend only on the k-box n / 2 columns away in the same row.  A stage is
+// the 32-column k-box of a and b and its partner k-box, four TMA boxes in
+// one 32 KB slot beside the 192 KB of planes.  Once a stage has landed, the
+// CTA's 256 threads make each element's three rounds with its partner (the
+// same IEEE adds as the plain version), keep its half (r2a + sgn r2b, one
+// FMA of an exact product) and multiply by the row, writing ar and ai over
+// the k-box's a and b (an_prepass); after a barrier each warp reads its A
+// fragments of them and splits them as bd_hi does: nothing returns to
+// device memory between the steps.  The walk steps its items' tiles and
+// slices without a 64-bit division (StagePos: the first build divided, a
+// subroutine call a stage).  Shared memory: 196,608 + 32,768 + 12 + 1,024 =
+// 230,412 bytes.  It gives bd_hi of the float32 rounds and row bit for bit.
+// On the same card: 0.245 ms by chain; each warp making the rounds and the
+// row of its own fragments (each value four times over, by both
+// warpgroups of both CTAs of a pair) took 0.28, two 16 KB stages of
+// 16-column boxes 0.28, four of 8 columns 0.49.
 
 #include <cuda_runtime.h>
 
@@ -537,68 +559,207 @@ __device__ __forceinline__ void hi_products(float (&d)[3][16], const HiA& x, con
   hp::wgmma_m64n32k8_tf32_rs(d[2], x.sb, f.at(off + 4 * kHiPlaneB), 1);
 }
 
-// A bd_hi CTA's walk: pair p (CTAs 2 p + h, h = 0, 1: bins 64 h .. 64 h + 63
-// of every slice) takes items p, p + pairs, ... of the (64-row tile, slice)
-// items, the slice fastest; a stage is the two boxes (the tile's rows, 32
-// columns of the slice) of planes a and b, four a slice, in slot c % 2.
+// The stages of bd_hi (kFull false) and of anat_full (kFull true): a box is
+// kK columns x 64 rows of one plane, its rows kK x 4 bytes in the TMA's
+// swizzle of that span (128, 64 or 32 bytes).  bd_hi's stage is the boxes of
+// a and b at one k-box of 32 columns, two stages of 16 KB; anat_full's the
+// boxes of a and b at one k-box of kAnK columns and at its partner k-box
+// n / 2 columns away, as many stages as fill the same 32 KB: at 32 columns
+// one stage of 32 KB (0.277 ms by chain at 16384 x 1024 against 0.303 for
+// two 16 KB stages of 16 columns and 0.620 for four 8 KB stages of 8:
+// probes/anat_staged.py --tune).
+constexpr int kAnK = 32;  // columns of an anat_full k-box
+template <bool kFull>
+struct HiStage {
+  static constexpr int kK = kFull ? kAnK : kHiK;          // columns a box
+  static constexpr int kBoxes = kFull ? 4 : 2;            // a, b (and their partners)
+  static constexpr int kBox = kHiRows * HiStage::kK * 4;  // bytes a box
+  static constexpr int kBytes = HiStage::kBoxes * HiStage::kBox;  // bytes a stage
+  static constexpr int kStages = kHiStages * kHiStage / HiStage::kBytes;  // the ring: 32 KB
+  static constexpr int kSteps = HiStage::kK / 8;          // k-steps a stage
+  static constexpr int kPerSlice = kLanes / HiStage::kK;  // stages a slice
+  static constexpr int kSmem = kHiPlanes * kHiPlaneB + HiStage::kStages * HiStage::kBytes +
+                               HiStage::kStages * (8 + 4) + 1024;
+  static_assert(kStages * kBytes == kHiStages * kHiStage, "the ring fills its 32 KB");
+};
+
+// Where a stage of a CTA's walk lies: its item's 64-row tile and slice and
+// its k-box in the slice.  next() steps to the following stage without a
+// division (the walk's items are pairs apart: dq tiles and dr slices).
+struct StagePos {
+  long long tile;
+  int slice, box;
+  template <int kPerSlice>
+  __device__ __forceinline__ void next(long long dq, int dr, int n1) {
+    if (++box == kPerSlice) {
+      box = 0;
+      tile += dq;
+      slice += dr;
+      if (slice >= n1) {
+        slice -= n1;
+        ++tile;
+      }
+    }
+  }
+};
+
+// A bd_hi (or anat_full) CTA's walk: pair p (CTAs 2 p + h, h = 0, 1: bins
+// 64 h .. 64 h + 63 of every slice) takes items p, p + pairs, ... of the
+// (64-row tile, slice) items, the slice fastest; stage c (HiStage) lands in
+// slot c % kStages.
+template <bool kFull>
 struct HiCta {
-  const CUtensorMap* maps[2];  // a and b: boxes of 32 columns x 64 rows, 128-byte swizzle
+  using St = HiStage<kFull>;
+  const CUtensorMap* maps[2];  // a and b: boxes of kK columns x 64 rows, swizzled
   char* sf;                    // the six planes, swizzled
-  char* stages;                // the ring: [slot][plane][64 rows][128 bytes]
+  char* stages;                // the ring: [slot][box][64 rows][kK x 4 bytes]
   uint64_t* full;              // a slot's mbarrier
   unsigned* reads;             // a slot's count of the warps that have read it
   float* yr;
   float* yi;
+  const float* tw;             // anat_full: the row, n floats
   long long b, pair, pairs, mine, total;  // total: the stages this CTA reads
-  int n, n1, h;
+  long long dq;                // pairs / n1: tiles from one item of the walk to the next
+  int n, n1, h, dr;            // h: the CTA's half of the bins; dr: pairs % n1
 
-  // The copy of stage c (box c % 4 of item pair + (c / 4) pairs) into its slot.
-  __device__ __forceinline__ void issue(long long c) const {
-    const long long item = pair + c / (kLanes / kHiK) * pairs;
-    const int row = static_cast<int>(item / n1 * kHiRows);
-    const int col =
-        static_cast<int>(item % n1) * kLanes + static_cast<int>(c % (kLanes / kHiK)) * kHiK;
-    const int s = static_cast<int>(c % kHiStages);
-    hp::mbar_arrive_expect_tx(full + s, kHiStage);
+  // The position of the walk's first stage.
+  __device__ __forceinline__ StagePos first() const {
+    return StagePos{pair / n1, static_cast<int>(pair % n1), 0};
+  }
+  __device__ __forceinline__ void next(StagePos& p) const {
+    p.next<St::kPerSlice>(dq, dr, n1);
+  }
+  // The copy of stage c, at p, into its slot: anat_full's partner k-box is
+  // n / 2 columns on or back (in the same row: half3 maps columns c and
+  // c + n / 2 to the same two columns every round).
+  __device__ __forceinline__ void issue(long long c, const StagePos& p) const {
+    const int row = static_cast<int>(p.tile * kHiRows), col = p.slice * kLanes + p.box * St::kK;
+    const int s = static_cast<int>(c % St::kStages);
+    hp::mbar_arrive_expect_tx(full + s, St::kBytes);
     for (int pl = 0; pl < 2; ++pl)
-      hp::tma_load_2d(stages + s * kHiStage + pl * kHiBox, maps[pl], col, row, full + s);
+      hp::tma_load_2d(stages + s * St::kBytes + pl * St::kBox, maps[pl], col, row, full + s);
+    if constexpr (kFull) {
+      const int partner = col < n / 2 ? col + n / 2 : col - n / 2;
+      for (int pl = 0; pl < 2; ++pl)
+        hp::tma_load_2d(stages + s * St::kBytes + (2 + pl) * St::kBox, maps[pl], partner, row,
+                        full + s);
+    }
   }
 };
 
-// Warpgroup WG of a bd_hi CTA: its bins 32 WG .. 32 WG + 31 of the CTA's
-// 64, every item of the walk.  WG is a template argument so that the B
-// descriptors depend on nothing that varies between threads and stay in
-// uniform registers.
-template <int WG>
-__device__ __forceinline__ void hi_walk(const HiCta& k) {
+// Byte offset of element (row r, column k) of a landed anat_full box (64
+// rows x kAnK columns in the TMA's swizzle of kAnK x 4 bytes: the 16-byte
+// unit u of row r at u ^ ((r >> (3 - B)) & (2^B - 1)), 2^B = kAnK / 4 units a
+// row; at 32 columns the 128-byte swizzle of hi_fragment).
+__device__ __forceinline__ int an_offset(int r, int k) {
+  constexpr int kUnits = kAnK / 4, kShift = kUnits == 4 ? 1 : kUnits == 2 ? 2 : 0;
+  return r * (kAnK * 4) + (((k >> 2) ^ ((r >> kShift) & (kUnits - 1))) << 4) + (k & 3) * 4;
+}
+
+// The A fragment of k-step kk (columns 8 kk .. 8 kk + 7) of a landed
+// anat_full box for this thread: rows r0 and r0 + 8, columns t and t + 4, as
+// hi_fragment.  A warp's eight rows read eight distinct 16-byte bank groups,
+// so its 32 lanes hit 32 banks.
+__device__ __forceinline__ void an_fragment(float (&v)[4], const char* box, int r0, int kk,
+                                            int t) {
+  v[0] = *reinterpret_cast<const float*>(box + an_offset(r0, 8 * kk + t));
+  v[1] = *reinterpret_cast<const float*>(box + an_offset(r0 + 8, 8 * kk + t));
+  v[2] = *reinterpret_cast<const float*>(box + an_offset(r0, 8 * kk + t + 4));
+  v[3] = *reinterpret_cast<const float*>(box + an_offset(r0 + 8, 8 * kk + t + 4));
+}
+
+// anat_full's A values of a landed stage, made once by the CTA's 256
+// threads together and written over the own k-box's a and b: for each
+// element, half3's three rounds with its partner (lo at the lower column, hi
+// at the higher: u + v, u - v each round, the same IEEE adds in the same
+// order as the plain version's concatenations), the half its column owns
+// (r2a + sgn r2b, sgn = +1 for the lower k-box, -1 for the higher: one
+// rounding of an exact product, the IEEE add or subtract), then the row,
+// ar = a w - b w, ai = a w + b w.  own: the stage (a, b, then the partner's
+// a, b); w: the row at this thread's column (lane % kAnK).  A warp's
+// accesses of a row hit distinct banks at 32 columns.
+__device__ __forceinline__ void an_prepass(char* own, bool lower, float w, int lane) {
+  constexpr int kBox = kHiRows * kAnK * 4, kRowsAtOnce = kHiThreads / kAnK;
+  const char* lo = lower ? own : own + 2 * kBox;
+  const char* hi = lower ? own + 2 * kBox : own;
+  const float sgn = lower ? 1.f : -1.f;
+  const int k = lane % kAnK;
+#pragma unroll
+  for (int i = 0; i < kHiRows / kRowsAtOnce; ++i) {
+    const int off = an_offset(static_cast<int>(threadIdx.x) / kAnK + kRowsAtOnce * i, k);
+    float y[2];
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      const float u = *reinterpret_cast<const float*>(lo + pl * kBox + off);
+      const float v = *reinterpret_cast<const float*>(hi + pl * kBox + off);
+      const float r1a = __fadd_rn(u, v), r1b = __fsub_rn(u, v);
+      const float r2a = __fadd_rn(r1a, r1b), r2b = __fsub_rn(r1a, r1b);
+      y[pl] = __fmaf_rn(sgn, r2b, r2a);
+    }
+    const float at = __fmul_rn(y[0], w), bt = __fmul_rn(y[1], w);
+    *reinterpret_cast<float*>(own + off) = __fsub_rn(at, bt);
+    *reinterpret_cast<float*>(own + kBox + off) = __fadd_rn(at, bt);
+  }
+}
+
+// Warpgroup WG of a bd_hi (or anat_full) CTA: its bins 32 WG .. 32 WG + 31
+// of the CTA's 64, every item of the walk.  WG is a template argument so
+// that the B descriptors depend on nothing that varies between threads and
+// stay in uniform registers.
+template <int WG, bool kFull>
+__device__ __forceinline__ void hi_walk(const HiCta<kFull>& k) {
+  using St = HiStage<kFull>;
+  constexpr int kS = St::kSteps;
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // rows r0, r0 + 8 of a tile
   const uint64_t d0 = hp::desc_b128(k.sf + kHiN * 128 * WG);   // its bins of plane 0
   const HiDesc fb{static_cast<uint32_t>(d0), static_cast<uint32_t>(d0 >> 32)};
-  long long c = 0;                         // stages read
-  float va[kHiK / 8][4], vb[kHiK / 8][4];  // a stage's A values of a and b
-  // Stage c into va, vb; its slot released, and refilled with stage c + 2
-  // by the last of the CTA's eight warps to read it.
+  long long c = 0;               // stages read
+  StagePos rd = k.first();       // stage c's position
+  StagePos ah = rd;              // stage c + kStages's: the one its slot takes next
+#pragma unroll 1
+  for (int i = 0; i < St::kStages; ++i) k.next(ah);
+  float va[kS][4], vb[kS][4];    // a stage's A values of a and b (anat_full: ar, ai)
+  // Stage c into registers; its slot released, and refilled with stage
+  // c + kStages by the last of the CTA's eight warps to read it.
   auto read_stage = [&]() {
-    const int s = static_cast<int>(c % kHiStages);
-    const char* sa = k.stages + s * kHiStage;
-    hp::mbar_wait(k.full + s, static_cast<uint32_t>(c / kHiStages) & 1u);
+    const int s = static_cast<int>(c % St::kStages);
+    char* sa = k.stages + s * St::kBytes;
+    if constexpr (kFull) {
+      // The stage made into A values by the whole CTA (an_prepass), then
+      // this warp's fragments of them.
+      const int col = rd.slice * kLanes + rd.box * St::kK;
+      const float w = __ldg(k.tw + col + lane % St::kK);
+      hp::mbar_wait(k.full + s, static_cast<uint32_t>(c / St::kStages) & 1u);
+      an_prepass(sa, col < k.n / 2, w, lane);
+      hp::fence_proxy_async();  // the writes, before the refill's copy into the slot
+      hp::named_sync(1, kHiThreads);
 #pragma unroll
-    for (int kk = 0; kk < kHiK / 8; ++kk) {
-      hi_fragment(va[kk], sa, r0, kk, t);
-      hi_fragment(vb[kk], sa + kHiBox, r0, kk, t);
+      for (int kk = 0; kk < kS; ++kk) {
+        an_fragment(va[kk], sa, r0, kk, t);
+        an_fragment(vb[kk], sa + St::kBox, r0, kk, t);
+      }
+    } else {
+      hp::mbar_wait(k.full + s, static_cast<uint32_t>(c / St::kStages) & 1u);
+#pragma unroll
+      for (int kk = 0; kk < kS; ++kk) {
+        hi_fragment(va[kk], sa, r0, kk, t);
+        hi_fragment(vb[kk], sa + kHiBox, r0, kk, t);
+      }
     }
     __syncwarp();
     if (lane == 0) {
       __threadfence_block();  // the warp's reads of the slot, before its count
       if ((atomicAdd(k.reads + s, 1u) & (kHiThreads / 32 - 1)) == kHiThreads / 32 - 1 &&
-          c + kHiStages < k.total) {
+          c + St::kStages < k.total) {
         __threadfence_block();
         hp::fence_proxy_async();  // the generic reads, before the copy's writes
-        k.issue(c + kHiStages);
+        k.issue(c + St::kStages, ah);
       }
     }
     ++c;
+    k.next(rd);
+    k.next(ah);
   };
 
   float d[3][16];  // the tensor cores' sums of m1, m2, m3 (scale-d 0 at a chain's start)
@@ -608,7 +769,7 @@ __device__ __forceinline__ void hi_walk(const HiCta& k) {
     for (int q = 0; q < 16; ++q) d[p][q] = 0.f;
   }
   for (long long i = 0; i < k.mine; ++i) {
-    const long long item = k.pair + i * k.pairs;
+    const StagePos item = rd;  // the item's tile and slice
     float run[3][16];  // the running sums on the CUDA cores
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
@@ -646,16 +807,16 @@ __device__ __forceinline__ void hi_walk(const HiCta& k) {
         hp::wgmma_wait<1>();
       }
       if (j + 1 < kLanes / 8) {
-        if ((j + 1) % (kHiK / 8) == 0) read_stage();
-        hi_split(x[(j + 1) & 1], va[(j + 1) % (kHiK / 8)], vb[(j + 1) % (kHiK / 8)]);
+        if ((j + 1) % kS == 0) read_stage();
+        hi_split(x[(j + 1) & 1], va[(j + 1) % kS], vb[(j + 1) % kS]);
       }
     }
     // yr = m1 - m2 and yi = (m3 - m1) - m2, 8 bytes a store: rows r0 and
     // r0 + 8 of the tile, columns 8 jn + 2 t of the warpgroup's 32 bins
     // (the accumulator layout of wgmma_m64n32k8_tf32).
-    const long long row = item / k.n1 * kHiRows + r0;
+    const long long row = item.tile * kHiRows + r0;
     const size_t col =
-        static_cast<size_t>(item % k.n1) * kLanes + kHiBins * k.h + kHiN * WG + 2 * t;
+        static_cast<size_t>(item.slice) * kLanes + kHiBins * k.h + kHiN * WG + 2 * t;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (row + 8 * hh >= k.b) continue;
@@ -673,42 +834,42 @@ __device__ __forceinline__ void hi_walk(const HiCta& k) {
   }
 }
 
-// ta, tb: tensor maps of the (b, n) planes a and b, boxes of 32 columns x 64
-// rows in the 128-byte swizzle (rows past b arrive as zeros); tab: the
-// kHiTab split vectors; the walk: HiCta.  No warp is set aside for the
-// copies: thread 0 issues the first two stages, and the last warp to read a
-// stage into registers issues the copy that refills its slot, so the 8
-// warps keep up to 255 registers a thread.
-__global__ void __launch_bounds__(kHiThreads, 1)
-bd_hi_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-             float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tab,
-             long long b, int n, int pairs) {
+// The body of bd_hi_kernel (kFull false) and anat_full_kernel (kFull true):
+// the CTA's walk set up, its first stages issued, its bins of the six
+// planes expanded while they land, then each warpgroup's walk.
+template <bool kFull>
+__device__ __forceinline__ void hi_body(const CUtensorMap* ta, const CUtensorMap* tb, float* yr,
+                                        float* yi, const float* tw, const float* tab, long long b,
+                                        int n, int pairs) {
   static_assert(kLanes / 8 % kHiChain == 0, "a chain ends within a slice");
   extern __shared__ float4 smem4[];
   // Aligned by an offset, not through an integer, so the compiler keeps
   // shared loads (LDS) for the stages.
   char* base = reinterpret_cast<char*>(smem4) + ((1024 - (hp::smem_addr(smem4) & 1023)) & 1023);
-  HiCta k;
-  k.maps[0] = &ta;
-  k.maps[1] = &tb;
+  HiCta<kFull> k;
+  k.maps[0] = ta;
+  k.maps[1] = tb;
   k.sf = base;
   k.stages = base + kHiPlanes * kHiPlaneB;
   k.full = reinterpret_cast<uint64_t*>(k.stages + kHiStages * kHiStage);
-  k.reads = reinterpret_cast<unsigned*>(k.full + kHiStages);
+  k.reads = reinterpret_cast<unsigned*>(k.full + HiStage<kFull>::kStages);
   k.yr = yr;
   k.yi = yi;
+  k.tw = tw;
   k.b = b;
   k.n = n;
   k.n1 = n / kLanes;
   k.h = static_cast<int>(blockIdx.x & 1);
   k.pair = blockIdx.x >> 1;
   k.pairs = pairs;
+  k.dq = pairs / k.n1;
+  k.dr = pairs % k.n1;
   const long long items = (b + kHiRows - 1) / kHiRows * k.n1;
   k.mine = k.pair < items ? (items - 1 - k.pair) / pairs + 1 : 0;
-  k.total = k.mine * (kLanes / kHiK);
+  k.total = k.mine * HiStage<kFull>::kPerSlice;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kHiStages; ++s) {
+    for (int s = 0; s < HiStage<kFull>::kStages; ++s) {
       hp::mbar_init(k.full + s, 1);  // the issuing thread's arrive.expect_tx
       k.reads[s] = 0;
     }
@@ -716,7 +877,9 @@ bd_hi_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
   }
   __syncthreads();  // the barriers exist before any copy
   if (threadIdx.x == 0) {
-    for (long long c = 0; c < k.total && c < kHiStages; ++c) k.issue(c);
+    StagePos p = k.first();
+    for (long long c = 0; c < k.total && c < HiStage<kFull>::kStages; ++c, k.next(p))
+      k.issue(c, p);
   }
   // The six planes' bins 64 h .. of every j (F[j, k] = v[j k mod 128]) as
   // wgmma's K-major B (the CTA's bins as rows, j as k), four j a 16-byte
@@ -738,6 +901,30 @@ bd_hi_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
     hi_walk<0>(k);
   else
     hi_walk<1>(k);
+}
+
+// ta, tb: tensor maps of the (b, n) planes a and b, boxes of 32 columns x 64
+// rows in the 128-byte swizzle (rows past b arrive as zeros); tab: the
+// kHiTab split vectors; the walk: HiCta.  No warp is set aside for the
+// copies: thread 0 issues the first two stages, and the last warp to read a
+// stage into registers issues the copy that refills its slot, so the 8
+// warps keep up to 255 registers a thread.
+__global__ void __launch_bounds__(kHiThreads, 1)
+bd_hi_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+             float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tab,
+             long long b, int n, int pairs) {
+  hi_body<false>(&ta, &tb, yr, yi, nullptr, tab, b, n, pairs);
+}
+
+// anat_full on bd_hi's walk: ta, tb as bd_hi_kernel's, boxes of kAnK
+// columns; tw: the row, n floats.  Each stage brings a k-box of a and b and
+// its partner k-box n / 2 columns away; the CTA makes half3's rounds and the
+// row once a stage (an_prepass), each warp the split in registers.
+__global__ void __launch_bounds__(kHiThreads, 1)
+anat_full_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                 float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tw,
+                 const float* __restrict__ tab, long long b, int n, int pairs) {
+  hi_body<true>(&ta, &tb, yr, yi, tw, tab, b, n, pairs);
 }
 
 // ---------------------------------------------------------------------------
@@ -894,8 +1081,9 @@ bd_tf32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
 }
 
 // tw: n floats; tab: the kHiTab split vectors.  R rows a tile (<= 16).
+// anat_full's first design, the yardstick (gdsp_anat_full_sync).
 __global__ void __launch_bounds__(kThreads)
-anat_full_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+anat_full_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi, const float* __restrict__ tw,
                  const float* __restrict__ tab, long long b, int n, int R) {
   extern __shared__ float4 smem4[];
@@ -946,6 +1134,24 @@ cudaError_t resident_blocks(Kernel k, int smem, long long need, unsigned* out) {
   return cudaSuccess;
 }
 
+// CTAs of `kernel` (`threads` threads, `smem` dynamic shared bytes each) the
+// card holds at once, the CTAs resident an SM times the SMs: 0 where none
+// fits, or -(CUDA error).
+template <typename Kernel>
+int resident_ctas(Kernel kernel, int threads, int smem) {
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t e = gdsp::allow_smem(kernel, static_cast<size_t>(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch's check
+    return -static_cast<int>(e);
+  }
+  return blocks * sms;
+}
+
 // bd_hi's launch plan (ops/cuda_probes.py: bd_hi_plan holds the same; the
 // GPU tests compare through gdsp_bd_hi_geometry).
 struct HiPlan {
@@ -972,6 +1178,28 @@ int make_hi_plan(long long b, int n, int resident, HiPlan* p) {
   if (per > 0x7fffffffLL || b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   *p = HiPlan{2,       static_cast<int>(pairs), static_cast<int>(2 * pairs),
               kHiRows, kHiBins, kHiStages, kHiK, kHiSmem, static_cast<int>(per), kHiChain};
+  return 0;
+}
+
+// anat_full's launch plan (ops/cuda_probes.py: anat_full_plan holds the
+// same; the GPU tests and the smoke compare through gdsp_anat_full_geometry):
+// bd_hi's walk, four boxes a stage (HiStage<true>).
+struct AnatPlan {
+  HiPlan hi;    // the pairs, tiles, bins and chain: bd_hi's; the ring: HiStage<true>'s
+  int boxes;    // boxes a stage: a and b at the k-box and at its partner
+  int partner;  // columns from a k-box to its partner: n / 2
+};
+constexpr int kAnatPlanFields = kHiPlanFields + 2;
+
+int make_anat_plan(long long b, int n, int resident, AnatPlan* p) {
+  if (bad_shape(b, n) || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = make_hi_plan(b, n, resident, &p->hi);
+  if (rc != 0) return rc;
+  p->hi.k_stage = HiStage<true>::kK;
+  p->hi.stages = HiStage<true>::kStages;
+  p->hi.smem = HiStage<true>::kSmem;
+  p->boxes = HiStage<true>::kBoxes;
+  p->partner = n / 2;
   return 0;
 }
 
@@ -1080,18 +1308,7 @@ int gdsp_bd_tf32(const float* xr, const float* xi, float* yr, float* yi, const f
 // CTAs of bd_tf32_kernel the card holds at once with the plan's shared
 // memory plus extra_smem bytes a CTA: 0 where none fits, or -(CUDA error).
 int gdsp_bd_tf32_resident(int extra_smem) {
-  const int smem = kB1Smem + extra_smem;
-  int device = 0, sms = 0, blocks = 0;
-  cudaError_t e = gdsp::allow_smem(bd_tf32_kernel, static_cast<size_t>(smem));
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bd_tf32_kernel, kB1Threads, smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // reported here, not by the next launch's check
-    return -static_cast<int>(e);
-  }
-  return blocks * sms;
+  return resident_ctas(bd_tf32_kernel, kB1Threads, kB1Smem + extra_smem);
 }
 
 // bd_tf32's plan at b x n with `resident` CTAs: out[0..7] = CTAs, items of
@@ -1152,18 +1369,8 @@ int gdsp_bd_hi(const float* xr, const float* xi, float* yr, float* yi, const flo
 // memory plus extra_smem bytes a CTA (the CTAs resident an SM times the SMs,
 // halved): 0 where none fits, or -(CUDA error).
 int gdsp_bd_hi_resident(int extra_smem) {
-  const int smem = kHiSmem + extra_smem;
-  int device = 0, sms = 0, blocks = 0;
-  cudaError_t e = gdsp::allow_smem(bd_hi_kernel, static_cast<size_t>(smem));
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bd_hi_kernel, kHiThreads, smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // reported here, not by the next launch's check
-    return -static_cast<int>(e);
-  }
-  return blocks * sms / 2;
+  const int ctas = resident_ctas(bd_hi_kernel, kHiThreads, kHiSmem + extra_smem);
+  return ctas < 0 ? ctas : ctas / 2;
 }
 
 // bd_hi's plan at b x n with `resident` pairs: out[0..9] = pair, pairs,
@@ -1195,18 +1402,71 @@ int gdsp_bd_hi_sync(const float* xr, const float* xi, float* yr, float* yi, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// tw: n floats; tab: as gdsp_bd_hi.
-int gdsp_anat_full(const float* xr, const float* xi, float* yr, float* yi, const float* tw,
-                   const float* tab, long long b, int n, void* stream) {
+// anat_full's first design, the yardstick (min(16, 16384 / n) whole rows
+// staged a block, the rounds and the row there, bd_hi_sync's contraction
+// from shared memory): tw n floats, tab as gdsp_bd_hi.
+int gdsp_anat_full_sync(const float* xr, const float* xi, float* yr, float* yi, const float* tw,
+                        const float* tab, long long b, int n, void* stream) {
   if (bad_shape(b, n) || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
   const int R = kFullPoints / n < 16 ? kFullPoints / n : 16;
   const int smem = (kHiTab + 2 * R * (n + kPad)) * sizeof(float);
-  cudaError_t e = gdsp::allow_smem(anat_full_kernel, smem);
+  cudaError_t e = gdsp::allow_smem(anat_full_sync_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  anat_full_kernel<<<dim3(1, tile_blocks((b + R - 1) / R)), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tw, tab, b, n, R);
+  anat_full_sync_kernel<<<dim3(1, tile_blocks((b + R - 1) / R)), kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tw, tab, b, n, R);
   return static_cast<int>(cudaGetLastError());
+}
+
+// anat_full on bd_hi's walk: tw n floats, tab as gdsp_bd_hi; resident the
+// pairs of anat_full_kernel's CTAs the card holds at once
+// (gdsp_anat_full_resident).  Returns cudaErrorLaunchOutOfResources where
+// resident < 1.
+int gdsp_anat_full(const float* xr, const float* xi, float* yr, float* yi, const float* tw,
+                   const float* tab, long long b, int n, int resident, void* stream) {
+  AnatPlan p;
+  const int rc = make_anat_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  CUtensorMap maps[2];
+  const float* planes[2] = {xr, xi};
+  for (int i = 0; i < 2; ++i) {
+    const int m = hp::encode_tensor_map_2d(
+        maps + i, planes[i], b, n, kAnK, kHiRows,
+        kAnK == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : kAnK == 16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+    if (m != 0) return m;
+  }
+  cudaError_t e = gdsp::allow_smem(anat_full_kernel, static_cast<size_t>(p.hi.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  anat_full_kernel<<<static_cast<unsigned>(p.hi.ctas), kHiThreads,
+                     static_cast<size_t>(p.hi.smem), static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], yr, yi, tw, tab, b, n, p.hi.pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pairs of anat_full_kernel's CTAs the card holds at once with the plan's
+// shared memory plus extra_smem bytes a CTA: 0 where none fits, or -(CUDA
+// error).
+int gdsp_anat_full_resident(int extra_smem) {
+  const int ctas = resident_ctas(anat_full_kernel, kHiThreads, HiStage<true>::kSmem + extra_smem);
+  return ctas < 0 ? ctas : ctas / 2;
+}
+
+// anat_full's plan at b x n with `resident` pairs: out[0..11] = bd_hi's
+// fields (gdsp_bd_hi_geometry's order; columns a stage 16), boxes a stage,
+// columns to the partner k-box (AnatPlan).  ops/cuda_probes.py:
+// anat_full_plan holds the same; the GPU tests compare.
+int gdsp_anat_full_geometry(long long b, int n, int resident, int* out) {
+  AnatPlan p;
+  const int rc = make_anat_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  const HiPlan& h = p.hi;
+  const int v[kAnatPlanFields] = {h.pair,    h.pairs,  h.ctas,     h.rows_tile, h.bins_cta,
+                                  h.stages,  h.k_stage, h.smem,    h.per_pair,  h.chain,
+                                  p.boxes,   p.partner};
+  for (int i = 0; i < kAnatPlanFields; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -4,10 +4,11 @@
 // cuTensorMapEncodeTiled), and the warpgroup
 // TF32 product (wgmma.mma_async m64n32k8 and m64n128k8, B in shared memory
 // in the 128-byte swizzled K-major layout, A there too or in registers).
-// Used by gmm_tf32_kernel (lane_slice_probe_kernels.cu), bd_hi_kernel and
-// bd_tf32_kernel (anatomy_probe_kernels.cu: A from registers) and, for its
-// cluster-scope mbarriers and bulk stores, i8_concat_kernel
-// (int8_probe_kernels.cu).
+// Used by gmm_tf32_kernel (lane_slice_probe_kernels.cu), bd_hi_kernel,
+// anat_full_kernel and bd_tf32_kernel (anatomy_probe_kernels.cu: A from
+// registers), for its cluster-scope mbarriers and bulk stores by
+// i8_concat_kernel (int8_probe_kernels.cu), and for its 1-D bulk loads by
+// staged_partials_kernel (pwelch_probe_kernels.cu).
 
 #pragma once
 
@@ -137,6 +138,16 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory at src to this CTA's shared memory at dst, by the TMA; bar counts
+// the bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 // Waits until this thread's bulk groups have read their shared memory.
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -148,11 +159,13 @@ __device__ __forceinline__ void bulk_wait_all() {
 
 // A 2-D float32 tensor map over a row-major (rows, cols) plane at p (16-byte
 // aligned, cols x 4 bytes a multiple of 16): boxes of box_cols x box_rows,
-// the 128-byte swizzle (box_cols x 4 <= 128).  cuTensorMapEncodeTiled is
-// found once through the runtime's entry-point query, so the library needs
-// no link to libcuda.  Returns a CUDA runtime error code.
+// the 128-byte swizzle (box_cols x 4 <= 128) unless `swizzle` says another
+// (anat_full's 16-column boxes take the 64-byte one).  cuTensorMapEncodeTiled
+// is found once through the runtime's entry-point query, so the library
+// needs no link to libcuda.  Returns a CUDA runtime error code.
 inline int encode_tensor_map_2d(CUtensorMap* map, const float* p, long long rows, int cols,
-                                int box_cols, int box_rows) {
+                                int box_cols, int box_rows,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -173,8 +186,8 @@ inline int encode_tensor_map_2d(CUtensorMap* map, const float* p, long long rows
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

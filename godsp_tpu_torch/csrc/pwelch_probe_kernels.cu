@@ -1,9 +1,6 @@
 // K14a: the fused-Welch floor twins for Hopper (sm_90a).  Each is one
-// variant of K4's own body (pwelch_kernel.cu: pwelch_partials_kernel):
-// the same grid (tiles, rows; rows over y and z by row_grid), the same
-// tiling (segs_per_tile segments a block), the same shared-memory FFT
-// (fft_block.cuh) and twiddle table.  Only the part under test changes,
-// so each time is a floor of K4's.
+// variant of K4's own body (pwelch_kernel.cu: pwelch_partials_kernel) with
+// only the part under test changed, so each time is a floor of K4's.
 //
 // They replace the Pallas elimination twins of tools/probe_pwfloor.py
 // (build_variant):
@@ -17,28 +14,52 @@
 //             rows (K3's layout): window, FFT, |X|^2, masked sum;
 //   staged    (:229, _frames_2d / _kern_full2d) the Hopper counterpart of
 //             the TPU's 2-D framing: the tile's span of samples,
-//             (bt - 1) * stride + nfft of them (bt + nfft/stride - 1
-//             stride-wide rows), is loaded ONCE into shared memory and
-//             the frames are cut from there, where K4 re-reads each sample
-//             nfft/stride times through L2; then what K4 does.  Its
-//             partial sums equal K4's.
+//             (bt - 1) * stride + nfft of them, comes into shared memory
+//             ONCE and the frames are cut from there, where K4 re-reads
+//             each sample nfft/stride times through L2; then what K4 does.
+// loadonly, frameonly and noframe keep K4's first design (a grid of
+// tiles x rows, a bit-reversed load and fft_block.cuh's radix-2 stages).
 // The spectral twins give pad/2 + 1 bins a tile in natural order, as K4.
+//
+// staged_partials_kernel, the staged twin redesigned, is K4's body as it
+// is today (frame_regs.cuh: a frame a warp at pad <= 2048, K3's half-length
+// transform on fft_regs.cuh, the masked sums in registers, store_partials'
+// fixed-order sum; K4's tiles, CTA, slots and frame order; pad >= 4096 a
+// CTA a frame) with one change: each tile's span is staged first, its
+// 16-byte units by one 1-D TMA copy on an mbarrier (hopper_async.cuh:
+// bulk_load), the up to 3 floats before and after them by thread loads,
+// sample a0 of the row at span word a0 mod 4 so that the row's units land
+// on the span's (a row starts anywhere: r L floats, any hop), and every
+// frame is read from the span (load_staged: pairs as load_frame reads them,
+// 8 bytes at once where aligned, zeros past L).  Its result equals K4's
+// bit for bit.  Shared memory: K4's slots, the span and 16 bytes
+// (staged_smem; 67,616 bytes at the probe's tiles of 16), so three CTAs
+// share a SM and one CTA's copy lands while the others transform.  Its
+// first design, spectral_twin_kernel<true> (gdsp_pwfloor_staged_radix2,
+// kept as the yardstick), was K4's first design on the span: a segment at
+// a time, a bit-reversed load and ten radix-2 stages behind barriers,
+// 0.341 ms by chain at the probe's geometry where staging the span alone
+// took 0.020 (probes/anat_staged.py, NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Bound on the H100 at the probe's geometry (nfft = pad = 1024, stride
 // 512, 16384 segments): bytes.  loadonly, frameonly, staged and K4 read
 // the 33.6 MB of samples once (0.010 ms at 3.35 TB/s); noframe reads the
 // 67.1 MB of frames (0.020 ms); the FFTs' 4.2e8 float32 operations take
-// 0.006 ms at 67 TFLOP/s.  What each twin measures is how far its part
-// of K4 stands above that floor; the design keeps the twins' plumbing
-// identical to K4's so that differences are the part under test.
+// 0.006 ms at 67 TFLOP/s.  At hop 160 (52,428 segments) the operations
+// bound: 0.022 ms.
 
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "frame_regs.cuh"
+#include "hopper_async.cuh"
 
 namespace {
 
+namespace hp = gdsp::hopper;
+
 constexpr int kLoadThreads = 256;
+constexpr long long kStagedMaxSmem = 232448;  // bytes of shared memory one block may use
 
 __global__ void loadonly_kernel(const float* __restrict__ ext, const float* __restrict__ mask,
                                 const float* __restrict__ w, float* __restrict__ out,
@@ -105,8 +126,8 @@ __global__ void frameonly_kernel(const float* __restrict__ ext, const float* __r
 }
 
 // noframe (kStaged false): frame s of a row is frames[s * pad : (s + 1) * pad].
-// staged (kStaged true): the tile's span of ext is staged in shared memory
-// first, frames are cut from it.
+// staged's first design (kStaged true): the tile's span of ext is staged in
+// shared memory first, frames are cut from it.
 template <bool kStaged>
 __global__ void spectral_twin_kernel(const float* __restrict__ src, const float* __restrict__ mask,
                                      const float* __restrict__ w, float* __restrict__ out,
@@ -174,6 +195,190 @@ int launch_spectral(const float* src, const float* mask, const float* w, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// staged redesigned: K4's body, each frame cut from the tile's span in
+// shared memory
+// ---------------------------------------------------------------------------
+
+using gdsp::frames::frames_per_cta;
+using gdsp::frames::opaque;
+using gdsp::frames::spectrum;
+using gdsp::frames::store_partials;
+using gdsp::regs::Cta;
+using gdsp::regs::Row;
+using gdsp::regs::Slot;
+using gdsp::regs::cta_shape;
+using gdsp::regs::default_rows;
+using gdsp::regs::slot_of;
+using gdsp::regs::unroll;
+using gdsp::regs::with_log2;
+
+// K4's CTA at pad = 2^(LOG2M + 1) and its register cap, as pwelch_kernel.cu's
+// Plan<LOG2M, false> sets them (the same body, spill-free there).
+template <int LOG2M>
+struct StagedPlan {
+  static constexpr int kThreads = cta_shape<LOG2M>(default_rows<LOG2M>()).threads;
+  static constexpr int kMinBlocks = LOG2M == 10 || LOG2M == 13 ? 1
+                                  : LOG2M == 11 ? 6
+                                  : (LOG2M >= 4 && LOG2M <= 8) || LOG2M == 12 ? 2
+                                  : 3;
+};
+
+// Floats of a staged CTA's shared memory before its span (its slots, whole
+// 16-byte units) and of the span for tiles of bt segments (the samples and
+// up to 3 floats before them, so that the span and the row agree mod 16
+// bytes; whole units), then 16 bytes for its mbarrier.
+__host__ __device__ constexpr long long staged_slot_floats(int slots, int m) {
+  return (2LL * slots * m + 3) / 4 * 4;
+}
+__host__ __device__ constexpr long long staged_span_floats(int bt, int nfft, long long stride) {
+  return ((bt - 1) * stride + nfft + 3 + 3) / 4 * 4;
+}
+
+// The frame at local sample a of the span sp (sample a0 of the row at
+// sp[0]) into v, as frame_regs.cuh's load_frame reads it from the row:
+// pairs (x[a + e] w[e], x[a + e + 1] w[e + 1]), e = 2 (t + r T), zeros at or
+// past lx = min(nfft, L - (a0 + a)) samples or where live is false.  Where
+// the pair's first word is 8-byte aligned in shared memory it is one 8-byte
+// read.  Samples at or past lx are not read: the span may end there.
+template <int LOG2M>
+__device__ __forceinline__ void load_staged(float2* v, int t, const float* sp, long long a,
+                                            long long ex, int nfft,
+                                            const float2* __restrict__ w, bool live) {
+  using R = Row<LOG2M>;
+  w = opaque(w);
+  const int lx = !live || ex <= 0 ? 0 : ex < nfft ? static_cast<int>(ex) : nfft;
+  const float* xa = sp + a;
+  const bool even = (reinterpret_cast<uintptr_t>(xa) & 7) == 0;
+  unroll<R::kP>([&](auto rr) {
+    constexpr int r = GDSP_IDX(rr);
+    const int e = 2 * (t + r * R::kT);
+    const float2 wp = __ldg(&w[e >> 1]);  // w[e], w[e + 1]: even e, 8-byte aligned
+    float2 x;
+    if (even && e + 1 < lx) {
+      x = *reinterpret_cast<const float2*>(xa + e);
+    } else {
+      x = make_float2(e < lx ? xa[e] : 0.f, e + 1 < lx ? xa[e + 1] : 0.f);
+    }
+    v[r] = make_float2(e < lx ? x.x * wp.x : 0.f, e + 1 < lx ? x.y * wp.y : 0.f);
+  });
+}
+
+// K4's sums (pwelch_kernel.cu: pwelch_partials_kernel<LOG2M, false>) over
+// the same tiles, slots and frame order, each tile's span staged first:
+// samples s0 stride .. min(L, (s0 + n - 1) stride + nfft) of the row, the
+// 16-byte units among them by one 1-D TMA copy on an mbarrier, the up to 3
+// floats before the first unit and after the last by thread loads.  Each
+// frame's samples are then read from the span (load_staged), not the row.
+template <int LOG2M>
+__global__ void __launch_bounds__(StagedPlan<LOG2M>::kThreads, StagedPlan<LOG2M>::kMinBlocks)
+staged_partials_kernel(const float* __restrict__ ext, long long L,
+                       const float* __restrict__ mask, const float2* __restrict__ w,
+                       const float2* __restrict__ tw, float* __restrict__ out, long long S,
+                       int nfft, long long stride, int bt, int n_tiles, int fpc, int slots) {
+  using R = Row<LOG2M>;
+  constexpr int m = R::kN;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* sp = smem + staged_slot_floats(slots, m);  // the span: 16-byte aligned
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sp + staged_span_floats(bt, nfft, stride));
+  const int slot = threadIdx.x / R::kT;
+  const int t = threadIdx.x % R::kT;
+  const long long row = blockIdx.x / n_tiles;
+  const long long s0 = (static_cast<long long>(blockIdx.x) - row * n_tiles) * bt;
+  const int n = static_cast<int>(S - s0 < bt ? S - s0 : bt);  // the tile's segments
+  const float* __restrict__ x = ext + row * L;
+  const float* __restrict__ mr = mask + row * S;
+
+  // The span [a0, a1) of the row, sample a0 at sp[o]: o is a0's float in
+  // its 16-byte unit, so the row's units land on the span's.
+  const long long a0 = s0 * stride;
+  const long long end = (s0 + n - 1) * stride + nfft;
+  const long long a1 = end < L ? end : L;
+  const int o = static_cast<int>((reinterpret_cast<uintptr_t>(x + a0) >> 2) & 3);
+  sp += o;
+  const long long u0 = a0 < a1 ? (o == 0 ? 0 : 4 - o) : 0;          // first float of a unit
+  const long long u1 = a0 < a1 ? u0 + (a1 - a0 - u0) / 4 * 4 : 0;   // past the last unit
+  const bool bulk = u1 > u0;
+  if (threadIdx.x == 0 && bulk) {
+    hp::mbar_init(bar, 1);
+    hp::mbar_init_fence();
+    hp::mbar_arrive_expect_tx(bar, static_cast<uint32_t>(4 * (u1 - u0)));
+    hp::bulk_load(sp + u0, x + a0 + u0, static_cast<uint32_t>(4 * (u1 - u0)), bar);
+  }
+  if (!bulk) {  // fewer samples than a unit past the first boundary: all by threads
+    for (long long j = threadIdx.x; j < a1 - a0; j += blockDim.x) sp[j] = __ldg(&x[a0 + j]);
+  } else if (threadIdx.x < u0) {  // the head: threads 0 .. u0 - 1
+    sp[threadIdx.x] = __ldg(&x[a0 + threadIdx.x]);
+  } else if (threadIdx.x >= 4 && threadIdx.x - 4 < a1 - a0 - u1) {  // the tail: threads 4 ..
+    sp[u1 + threadIdx.x - 4] = __ldg(&x[a0 + u1 + threadIdx.x - 4]);
+  }
+  __syncthreads();  // the head and tail, the barrier's init
+  if (bulk) hp::mbar_wait(bar, 0);
+
+  const Slot<LOG2M> s = slot_of<LOG2M>(smem, slots, slot);
+  float part[R::kP];
+  float top_sum = 0.f;
+  unroll<R::kP>([&](auto ii) { part[GDSP_IDX(ii)] = 0.f; });
+  const int steps = (n + fpc - 1) / fpc;
+#pragma unroll 1  // one frame's registers at a time
+  for (int it = 0; it < steps; ++it) {
+    const int j = it * fpc + slot;
+    const bool live = slot < fpc && j < n;
+    const float ms = live ? __ldg(&mr[s0 + j]) : 0.f;
+    const int tl = opaque(t);  // the frame's addresses are computed a frame
+    float2 v[R::kP];
+    const long long a = static_cast<long long>(j) * stride;
+    load_staged<LOG2M>(v, tl, sp, a, L - (a0 + a), nfft, w, live);
+    if constexpr (R::kWarp) {
+      if (!__any_sync(0xffffffffu, ms != 0.f)) continue;  // warp-uniform
+    } else {
+      if (ms == 0.f) continue;  // one frame a CTA: CTA-uniform
+    }
+    const float top = spectrum<LOG2M>(v, tl, s, tw);
+    unroll<R::kP>([&](auto ii) {
+      constexpr int i = GDSP_IDX(ii);
+      part[i] += ms * (v[i].x * v[i].x + v[i].y * v[i].y);
+    });
+    top_sum += ms * (top * top);
+  }
+  float* const o_row = out + static_cast<long long>(blockIdx.x) * (m + 1);
+  store_partials<LOG2M, R::kP>(part, 0, R::kP, true, top_sum, t, threadIdx.x >> 5,
+                               blockDim.x >> 5, smem, o_row);
+}
+
+// Bytes of a staged CTA's shared memory at pad = 2^(LOG2M + 1) for tiles of
+// bt segments (fpc, slots: K4's CTA for that tile).
+template <int LOG2M>
+long long staged_smem(int bt, int nfft, long long stride, int* fpc, Cta* c) {
+  *fpc = frames_per_cta<LOG2M>(bt, 1);
+  *c = cta_shape<LOG2M>(*fpc);
+  return 4 * (staged_slot_floats(c->slots, Row<LOG2M>::kN) + staged_span_floats(bt, nfft, stride))
+         + 16;
+}
+
+int launch_staged(const float* ext, const float* mask, const float* w, float* out,
+                  const float2* tw, long long rows, long long L, long long S, int nfft,
+                  long long stride, int log2pad, int bt, int n_tiles, void* stream) {
+  return with_log2<0, 13>(log2pad - 1, [&](auto lg) {
+    constexpr int LM = decltype(lg)::value;
+    int fpc;
+    Cta c;
+    const long long smem = staged_smem<LM>(S < bt ? static_cast<int>(S) : bt, nfft, stride,
+                                           &fpc, &c);
+    const long long blocks = rows * n_tiles;
+    if (blocks > 0x7fffffffLL || smem > kStagedMaxSmem)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = gdsp::allow_smem(staged_partials_kernel<LM>, static_cast<size_t>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    staged_partials_kernel<LM><<<static_cast<unsigned>(blocks), c.threads,
+                                 static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+        ext, L, mask, reinterpret_cast<const float2*>(w), tw, out, S, nfft, stride,
+        S < bt ? static_cast<int>(S) : bt, n_tiles, fpc, c.slots);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -215,13 +420,43 @@ int gdsp_pwfloor_noframe(const float* frames, const float* mask, const float* w,
                                 bt, n_tiles, stream);
 }
 
-// staged: K4's sums (gdsp_pwelch_partials) with each tile's span staged
-// once in shared memory.
+// staged's first design, the yardstick: K4's sums with each tile's span
+// staged once in shared memory, then K4's first design (a bit-reversed
+// load and radix-2 stages behind barriers) on each segment.
+int gdsp_pwfloor_staged_radix2(const float* ext, const float* mask, const float* w, float* out,
+                               const float2* tw, long long rows, long long L_ext, long long S,
+                               int nfft, int stride, int log2pad, int bt, int n_tiles,
+                               void* stream) {
+  return launch_spectral<true>(ext, mask, w, out, tw, rows, L_ext, S, nfft, stride, log2pad, bt,
+                               n_tiles, stream);
+}
+
+// staged redesigned: K4's sums (gdsp_pwelch_partials) over K4's tiles, CTA
+// and frame order, each tile's span staged once in shared memory by the TMA
+// and every frame cut from there; equal to gdsp_pwelch_partials bit for
+// bit.  Returns cudaErrorInvalidValue for a pad out of range, a grid past
+// 2^31 - 1 blocks or a tile whose span does not fit (gdsp_pwfloor_staged_geometry).
 int gdsp_pwfloor_staged(const float* ext, const float* mask, const float* w, float* out,
                         const float2* tw, long long rows, long long L_ext, long long S, int nfft,
                         int stride, int log2pad, int bt, int n_tiles, void* stream) {
-  return launch_spectral<true>(ext, mask, w, out, tw, rows, L_ext, S, nfft, stride, log2pad, bt,
-                               n_tiles, stream);
+  return launch_staged(ext, mask, w, out, tw, rows, L_ext, S, nfft, stride, log2pad, bt, n_tiles,
+                       stream);
+}
+
+// The staged CTA at pad = 2^log2pad (1..14) for tiles of `tile` segments:
+// out[0] segments it holds at once, [1] threads, [2] slots, [3] bytes of
+// shared memory.  ops/cuda_probes.py's staged_cta holds the same; the GPU
+// tests compare.
+int gdsp_pwfloor_staged_geometry(int log2pad, int tile, int nfft, int stride, long long* out) {
+  return with_log2<0, 13>(log2pad - 1, [&](auto lg) {
+    int fpc;
+    Cta c;
+    out[3] = staged_smem<decltype(lg)::value>(tile, nfft, stride, &fpc, &c);
+    out[0] = fpc;
+    out[1] = c.threads;
+    out[2] = c.slots;
+    return 0;
+  });
 }
 
 }  // extern "C"

@@ -121,8 +121,11 @@ def _declare(lib) -> None:
     lib.gdsp_pwfloor_frameonly.restype = i
     lib.gdsp_pwfloor_noframe.argtypes = [p, p, p, p, p, i64, i64, i, i, i, p]
     lib.gdsp_pwfloor_noframe.restype = i
-    lib.gdsp_pwfloor_staged.argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
-    lib.gdsp_pwfloor_staged.restype = i
+    for name in ("gdsp_pwfloor_staged", "gdsp_pwfloor_staged_radix2"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+        getattr(lib, name).restype = i
+    lib.gdsp_pwfloor_staged_geometry.argtypes = [i, i, i, i, p]
+    lib.gdsp_pwfloor_staged_geometry.restype = i
     lib.gdsp_fac_dft.argtypes = [p, p, p, p, p, i64, i, p]
     lib.gdsp_fac_dft.restype = i
     for name in ("gdsp_slicestore", "gdsp_slicestore_sync"):
@@ -159,8 +162,14 @@ def _declare(lib) -> None:
     lib.gdsp_bd_hi_resident.restype = i
     lib.gdsp_bd_hi_geometry.argtypes = [i64, i, i, p]
     lib.gdsp_bd_hi_geometry.restype = i
-    lib.gdsp_anat_full.argtypes = [p, p, p, p, p, p, i64, i, p]
+    lib.gdsp_anat_full.argtypes = [p, p, p, p, p, p, i64, i, i, p]
     lib.gdsp_anat_full.restype = i
+    lib.gdsp_anat_full_sync.argtypes = [p, p, p, p, p, p, i64, i, p]
+    lib.gdsp_anat_full_sync.restype = i
+    lib.gdsp_anat_full_resident.argtypes = [i]
+    lib.gdsp_anat_full_resident.restype = i
+    lib.gdsp_anat_full_geometry.argtypes = [i64, i, i, p]
+    lib.gdsp_anat_full_geometry.restype = i
     lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
     lib.gdsp_sdif_peel.restype = i
     lib.gdsp_fft_pow2_rows.argtypes = [p, p, p, p, p, i, i64, f, i, i, p]

@@ -17,12 +17,18 @@ what bounds them on the H100):
       frames given as (..., S, pad) rows (K3's layout): window, FFT, |X|^2,
       masked sum: (..., n_tiles, pad//2 + 1);
   pwfloor_staged(ext, mask, w, nfft, stride, pad)     replaces :229 full2d
-      K4's function with each tile's span staged once in shared memory:
-      (..., n_tiles, pad//2 + 1), equal to the partials of K4's first
-      design (pwelch_radix2) at the same tiles.
+      K4's function with each tile's span staged once in shared memory by
+      the TMA and every frame cut from there, on K4's own CTA, transform
+      and sums: (..., n_tiles, pad//2 + 1), equal to K4
+      (cuda_pwelch.pwelch_power_partials) at the same tiles bit for bit;
+      its first design, a segment at a time through K4's first design's
+      radix-2 stages, stays as the yardstick pwfloor_staged_radix2, equal
+      to pwelch_radix2's partials.
 
 The tiles are K4's (cuda_pwelch.segs_per_tile) unless `bt` says otherwise;
-staged caps bt so that a block's span fits in 227 KB of shared memory.
+staged caps bt so that a block's slots and span fit in 227 KB of shared
+memory (staged_segs_per_tile, staged_cta; the first design's own cap,
+_staged_max_bt, is smaller at pad <= 2048 and larger at pad 16384).
 The TPU twins' packed-half bin layout and their dimension_semantics A/B
 have no counterpart: the bins are in natural order, and a CUDA grid has
 no sequential dimension.
@@ -79,8 +85,12 @@ takes two float32 planes (b, n), n = n1 x 128:
       half a slice's bins of the six TF32 planes resident (bd_hi_plan);
       plain version bd_hi_plain, the same Karatsuba in the input's dtype;
   anat_full(xr, xi, tw) replaces v6full (:203): half3, the row tw
-      (ar = a tw - b tw, ai = a tw + b tw), then bd_hi, in one kernel;
-      plain version anat_full_plain.
+      (ar = a tw - b tw, ai = a tw + b tw), then bd_hi, in one kernel on
+      bd_hi's walk: each stage brings a 32-column k-box of both planes and
+      its partner n / 2 columns away (half3 pairs columns c and c + n / 2
+      in every round), the CTA makes the rounds and the row once a stage
+      in shared memory and each warp the split in registers
+      (anat_full_plan); plain version anat_full_plain.
 
 bd_tf32 is the port's only TF32 path, on purpose: it measures one
 reduced-precision pass (the TPU's DEFAULT matmul) and changes no TF32
@@ -89,12 +99,14 @@ are the big and small TF32 halves of Re F, Im F and Re F + Im F as
 128-entry vectors over j k mod 128, split from float64 on the host
 (hi_tables); bd_hi expands them once a CTA into its resident planes.
 
-The first designs of slicestore, bd_hi and bd_tf32 stay as the yardsticks
-of their redesigns: slicestore_sync (one slice's load and store in turn),
-bd_hi_sync (mma.sync m16n8k8, A read from device memory, the tables
-gathered over j k mod 128 from 3 KB of shared memory) and bd_tf32_sync
+The first designs of slicestore, bd_hi, bd_tf32 and anat_full stay as the
+yardsticks of their redesigns: slicestore_sync (one slice's load and store
+in turn), bd_hi_sync (mma.sync m16n8k8, A read from device memory, the
+tables gathered over j k mod 128 from 3 KB of shared memory), bd_tf32_sync
 (mma.sync m16n8k8, a warp a 16-row tile of one slice, A read from device
-memory in fragment order, 8-byte stores).
+memory in fragment order, 8-byte stores) and anat_full_sync (whole rows
+staged a block, the rounds and the row there behind barriers, then
+bd_hi_sync's contraction from shared memory).
 
 The fac tables (W16 with 1/128 folded in, the mid twiddle W128^{j2 ka},
 W8, the outer twiddle T) are built in float64 from the port's
@@ -304,6 +316,7 @@ from godsp_tpu_torch.ops.cuda_fft import (
     cta_fits,
     fft_pow2_plain,
     rfft_pow2_plain,
+    rfft_table,
     stockham_table,
     supported_size,
     twiddle_table,
@@ -322,6 +335,7 @@ from godsp_tpu_torch.ops.cuda_metrics import _check as _check_planes
 from godsp_tpu_torch.ops.cuda_outer import _exp_table, _factor_tables
 from godsp_tpu_torch.ops.cuda_pwelch import (
     fused_supported,
+    partials_cta,
     pwelch_power_partials_plain,
     segs_per_tile,
 )
@@ -334,8 +348,20 @@ __all__ = [
     "LS_STORES",
     "LS_TILE",
     "add_one_plain",
+    "ANAT_BOXES",
+    "ANAT_K_STAGE",
+    "ANAT_SMEM",
+    "ANAT_STAGES",
+    "AnatPlan",
+    "anat_a_model",
+    "anat_box_offset",
+    "anat_fragment_offsets",
     "anat_full",
+    "anat_prepass_offsets",
     "anat_full_plain",
+    "anat_full_plan",
+    "anat_full_stages",
+    "anat_full_sync",
     "BD_HI_CHAIN",
     "HiPlan",
     "bd_hi",
@@ -420,6 +446,7 @@ __all__ = [
     "pwfloor_noframe_plain",
     "pwfloor_staged",
     "pwfloor_staged_plain",
+    "pwfloor_staged_radix2",
     "re_f128",
     "reshape_add",
     "round_tf32",
@@ -432,6 +459,9 @@ __all__ = [
     "slicestore",
     "slicestore_sync",
     "stack_tables_np",
+    "staged_cta",
+    "staged_max_bt",
+    "staged_span",
     "staged_segs_per_tile",
     "stft_radix2",
     "table_digits_np",
@@ -455,20 +485,70 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "istft_radix2": 0, "peel_rows_radix2": 0, "gmm_concat_stream": 0,
             "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
             "gmm_floor_sync": 0, "slice8_add_sync": 0, "slicestore_sync": 0,
-            "bd_hi_sync": 0, "bd_tf32_sync": 0, "vdif_sync": 0}
+            "bd_hi_sync": 0, "bd_tf32_sync": 0, "vdif_sync": 0, "anat_full_sync": 0,
+            "pwfloor_staged_radix2": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
-    """The most segments a tile whose staged span, FFT buffer and
-    accumulator fit in one block's shared memory."""
+    """The most segments a tile of the first design (pwfloor_staged_radix2)
+    whose staged span, FFT buffer and accumulator fit in one block's shared
+    memory."""
     room = (MAX_SMEM - 8 * pad - 4 * (pad // 2 + 1)) // 4 - nfft
     if room < 0:
         raise ValueError(f"staged twin: nfft {nfft} and pad {pad} leave no room for a span")
     return room // stride + 1
 
 
+def staged_cta(pad: int, tile: int, nfft: int, stride: int) -> tuple[int, int, int, int]:
+    """(segments it holds at once, threads, slots, bytes of shared memory)
+    of the staged redesign's CTA at pad over tiles of `tile` segments
+    (csrc/pwelch_probe_kernels.cu: staged_smem): K4's CTA (partials_cta),
+    its slots in whole 16-byte units, then the span, (tile - 1) stride +
+    nfft samples and up to 3 floats before them so that the span and the
+    row agree mod 16 bytes, in whole units, then 16 bytes for the span's
+    mbarrier.  gdsp_pwfloor_staged_geometry returns the same on the card."""
+    fpc, threads, slots = partials_cta(pad, tile, tile)
+    slot_words = -(-2 * slots * (pad // 2) // 4) * 4
+    span_words = -(-((tile - 1) * stride + nfft + 3) // 4) * 4
+    return fpc, threads, slots, 4 * (slot_words + span_words) + 16
+
+
+def staged_max_bt(nfft: int, stride: int, pad: int) -> int:
+    """The most segments a tile of the staged redesign whose slots, span and
+    mbarrier (staged_cta) fit in one block's shared memory: its slots are
+    K4's default CTA's, the most a tile holds."""
+    slots = partials_cta(pad, 1 << 30, 1 << 30)[2]
+    room = (MAX_SMEM - 16) // 4 - -(-2 * slots * (pad // 2) // 4) * 4
+    span = room // 4 * 4 - nfft - 3
+    if span < 0:
+        raise ValueError(f"staged twin: nfft {nfft} and pad {pad} leave no room for a span")
+    return span // stride + 1
+
+
 def staged_segs_per_tile(n_segs: int, rows: int, nfft: int, stride: int, pad: int) -> int:
-    """K4's tile (segs_per_tile), cut to what fits in shared memory."""
-    return min(segs_per_tile(n_segs, rows), _staged_max_bt(nfft, stride, pad))
+    """K4's tile (segs_per_tile), cut to what the redesign's shared memory
+    holds (staged_max_bt): equal to K4's wherever the span fits."""
+    return min(segs_per_tile(n_segs, rows), staged_max_bt(nfft, stride, pad))
+
+
+def staged_span(S: int, bt: int, nfft: int, stride: int, L: int,
+                offset: int) -> list[tuple[int, int, int, int, int]]:
+    """What each tile of a row stages, as the redesign's CTA does (for a row
+    whose sample 0 lies offset floats past a 16-byte boundary): (a0, a1,
+    o, u0, u1) with the span the samples a0 .. a1 - 1 of the row (a1 =
+    min(L, the end of the tile's last frame)), sample a0 at span word o
+    (its float in its 16-byte unit), words u0 .. u1 - 1 from the row's
+    16-byte units by the TMA, the up to 3 words before u0 and after u1 by
+    thread loads (all of them where no whole unit lies in the span)."""
+    out = []
+    for s0 in range(0, S, bt):
+        n = min(S - s0, bt)
+        a0 = s0 * stride
+        a1 = min((s0 + n - 1) * stride + nfft, L)
+        o = (offset + a0) % 4
+        u0 = (4 - o) % 4 if a0 < a1 else 0
+        u1 = u0 + (a1 - a0 - u0) // 4 * 4 if a0 < a1 else 0
+        out.append((a0, a1, o, u0, max(u0, u1)))
+    return out
 
 
 def _check(ext, mask, w, nfft, stride, pad):
@@ -617,21 +697,53 @@ def pwfloor_noframe(frames: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
 def pwfloor_staged(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
                    stride: int, pad: int | None = None, bt: int | None = None) -> torch.Tensor:
     """The staged twin: K4's partials with each tile's span staged once in
-    shared memory, (..., n_tiles, pad//2 + 1)."""
+    shared memory by the TMA and every frame cut from there, on K4's CTA,
+    transform and sums, (..., n_tiles, pad//2 + 1); equal to K4
+    (cuda_pwelch.pwelch_power_partials) at the same tiles bit for bit.  Its
+    tiles are K4's capped so that the span fits (staged_segs_per_tile)."""
     pad = pad or nfft
     _check(ext, mask, w, nfft, stride, pad)
     S, lead = mask.shape[-1], tuple(ext.shape[:-1])
     rows = math.prod(lead)
     if bt is None:
         bt = staged_segs_per_tile(S, rows, nfft, stride, pad)
-    elif bt > _staged_max_bt(nfft, stride, pad):
+    elif bt > staged_max_bt(nfft, stride, pad):
         raise ValueError(f"staged twin: {bt} segments a tile do not fit in shared memory")
     if not ext.is_cuda:
         return pwfloor_staged_plain(ext, mask, w, nfft, stride, pad, bt)
     ext, mask, w = _cuda_args("pwfloor_staged", ext, mask, w)
+    if w.data_ptr() % 8:  # the kernel reads the window as float2 pairs, as K4
+        w = w.clone()
     n_tiles = -(-S // bt)
     out = torch.empty(*lead, n_tiles, pad // 2 + 1, dtype=torch.float32, device=ext.device)
     return _launch("pwfloor_staged", _build.library().gdsp_pwfloor_staged, out,
+                   ext.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
+                   rfft_table(pad, ext.device).data_ptr(),
+                   rows, ext.shape[-1], S, nfft, stride, pad.bit_length() - 1, bt, n_tiles)
+
+
+def pwfloor_staged_radix2(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
+                          stride: int, pad: int | None = None,
+                          bt: int | None = None) -> torch.Tensor:
+    """pwfloor_staged's first design, its yardstick: each tile's span staged
+    once in shared memory, then a segment at a time a bit-reversed load and
+    log2 pad radix-2 stages behind block barriers (K4's first design,
+    pwelch_radix2), (..., n_tiles, pad//2 + 1); its tiles capped by its own
+    shared memory (_staged_max_bt)."""
+    pad = pad or nfft
+    _check(ext, mask, w, nfft, stride, pad)
+    S, lead = mask.shape[-1], tuple(ext.shape[:-1])
+    rows = math.prod(lead)
+    if bt is None:
+        bt = min(segs_per_tile(S, rows), _staged_max_bt(nfft, stride, pad))
+    elif bt > _staged_max_bt(nfft, stride, pad):
+        raise ValueError(f"staged twin: {bt} segments a tile do not fit in shared memory")
+    if not ext.is_cuda:
+        return pwfloor_staged_plain(ext, mask, w, nfft, stride, pad, bt)
+    ext, mask, w = _cuda_args("pwfloor_staged_radix2", ext, mask, w)
+    n_tiles = -(-S // bt)
+    out = torch.empty(*lead, n_tiles, pad // 2 + 1, dtype=torch.float32, device=ext.device)
+    return _launch("pwfloor_staged_radix2", _build.library().gdsp_pwfloor_staged_radix2, out,
                    ext.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
                    twiddle_table(pad, False, ext.device).data_ptr(),
                    rows, ext.shape[-1], S, nfft, stride, pad.bit_length() - 1, bt, n_tiles)
@@ -1329,16 +1441,174 @@ def _hi_resident(device: torch.device) -> int:
         return int(_build.library().gdsp_bd_hi_resident(0))
 
 
+# ---------------------------------------------------------------------------
+# anat_full's plan (csrc/anatomy_probe_kernels.cu: make_anat_plan): bd_hi's
+# walk, each stage a 16-column k-box of a and b and its partner k-box
+# ---------------------------------------------------------------------------
+
+ANAT_K_STAGE = 32  # columns of a k-box: 128 bytes a row, the TMA's 128-byte swizzle
+ANAT_BOXES = 4  # boxes a stage: a and b at the k-box and at its partner
+# The ring fills bd_hi's 32 KB: stages of four 64-row boxes.
+ANAT_STAGES = HI_STAGES * 2 * HI_ROWS * HI_K_STAGE * 4 // (ANAT_BOXES * HI_ROWS * ANAT_K_STAGE * 4)
+ANAT_SMEM = 6 * HI_BINS * LANES * 4 + HI_STAGES * 2 * HI_ROWS * HI_K_STAGE * 4 + ANAT_STAGES * 12 \
+    + 1024
+
+
+class AnatPlan(NamedTuple):
+    """anat_full's launch plan (gdsp_anat_full_geometry returns the same
+    fields in this order): bd_hi's (HiPlan) with 16-column stages, then
+    the boxes a stage and the columns from a k-box to its partner."""
+
+    pair: int  # CTAs an item: the two halves of a slice's bins
+    pairs: int  # pairs of the grid: the resident pairs, at most the items
+    ctas: int  # CTAs of the grid
+    rows_tile: int  # rows of a tile
+    bins_cta: int  # bins a CTA
+    stages: int  # the ring of stages a CTA
+    k_stage: int  # columns of a k-box
+    smem: int  # bytes of dynamic shared memory a CTA
+    per_pair: int  # items the busiest pair walks
+    chain: int  # k-steps the tensor cores sum before an add on the CUDA cores
+    boxes: int  # boxes a stage
+    partner: int  # columns from a k-box to its partner: n / 2
+
+
+def anat_full_plan(b: int, n: int, resident: int = 66) -> AnatPlan:
+    """anat_full's plan at b x n (a multiple of 128 up to MAX_STAGED_N):
+    bd_hi's pairs of CTAs, 64 bins of the six planes resident a CTA, over the
+    same (64-row tile, slice) items (bd_hi_walk gives each pair's), in 16 KB
+    stages of four 16-column boxes.  Raises ValueError for what the kernel
+    does not take and RuntimeError where no CTA fits (resident < 1)."""
+    if n > MAX_STAGED_N:
+        raise ValueError(f"anat_full_plan: n must be at most {MAX_STAGED_N}, got {n}")
+    hi = bd_hi_plan(b, n, resident)
+    return AnatPlan(*hi._replace(k_stage=ANAT_K_STAGE, stages=ANAT_STAGES, smem=ANAT_SMEM),
+                    ANAT_BOXES, n // 2)
+
+
+def anat_full_stages(plan: AnatPlan, b: int, n: int) -> list[list[tuple[int, int, int]]]:
+    """Each pair's stages in the order its CTAs read them: (the tile's first
+    row, the k-box's first column, its partner's first column), the k-boxes
+    of each item's slice in turn; the partner is n / 2 columns on or back,
+    in the same row (half3 maps columns c and c + n / 2 to the same two
+    columns every round)."""
+    h = n // 2
+    out = []
+    for items in bd_hi_walk(plan, b, n):
+        stages = []
+        for sl, tile in items:
+            for kb in range(LANES // plan.k_stage):
+                c = sl * LANES + kb * plan.k_stage
+                stages.append((tile * plan.rows_tile, c, c + h if c < h else c - h))
+        out.append(stages)
+    return out
+
+
+def anat_box_offset(r: int, k: int, k_box: int = ANAT_K_STAGE) -> int:
+    """Byte offset of element (row r, column k < k_box) of a 64-row x k_box
+    box as the TMA lands it in the swizzle of its k_box x 4-byte rows (128,
+    64 or 32 bytes): the 16-byte unit u of row r at u ^ (r >> s) & (units -
+    1), units = k_box / 4 a row, s = 3 - log2(units) (the 128-byte swizzle
+    of gmm_tf32_offset at 32 columns)."""
+    units = k_box // 4
+    s = 3 - (units.bit_length() - 1)
+    return r * 4 * k_box + (((k >> 2) ^ ((r >> s) & (units - 1))) << 4) + (k & 3) * 4
+
+
+def anat_fragment_offsets(kk: int) -> list[list[int]]:
+    """Byte offsets in a landed anat_full box of the four A values each lane
+    of warp 0 reads at k-step kk of a stage (the kernel's an_fragment: rows
+    g and g + 8, columns 8 kk + t and 8 kk + t + 4, lane = 4 g + t); warp w
+    adds 16 x 4 k_box w."""
+    out = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        out.append([anat_box_offset(r, 8 * kk + t + c)
+                    for r, c in ((g, 0), (g + 8, 0), (g, 4), (g + 8, 4))])
+    return out
+
+
+def anat_prepass_offsets(k_box: int = ANAT_K_STAGE) -> list[list[int]]:
+    """Byte offsets in a landed box of the elements each of a CTA's 256
+    threads makes into A values (the kernel's an_prepass): thread x takes
+    column x % k_box of rows x // k_box + (256 // k_box) i; a warp's
+    accesses at one i are one a thread."""
+    per = 256 // k_box
+    return [[anat_box_offset(x // k_box + per * i, x % k_box, k_box)
+             for i in range(HI_ROWS // per)] for x in range(256)]
+
+
+def anat_a_model(xr: np.ndarray, xi: np.ndarray, tw: np.ndarray,
+                 k_box: int = ANAT_K_STAGE) -> tuple[np.ndarray, np.ndarray]:
+    """The A values anat_full's CTAs write over each landed stage, made box
+    by box as the kernel makes them (float32 numpy): for each k-box of k_box columns
+    and its partner n / 2 columns away, half3's three rounds of each value
+    with its partner (u + v, u - v, u the lower column's), the half the
+    value's column owns, then ar = a w - b w and ai = a w + b w."""
+    f = np.float32
+    xr, xi, tw = (np.asarray(v, dtype=f) for v in (xr, xi, tw))
+    n = xr.shape[1]
+    h = n // 2
+    ar, ai = np.empty_like(xr), np.empty_like(xi)
+    for c in range(0, n, k_box):
+        own, other = slice(c, c + k_box), slice(c + h, c + h + k_box) if c < h else \
+            slice(c - h, c - h + k_box)
+        y = []
+        for x in (xr, xi):
+            lo, hi = (x[:, own], x[:, other]) if c < h else (x[:, other], x[:, own])
+            r1a, r1b = lo + hi, lo - hi
+            r2a, r2b = r1a + r1b, r1a - r1b
+            y.append(r2a + r2b if c < h else r2a - r2b)
+        w = tw[own]
+        at, bt = y[0] * w, y[1] * w
+        ar[:, own], ai[:, own] = at - bt, at + bt
+    return ar, ai
+
+
+@lru_cache(maxsize=None)
+def _anat_resident(device: torch.device) -> int:
+    """Pairs of anat_full's CTAs (256 threads and HI_SMEM bytes each) the
+    card holds at once, asked once a device; 0 or a negative CUDA error
+    where none fits: the launch then refuses."""
+    with torch.cuda.device(device):
+        return int(_build.library().gdsp_anat_full_resident(0))
+
+
 def anat_full(xr: torch.Tensor, xi: torch.Tensor,
               tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K14d full: half3, the row tw, then bd_hi, in one kernel."""
-    _, n = _check_staged(xr, xi, "anat_full")
+    """K14d full: half3, the row tw, then bd_hi, in one kernel on bd_hi's
+    walk (anat_full_plan): each stage brings a 32-column k-box of both
+    planes and its partner n / 2 columns away by TMA, the CTA makes the
+    rounds and the row once a stage in shared memory and each warp the
+    3xTF32 split in registers before wgmma; nothing returns to device
+    memory between the steps."""
+    b, n = _check_staged(xr, xi, "anat_full")
     if tuple(tw.shape) != (n,):
         raise ValueError(f"anat_full: tw must have shape ({n},), got {tuple(tw.shape)}")
     if not xr.is_cuda:
         return anat_full_plain(xr, xi, tw)
+    xr, xi = _cuda_planes(xr, xi, "anat_full")
     tw = _cuda_args("anat_full", xr, tw)[1]
-    return _lane_launch("anat_full", _build.library().gdsp_anat_full, xr, xi, tw,
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("anat_full", _build.library().gdsp_anat_full, yr, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), tw.data_ptr(), _hi_packed(xr.device).data_ptr(), b, n,
+            _anat_resident(xr.device))
+    return yr, yi
+
+
+def anat_full_sync(xr: torch.Tensor, xi: torch.Tensor,
+                   tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """anat_full's first design, its yardstick: min(16, 16384 / n) whole
+    rows of both planes staged a block, half3's rounds and the row there
+    behind barriers, then bd_hi_sync's contraction (mma.sync m16n8k8, the
+    tables gathered over j k mod 128) from shared memory."""
+    _, n = _check_staged(xr, xi, "anat_full_sync")
+    if tuple(tw.shape) != (n,):
+        raise ValueError(f"anat_full_sync: tw must have shape ({n},), got {tuple(tw.shape)}")
+    if not xr.is_cuda:
+        return anat_full_plain(xr, xi, tw)
+    tw = _cuda_args("anat_full_sync", xr, tw)[1]
+    return _lane_launch("anat_full_sync", _build.library().gdsp_anat_full_sync, xr, xi, tw,
                         _hi_packed(xr.device))
 
 

@@ -46,4 +46,9 @@
             torch.matmul, torch.fft.fft and K12, the first designs'
             variants and the redesigns' tuning copies:
             python3 -m godsp_tpu_torch.probes.bd1_vdif
+  anat_staged — K14d's anat_full and K14a's pwfloor_staged beside their
+            first designs: ptxas, SASS counts, times beside the unfused
+            half3 + row + bd_hi route, K4 (at hop 512 and 160) and K12,
+            the first designs' variants and anat_full's tuning copies:
+            python3 -m godsp_tpu_torch.probes.anat_staged
 """

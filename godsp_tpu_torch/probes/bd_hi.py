@@ -123,15 +123,15 @@ _NO_PRODUCTS = ("#pragma unroll\n"
                 "        d[0][q] += __uint_as_float(y.ab[q] ^ y.as[q] ^ y.bb[q] ^ y.bs[q] ^ y.sb[q]"
                 " ^ y.ss[q]);\n"
                 "      }\n")
-_HI_LOADS = ("      hi_fragment(va[kk], sa, r0, kk, t);\n"
-             "      hi_fragment(vb[kk], sa + kHiBox, r0, kk, t);\n")
+_HI_LOADS = ("        hi_fragment(va[kk], sa, r0, kk, t);\n"
+             "        hi_fragment(vb[kk], sa + kHiBox, r0, kk, t);\n")
 _HI_REGS = ("#pragma unroll\n"
-            "      for (int q = 0; q < 4; ++q) {\n"
-            "        va[kk][q] = __int_as_float(0x3c000000 + ((kk * 4 + q) << 12) + threadIdx.x +"
+            "        for (int q = 0; q < 4; ++q) {\n"
+            "          va[kk][q] = __int_as_float(0x3c000000 + ((kk * 4 + q) << 12) + threadIdx.x +"
             " static_cast<int>(c));\n"
-            "        vb[kk][q] = __int_as_float(0x3c400000 + ((kk * 4 + q) << 12) + threadIdx.x +"
+            "          vb[kk][q] = __int_as_float(0x3c400000 + ((kk * 4 + q) << 12) + threadIdx.x +"
             " static_cast<int>(c));\n"
-            "      }\n")
+            "        }\n")
 
 _A = "anatomy_probe_kernels.cu"
 # (name, source file, kernel's mangled-name part, C entry, edits (text,

@@ -1329,19 +1329,31 @@ def test_pwfloor_twins_on_card(cuda, nfft, hop, pad, S, keep):
         assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
     assert all(launch_counts()[f"pwfloor_{v}"] == 1
                for v in ("loadonly", "frameonly", "noframe", "staged"))
-    # The same frames, FFT and sums as K4's first design, and K4's function.
-    assert torch.equal(cases[3][0], cuda_probes.pwelch_radix2(*f32[:3], nfft, hop, pad=pad))
+    # K4's frames, transform and sums at K4's tiles: K4's result bit for bit;
+    # the first design's are K4's first design's.
     k4 = cuda_pwelch.pwelch_power_partials(*f32[:3], nfft, hop, pad=pad)
-    assert dsputils.snr_db(_np(cases[3][0]), _np(k4)) >= SNR_CARD_DB
+    assert torch.equal(cases[3][0], k4)
+    assert torch.equal(cuda_probes.pwfloor_staged_radix2(*f32[:3], nfft, hop, pad),
+                       cuda_probes.pwelch_radix2(*f32[:3], nfft, hop, pad=pad))
 
 
 def test_pwfloor_staged_tile_fits_shared_memory(cuda):
+    """Both designs refuse a tile whose span does not fit; the redesign
+    launches at its cap (staged_max_bt) and equals K4 at that tile."""
     x = torch.randn(1, 200 * 512 + 1024, device=cuda)
     mask = torch.ones(1, 201, device=cuda)
     w = window.window_table("hann", 1024, device=cuda, dtype=torch.float32)
     assert cuda_probes._staged_max_bt(1024, 512, 1024) < 201
+    assert cuda_probes.staged_max_bt(1024, 512, 1024) < 201
     with pytest.raises(ValueError):
         cuda_probes.pwfloor_staged(x, mask, w, 1024, 512, bt=201)
+    with pytest.raises(ValueError):
+        cuda_probes.pwfloor_staged_radix2(x, mask, w, 1024, 512, bt=201)
+    cap = cuda_probes.staged_max_bt(1024, 512, 1024)
+    want = cuda_probes.pwfloor_staged_plain(x.double(), mask.double(), w.double(), 1024, 512,
+                                            1024, cap)
+    assert dsputils.snr_db(_np(cuda_probes.pwfloor_staged(x, mask, w, 1024, 512, bt=cap)),
+                           _np(want)) >= SNR_CARD_DB
 
 
 # ---------------------------------------------------- filtering and LTI
@@ -2618,3 +2630,147 @@ def test_bd_tf32_and_vdif_kernels_do_not_spill(cuda, tmp_path):
                 assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in \
                     lines[i + 1], line
     assert seen == 5
+
+
+# ---------------------------------- K14d anat_full and K14a pwfloor_staged redesigned
+
+_ANAT_SHAPES = [(16384, 1024), (1001, 2048), (1, 128), (65, 384), (100, 1024), (3, 16384)]
+
+
+@pytest.mark.parametrize("b,n", _ANAT_SHAPES)
+def test_anat_full_redesign_on_card(cuda, b, n):
+    """anat_full (bd_hi's walk, each 16-column k-box with its partner n / 2
+    columns away, the rounds, the row and the split in registers) and its
+    first design anat_full_sync each >= 120 dB against anat_full_plain in
+    float64 and against each other, one launch a call, the TF32 flags
+    untouched: at the probe's shape, ragged rows, n1 = 1 (the partner in
+    the same slice), 3 (h = 192: half a slice off), 8, 16 and 128."""
+    xr, xi = _lane_planes(cuda, b, n, b + 5 * n)
+    tw = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(n), device=cuda)
+    want = _c(cuda_probes.anat_full_plain(xr.double(), xi.double(), tw))
+    flags = _tf32_flags()
+    reset_launch_counts()
+    new, first = cuda_probes.anat_full(xr, xi, tw), cuda_probes.anat_full_sync(xr, xi, tw)
+    dbs = {"anat_full": dsputils.snr_db(_c(new), want),
+           "anat_full_sync": dsputils.snr_db(_c(first), want),
+           "against each other": dsputils.snr_db(_c(new), _c(first))}
+    print(f"anat_full {b} x {n}: {dbs}")
+    assert all(db >= SNR_CARD_DB for db in dbs.values()), dbs
+    counts = launch_counts()
+    assert counts["anat_full"] == counts["anat_full_sync"] == 1
+    assert _tf32_flags() == flags
+    with pytest.raises(TypeError):
+        cuda_probes.anat_full_sync(xr.double(), xi.double(), tw)
+
+
+def test_anat_full_feeds_the_products_what_bd_hi_is_fed(cuda):
+    """anat_full equals bd_hi of the float32 rounds and row (the same A
+    values, products and chain): bit for bit."""
+    xr, xi = _lane_planes(cuda, 1001, 1024, 11)
+    tw = torch.randn(1024, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    a, c = cuda_probes.half3_plain(xr, xi)
+    at, ct = a * tw, c * tw
+    want = cuda_probes.bd_hi(at - ct, at + ct)
+    got = cuda_probes.anat_full(xr, xi, tw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_anat_full_geometry_matches_the_host_plan(cuda):
+    """gdsp_anat_full_geometry, from the resident pairs the card reports and
+    at chosen counts, equals ops/cuda_probes.py's anat_full_plan at ragged b
+    and n1 = 1, 3, 8, 16, 128."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 12)()
+    resident = cuda_probes._anat_resident(cuda)
+    print(f"anat_full: {resident} pairs of CTAs resident")
+    assert resident >= 1
+    for r in (resident, 1, 7):
+        for n1 in (1, 3, 8, 16, 128):
+            for b in (0, 1, 64, 65, 1001, 16384):
+                rc = lib.gdsp_anat_full_geometry(b, 128 * n1, r, out)
+                assert rc == 0 and tuple(out) == tuple(cuda_probes.anat_full_plan(b, 128 * n1, r))
+
+
+def test_anat_full_refuses_without_a_resident_pair(cuda, monkeypatch):
+    assert _build.library().gdsp_anat_full_resident(32768) <= 0
+    monkeypatch.setattr(cuda_probes, "_anat_resident", lambda device: 0)
+    xr, xi = _lane_planes(cuda, 64, 256, 4)
+    before = launch_counts()["anat_full"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_probes.anat_full(xr, xi, torch.ones(256, device=cuda))
+    assert launch_counts()["anat_full"] == before
+    torch.cuda.synchronize()
+
+
+# (nfft, hop, pad, segments, kept, rows, offset of the row in its tensor)
+_STAGED_GEOMETRIES = [(1024, 512, 1024, 16384, 16384, 1, 0), (1024, 160, 1024, 52428, 52428, 1, 0),
+                      (1000, 160, 1024, 5001, 4990, 1, 0), (1024, 161, 1024, 3001, 3001, 2, 1),
+                      (1024, 512, 1024, 2048, 2000, 3, 3), (4096, 1024, 4096, 5000, 5000, 1, 0),
+                      (1500, 333, 2048, 777, 700, 2, 2), (50, 7, 64, 1000, 999, 3, 1),
+                      (16384, 8192, 16384, 9, 9, 1, 0), (2, 1, 2, 100, 100, 1, 3)]
+
+
+@pytest.mark.parametrize("nfft,hop,pad,S,keep,rows,offset", _STAGED_GEOMETRIES)
+def test_pwfloor_staged_redesign_on_card(cuda, nfft, hop, pad, S, keep, rows, offset):
+    """pwfloor_staged (K4's body, each frame cut from the tile's span staged
+    by the TMA) torch.equal to K4 at K4's tiles, one launch; >= 120 dB
+    against float64: at the probe's geometry, hop 160, a ragged last tile
+    with a partial mask, odd hops, rows that start off a 16-byte boundary
+    (a view offset floats into its tensor, odd L), the block route (pad
+    4096, 16384), and pads 64 and 2 (Q frames a warp)."""
+    rng = np.random.default_rng(S + hop)
+    L = (S - 1) * hop + nfft - 3  # the last frame runs past the samples: zeros
+    base = torch.from_numpy(rng.uniform(-1, 1, size=rows * L + offset)).float().to(cuda)
+    ext = base[offset:].view(rows, L)
+    mask = torch.from_numpy((np.arange(S) < keep) * np.ones((rows, 1))).float().to(cuda)
+    w = window.window_table("hann", pad, device=cuda, dtype=torch.float32)
+    bt = cuda_probes.staged_segs_per_tile(S, rows, nfft, hop, pad)
+    assert bt == min(cuda_pwelch.segs_per_tile(S, rows), cuda_probes.staged_max_bt(nfft, hop, pad))
+    reset_launch_counts()
+    got = cuda_probes.pwfloor_staged(ext, mask, w, nfft, hop, pad)
+    assert launch_counts()["pwfloor_staged"] == 1
+    assert torch.equal(got, cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, hop, pad))
+    want = cuda_probes.pwfloor_staged_plain(ext.double(), mask.double(), w.double(), nfft, hop,
+                                            pad, bt)
+    assert dsputils.snr_db(_np(got), _np(want)) >= SNR_CARD_DB
+    if bt <= cuda_probes._staged_max_bt(nfft, hop, pad):
+        first = cuda_probes.pwfloor_staged_radix2(ext, mask, w, nfft, hop, pad, bt=bt)
+        assert launch_counts()["pwfloor_staged_radix2"] == 1
+        assert dsputils.snr_db(_np(first), _np(want)) >= SNR_CARD_DB
+
+
+def test_pwfloor_staged_geometry_matches_the_host(cuda):
+    """gdsp_pwfloor_staged_geometry (segments at once, threads, slots,
+    shared bytes) equals cuda_probes.staged_cta at every pad and chosen
+    tiles and hops."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int64 * 4)()
+    for lg in range(1, 15):
+        pad = 1 << lg
+        for tile in (1, 3, 16, 50, 64):
+            for nfft, hop in ((pad, max(1, pad // 2)), (max(1, pad - 5), 7)):
+                assert lib.gdsp_pwfloor_staged_geometry(lg, tile, nfft, hop, out) == 0
+                assert tuple(out) == cuda_probes.staged_cta(pad, tile, nfft, hop), (pad, tile)
+
+
+def test_anat_full_and_staged_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v: anat_full_kernel and staged_partials_kernel at every pad
+    spill nothing (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("anatomy_probe_kernels.cu", ("16anat_full_kernel",)),
+                       ("pwelch_probe_kernels.cu", ("22staged_partials_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
+    assert seen == 15

@@ -146,10 +146,14 @@ def test_staged_caps_its_tile_to_shared_memory():
     big = cuda_probes._staged_max_bt(1024, 512, 1024)
     assert (big - 1) * 512 + 1024 <= (232448 - 8 * 1024 - 4 * 513) // 4
     assert cuda_probes.staged_segs_per_tile(10**7, 1, 1024, 512, 1024) == 64  # K4's cap
-    assert cuda_probes.staged_segs_per_tile(10**7, 1, 16384, 8192, 16384) == 1
-    with pytest.raises(ValueError):
-        cuda_probes.pwfloor_staged(torch.zeros(1, 10**6), torch.ones(1, 1000),
-                                   torch.ones(1024), 1024, 512, bt=big + 1)
+    # At pad 16384 the redesign's slot and span hold four segments of hop
+    # 8192; the first design's pad-point buffer, sums and span one.
+    assert cuda_probes.staged_segs_per_tile(10**7, 1, 16384, 8192, 16384) == 4
+    assert cuda_probes._staged_max_bt(16384, 8192, 16384) == 1
+    for twin in (cuda_probes.pwfloor_staged, cuda_probes.pwfloor_staged_radix2):
+        with pytest.raises(ValueError):
+            twin(torch.zeros(1, 10**6), torch.ones(1, 1000), torch.ones(1024), 1024, 512,
+                 bt=big + 1)
 
 
 def test_probe_rows_on_the_cpu():
