@@ -144,7 +144,21 @@ final line):
      K12's copy, the unfused route (half3, the row as torch's elementwise
      calls, bd_hi) and the bound, pwfloor_staged at the probe geometry and
      at hop 160 beside pwfloor_staged_radix2 (a counted session of its
-     own), K4 and the bound, by chain and alone;
+     own), K4 and the bound, by chain and alone; then
+     (phase_noframe_sdif_redesign) K14a's pwfloor_noframe, K4's body with
+     each frame read from its row 16 bytes a lane, and K14i's sdif_peel,
+     the seven stages in registers on K8's column tile with Tb from K8's
+     tile table (its plan held to the host's through gdsp_sdif_geometry):
+     pwfloor_noframe torch.equal to K4 on the flattened frames and >= 120
+     dB against float64 at phase 12's two geometries, pad 4096 (the block
+     route) and hop 160's 52,428 frames; sdif_peel and its first design
+     sdif_peel_sync >= 120 dB against float64 at 2^24, (3, 128, 1000), m =
+     1 and m = 33; pwfloor_noframe at the probe geometry and at 52,428
+     frames beside pwfloor_noframe_radix2 (a counted session of its own),
+     K4 on the samples the frames were cut from and the bound, sdif_peel
+     at 2^24 beside sdif_peel_sync (a counted session), K8
+     outer_dft_split(x, 128, 1) on the same planes, K12's copy and the
+     bound, by chain and alone;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -279,7 +293,8 @@ final line):
      discretization; each step's wall and Msamples/s printed; then each
      result held against scipy.signal in float64 on the host on the same
      float32 input (>= 120 dB);
- 12. K14a, the fused-Welch floor twins (ops/cuda_probes.py): each held
+ 12. K14a, the fused-Welch floor twins (ops/cuda_probes.py; noframe and
+     staged the redesigns): each held
      against its plain version on the card (loadonly and frameonly
      against float64, noframe against the float64 rfft -> |X|^2 ->
      masked sum, staged against K4 on the same samples, torch.equal to
@@ -328,13 +343,15 @@ final line):
  16. probes.anatomy2.run at its full shape as one counted session: the six
      twins, copy_split (its copy row) and fft_pow2 (its K1 row) launched,
      nothing else;
- 17. K14h vdif (the redesign) and K14i sdif_peel (ops/cuda_probes.py) against their
+ 17. K14h vdif and K14i sdif_peel (ops/cuda_probes.py; both the
+     redesigns) against their
      float64 plain versions on the card (>= 120 dB), one launch a check:
      vdif at 16384 x 1024 (n1 8, scale 1/32) and at a ragged 1001 x 512
      (n1 4), its digit order exact at both (single exponentials peak at
      (k mod n1) 128 + brev7(k // n1)); sdif_peel at 2^24 as
      (1, 128, 131072) and at a ragged (3, 128, 1000); each timed at the
-     full shape beside its plain version, bound and library call;
+     full shape beside its plain version, bound and library call
+     (sdif_peel also beside K8 on the same planes: separate_route_ms);
  18. probes.vdif.run and probes.sdif.run at their full shapes as two
      counted sessions: vdif, copy_split, fac_dft and fft_pow2; sdif_peel,
      copy_split and outer_dft_split; nothing else;
@@ -372,7 +389,7 @@ final line):
      (the profiler's events of each call's device work);
  22. probes.int8.run at its full shape as one counted session: the five
      K14g wrappers, copy_split and gmm_floor; nothing else;
- 23. prints {"kernels": [...]} (62 wrappers) and, last, {"ok": true,
+ 23. prints {"kernels": [...]} (64 wrappers) and, last, {"ok": true,
      "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
@@ -608,6 +625,8 @@ REPLACES = {
     "vdif_sync": "tools/probe_vdif.py:116",
     "anat_full_sync": "tools/probe_anatomy2.py:87",
     "pwfloor_staged_radix2": "tools/probe_pwfloor.py:229",
+    "pwfloor_noframe_radix2": "tools/probe_pwfloor.py:264",
+    "sdif_peel_sync": "tools/probe_sdif.py:116",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -661,6 +680,8 @@ SOURCES = {
     "vdif_sync": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
     "anat_full_sync": "godsp_tpu_torch/csrc/anatomy_probe_kernels.cu",
     "pwfloor_staged_radix2": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
+    "pwfloor_noframe_radix2": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
+    "sdif_peel_sync": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
 }
 
 
@@ -973,6 +994,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_hi_store_redesign(rec, dev))
     steps.update(phase_bd1_vdif_redesign(rec, dev))
     steps.update(phase_anat_staged_redesign(rec, dev))
+    steps.update(phase_noframe_sdif_redesign(rec, dev))
     return steps
 
 
@@ -2163,6 +2185,127 @@ def phase_anat_staged_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, in
                          lambda: cp.pwfloor_staged_plain(ext, mask, w, nfft, hop, pad, bt), None,
                          nbytes, flops)
         del ext, mask, want
+    return steps
+
+
+# K14a's pwfloor_noframe: (pad, hop, frames, kept); hop None takes seeded
+# random frames, a hop the frames cut from anat_staged's samples at that hop
+# (timed, beside K4 on those samples): the probe geometry, phase 12's
+# ragged pad-2048 case, the block route at pad 4096 and hop 160's 52,428
+# segments.  K14i's sdif_peel: 2^24 points (timed), phase 17's ragged
+# shape, m = 1 and m = 33.
+NOFRAME_REDESIGN = ((1024, 512, 16384, 16384), (2048, None, 5001, 4990), (4096, None, 300, 290),
+                    (1024, 160, (1 << 23) // 160, (1 << 23) // 160))
+SDIF_REDESIGN = ((1, 128, 1 << 17), (3, 128, 1000), (2, 128, 1), (1, 128, 33))
+
+
+def phase_noframe_sdif_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K14a's pwfloor_noframe and K14i's sdif_peel redesigned.  sdif_peel's
+    plan as the C side exports it (gdsp_sdif_geometry) held to the host's
+    (cuda_probes.sdif_plan), ragged m and batches past grid.y included.  At
+    each NOFRAME_REDESIGN case pwfloor_noframe torch.equal to K4 on the
+    frames flattened (nfft = hop = pad, K4's tiles) and >= 120 dB against
+    the float64 plain version; at the two timed ones a redesign line beside
+    pwfloor_noframe_radix2 (a counted session of its own), K4 on the samples
+    the frames were cut from and the bound, then each alone.  At each
+    SDIF_REDESIGN shape sdif_peel and its first design sdif_peel_sync >= 120
+    dB against float64 (both printed); at 2^24 a redesign line beside
+    sdif_peel_sync (a counted session), K8 outer_dft_split(x, 128, 1) on the
+    same planes, K12's copy and the bound, then each alone.  The yardsticks
+    are checked and timed for the kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import _build, cuda_metrics, cuda_outer, cuda_pwelch
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import noframe_sdif
+    from godsp_tpu_torch.probes._common import lane_planes
+
+    lib, out = _build.library(), (ctypes.c_int64 * 4)()
+    for m in (1, 31, 33, 1000, 8192, 1 << 17):
+        for b in (0, 1, 3, 65537):
+            plan = tuple(cp.sdif_plan(m, b))
+            if lib.gdsp_sdif_geometry(m, b, out) != 0 or tuple(out) != plan:
+                raise AssertionError(f"sdif_peel's plan at {b} x (128, {m}): {tuple(out)} against "
+                                     f"the host's {plan}")
+    steps: dict[str, dict[str, int]] = {}
+    log(f"pwfloor_noframe and sdif_peel redesigned vs their first designs; sdif's plan equals the "
+        f"host's: {cp.sdif_plan(1 << 17, 1)} at (1, 128, 131072)")
+
+    def alone_line(name, shape, ms, runs):
+        alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in runs]
+        log(f"  redesign alone (profiler events), {name} {shape}: " + "  ".join(
+            f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
+            + f"  (by chain {ms:.4f} ms)")
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    for pad, hop, S, keep in NOFRAME_REDESIGN:
+        if hop:
+            ext, frames, mask, _ = noframe_sdif.noframe_inputs(dev, hop, S)
+            ext, frames, mask = ext[None], frames[None], mask[None]
+            shape = f"{S} frames of {pad} cut at hop {hop}"
+        else:
+            frames = torch.rand(1, S, pad, generator=g, device=dev) * 2 - 1
+            mask = (torch.arange(S, device=dev) < keep).float()[None]
+            shape = f"{keep} of {S} frames of {pad}"
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        op = lambda: cp.pwfloor_noframe(frames, mask, w)
+        k4f = lambda: cuda_pwelch.pwelch_power_partials(frames.view(1, -1), mask, w, pad, pad)
+        want = cp.pwfloor_noframe_plain(frames.double(), mask.double(), w.double(), bt)
+        equal, db = torch.equal(op(), k4f()), snr_on_card(op(), want)
+        log(f"  pwfloor_noframe {shape}: torch.equal to K4 on the flattened frames at tiles of "
+            f"{bt}: {equal}; {db:.2f} dB against float64")
+        if not (equal and db >= SNR_DB):
+            raise AssertionError(f"pwfloor_noframe {shape}: equal to K4 {equal}, {db:.2f} dB")
+        if hop:
+            first = lambda: cp.pwfloor_noframe_radix2(frames, mask, w)
+            k4 = lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, pad, hop)
+            tiles = -(-S // bt)
+            nbytes = 4.0 * (frames.numel() + S + pad + tiles * (pad // 2 + 1))
+            flops = keep * (pad + rfft_flops(pad) + 3.0 * (pad // 2 + 1))
+            ms = redesign_line(rec, steps, "pwfloor_noframe", "pwfloor_noframe_radix2",
+                               f"{shape} ({db:.2f} dB)", op, first, None, None, lambda t: t, want,
+                               nbytes, flops, extra=("K4 on the samples", k4),
+                               yard_label="first design")
+            alone_line("pwfloor_noframe", shape, ms, (
+                ("pwfloor_noframe", "noframe_partials_kernel", op),
+                ("first design", "spectral_twin_kernel", first),
+                ("K4 on the samples", "pwelch_partials_kernel", k4)))
+            if hop == 512:
+                rec.check("pwfloor_noframe_radix2", first, want, shape)
+                rec.time("pwfloor_noframe_radix2", shape, first,
+                         lambda: cp.pwfloor_noframe_plain(frames, mask, w, bt), None, nbytes,
+                         flops)
+            del ext
+        del frames, mask, want
+    for shape in SDIF_REDESIGN:
+        xr, xi = (p.view(shape) for p in lane_planes(dev, shape[0] * shape[1], shape[2], seed=25))
+        label = " x ".join(map(str, shape))
+        want = cplx(cp.sdif_peel_plain(xr.double(), xi.double()))
+        op = lambda: cp.sdif_peel(xr, xi)
+        first = lambda: cp.sdif_peel_sync(xr, xi)
+        dbs = (snr_on_card(cplx(op()), want), snr_on_card(cplx(first()), want))
+        log(f"  sdif_peel {label}: {dbs[0]:.2f} dB against float64, first design {dbs[1]:.2f}")
+        if not min(dbs) >= SNR_DB:
+            raise AssertionError(f"sdif_peel {label}: {dbs} dB, not both >= {SNR_DB}")
+        if shape == SDIF_REDESIGN[0]:
+            pts = float(xr.numel())
+            k8 = lambda: cuda_outer.outer_dft_split(xr, xi, 128, 1)
+            copy = lambda: cuda_metrics.copy_split(xr.view(-1, 8192), xi.view(-1, 8192))
+            ms = redesign_line(rec, steps, "sdif_peel", "sdif_peel_sync",
+                               f"{label} ({dbs[0]:.2f} dB)", op, first, None, copy, cplx, want,
+                               16.0 * pts, 41.0 * pts,
+                               extra=("K8 outer_dft_split(x, 128, 1)", k8),
+                               yard_label="first design")
+            alone_line("sdif_peel", label, ms, (
+                ("sdif_peel", "sdif_peel_kernel", op),
+                ("first design", "sdif_peel_sync_kernel", first),
+                ("K8", "outer_dft_kernel", k8)))
+            rec.check("sdif_peel_sync", lambda: cplx(first()), want, label)
+            rec.time("sdif_peel_sync", label, first, lambda: cp.sdif_peel_plain(xr, xi), None,
+                     16.0 * pts, 41.0 * pts)
+        del xr, xi, want
     return steps
 
 
@@ -3535,17 +3678,21 @@ def phase_filtering(dev, path: str) -> dict[str, dict[str, int]]:
 
 
 def phase_probe_kernels(rec: KernelRecord, dev) -> None:
-    """K14a, the fused-Welch floor twins, against their plain versions on
-    the card at the probe's geometry (16384 segments, nfft = pad = 1024,
-    hop 512) and at a ragged one (nfft 1000, hop 160, pad 1024, 5001
-    segments of which 4990 count; noframe at pad 2048): loadonly and
-    frameonly against their float64 plain versions, noframe against the
+    """K14a, the fused-Welch floor twins (tools/probe_pwfloor.py's
+    build_variant bodies), against their plain versions on the card at the
+    probe's geometry (16384 segments, nfft = pad = 1024, hop 512) and at a
+    ragged one (nfft 1000, hop 160, pad 1024, 5001 segments of which 4990
+    count; noframe at pad 2048): loadonly and frameonly (K4's first
+    design's load and framing, a floor of K4's bytes) against their
+    float64 plain versions, noframe (K4's body with each frame read from
+    its row 16 bytes a lane: twice K4's bytes, none re-read) against the
     float64 rfft -> |X|^2 -> masked sum, staged (K4's body with each
     tile's span staged once by the TMA, the frames cut from shared
     memory) against K4 on the same samples, torch.equal to it, and
     against the float64 plain version; each timed at the probe's geometry
     beside its plain version and bound (no one PyTorch call computes any
-    twin's function)."""
+    twin's function).  The redesigns' lines beside their first designs
+    are phase 3's (phase_anat_staged_redesign, phase_noframe_sdif_redesign)."""
     from godsp_tpu_torch import window
     from godsp_tpu_torch.ops import cuda_probes as cp
     from godsp_tpu_torch.ops import cuda_pwelch
@@ -3990,14 +4137,21 @@ def once(name: str, run):
 
 
 def phase_dif_kernels(rec: KernelRecord, dev) -> None:
-    """K14h and K14i against their float64 plain versions on the card, one
-    launch a check (phase 17): vdif at the probe's 16384 x 1024 (n1 8,
-    scale 1/sqrt(n)) and at a ragged 1001 x 512 (n1 4, not a multiple of a
-    block's eight rows), its digit order exact at both widths; sdif_peel at
-    2^24 as (1, 128, 131072) and at a ragged (3, 128, 1000) (not a multiple
-    of a tile's 32 columns); each timed at the full shape beside its plain
-    version, bound and library call (vdif: torch.fft.fft of the complex
-    rows, norm="ortho"; sdif_peel: none, as K8)."""
+    """K14h and K14i (tools/probe_vdif.py's and tools/probe_sdif.py's
+    butterfly networks, both bound by bytes on the H100) against their
+    float64 plain versions on the card, one launch a check (phase 17):
+    vdif (a warp a row through a cp.async buffer) at the probe's 16384 x
+    1024 (n1 8, scale 1/sqrt(n)) and at a ragged 1001 x 512 (n1 4, not a
+    multiple of a block's four rows), its digit order exact at both
+    widths; sdif_peel (the stages in registers on K8's column tile) at
+    2^24 as (1, 128, 131072) and at a ragged (3, 128, 1000) (not a
+    multiple of a tile's 32 columns); each timed at the full shape beside
+    its plain version, bound and library call (vdif: torch.fft.fft of the
+    complex rows, norm="ortho"; sdif_peel: none, and K8 on the same planes
+    as its separate_route_ms).  The redesigns' lines beside their first
+    designs are phase 3's (phase_bd1_vdif_redesign,
+    phase_noframe_sdif_redesign)."""
+    from godsp_tpu_torch.ops import cuda_outer
     from godsp_tpu_torch.ops import cuda_probes as cp
     from godsp_tpu_torch.probes import sdif, vdif
     from godsp_tpu_torch.probes._common import lane_planes
@@ -4025,11 +4179,14 @@ def phase_dif_kernels(rec: KernelRecord, dev) -> None:
         rec.check("sdif_peel", lambda: cplx(once("sdif_peel", lambda: cp.sdif_peel(xr, xi))),
                   cplx(cp.sdif_peel_plain(xr.double(), xi.double())), label)
         if shape[0] == 1:
-            # No one PyTorch call computes a twiddled column DFT.
+            # No one PyTorch call computes a twiddled column DFT; K8 computes
+            # the same peel up to a row map (its separate_route_ms).
             pts = float(xr.numel())
             rec.time("sdif_peel", label, lambda: cp.sdif_peel(xr, xi),
                      lambda: cp.sdif_peel_plain(xr, xi), None, 16.0 * pts,
                      sdif.OPS_PER_POINT["sdif"] * pts)
+            rec.times["sdif_peel"]["separate_route_ms"] = time_ms(
+                lambda: cuda_outer.outer_dft_split(xr, xi, sdif.D, 1))
         del xr, xi
 
 

@@ -56,21 +56,39 @@
 // the row i + h takes (x[i] - x[i + h]) W_{2h}^{i mod h}), then the post
 // twiddle Tb[r, t] = W_N^{brev7(r) t}.  Row r then holds the dense peel's
 // row brev7(r): K8 (outer_kernel.cu) at d1 = 128, d2 = 1 up to that row
-// map.  Design: a block stages a 128-row x 32-column tile of both planes
-// in shared memory (32 KB), loaded a warp a row segment (128 bytes,
-// coalesced along m); runs the seven stages there behind a barrier each,
-// a thread owning one column (the 32 columns of a warp fall in 32 banks);
-// applies Tb from K8's factored tables (the exponent brev7(r) t < N exact
-// in 64-bit integers, W_N^p = hi[p >> lo_bits] lo[p & mask]); and stores
-// the tile as it loaded it.  A ragged last tile is guarded; leading batch
-// dimensions spread over grid.y and grid.z (row_grid).  Bound: bytes,
+// map.  Bound on the H100: bytes, one read and one write of both planes,
 // 0.080 ms at 2^24 (7 x 5 + 6 = 41 float32 operations a point: 0.010 ms).
+//   The redesign runs on K8's column tile: a CTA of 256 threads takes 32
+// adjacent columns x 128 rows, thread (j, c) = j 32 + c column c, so every
+// warp access is one row's 32 columns (128 bytes) and nothing is staged
+// before the stages.  Each thread loads its 16 rows j + 8 q of both planes
+// (all 32 loads issued before the first butterfly) and runs the stages at
+// h = 64, 32, 16, 8, which pair rows 8 apart or more, in its registers;
+// one exchange through 32 KB of shared memory (a row's 32 words, one a
+// bank) hands it the 16 rows 16 j + e for the stages at h = 4, 2, 1.  Each
+// butterfly is the first design's IEEE operations on the same twiddles
+// (sdif_tables' stage columns, one address a warp), so the stages equal
+// its stages.  Tb at the store: W_N^{k c0} of the row from K8's factored
+// hi and lo (the exponent k c0 < N exact in 64-bit integers, one address a
+// warp) times K8's tile table W_N^{k cc} (_tile_table, coalesced), k =
+// brev7(r), as K8's own store does: gathering hi and lo at k t a point,
+// the first design's Tb, ran 1-2 % slower and spilled 8 bytes
+// (probes/noframe_sdif.py).  The plan is SdPlan (gdsp_sdif_geometry).
+// Its first design, sdif_peel_sync_kernel (gdsp_sdif_peel_sync, kept as
+// the yardstick): a block stages the tile of both planes in shared memory
+// by 4-byte loads, runs the seven stages there behind a barrier each, a
+// thread owning one column, then Tb gathered a point; 0.240 ms by chain at
+// 2^24 where its tile loaded and stored alone took 0.099, with the stages
+// 0.178, with Tb 0.177 (probes/noframe_sdif.py, NVIDIA H100 80GB HBM3,
+// 700.00 W).  A ragged last tile is guarded in both; leading batch
+// dimensions spread over grid.y and grid.z (row_grid).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fft_block.cuh"
+#include "fft_regs.cuh"
 #include "lane_contract.cuh"
 #include "slice_network.cuh"
 
@@ -330,7 +348,7 @@ vdif_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* _
 // W_{2h}^{i mod h} where i / h is odd (1 elsewhere, unused); hi and lo: the
 // factored W_N table of 2^lo_bits low entries.
 __global__ void __launch_bounds__(kSdifThreads)
-sdif_peel_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+sdif_peel_sync_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi,
                  const float2* __restrict__ cols, const float2* __restrict__ hi,
                  const float2* __restrict__ lo, long long m, long long batch, int lo_bits) {
@@ -378,6 +396,128 @@ sdif_peel_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     yr[g] = y.x;
     yi[g] = y.y;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K14i redesigned: K8's column tile, the stages in registers (the plan: SdPlan)
+// ---------------------------------------------------------------------------
+
+constexpr int kSdRows = 16;                   // rows a thread holds
+constexpr int kSdGroups = kPeel / kSdRows;    // threads a column: 8
+constexpr int kSdThreads = kCols * kSdGroups;  // 256
+constexpr int kSdMinBlocks = 3;               // blocks an SM the registers are sized for
+// Tb as W_N^{k c0} of the row times the tile table's W_N^{k cc} (true), or
+// gathered a point from hi and lo at k t, the first design's Tb (false).
+constexpr bool kSdifTileTable = true;
+
+using gdsp::regs::unroll;
+
+// Thread (j, c), threadIdx.x = j kCols + c, takes column c0 + c of a 128 x
+// kCols tile: rows j + 8 q (q < 16) for the stages at h = 64, 32, 16, 8,
+// which pair rows 8 h / 8 apart, q and q ^ h / 8 of its registers; then,
+// after one exchange through shared memory, the 16 rows 16 j + e (e < 16)
+// for the stages at h = 4, 2, 1, which pair e and e ^ h.  A warp is one j:
+// every load and store is a row's 32 columns, 128 bytes, and every access
+// to the exchange a row's 32 consecutive words, one a bank.  Each butterfly
+// is the first design's: a + b on the a row, cmul(a - b, cols[s][i + h]) on
+// the b row.  Row r = 16 j + e then takes Tb = W_N^{k t}, k = brev7(r), t =
+// c0 + c, and is stored at row r (K8's row k).
+__global__ void __launch_bounds__(kSdThreads, kSdMinBlocks)
+sdif_peel_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ yr, float* __restrict__ yi, const float2* __restrict__ cols,
+                 const float2* __restrict__ hi, const float2* __restrict__ lo,
+                 const float2* __restrict__ tt, long long m, long long batch, int lo_bits) {
+  __shared__ float er[kPeel][kCols];
+  __shared__ float ei[kPeel][kCols];
+  const long long b = gdsp::block_row();
+  if (b >= batch) return;  // the whole block: before its barrier
+  const int c = threadIdx.x % kCols;
+  const int j = threadIdx.x / kCols;
+  const long long c0 = static_cast<long long>(blockIdx.x) * kCols;
+  const bool in = c0 + c < m;
+  const float* __restrict__ pr = xr + b * kPeel * m + c0 + c;
+  const float* __restrict__ pi = xi + b * kPeel * m + c0 + c;
+  float2 z[kSdRows];
+  unroll<kSdRows>([&](auto qq) {  // all 32 loads before the first butterfly
+    constexpr int q = GDSP_IDX(qq);
+    const long long g = static_cast<long long>(j + kSdGroups * q) * m;
+    z[q] = in ? make_float2(__ldg(pr + g), __ldg(pi + g)) : make_float2(0.f, 0.f);
+  });
+  unroll<4>([&](auto ss) {  // h = 64, 32, 16, 8: registers q and q + h / 8
+    constexpr int s = GDSP_IDX(ss);
+    constexpr int h = 64 >> s, g = h / kSdGroups;
+    unroll<kSdRows>([&](auto qq) {
+      constexpr int q = GDSP_IDX(qq);
+      if constexpr ((q & g) == 0) {
+        const int i = j + kSdGroups * q;  // the a row; its b row is i + h
+        const float2 a = z[q], v = z[q + g];
+        z[q] = make_float2(a.x + v.x, a.y + v.y);
+        z[q + g] = cmul(csub(a, v), __ldg(&cols[s * kPeel + i + h]));
+      }
+    });
+  });
+  unroll<kSdRows>([&](auto qq) {
+    constexpr int q = GDSP_IDX(qq);
+    er[j + kSdGroups * q][c] = z[q].x;
+    ei[j + kSdGroups * q][c] = z[q].y;
+  });
+  __syncthreads();
+  unroll<kSdRows>([&](auto ee) {
+    constexpr int e = GDSP_IDX(ee);
+    z[e] = make_float2(er[kSdRows * j + e][c], ei[kSdRows * j + e][c]);
+  });
+  unroll<3>([&](auto ss) {  // h = 4, 2, 1: registers e and e + h
+    constexpr int s = GDSP_IDX(ss) + 4;
+    constexpr int h = 64 >> s;
+    unroll<kSdRows>([&](auto ee) {
+      constexpr int e = GDSP_IDX(ee);
+      if constexpr ((e & h) == 0) {
+        const int i = kSdRows * j + e;
+        const float2 a = z[e], v = z[e + h];
+        z[e] = make_float2(a.x + v.x, a.y + v.y);
+        z[e + h] = cmul(csub(a, v), __ldg(&cols[s * kPeel + i + h]));
+      }
+    });
+  });
+  if (!in) return;
+  const unsigned long long lo_mask = (1ull << lo_bits) - 1;
+  const int kj = static_cast<int>(__brev(static_cast<unsigned>(j)) >> 29);  // brev3(j)
+  float* __restrict__ qr = yr + b * kPeel * m + c0 + c;
+  float* __restrict__ qi = yi + b * kPeel * m + c0 + c;
+  unroll<kSdRows>([&](auto ee) {
+    constexpr int e = GDSP_IDX(ee);
+    const int k = (rev_bits(e, 4) << 3) + kj;  // brev7(16 j + e)
+    float2 w;
+    if constexpr (kSdifTileTable) {  // W_N^{k c0} W_N^{k c}: one hi and lo address a warp
+      const unsigned long long p = static_cast<unsigned long long>(k) * c0;  // < N
+      w = cmul(cmul(__ldg(&hi[p >> lo_bits]), __ldg(&lo[p & lo_mask])), __ldg(&tt[k * kCols + c]));
+    } else {
+      const unsigned long long p = static_cast<unsigned long long>(k) * (c0 + c);  // < N
+      w = cmul(__ldg(&hi[p >> lo_bits]), __ldg(&lo[p & lo_mask]));
+    }
+    const float2 y = cmul(z[e], w);
+    const long long g = static_cast<long long>(kSdRows * j + e) * m;
+    qr[g] = y.x;
+    qi[g] = y.y;
+  });
+}
+
+// sdif_peel's launch plan (ops/cuda_probes.py: sdif_plan holds the same; the
+// GPU tests compare through gdsp_sdif_geometry).  A CTA a (batch, tile):
+// tiles along grid.x, the batch over row_grid's y and z.
+struct SdPlan {
+  int threads;       // threads a block
+  int columns;       // columns a tile
+  long long tiles;   // tiles a (128, m) plane: grid.x
+  int smem;          // bytes of (static) shared memory a block: the exchange
+};
+
+int make_sdif_plan(long long m, long long batch, SdPlan* p) {
+  if (m < 1 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (m + kCols - 1) / kCols;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *p = SdPlan{kSdThreads, kCols, tiles, 2 * kPeel * kCols * static_cast<int>(sizeof(float))};
+  return 0;
 }
 
 // vdif's launch plan (ops/cuda_probes.py: vdif_plan holds the same; the
@@ -466,15 +606,46 @@ int gdsp_vdif_sync(const float* xr, const float* xi, float* yr, float* yi, const
 // The sdif peel of `batch` (128, m) float32 planes; cols, hi, lo and
 // lo_bits as sdif_peel_kernel's (hi and lo: W_N, N = 128 m).  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for m < 1 or batch < 0.
-int gdsp_sdif_peel(const float* xr, const float* xi, float* yr, float* yi, const float2* cols,
-                   const float2* hi, const float2* lo, long long m, long long batch, int lo_bits,
-                   void* stream) {
+int gdsp_sdif_peel_sync(const float* xr, const float* xi, float* yr, float* yi,
+                        const float2* cols, const float2* hi, const float2* lo, long long m,
+                        long long batch, int lo_bits, void* stream) {
   if (m < 1 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const long long tiles = (m + kCols - 1) / kCols;
-  sdif_peel_kernel<<<gdsp::row_grid(static_cast<unsigned>(tiles), batch), kSdifThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, cols, hi, lo, m, batch,
-                                                          lo_bits);
+  sdif_peel_sync_kernel<<<gdsp::row_grid(static_cast<unsigned>(tiles), batch), kSdifThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, cols, hi, lo, m,
+                                                               batch, lo_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sdif_peel's plan for `batch` (128, m) planes: out[0..3] = threads a
+// block, columns a tile, tiles, shared bytes a block (SdPlan).
+int gdsp_sdif_geometry(long long m, long long batch, long long* out) {
+  SdPlan p;
+  const int rc = make_sdif_plan(m, batch, &p);
+  if (rc != 0) return rc;
+  out[0] = p.threads;
+  out[1] = p.columns;
+  out[2] = p.tiles;
+  out[3] = p.smem;
+  return 0;
+}
+
+// The sdif peel of `batch` (128, m) float32 planes by the redesign; cols,
+// hi, lo and lo_bits as sdif_peel_sync_kernel's, tt K8's tile table
+// W_N^{k cc} at k kCols + cc (ops/cuda_outer.py: _tile_table(N, 128, 32)).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for m < 1, batch <
+// 0 or more than 2^31 - 1 tiles.
+int gdsp_sdif_peel(const float* xr, const float* xi, float* yr, float* yi, const float2* cols,
+                   const float2* hi, const float2* lo, const float2* tt, long long m,
+                   long long batch, int lo_bits, void* stream) {
+  SdPlan p;
+  const int rc = make_sdif_plan(m, batch, &p);
+  if (rc != 0) return rc;
+  if (batch == 0) return 0;
+  sdif_peel_kernel<<<gdsp::row_grid(static_cast<unsigned>(p.tiles), batch), p.threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, cols, hi, lo, tt, m,
+                                                          batch, lo_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

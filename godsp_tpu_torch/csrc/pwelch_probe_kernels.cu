@@ -17,15 +17,35 @@
 //             (bt - 1) * stride + nfft of them, comes into shared memory
 //             ONCE and the frames are cut from there, where K4 re-reads
 //             each sample nfft/stride times through L2; then what K4 does.
-// loadonly, frameonly and noframe keep K4's first design (a grid of
-// tiles x rows, a bit-reversed load and fft_block.cuh's radix-2 stages).
-// The spectral twins give pad/2 + 1 bins a tile in natural order, as K4.
+// loadonly and frameonly keep K4's first design (a grid of tiles x rows, a
+// bit-reversed load and fft_block.cuh's radix-2 stages).  The spectral
+// twins give pad/2 + 1 bins a tile in natural order, as K4.
 //
-// staged_partials_kernel, the staged twin redesigned, is K4's body as it
-// is today (frame_regs.cuh: a frame a warp at pad <= 2048, K3's half-length
-// transform on fft_regs.cuh, the masked sums in registers, store_partials'
-// fixed-order sum; K4's tiles, CTA, slots and frame order; pad >= 4096 a
-// CTA a frame) with one change: each tile's span is staged first, its
+// noframe_partials_kernel and staged_partials_kernel, the noframe and
+// staged twins redesigned, are K4's body as it is today (frame_regs.cuh: a
+// frame a warp at pad <= 2048, K3's half-length transform on fft_regs.cuh,
+// the masked sums in registers, store_partials' fixed-order sum; K4's
+// tiles, CTA, slots, frame order and register cap (K4Plan); pad >= 4096 a
+// CTA a frame) with one change each: where a frame's samples come from.
+// Each result equals K4's bit for bit.
+//   noframe reads frame s of a row as the pad contiguous floats at s pad
+// (load_row): 16 bytes a lane, every load of the frame issued before its
+// transform, two pairs a load handed across each even/odd lane pair by one
+// shuffle, so that lane t ends with pairs t + r T as load_frame leaves them
+// (8-byte pairs ran 3-4 % faster at pad 1024 but spilled at pad 512:
+// kNoframeVec); the window product as K4's.  It
+// reads the frames' 67.1 MB where K4 reads 33.6 MB and re-reads each
+// sample through L2, so the two stand side by side as the probe's answer:
+// what K4 costs when framing costs nothing.  The other load, each tile's
+// frames brought by one 1-D TMA copy, is the staged twin run on the frames
+// flattened (probes/noframe_sdif.py times it).  Its first design,
+// spectral_twin_kernel<false> (gdsp_pwfloor_noframe_radix2, kept as the
+// yardstick), was K4's first design on the frames: a segment at a time, a
+// bit-reversed load and ten radix-2 stages behind barriers, 0.341 ms by
+// chain at the probe's geometry, where its frames loaded and summed with
+// no transform took 0.094 and its transforms of frames made in registers
+// 0.328 (probes/noframe_sdif.py, NVIDIA H100 80GB HBM3, 700.00 W).
+//   staged stages each tile's span first, its
 // 16-byte units by one 1-D TMA copy on an mbarrier (hopper_async.cuh:
 // bulk_load), the up to 3 floats before and after them by thread loads,
 // sample a0 of the row at span word a0 mod 4 so that the row's units land
@@ -46,7 +66,7 @@
 // the 33.6 MB of samples once (0.010 ms at 3.35 TB/s); noframe reads the
 // 67.1 MB of frames (0.020 ms); the FFTs' 4.2e8 float32 operations take
 // 0.006 ms at 67 TFLOP/s.  At hop 160 (52,428 segments) the operations
-// bound: 0.022 ms.
+// bound K4 and staged (0.022 ms), the 215 MB of frames noframe (0.065).
 
 #include <cstdint>
 
@@ -125,9 +145,10 @@ __global__ void frameonly_kernel(const float* __restrict__ ext, const float* __r
   for (int i = threadIdx.x; i < pad; i += blockDim.x) o[i] = acc[i];
 }
 
-// noframe (kStaged false): frame s of a row is frames[s * pad : (s + 1) * pad].
-// staged's first design (kStaged true): the tile's span of ext is staged in
-// shared memory first, frames are cut from it.
+// noframe's first design (kStaged false): frame s of a row is
+// frames[s * pad : (s + 1) * pad].  staged's first design (kStaged true):
+// the tile's span of ext is staged in shared memory first, frames are cut
+// from it.
 template <bool kStaged>
 __global__ void spectral_twin_kernel(const float* __restrict__ src, const float* __restrict__ mask,
                                      const float* __restrict__ w, float* __restrict__ out,
@@ -214,9 +235,10 @@ using gdsp::regs::unroll;
 using gdsp::regs::with_log2;
 
 // K4's CTA at pad = 2^(LOG2M + 1) and its register cap, as pwelch_kernel.cu's
-// Plan<LOG2M, false> sets them (the same body, spill-free there).
+// Plan<LOG2M, false> sets them (the same body, spill-free there): the staged
+// and noframe redesigns' launch bounds.
 template <int LOG2M>
-struct StagedPlan {
+struct K4Plan {
   static constexpr int kThreads = cta_shape<LOG2M>(default_rows<LOG2M>()).threads;
   static constexpr int kMinBlocks = LOG2M == 10 || LOG2M == 13 ? 1
                                   : LOG2M == 11 ? 6
@@ -271,7 +293,7 @@ __device__ __forceinline__ void load_staged(float2* v, int t, const float* sp, l
 // floats before the first unit and after the last by thread loads.  Each
 // frame's samples are then read from the span (load_staged), not the row.
 template <int LOG2M>
-__global__ void __launch_bounds__(StagedPlan<LOG2M>::kThreads, StagedPlan<LOG2M>::kMinBlocks)
+__global__ void __launch_bounds__(K4Plan<LOG2M>::kThreads, K4Plan<LOG2M>::kMinBlocks)
 staged_partials_kernel(const float* __restrict__ ext, long long L,
                        const float* __restrict__ mask, const float2* __restrict__ w,
                        const float2* __restrict__ tw, float* __restrict__ out, long long S,
@@ -379,6 +401,145 @@ int launch_staged(const float* ext, const float* mask, const float* w, float* ou
   });
 }
 
+// ---------------------------------------------------------------------------
+// noframe redesigned: K4's body, frame s of a row the pad floats at s pad
+// ---------------------------------------------------------------------------
+
+// Bytes a lane reads from a frame row at once: 16 (two pairs, handed
+// across each even/odd lane pair by one shuffle) or 8 (one pair, each warp
+// access 8 T contiguous bytes).  8 ran 3-4 % faster by chain at pad 1024
+// (probes/noframe_sdif.py: the shuffles and selects cost more than the
+// loads they save) but spilled 4 bytes a thread at pad 512 under K4Plan's
+// register cap (tests/test_torch_cuda.py: the no-spill test); 16 spills at
+// no pad.
+constexpr int kNoframeVec = 16;
+
+// The frame at xa (pad = 2m contiguous floats, kNoframeVec-byte aligned at
+// pad >= 4) into v as frame_regs.cuh's load_frame lays it out: v[r] =
+// (x[e] w[e], x[e + 1] w[e + 1]), e = 2 (t + r T); zeros where live is
+// false.  Every load of the frame is issued before the first product.  A
+// 16-byte load holds two pairs of one T-lane row of the frame: in each
+// block of 2T pairs lane 2k reads unit k (pairs 2k, 2k + 1: register 2u
+// of lanes 2k and 2k + 1) and lane 2k + 1 unit k + T/2 (pairs 2k + T,
+// 2k + 1 + T: register 2u + 1 of both), so the T lanes read the block's
+// 16T bytes and one __shfl_xor_sync a register hands each lane its other
+// pair (ops/cuda_probes.py: noframe_load_map).  The window product is
+// __fmul_rn: load_frame's x w, which a select keeps out of any fused
+// multiply-add, so the frame's values equal K4's.
+template <int LOG2M>
+__device__ __forceinline__ void load_row(float2* v, int t, const float* __restrict__ xa,
+                                         const float2* __restrict__ w, bool live) {
+  using R = Row<LOG2M>;
+  w = opaque(w);
+  if constexpr (kNoframeVec == 8 || R::kP == 1) {  // pad 2: one pair, 8 bytes
+    const float2* x2 = reinterpret_cast<const float2*>(xa);
+    unroll<R::kP>([&](auto rr) {
+      constexpr int r = GDSP_IDX(rr);
+      v[r] = live ? __ldg(&x2[t + r * R::kT]) : make_float2(0.f, 0.f);
+    });
+  } else if constexpr (R::kT == 1) {  // one lane a frame (pad <= 32): pairs 2u, 2u + 1
+    const float4* x4 = reinterpret_cast<const float4*>(xa);
+    unroll<R::kP / 2>([&](auto uu) {
+      constexpr int u = GDSP_IDX(uu);
+      const float4 q = live ? __ldg(&x4[u]) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[2 * u] = make_float2(q.x, q.y);
+      v[2 * u + 1] = make_float2(q.z, q.w);
+    });
+  } else {
+    const float4* x4 = reinterpret_cast<const float4*>(xa);
+    const bool odd = t & 1;
+    const int unit = (t >> 1) + (odd ? R::kT / 2 : 0);
+    float4 q[R::kP / 2];
+    unroll<R::kP / 2>([&](auto uu) {
+      constexpr int u = GDSP_IDX(uu);
+      q[u] = live ? __ldg(&x4[u * R::kT + unit]) : make_float4(0.f, 0.f, 0.f, 0.f);
+    });
+    unroll<R::kP / 2>([&](auto uu) {
+      constexpr int u = GDSP_IDX(uu);
+      const float2 a = make_float2(q[u].x, q[u].y);
+      const float2 b = make_float2(q[u].z, q[u].w);
+      const float2 send = odd ? a : b;  // the partner's pair
+      const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 1),
+                                     __shfl_xor_sync(0xffffffffu, send.y, 1));
+      v[2 * u] = odd ? got : a;
+      v[2 * u + 1] = odd ? b : got;
+    });
+  }
+  unroll<R::kP>([&](auto rr) {
+    constexpr int r = GDSP_IDX(rr);
+    const float2 wp = __ldg(&w[t + r * R::kT]);  // w[e], w[e + 1]
+    v[r] = make_float2(__fmul_rn(v[r].x, wp.x), __fmul_rn(v[r].y, wp.y));
+  });
+}
+
+// K4's sums (pwelch_kernel.cu: pwelch_partials_kernel<LOG2M, false>) over
+// the same tiles, slots and frame order, frame s0 + j of a row read from
+// frames[(row S + s0 + j) pad ..] (load_row) instead of cut from a signal.
+template <int LOG2M>
+__global__ void __launch_bounds__(K4Plan<LOG2M>::kThreads, K4Plan<LOG2M>::kMinBlocks)
+noframe_partials_kernel(const float* __restrict__ frames, const float* __restrict__ mask,
+                        const float2* __restrict__ w, const float2* __restrict__ tw,
+                        float* __restrict__ out, long long S, int bt, int n_tiles, int fpc,
+                        int slots) {
+  using R = Row<LOG2M>;
+  constexpr int m = R::kN;
+  extern __shared__ float smem[];
+  const int slot = threadIdx.x / R::kT;
+  const int t = threadIdx.x % R::kT;
+  const long long row = blockIdx.x / n_tiles;
+  const long long s0 = (static_cast<long long>(blockIdx.x) - row * n_tiles) * bt;
+  const int n = static_cast<int>(S - s0 < bt ? S - s0 : bt);  // the tile's segments
+  const float* __restrict__ x = frames + (row * S + s0) * (2 * m);
+  const float* __restrict__ mr = mask + row * S;
+  const Slot<LOG2M> s = slot_of<LOG2M>(smem, slots, slot);
+  float part[R::kP];
+  float top_sum = 0.f;
+  unroll<R::kP>([&](auto ii) { part[GDSP_IDX(ii)] = 0.f; });
+  const int steps = (n + fpc - 1) / fpc;
+#pragma unroll 1  // one frame's registers at a time
+  for (int it = 0; it < steps; ++it) {
+    const int j = it * fpc + slot;
+    const bool live = slot < fpc && j < n;
+    const float ms = live ? __ldg(&mr[s0 + j]) : 0.f;
+    const int tl = opaque(t);  // the frame's addresses are computed a frame
+    float2 v[R::kP];
+    load_row<LOG2M>(v, tl, x + static_cast<long long>(j) * (2 * m), w, live);
+    if constexpr (R::kWarp) {
+      if (!__any_sync(0xffffffffu, ms != 0.f)) continue;  // warp-uniform
+    } else {
+      if (ms == 0.f) continue;  // one frame a CTA: CTA-uniform
+    }
+    const float top = spectrum<LOG2M>(v, tl, s, tw);
+    unroll<R::kP>([&](auto ii) {
+      constexpr int i = GDSP_IDX(ii);
+      part[i] += ms * (v[i].x * v[i].x + v[i].y * v[i].y);
+    });
+    top_sum += ms * (top * top);
+  }
+  float* const o_row = out + static_cast<long long>(blockIdx.x) * (m + 1);
+  store_partials<LOG2M, R::kP>(part, 0, R::kP, true, top_sum, t, threadIdx.x >> 5,
+                               blockDim.x >> 5, smem, o_row);
+}
+
+int launch_noframe(const float* frames, const float* mask, const float* w, float* out,
+                   const float2* tw, long long rows, long long S, int log2pad, int bt,
+                   int n_tiles, void* stream) {
+  return with_log2<0, 13>(log2pad - 1, [&](auto lg) {
+    constexpr int LM = decltype(lg)::value;
+    const int fpc = frames_per_cta<LM>(S < bt ? static_cast<int>(S) : bt, 1);
+    const Cta c = cta_shape<LM>(fpc);
+    const size_t smem = static_cast<size_t>(c.slots) * Row<LM>::kN * 2 * sizeof(float);
+    const long long blocks = rows * n_tiles;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = gdsp::allow_smem(noframe_partials_kernel<LM>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    noframe_partials_kernel<LM><<<static_cast<unsigned>(blocks), c.threads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        frames, mask, reinterpret_cast<const float2*>(w), tw, out, S, bt, n_tiles, fpc, c.slots);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -410,11 +571,13 @@ int gdsp_pwfloor_frameonly(const float* ext, const float* mask, const float* w, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// noframe: out[r, t, k] = sum over segments s of tile t of
-// mask[r, s] * |FFT_pad(w * frames[r, s, :])|^2_k, k <= pad/2.
-int gdsp_pwfloor_noframe(const float* frames, const float* mask, const float* w, float* out,
-                         const float2* tw, long long rows, long long S, int log2pad, int bt,
-                         int n_tiles, void* stream) {
+// noframe's first design, the yardstick: out[r, t, k] = sum over segments
+// s of tile t of mask[r, s] * |FFT_pad(w * frames[r, s, :])|^2_k, k <=
+// pad/2, a segment at a time by K4's first design (a bit-reversed load and
+// radix-2 stages behind barriers); tw is twiddle_table(pad).
+int gdsp_pwfloor_noframe_radix2(const float* frames, const float* mask, const float* w,
+                                float* out, const float2* tw, long long rows, long long S,
+                                int log2pad, int bt, int n_tiles, void* stream) {
   const int pad = 1 << log2pad;
   return launch_spectral<false>(frames, mask, w, out, tw, rows, S * pad, S, pad, pad, log2pad,
                                 bt, n_tiles, stream);
@@ -457,6 +620,18 @@ int gdsp_pwfloor_staged_geometry(int log2pad, int tile, int nfft, int stride, lo
     out[2] = c.slots;
     return 0;
   });
+}
+
+// noframe redesigned: K4's sums over frames given as (rows, S, pad) rows,
+// on K4's tiles, CTA and frame order: equal to gdsp_pwelch_partials on the
+// frames flattened to (rows, S pad) at nfft = stride = pad, bit for bit.
+// frames kNoframeVec-byte aligned (8-byte at pad 2), w 8-byte aligned; tw is
+// ops/cuda_fft.py's rfft_table(pad).  Returns cudaErrorInvalidValue for a
+// pad out of range or a grid past 2^31 - 1 blocks, else cudaGetLastError().
+int gdsp_pwfloor_noframe(const float* frames, const float* mask, const float* w, float* out,
+                         const float2* tw, long long rows, long long S, int log2pad, int bt,
+                         int n_tiles, void* stream) {
+  return launch_noframe(frames, mask, w, out, tw, rows, S, log2pad, bt, n_tiles, stream);
 }
 
 }  // extern "C"

@@ -119,8 +119,9 @@ def _declare(lib) -> None:
     lib.gdsp_pwfloor_loadonly.restype = i
     lib.gdsp_pwfloor_frameonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
     lib.gdsp_pwfloor_frameonly.restype = i
-    lib.gdsp_pwfloor_noframe.argtypes = [p, p, p, p, p, i64, i64, i, i, i, p]
-    lib.gdsp_pwfloor_noframe.restype = i
+    for name in ("gdsp_pwfloor_noframe", "gdsp_pwfloor_noframe_radix2"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i64, i, i, i, p]
+        getattr(lib, name).restype = i
     for name in ("gdsp_pwfloor_staged", "gdsp_pwfloor_staged_radix2"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
         getattr(lib, name).restype = i
@@ -170,8 +171,12 @@ def _declare(lib) -> None:
     lib.gdsp_anat_full_resident.restype = i
     lib.gdsp_anat_full_geometry.argtypes = [i64, i, i, p]
     lib.gdsp_anat_full_geometry.restype = i
-    lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
+    lib.gdsp_sdif_peel.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i, p]
     lib.gdsp_sdif_peel.restype = i
+    lib.gdsp_sdif_peel_sync.argtypes = [p, p, p, p, p, p, p, i64, i64, i, p]
+    lib.gdsp_sdif_peel_sync.restype = i
+    lib.gdsp_sdif_geometry.argtypes = [i64, i64, p]
+    lib.gdsp_sdif_geometry.restype = i
     lib.gdsp_fft_pow2_rows.argtypes = [p, p, p, p, p, i, i64, f, i, i, p]
     lib.gdsp_fft_pow2_rows.restype = i
     lib.gdsp_ls_network.argtypes = [p, p, p, p, i64, i, p]

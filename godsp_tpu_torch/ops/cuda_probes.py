@@ -15,7 +15,12 @@ what bounds them on the H100):
       no FFT: (..., n_tiles, pad) in time order;
   pwfloor_noframe(frames, mask, w)                    replaces :264 noframe
       frames given as (..., S, pad) rows (K3's layout): window, FFT, |X|^2,
-      masked sum: (..., n_tiles, pad//2 + 1);
+      masked sum: (..., n_tiles, pad//2 + 1), on K4's own CTA, transform
+      and sums with each frame read from its row 16 bytes a lane
+      (noframe_load_map), equal to K4 on the frames flattened to (..., S
+      pad) at nfft = stride = pad bit for bit; its first design, a segment
+      at a time through K4's first design's radix-2 stages, stays as the
+      yardstick pwfloor_noframe_radix2;
   pwfloor_staged(ext, mask, w, nfft, stride, pad)     replaces :229 full2d
       K4's function with each tile's span staged once in shared memory by
       the TMA and every frame cut from there, on K4's own CTA, transform
@@ -134,13 +139,19 @@ dense matrix:
       _sdif_kernel): (..., 128, m) float32 planes; seven radix-2 DIF
       stages across the 128 rows, then the post twiddle
       Tb[r, t] = W_N^{brev7(r) t}, N = 128 m; row r holds the dense peel's
-      row brev7(r), i.e. cuda_outer.outer_dft_split(x, 128, 1)'s; plain
-      version sdif_peel_plain.
+      row brev7(r), i.e. cuda_outer.outer_dft_split(x, 128, 1)'s; on K8's
+      column tile (sdif_plan: 32 columns a CTA, 16 rows a thread), the
+      stages in registers with one exchange (sdif_regs_model), Tb as W_N^{k
+      c0} of the row times K8's tile table (sdif_tb_model); its first
+      design, the tile staged in shared memory with a barrier a stage and
+      Tb gathered a point, stays as the yardstick sdif_peel_sync; plain
+      version sdif_peel_plain (its stages alone sdif_stages_plain).
 
 Their tables are built in float64 and rounded once: the port carries the
 lane DIF's arithmetic (brev7_perm, the stage twiddles W_{2w}^j) rather
 than godsp_tpu's _lane_dft module, and Tb is K8's exact-exponent factored
-table (cuda_outer._factor_tables).  The TPU's roll-and-select lane
+table (cuda_outer._factor_tables) and, in sdif_peel, its tile table
+(cuda_outer._tile_table).  The TPU's roll-and-select lane
 stages and its hi x lo lane-grid layout of Tb were Mosaic workarounds and
 are not ported.
 
@@ -315,6 +326,7 @@ from godsp_tpu_torch.ops.cuda_fft import (
     MAX_SMEM,
     cta_fits,
     fft_pow2_plain,
+    geometry,
     rfft_pow2_plain,
     rfft_table,
     stockham_table,
@@ -444,6 +456,9 @@ __all__ = [
     "pwfloor_loadonly_plain",
     "pwfloor_noframe",
     "pwfloor_noframe_plain",
+    "pwfloor_noframe_radix2",
+    "NOFRAME_VEC",
+    "noframe_load_map",
     "pwfloor_staged",
     "pwfloor_staged_plain",
     "pwfloor_staged_radix2",
@@ -453,6 +468,15 @@ __all__ = [
     "row_quant_scales",
     "sdif_peel",
     "sdif_peel_plain",
+    "sdif_peel_sync",
+    "sdif_regs_model",
+    "sdif_stages_plain",
+    "sdif_tb_model",
+    "sdif_plan",
+    "sdif_walk",
+    "SdifPlan",
+    "SDIF_COLS",
+    "SDIF_ROWS",
     "sdif_tables",
     "slice8_add",
     "slice8_add_sync",
@@ -486,7 +510,7 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
             "gmm_floor_sync": 0, "slice8_add_sync": 0, "slicestore_sync": 0,
             "bd_hi_sync": 0, "bd_tf32_sync": 0, "vdif_sync": 0, "anat_full_sync": 0,
-            "pwfloor_staged_radix2": 0}
+            "pwfloor_staged_radix2": 0, "pwfloor_noframe_radix2": 0, "sdif_peel_sync": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile of the first design (pwfloor_staged_radix2)
@@ -672,9 +696,8 @@ def pwfloor_frameonly(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nf
                    rows, ext.shape[-1], S, nfft, stride, pad.bit_length() - 1, bt, n_tiles)
 
 
-def pwfloor_noframe(frames: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
-                    bt: int | None = None) -> torch.Tensor:
-    """The noframe twin: frames (..., S, pad) -> (..., n_tiles, pad//2 + 1)."""
+def _noframe_launch(name: str, entry: str, frames: torch.Tensor, mask: torch.Tensor,
+                    w: torch.Tensor, bt: int | None) -> torch.Tensor:
     pad = frames.shape[-1]
     if frames.shape[:-1] != mask.shape or not fused_supported(pad, pad, pad):
         raise ValueError("frames must be (..., S, pad) over mask's (..., S), pad a power of 2")
@@ -685,13 +708,72 @@ def pwfloor_noframe(frames: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     bt = bt or segs_per_tile(S, rows)
     if not frames.is_cuda:
         return pwfloor_noframe_plain(frames, mask, w, bt)
-    frames, mask, w = _cuda_args("pwfloor_noframe", frames, mask, w)
+    frames, mask, w = _cuda_args(name, frames, mask, w)
+    redesign = name == "pwfloor_noframe"
+    if redesign and frames.data_ptr() % NOFRAME_VEC:  # the redesign's loads are that wide
+        frames = frames.clone()
+    if redesign and w.data_ptr() % 8:  # and the window as float2 pairs, as K4
+        w = w.clone()
+    table = rfft_table(pad, frames.device) if redesign else twiddle_table(pad, False, frames.device)
     n_tiles = -(-S // bt)
     out = torch.empty(*lead, n_tiles, pad // 2 + 1, dtype=torch.float32, device=frames.device)
-    return _launch("pwfloor_noframe", _build.library().gdsp_pwfloor_noframe, out,
+    return _launch(name, getattr(_build.library(), entry), out,
                    frames.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
-                   twiddle_table(pad, False, frames.device).data_ptr(),
-                   rows, S, pad.bit_length() - 1, bt, n_tiles)
+                   table.data_ptr(), rows, S, pad.bit_length() - 1, bt, n_tiles)
+
+
+NOFRAME_VEC = 16  # bytes a lane of pwfloor_noframe's kernel reads from a frame row at once
+
+
+def noframe_load_map(pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """pwfloor_noframe's 16-byte frame load (csrc/pwelch_probe_kernels.cu:
+    load_row at kNoframeVec 16; at 8, the copy probes/noframe_sdif.py
+    prices, each lane reads its pairs t + r T itself) at pad, lane by lane:
+    (units, pairs).  units[t, u] is the 16-byte unit of the frame lane t
+    reads at its load u (at pad 2, whose one pair is read 8 bytes wide,
+    the pair); pairs[t, r] the pair (floats 2 p, 2 p + 1) in lane t's
+    register r after the loads and their even/odd exchange, which the
+    transform needs to be t + r T (P registers, T lanes:
+    cuda_fft.geometry(pad // 2))."""
+    g = geometry(pad // 2)
+    T, P = g.threads, g.points
+    if P == 1:
+        pairs = np.arange(T)[:, None] + T * np.arange(P)[None, :]
+        return pairs.copy(), pairs
+    units = np.zeros((T, P // 2), dtype=np.int64)
+    pairs = np.zeros((T, P), dtype=np.int64)
+    for u in range(P // 2):
+        held = {}
+        for t in range(T):  # the loads: pairs 2 unit, 2 unit + 1 of the frame
+            unit = u if T == 1 else u * T + (t >> 1) + (T // 2 if t & 1 else 0)
+            units[t, u] = unit
+            held[t] = (2 * unit, 2 * unit + 1)
+        for t in range(T):
+            if T == 1:
+                pairs[t, 2 * u], pairs[t, 2 * u + 1] = held[t]
+                continue
+            a, b = held[t]
+            got = held[t ^ 1][0] if (t ^ 1) & 1 else held[t ^ 1][1]  # the partner's send
+            pairs[t, 2 * u], pairs[t, 2 * u + 1] = (got, b) if t & 1 else (a, got)
+    return units, pairs
+
+
+def pwfloor_noframe(frames: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                    bt: int | None = None) -> torch.Tensor:
+    """The noframe twin: frames (..., S, pad) -> (..., n_tiles, pad//2 + 1),
+    on K4's body (its tiles, CTA, transform and sums) with each frame read
+    from its row NOFRAME_VEC bytes a lane; equal to K4 on the frames
+    flattened to (..., S pad) at nfft = stride = pad, bit for bit.  A
+    frames tensor off a NOFRAME_VEC-byte boundary is cloned first."""
+    return _noframe_launch("pwfloor_noframe", "gdsp_pwfloor_noframe", frames, mask, w, bt)
+
+
+def pwfloor_noframe_radix2(frames: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                           bt: int | None = None) -> torch.Tensor:
+    """pwfloor_noframe's first design, its yardstick: a segment at a time a
+    bit-reversed load and log2 pad radix-2 stages behind block barriers."""
+    return _noframe_launch("pwfloor_noframe_radix2", "gdsp_pwfloor_noframe_radix2", frames,
+                           mask, w, bt)
 
 
 def pwfloor_staged(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
@@ -1618,6 +1700,8 @@ def anat_full_sync(xr: torch.Tensor, xi: torch.Tensor,
 
 VDIF_N1 = (1, 2, 4, 8)  # slices of a row vdif takes: n = n1 x 128
 PEEL_ROWS = 128  # rows of sdif_peel's column DFT
+SDIF_COLS = 32  # columns of a sdif tile (a CTA's)
+SDIF_ROWS = 16  # rows a thread of sdif_peel's kernel holds
 _STAGE_WS = (64, 32, 16, 8, 4, 2, 1)  # half-widths of the seven radix-2 DIF stages
 
 
@@ -1730,24 +1814,95 @@ def vdif_plain(xr: torch.Tensor, xi: torch.Tensor,
     return z.real.contiguous(), z.imag.contiguous()
 
 
+def _cmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a w as the kernels' cmul writes it, each real operation a torch call
+    of its own: the same rounding at every shape (torch's complex multiply
+    rounds by a path that depends on the shape)."""
+    return torch.complex(a.real * w.real - a.imag * w.imag, a.real * w.imag + a.imag * w.real)
+
+
+def _sdif_stages(x: torch.Tensor) -> torch.Tensor:
+    """The seven radix-2 DIF stages across the rows of complex (B, 128, m)."""
+    cols = torch.from_numpy(_sdif_columns()).to(x.device, x.dtype)
+    B, m = x.shape[0], x.shape[-1]
+    for s in range(7):
+        h = 64 >> s
+        x = x.reshape(B, PEEL_ROWS // (2 * h), 2, h, m)
+        a, c = x[:, :, 0], x[:, :, 1]
+        wb = cols[s].reshape(PEEL_ROWS // (2 * h), 2, h)[:, 1, :, None]
+        x = torch.stack([a + c, _cmul(a - c, wb)], dim=2)
+    return x.reshape(B, PEEL_ROWS, m)
+
+
+def sdif_stages_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """sdif_peel_plain's seven stages alone, without Tb, in the input's dtype."""
+    m = _check_sdif(xr, xi)
+    x = _sdif_stages(torch.complex(xr, xi).to(_cdtype(xr)).reshape(-1, PEEL_ROWS, m))
+    return x.real.reshape(xr.shape).contiguous(), x.imag.reshape(xr.shape).contiguous()
+
+
 def sdif_peel_plain(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of K14i in the input's dtype: the seven radix-2
     DIF stages across the 128 rows of (..., 128, m) planes, then
     Tb[r, t] = W_N^{brev7(r) t} (the exponent exact in int64)."""
     m = _check_sdif(xr, xi)
     lead, dev, cdt = xr.shape[:-2], xr.device, _cdtype(xr)
-    x = torch.complex(xr, xi).to(cdt).reshape(-1, PEEL_ROWS, m)
-    cols = torch.from_numpy(_sdif_columns()).to(dev, cdt)
-    for s in range(7):
-        h = 64 >> s
-        x = x.reshape(x.shape[0], PEEL_ROWS // (2 * h), 2, h, m)
-        a, c = x[:, :, 0], x[:, :, 1]
-        wb = cols[s].reshape(PEEL_ROWS // (2 * h), 2, h)[:, 1, :, None]
-        x = torch.stack([a + c, (a - c) * wb], dim=2)
+    x = _sdif_stages(torch.complex(xr, xi).to(cdt).reshape(-1, PEEL_ROWS, m))
     tb = _exp_table(PEEL_ROWS * m, brev7_perm().to(dev),
                     torch.arange(m, device=dev), False).to(cdt)
-    y = (x.reshape(-1, PEEL_ROWS, m) * tb).reshape(*lead, PEEL_ROWS, m)
+    y = (x * tb).reshape(*lead, PEEL_ROWS, m)
     return y.real.contiguous(), y.imag.contiguous()
+
+
+def sdif_regs_model(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """sdif_peel's stages as its kernel moves the data (csrc/dif_probe_kernels.cu:
+    sdif_peel_kernel), each butterfly the plain version's operations: row
+    group j of a column holds rows j + 8 q (q < 16) for the stages at h =
+    64, 32, 16, 8 (registers q and q + h / 8), the exchange, then rows
+    16 j + e (e < 16) for h = 4, 2, 1 (registers e and e + h).  Equal to
+    sdif_stages_plain bit for bit in either dtype."""
+    m = _check_sdif(xr, xi)
+    groups = PEEL_ROWS // SDIF_ROWS
+    cols = torch.from_numpy(_sdif_columns()).to(xr.device, _cdtype(xr))
+    x = torch.complex(xr, xi).to(_cdtype(xr)).reshape(-1, PEEL_ROWS, m)
+    z = list(x.reshape(-1, SDIF_ROWS, groups, m).unbind(1))  # z[q][:, j] = row j + 8 q
+    j = torch.arange(groups, device=xr.device)
+    for s in range(4):
+        h = 64 >> s
+        g = h // groups
+        for q in (q for q in range(SDIF_ROWS) if not q & g):
+            a, v = z[q], z[q + g]
+            z[q], z[q + g] = a + v, _cmul(a - v, cols[s, j + groups * q + h][:, None])
+    rows = torch.stack(z, 1).reshape(-1, PEEL_ROWS, m)  # the exchange: row j + 8 q
+    z = list(rows.reshape(-1, groups, SDIF_ROWS, m).unbind(2))  # z[e][:, j] = row 16 j + e
+    for s in range(4, 7):
+        h = 64 >> s
+        for e in (e for e in range(SDIF_ROWS) if not e & h):
+            a, v = z[e], z[e + h]
+            z[e], z[e + h] = a + v, _cmul(a - v, cols[s, SDIF_ROWS * j + e + h][:, None])
+    y = torch.stack(z, 2).reshape(xr.shape)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def sdif_tb_model(m: int, columns: np.ndarray | None = None) -> np.ndarray:
+    """complex64 (128, len(columns)): the Tb sdif_peel's kernel applies at
+    rows r < 128 and the given columns t (default all of m): W_N^{k c0}
+    from K8's factored hi and lo times the tile table's W_N^{k cc}, k =
+    brev7(r), c0 = t - cc the tile's first column, each complex product
+    rounded to float32 as the kernel's."""
+    t = np.arange(m) if columns is None else np.asarray(columns)
+    n = PEEL_ROWS * m
+    hi, lo, lo_bits = _factor_tables(n, False, torch.device("cpu"))
+    hi = hi[:, 0].numpy() + 1j * hi[:, 1].numpy()
+    lo = lo[:, 0].numpy() + 1j * lo[:, 1].numpy()
+    tt = cuda_outer._tile_table(n, PEEL_ROWS, SDIF_COLS, False, torch.device("cpu"))
+    tt = tt[:, 0].numpy() + 1j * tt[:, 1].numpy()
+    k = brev7_perm().numpy()[:, None]
+    cc = t % SDIF_COLS
+    p = k * (t - cc)[None, :]
+    c64 = np.complex64
+    w = (hi[p >> lo_bits].astype(c64) * lo[p & ((1 << lo_bits) - 1)].astype(c64)).astype(c64)
+    return (w * tt[k * SDIF_COLS + cc[None, :]].astype(c64)).astype(c64)
 
 
 def vdif(xr: torch.Tensor, xi: torch.Tensor,
@@ -1809,22 +1964,72 @@ def vdif_walk(plan: VdifPlan, b: int) -> list[list[int]]:
     return [[g] if g < b else [] for g in range(plan.blocks * VD_WARPS)]
 
 
-def sdif_peel(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K14i: the 128-point peel of (..., 128, m) float32 planes by seven
-    shared-memory radix-2 stages, then Tb; row r holds
-    outer_dft_split(x, 128, 1)'s row brev7(r)."""
+def _sdif_launch_tables(m: int, device: torch.device, tile_table: bool) -> tuple:
+    """The tables a sdif kernel reads at (128, m): the stage columns, K8's
+    factored hi and lo of W_N (N = 128 m) and, where tile_table, K8's tile
+    table W_N^{k cc} (k < 128, cc < SDIF_COLS) that the redesign's Tb reads
+    at k = brev7(r)."""
+    hi, lo, _ = _factor_tables(PEEL_ROWS * m, False, device)
+    tables = (_sdif_cols_packed(device), hi, lo)
+    if tile_table:
+        tables += (cuda_outer._tile_table(PEEL_ROWS * m, PEEL_ROWS, SDIF_COLS, False, device),)
+    return tables
+
+
+def _sdif_launch(name: str, entry: str, xr: torch.Tensor,
+                 xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     m = _check_sdif(xr, xi)
     if not xr.is_cuda:
         return sdif_peel_plain(xr, xi)
-    xr, xi = _cuda_planes(xr, xi, "sdif_peel")
+    xr, xi = _cuda_planes(xr, xi, name)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    dev = xr.device
-    hi, lo, lo_bits = _factor_tables(PEEL_ROWS * m, False, dev)
-    _launch("sdif_peel", _build.library().gdsp_sdif_peel, yr,
+    tables = _sdif_launch_tables(m, xr.device, name == "sdif_peel")
+    _launch(name, getattr(_build.library(), entry), yr,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            _sdif_cols_packed(dev).data_ptr(), hi.data_ptr(), lo.data_ptr(), m,
-            xr.numel() // (PEEL_ROWS * m), lo_bits)
+            *(t.data_ptr() for t in tables), m, xr.numel() // (PEEL_ROWS * m),
+            cuda_outer.lo_bits_of(PEEL_ROWS * m))
     return yr, yi
+
+
+class SdifPlan(NamedTuple):
+    """sdif_peel's launch plan (gdsp_sdif_geometry returns the same fields in
+    this order)."""
+
+    threads: int  # threads a block: SDIF_COLS columns x 8 row groups
+    columns: int  # columns a tile (a CTA's)
+    tiles: int  # tiles a (128, m) plane: grid.x
+    smem: int  # bytes of shared memory a block: the exchange of both planes
+
+
+def sdif_plan(m: int, batch: int) -> SdifPlan:
+    """sdif_peel's plan for `batch` (128, m) planes: a CTA a (batch element,
+    32-column tile), the last tile ragged.  Raises ValueError for m < 1 or
+    batch < 0."""
+    if m < 1 or batch < 0:
+        raise ValueError(f"sdif_plan: bad shape {batch} x (128, {m})")
+    return SdifPlan(SDIF_COLS * PEEL_ROWS // SDIF_ROWS, SDIF_COLS, -(-m // SDIF_COLS),
+                    2 * PEEL_ROWS * SDIF_COLS * 4)
+
+
+def sdif_walk(plan: SdifPlan, m: int, batch: int) -> dict[tuple[int, int], list[int]]:
+    """The columns each CTA (batch element, tile) of the grid takes."""
+    return {(b, t): [c for c in range(t * plan.columns, (t + 1) * plan.columns) if c < m]
+            for b in range(batch) for t in range(plan.tiles)}
+
+
+def sdif_peel(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K14i: the 128-point peel of (..., 128, m) float32 planes by seven
+    radix-2 stages in registers on K8's column tile (sdif_plan), then Tb as
+    W_N^{k c0} of the row times K8's tile table; row r holds
+    outer_dft_split(x, 128, 1)'s row brev7(r)."""
+    return _sdif_launch("sdif_peel", "gdsp_sdif_peel", xr, xi)
+
+
+def sdif_peel_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """sdif_peel's first design, its yardstick: a 128 x 32 tile staged in
+    shared memory, seven radix-2 stages there behind a barrier each, Tb
+    gathered a point from K8's factored tables."""
+    return _sdif_launch("sdif_peel_sync", "gdsp_sdif_peel_sync", xr, xi)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@
   vdif    — the 1024-point DFT as a slice network and a 128-point DIF by
             warp shuffles (K14h) beside K12, K14b and K1:
             python3 -m godsp_tpu_torch.probes.vdif
-  sdif    — the 128-point peel of 2^24 as seven radix-2 row stages in
-            shared memory (K14i) beside K12 and K8:
+  sdif    — the 128-point peel of 2^24 as seven radix-2 row stages
+            (K14i) beside K12 and K8:
             python3 -m godsp_tpu_torch.probes.sdif
   r3      — the TPU's lane-slice K1 taken apart (K14f: the slice network,
             K13's contraction in one TF32 pass, network + contraction in
@@ -51,4 +51,10 @@
             half3 + row + bd_hi route, K4 (at hop 512 and 160) and K12,
             the first designs' variants and anat_full's tuning copies:
             python3 -m godsp_tpu_torch.probes.anat_staged
+  noframe_sdif — K14a's pwfloor_noframe and K14i's sdif_peel beside their
+            first designs: ptxas, SASS counts a segment or tile, times
+            beside K4 (on the samples and on the flattened frames, at hop
+            512 and 160), the TMA route, K8 and K12, the first designs'
+            variants and the redesigns' pricing copies:
+            python3 -m godsp_tpu_torch.probes.noframe_sdif
 """

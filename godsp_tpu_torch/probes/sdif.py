@@ -15,10 +15,12 @@ events; their difference over the extra launches):
 
   copy   K12 copy_split of the (2048, 8192) view, as the TPU probe's
          st_copy (:181);
-  sdif   K14i sdif_peel: seven shared-memory radix-2 stages across the
-         128 rows of each 32-column tile, then the post twiddle Tb;
+  sdif   K14i sdif_peel: seven radix-2 stages across the 128 rows of
+         each 32-column tile, in registers with one exchange through
+         shared memory, then the post twiddle Tb;
   dense  K8 outer_dft_split(x, 128, 1): the TPU probe's dense peel (:174),
-         here a 128-point radix-2 FFT a column in shared memory;
+         here the register-radix passes [16, 8] down each column of a
+         32-column tile (csrc/outer_kernel.cu);
 
 each beside its multiple of the copy, its bound (utils.metrics.bound_ms:
 16 B a point over 3.35 TB/s, or the float32 operations over 67 TFLOP/s:

@@ -2774,3 +2774,98 @@ def test_anat_full_and_staged_kernels_do_not_spill(cuda, tmp_path):
                 print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
                 assert "0 bytes spill stores, 0 bytes spill loads" in lines[i + 1], line
     assert seen == 15
+
+
+# ------------------------------- K14a pwfloor_noframe and K14i sdif_peel redesigned
+
+# (pad, frames, kept, rows, offset of the frames in their tensor, floats)
+_NOFRAME_GEOMETRIES = [(1024, 16384, 16384, 1, 0), (2048, 5001, 4990, 1, 0), (4096, 300, 290, 2, 0),
+                       (16384, 9, 9, 1, 0), (1024, 3001, 3000, 2, 1), (64, 1000, 999, 3, 2),
+                       (32, 129, 128, 2, 3), (4, 77, 70, 2, 0), (2, 100, 99, 3, 1)]
+
+
+@pytest.mark.parametrize("pad,S,keep,rows,offset", _NOFRAME_GEOMETRIES)
+def test_pwfloor_noframe_redesign_on_card(cuda, pad, S, keep, rows, offset):
+    """pwfloor_noframe (K4's body, each frame read from its row 16 bytes a
+    lane) torch.equal to K4 on the frames flattened at nfft = hop = pad,
+    one launch; it and its first design pwfloor_noframe_radix2 >= 120 dB
+    against float64: the probe geometry, the pad-2048 ragged tile, the
+    block route (pad 4096, 16384), frames off a 16-byte boundary (cloned),
+    Q frames a warp (pads 64, 32, 4) and pad 2's 8-byte pair."""
+    rng = np.random.default_rng(pad + S)
+    base = torch.from_numpy(rng.uniform(-1, 1, size=rows * S * pad + offset)).float().to(cuda)
+    frames = base[offset:].view(rows, S, pad)
+    mask = torch.from_numpy((np.arange(S) < keep) * np.ones((rows, 1))).float().to(cuda)
+    w = window.window_table("hann", pad, device=cuda, dtype=torch.float32)
+    bt = cuda_pwelch.segs_per_tile(S, rows)
+    reset_launch_counts()
+    got = cuda_probes.pwfloor_noframe(frames, mask, w)
+    first = cuda_probes.pwfloor_noframe_radix2(frames, mask, w)
+    counts = launch_counts()
+    assert counts["pwfloor_noframe"] == counts["pwfloor_noframe_radix2"] == 1
+    assert torch.equal(got, cuda_pwelch.pwelch_power_partials(frames.reshape(rows, S * pad), mask,
+                                                              w, pad, pad, pad))
+    want = _np(cuda_probes.pwfloor_noframe_plain(frames.double(), mask.double(), w.double(), bt))
+    assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+    assert dsputils.snr_db(_np(first), want) >= SNR_CARD_DB
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 131072), (3, 128, 1000), (2, 128, 1), (1, 128, 33),
+                                   (16, 128, 8192), (2, 2, 128, 31)])
+def test_sdif_peel_redesign_on_card(cuda, shape):
+    """sdif_peel (the stages in registers on K8's column tile, Tb from K8's
+    tile table) and its first design sdif_peel_sync each >= 120 dB against
+    float64 and against each other, one launch a call; its rows are K8's
+    brev7(r): at 2^24, the ragged (3, 128, 1000), m = 1 and 33, and 16 x
+    (128, 8192)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1] + 7)
+    xr, xi = (torch.randn(shape, generator=g, device=cuda) for _ in range(2))
+    reset_launch_counts()
+    new, first = cuda_probes.sdif_peel(xr, xi), cuda_probes.sdif_peel_sync(xr, xi)
+    counts = launch_counts()
+    assert counts["sdif_peel"] == counts["sdif_peel_sync"] == 1
+    want = _c(cuda_probes.sdif_peel_plain(xr.double(), xi.double()))
+    dbs = {"sdif_peel": dsputils.snr_db(_c(new), want),
+           "sdif_peel_sync": dsputils.snr_db(_c(first), want),
+           "against each other": dsputils.snr_db(_c(new), _c(first))}
+    print(f"sdif_peel {shape}: {dbs}")
+    assert all(db >= SNR_CARD_DB for db in dbs.values()), dbs
+    d = cuda_outer.outer_dft_split(xr, xi, 128, 1)
+    perm = cuda_probes.brev7_perm().to(cuda)
+    assert dsputils.snr_db(_c(new), _c((d[0][..., perm, :], d[1][..., perm, :]))) >= SNR_CARD_DB
+
+
+def test_sdif_geometry_matches_the_host_plan(cuda):
+    """gdsp_sdif_geometry (threads, columns, tiles, shared bytes) equals
+    ops/cuda_probes.py's sdif_plan at ragged m and batches past grid.y, and
+    refuses m < 1."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int64 * 4)()
+    for m in (1, 31, 32, 33, 1000, 8192, 131072):
+        for b in (0, 1, 3, 65537):
+            assert lib.gdsp_sdif_geometry(m, b, out) == 0
+            assert tuple(out) == tuple(cuda_probes.sdif_plan(m, b)), (m, b)
+    assert lib.gdsp_sdif_geometry(0, 1, out) != 0
+
+
+def test_noframe_and_sdif_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v: noframe_partials_kernel at every pad and sdif_peel_kernel
+    spill nothing and keep no stack frame (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("pwelch_probe_kernels.cu", ("23noframe_partials_kernel",)),
+                       ("dif_probe_kernels.cu", ("16sdif_peel_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in \
+                    lines[i + 1], line
+    assert seen == 15
