@@ -158,7 +158,21 @@ final line):
      K4 on the samples the frames were cut from and the bound, sdif_peel
      at 2^24 beside sdif_peel_sync (a counted session), K8
      outer_dft_split(x, 128, 1) on the same planes, K12's copy and the
-     bound, by chain and alone;
+     bound, by chain and alone; then (phase_i8full_frameonly_redesign)
+     K14g's i8full, digit warps and product warps overlapped on one CTA an
+     SM with two digit buffers handed over on named barriers (its plan held
+     to the host's through gdsp_i8full_geometry), and K14a's
+     pwfloor_frameonly, K4's body without the transform: i8full
+     torch.equal to i8full_plain, to i8_concat and to its first design
+     i8full_sync at 16384 x 1024, 1001 x 512 and 33 x 384;
+     pwfloor_frameonly and its first design pwfloor_frameonly_shared >= 120
+     dB against float64 at phase 12's two geometries, pad 4096 and hop
+     160's 52,428 segments; i8full at 16384 x 1024 beside i8full_sync (a
+     counted session of its own), torch.matmul of the complex64 slices
+     (TF32 off), i8mm, i8_concat and the bound, pwfloor_frameonly at the
+     probe geometry and at 52,428 segments beside pwfloor_frameonly_shared
+     (a counted session), pwfloor_loadonly, K4 and the bound, by chain and
+     alone, with K4 less frameonly;
   4. the main path at real size: a seeded 10-minute 44.1 kHz 16-bit mono
      recording (26,460,000 samples) written with the port's WavWriter,
      then, after one warm-up call, one session through the public entry
@@ -293,8 +307,8 @@ final line):
      discretization; each step's wall and Msamples/s printed; then each
      result held against scipy.signal in float64 on the host on the same
      float32 input (>= 120 dB);
- 12. K14a, the fused-Welch floor twins (ops/cuda_probes.py; noframe and
-     staged the redesigns): each held
+ 12. K14a, the fused-Welch floor twins (ops/cuda_probes.py; frameonly,
+     noframe and staged the redesigns): each held
      against its plain version on the card (loadonly and frameonly
      against float64, noframe against the float64 rfft -> |X|^2 ->
      masked sum, staged against K4 on the same samples, torch.equal to
@@ -375,11 +389,12 @@ final line):
      slicestore, gmm_floor, fft_pow2, fft_pow2_rows and fft_pow2_radix2;
      nothing else (the sweep times K1 at each rows a CTA beside its
      radix-2 first design);
- 21. K14g i8_dot, i8mm, i8dec, i8full and i8_concat (ops/cuda_probes.py)
-     on the card at 16384 x 1024 and at the ragged 1001 x 1024 and 1001 x
-     512 (n1 4): probes.int8's check_numerics and fragment_maps, their
-     launches counted (i8_dot exact at (256, 128) @ (128, 128) and (1001,
-     128) @ (128, 384); i8mm torch.equal to its plain version, which does
+ 21. K14g i8_dot, i8mm, i8dec, i8full and i8_concat (ops/cuda_probes.py;
+     i8_dot, i8full and i8_concat the redesigns) on the card at 16384 x
+     1024 and at the ragged 1001 x 1024 and 1001 x 512 (n1 4):
+     probes.int8's check_numerics and fragment_maps, their launches
+     counted (i8_dot exact at (256, 128) @ (128, 128) and (1001, 128) @
+     (128, 384); i8mm torch.equal to its plain version, which does
      the same integer arithmetic; i8dec, i8full and i8_concat equal to
      theirs or >= 120 dB; i8full equal to i8_concat; i8full's dB against
      the float64 product printed, the scheme's ~120, not gated; i8mm and
@@ -389,7 +404,7 @@ final line):
      (the profiler's events of each call's device work);
  22. probes.int8.run at its full shape as one counted session: the five
      K14g wrappers, copy_split and gmm_floor; nothing else;
- 23. prints {"kernels": [...]} (64 wrappers) and, last, {"ok": true,
+ 23. prints {"kernels": [...]} (66 wrappers) and, last, {"ok": true,
      "device": {...}}.
 
 Imports nothing of JAX.  Needs one card; stops nothing it did not start
@@ -627,6 +642,8 @@ REPLACES = {
     "pwfloor_staged_radix2": "tools/probe_pwfloor.py:229",
     "pwfloor_noframe_radix2": "tools/probe_pwfloor.py:264",
     "sdif_peel_sync": "tools/probe_sdif.py:116",
+    "i8full_sync": "tools/probe_int8.py:71",
+    "pwfloor_frameonly_shared": "tools/probe_pwfloor.py:189",
 }
 SOURCES = {
     "fft_pow2": "godsp_tpu_torch/csrc/fft_kernels.cu",
@@ -682,6 +699,8 @@ SOURCES = {
     "pwfloor_staged_radix2": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
     "pwfloor_noframe_radix2": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
     "sdif_peel_sync": "godsp_tpu_torch/csrc/dif_probe_kernels.cu",
+    "i8full_sync": "godsp_tpu_torch/csrc/int8_probe_kernels.cu",
+    "pwfloor_frameonly_shared": "godsp_tpu_torch/csrc/pwelch_probe_kernels.cu",
 }
 
 
@@ -995,6 +1014,7 @@ def phase_fft_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
     steps.update(phase_bd1_vdif_redesign(rec, dev))
     steps.update(phase_anat_staged_redesign(rec, dev))
     steps.update(phase_noframe_sdif_redesign(rec, dev))
+    steps.update(phase_i8full_frameonly_redesign(rec, dev))
     return steps
 
 
@@ -1010,10 +1030,10 @@ def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: s
     """One redesign line: view(op()) held against want (float64 on the
     card, >= 120 dB), then op, the yardstick radix2 (wrapper `yard`, the
     first design, printed as yard_label) and (where not None) library,
-    K12's copy of the same planes and extra (label, op) timed by chain
-    (time_chain_diff); the yardstick's chains run as a counted session of
-    their own, which must launch `yard` and nothing else.  Returns the
-    kernel's ms."""
+    K12's copy of the same planes and extra (a (label, op) pair, or a tuple
+    of them) timed by chain (time_chain_diff); the yardstick's chains run as
+    a counted session of their own, which must launch `yard` and nothing
+    else.  Returns the kernel's ms."""
     from godsp_tpu_torch.probes._common import chained
     from godsp_tpu_torch.utils.metrics import time_chain_diff
 
@@ -1037,11 +1057,22 @@ def redesign_line(rec: KernelRecord, steps: dict, name: str, yard: str, shape: s
     bnd, by = bound_ms(nbytes, flops)
     lib = "none" if library is None else f"{chain_ms(library):.4f} ms"
     cp = "" if copy is None else f"  K12 copy {chain_ms(copy):.4f} ms"
-    ex = "" if extra is None else f"  {extra[0]} {chain_ms(extra[1]):.4f} ms"
+    extras = () if extra is None else (extra,) if isinstance(extra[0], str) else extra
+    ex = "".join(f"  {label} {chain_ms(fn):.4f} ms" for label, fn in extras)
     log(f"  redesign {name:15s} {shape:34s} {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
         f"library {lib}{cp}{ex}  {yard_label} {r2:.4f} ms ({r2 / ms:.2f}x)  {db:.2f} dB  "
         f"faster than {yard_label}: {ms < r2}")
     return ms
+
+
+def alone_line(name: str, shape: str, ms: float, runs) -> None:
+    """A redesign line's kernels alone: each (label, kernel symbol, op) of
+    runs by the profiler's events of that kernel, printed beside the
+    redesign's ms by chain."""
+    alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in runs]
+    log(f"  redesign alone (profiler events), {name} {shape}: " + "  ".join(
+        f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
+        + f"  (by chain {ms:.4f} ms)")
 
 
 def phase_stft_outer_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
@@ -2232,12 +2263,6 @@ def phase_noframe_sdif_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, i
     log(f"pwfloor_noframe and sdif_peel redesigned vs their first designs; sdif's plan equals the "
         f"host's: {cp.sdif_plan(1 << 17, 1)} at (1, 128, 131072)")
 
-    def alone_line(name, shape, ms, runs):
-        alone = [(label, kernel_alone_ms(symbol, run, reps=20)[0]) for label, symbol, run in runs]
-        log(f"  redesign alone (profiler events), {name} {shape}: " + "  ".join(
-            f"{label} {'not measured' if t is None else f'{t:.4f} ms'}" for label, t in alone)
-            + f"  (by chain {ms:.4f} ms)")
-
     g = torch.Generator(device=dev).manual_seed(25)
     for pad, hop, S, keep in NOFRAME_REDESIGN:
         if hop:
@@ -2306,6 +2331,140 @@ def phase_noframe_sdif_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, i
             rec.time("sdif_peel_sync", label, first, lambda: cp.sdif_peel_plain(xr, xi), None,
                      16.0 * pts, 41.0 * pts)
         del xr, xi, want
+    return steps
+
+
+# K14g's i8full: (b, n), the probe's planes (timed), phase 21's ragged
+# (1001, 512) and a ragged (33, 384).  K14a's pwfloor_frameonly: (nfft, hop,
+# pad, segments, kept, timed), phase 12's two cases (the probe geometry
+# timed), the block route at pad 4096 and hop 160's 52,428 segments
+# (timed); a timed case takes anat_staged's samples, the others seeded
+# uniform ones with the last segments masked.
+I8FULL_REDESIGN = ((16384, 1024), (1001, 512), (33, 384))
+FRAMEONLY_REDESIGN = ((1024, 512, 1024, 16384, 16384, True), (1000, 160, 1024, 5001, 4990, False),
+                      (4096, 1024, 4096, 300, 290, False),
+                      (1024, 160, 1024, (1 << 23) // 160, (1 << 23) // 160, True))
+
+
+def phase_i8full_frameonly_redesign(rec: KernelRecord, dev) -> dict[str, dict[str, int]]:
+    """K14g's i8full and K14a's pwfloor_frameonly redesigned.  i8full's plan
+    as the C side exports it (gdsp_i8full_geometry) held to the host's
+    (cuda_probes.i8full_plan) at the card's resident CTAs and fewer, ragged
+    b and b past grid.y included.  At each I8FULL_REDESIGN shape i8full
+    torch.equal to i8full_plain, to i8_concat and to its first design
+    i8full_sync; at 16384 x 1024 a redesign line (its dB against the
+    float64 product) beside i8full_sync (a counted session of its own), the
+    library call (torch.matmul of the complex64 slices and K13's G, TF32
+    off), i8mm, i8_concat and the bound, then each alone.  At each
+    FRAMEONLY_REDESIGN case pwfloor_frameonly and its first design
+    pwfloor_frameonly_shared >= 120 dB against the float64 plain version;
+    at the probe geometry and at 52,428 segments of hop 160 a redesign line
+    beside pwfloor_frameonly_shared (a counted session), pwfloor_loadonly,
+    K4 on the same samples and the bound, then each alone, and K4 less
+    frameonly by chain.  The yardsticks are checked and timed for the
+    kernels line here."""
+    import ctypes
+
+    from godsp_tpu_torch import window
+    from godsp_tpu_torch.ops import _build, cuda_pwelch
+    from godsp_tpu_torch.ops import cuda_probes as cp
+    from godsp_tpu_torch.probes import anat_staged
+    from godsp_tpu_torch.probes._common import (INT8_OPS, complex_matmul, lane_planes,
+                                                planes_equal)
+    from godsp_tpu_torch.utils.metrics import FP32_FLOPS
+
+    lib, out = _build.library(), (ctypes.c_int * 6)()
+    resident = cp._i8full_resident(dev)
+    for b, n in ((0, 128), (1, 128), (33, 384), (1001, 512), (16384, 1024), (16 * 65535 + 17, 128)):
+        for res in (1, 7, resident):
+            plan = tuple(cp.i8full_plan(b, n, res))
+            if lib.gdsp_i8full_geometry(b, n, res, out) != 0 or tuple(out) != plan:
+                raise AssertionError(f"i8full's plan at ({b}, {n}) over {res} CTAs: {tuple(out)} "
+                                     f"against the host's {plan}")
+    steps: dict[str, dict[str, int]] = {}
+    log(f"i8full and pwfloor_frameonly redesigned vs their first designs; i8full's plan equals "
+        f"the host's: {cp.i8full_plan(16384, 1024, resident)} at 16384 x 1024")
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("i8full's library call: TF32 is on")
+    for b, n in I8FULL_REDESIGN:
+        xr, xi = lane_planes(dev, b, n, seed=26)
+        label = f"{b} x {n}"
+        op = lambda: cp.i8full(xr, xi)
+        first = lambda: cp.i8full_sync(xr, xi)
+        got = op()
+        eq = {"plain": planes_equal(got, cp.i8full_plain(xr, xi)),
+              "i8_concat": planes_equal(got, cp.i8_concat(xr, xi)),
+              "first design": planes_equal(got, first())}
+        log(f"  i8full {label}: torch.equal to {eq}")
+        if not all(eq.values()):
+            raise AssertionError(f"i8full {label}: equal to {eq}")
+        if (b, n) == I8FULL_REDESIGN[0]:
+            pts = float(b * n)
+            want = cplx(cp.gmm_tf32_plain(xr.double(), xi.double()))
+            db = snr_on_card(cplx(got), want)
+            flops = max(43.0 * pts, 4608.0 * pts * FP32_FLOPS / INT8_OPS)
+            matmul = complex_matmul(xr, xi)
+            mm, cat = (lambda: cp.i8mm(xr, xi)), (lambda: cp.i8_concat(xr, xi))
+            ms = redesign_line(rec, steps, "i8full", "i8full_sync", f"{label} ({db:.2f} dB)", op,
+                               first, matmul, None, cplx, want, 16.0 * pts, flops,
+                               extra=(("i8mm", mm), ("i8_concat", cat)),
+                               yard_label="first design")
+            alone_line("i8full", label, ms, (
+                ("i8full", "i8full_kernel", op), ("first design", "i8_probe_kernel", first),
+                ("i8mm", "i8_probe_kernel", mm), ("i8_concat", "i8_concat_kernel", cat)))
+            rec.check("i8full_sync", lambda: cplx(first()), cplx(cp.i8full_plain(xr, xi)),
+                      f"{label}, equal to its plain version")
+            rec.time("i8full_sync", label, first, lambda: cp.i8full_plain(xr, xi), matmul,
+                     16.0 * pts, flops)
+            del want
+        del xr, xi, got
+    g = torch.Generator(device=dev).manual_seed(26)
+    for nfft, hop, pad, S, keep, timed in FRAMEONLY_REDESIGN:
+        if timed:
+            ext, mask, _ = anat_staged.pwelch_inputs(dev, hop, S)
+            ext, mask = ext[None], mask[None]
+        else:
+            ext = torch.rand(1, (S - 1) * hop + nfft - 3, generator=g, device=dev) * 2 - 1
+            mask = (torch.arange(S, device=dev) < keep).float()[None]
+        w = window.window_table("hann", pad, device=dev, dtype=torch.float32)
+        bt = cuda_pwelch.segs_per_tile(S, 1)
+        shape = f"{keep} of {S} segments, nfft {nfft}, hop {hop}, pad {pad}"
+        op = lambda: cp.pwfloor_frameonly(ext, mask, w, nfft, hop, pad)
+        first = lambda: cp.pwfloor_frameonly_shared(ext, mask, w, nfft, hop, pad)
+        want = cp.pwfloor_frameonly_plain(ext.double(), mask.double(), w.double(), nfft, hop, pad,
+                                          bt)
+        dbs = (snr_on_card(op(), want), snr_on_card(first(), want))
+        log(f"  pwfloor_frameonly {shape}: {dbs[0]:.2f} dB against float64, first design "
+            f"{dbs[1]:.2f}")
+        if not min(dbs) >= SNR_DB:
+            raise AssertionError(f"pwfloor_frameonly {shape}: {dbs} dB, not both >= {SNR_DB}")
+        if timed:
+            load = lambda: cp.pwfloor_loadonly(ext, mask, w, nfft, hop, pad)
+            k4 = lambda: cuda_pwelch.pwelch_power_partials(ext, mask, w, nfft, hop, pad=pad)
+            tiles = -(-S // bt)
+            nbytes = 4.0 * (ext.numel() + S + pad + tiles * pad)
+            flops = 2.0 * keep * nfft
+            ms = redesign_line(rec, steps, "pwfloor_frameonly", "pwfloor_frameonly_shared",
+                               f"{shape} ({dbs[0]:.2f} dB)", op, first, None, None, lambda t: t,
+                               want, nbytes, flops, extra=(("loadonly", load), ("K4", k4)),
+                               yard_label="first design")
+            alone_line("pwfloor_frameonly", shape, ms, (
+                ("pwfloor_frameonly", "frameonly_partials_kernel", op),
+                ("first design", "frameonly_kernel", first),
+                ("loadonly", "loadonly_kernel", load), ("K4", "pwelch_partials_kernel", k4)))
+            from godsp_tpu_torch.probes._common import chained
+            from godsp_tpu_torch.utils.metrics import time_chain_diff
+
+            k4_ms = time_chain_diff(chained(k4), ext) * 1e3
+            log(f"  K4 less pwfloor_frameonly by chain, {shape}: {k4_ms - ms:.4f} ms (K4 "
+                f"{k4_ms:.4f}, frameonly {ms:.4f}): K4's transform, split and |X|^2")
+            if hop == 512:
+                rec.check("pwfloor_frameonly_shared", first, want, shape)
+                rec.time("pwfloor_frameonly_shared", shape, first,
+                         lambda: cp.pwfloor_frameonly_plain(ext, mask, w, nfft, hop, pad, bt),
+                         None, nbytes, flops)
+        del ext, mask, want
     return steps
 
 
@@ -3682,9 +3841,10 @@ def phase_probe_kernels(rec: KernelRecord, dev) -> None:
     build_variant bodies), against their plain versions on the card at the
     probe's geometry (16384 segments, nfft = pad = 1024, hop 512) and at a
     ragged one (nfft 1000, hop 160, pad 1024, 5001 segments of which 4990
-    count; noframe at pad 2048): loadonly and frameonly (K4's first
-    design's load and framing, a floor of K4's bytes) against their
-    float64 plain versions, noframe (K4's body with each frame read from
+    count; noframe at pad 2048): loadonly (K4's first design's load, a
+    floor of K4's bytes) and frameonly (K4's body without the transform:
+    its framing load and masked sums in registers) against their float64
+    plain versions, noframe (K4's body with each frame read from
     its row 16 bytes a lane: twice K4's bytes, none re-read) against the
     float64 rfft -> |X|^2 -> masked sum, staged (K4's body with each
     tile's span staged once by the TMA, the frames cut from shared
@@ -3692,7 +3852,8 @@ def phase_probe_kernels(rec: KernelRecord, dev) -> None:
     against the float64 plain version; each timed at the probe's geometry
     beside its plain version and bound (no one PyTorch call computes any
     twin's function).  The redesigns' lines beside their first designs
-    are phase 3's (phase_anat_staged_redesign, phase_noframe_sdif_redesign)."""
+    are phase 3's (phase_anat_staged_redesign, phase_noframe_sdif_redesign,
+    phase_i8full_frameonly_redesign)."""
     from godsp_tpu_torch import window
     from godsp_tpu_torch.ops import cuda_probes as cp
     from godsp_tpu_torch.ops import cuda_pwelch
@@ -4322,7 +4483,11 @@ def phase_int8_kernels(rec: KernelRecord, dev) -> None:
     point, or the int8 operations over 1,979 TOPS expressed at the float32
     rate bound_ms divides by, or the float32 ones) and library call
     (torch._int_mm for i8_dot; K13's torch.matmul of the complex64 slices,
-    TF32 off, for i8full and i8_concat; none for i8mm and i8dec)."""
+    TF32 off, for i8full and i8_concat; none for i8mm and i8dec).  i8full
+    is the redesign (digit and product warps overlapped on named
+    barriers), i8_concat the cluster redesign; their lines beside their
+    first designs are phase 3's (phase_i8full_frameonly_redesign,
+    phase_i8_tf32_redesign)."""
     from godsp_tpu_torch.ops import cuda_probes as cp
     from godsp_tpu_torch.ops import launch_counts
     from godsp_tpu_torch.probes import int8

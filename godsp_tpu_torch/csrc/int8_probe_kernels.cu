@@ -56,7 +56,7 @@
 //     digit d0 of xr ck, xi ck and (xr + xi) ck (digits3); yr = f32(sum of
 //     d0 w0[:, 0:128] + d0 w0[:, 128:256]) s_out, yi = f32(sum of
 //     d0 w0[:, 256:]) s_out; 1152 MACs a point;
-//   kFULL (i8full :162, i8_concat :101): godsp_tpu/ops/_int8_contract.py's
+//   kFULL (i8full_sync, i8_concat_stream): godsp_tpu/ops/_int8_contract.py's
 //     karatsuba_g_i8 with K13's unscaled G (extra_scale 1/128): three digits
 //     each of a = xr ck, b = xi ck and (xr + xi) ck against the digits
 //     t0, t1, t2 of Gr, Gi and (Gr + Gi) / 2; per product the partials
@@ -71,13 +71,17 @@
 // exact, and int32 -> float32 rounds to nearest, so each mode equals its
 // plain version (ops/cuda_probes.py) bit for bit.
 // kRows picks the TPU body's store (kFULL only):
-//   false (_i8full_kernel: the slice's outputs stored as they come): block
-//     (k1, row group) stages its slice's table planes once (144 KB for
-//     kFULL, 96 KB kMM, 48 KB kDEC) and walks its group's 16-row steps,
-//     prefetching the next step's inputs before the products.  The groups
-//     fill one wave (occupancy x SMs blocks), so at 16384 x 1024 a kFULL
-//     block walks 1024 rows and the tables cost 128 x 144 KB = 18.9 MB of
-//     L2 reads, 7 % of the 268 MB the planes move;
+//   false (i8mm, i8dec, and i8full's first design i8full_sync, kept as the
+//     yardstick: the slice's outputs stored as they come): block (k1, row
+//     group) stages its slice's table planes once (144 KB for kFULL, 96 KB
+//     kMM, 48 KB kDEC) and walks its group's 16-row steps, prefetching the
+//     next step's inputs before the products.  The groups fill one wave
+//     (occupancy x SMs blocks), so at 16384 x 1024 a kFULL block walks 1024
+//     rows and the tables cost 128 x 144 KB = 18.9 MB of L2 reads, 7 % of
+//     the 268 MB the planes move.  In kFULL one block an SM runs each
+//     step's digits (the CUDA cores) and products (the tensor cores) in
+//     turn behind two block barriers, and digits3's floors and float-to-int
+//     conversions run on the SM's conversion pipe;
 //   true (i8_concat_stream, the first design of _i8_concat_kernel, kept as
 //     the yardstick: whole rows stored once a plane): block owns one 16-row
 //     tile and walks its slices; the tile's outputs wait in shared memory
@@ -112,6 +116,26 @@
 // i8_concat_stream bit for bit.  Shared memory: 182,336 bytes a CTA, two
 // rows buffers of ceil(16 / n1) rows and four mbarriers (215,136 at
 // n1 = 8, 225,376 at 7; lane_contract.cuh: i8_smem).
+// i8full_kernel (_i8full_kernel :162, the redesign of i8full) overlaps
+// the two kinds of work on one CTA an SM (make_fu_plan: a persistent grid,
+// CTA c on slice c % n1 with its nine table planes resident, the slice's
+// 16-row steps split evenly among its CTAs).  Four digit warps bring each
+// step's points by cp.async into a ring of two steps (each thread its own
+// 16 points: no barrier) and make its nine digit planes into one of two
+// digit buffers, a uint4 of A fragment a plane a thread (conflict-free),
+// with digits3's ladder by round-down adds (digits3_rd: no floor and no
+// float-to-int conversion, the same digits); eight product warps run the
+// same six mma a digit triple as products<kFULL> on the other buffer.  The
+// roles hand the buffers over on named barriers (bar.arrive / bar.sync,
+// kBarFull, kBarEmpty), so neither waits on a CTA-wide barrier; a product
+// warp stores its rows 16 bytes a lane after one shuffle a pair.  The
+// recombination keeps its IEEE order, so i8full equals i8full_sync,
+// i8_concat and the plain version bit for bit.  What bounds it on the H100:
+// its products' fragment loads, 2304 shared-memory wavefronts a step
+// (cuda_probes.i8full_wavefronts), and the int8 mma.sync, each about the
+// time of the bytes bound at 64 steps a CTA; wgmma (B read once for 64
+// rows) would need 64-row steps, 72 KB of digits each, which do not fit
+// twice beside the 144 KB of tables.  Shared memory: 217,216 bytes.
 // Bound: bytes, 16 B a point, 268 MB, 0.080 ms (4608 int8 operations a
 // point for kMM and kFULL, 2304 for kDEC: 0.039 / 0.020 ms at 1,979 TOPS).
 
@@ -840,6 +864,304 @@ i8_concat_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   ln::cluster_wait();  // no CTA leaves while another may push into it or arrive on it
 }
 
+// ---------------------------------------------------------------------------
+// i8full redesigned: digit warps and product warps on named barriers
+// ---------------------------------------------------------------------------
+
+constexpr int kFuDigitWarps = 4;                          // make a step's nine digit planes
+constexpr int kFuMmaWarps = 8;                            // run its products, 16 columns each
+constexpr int kFuDigitThreads = kFuDigitWarps * 32;
+constexpr int kFuMmaThreads = kFuMmaWarps * 32;
+constexpr int kFuThreads = kFuDigitThreads + kFuMmaThreads;
+constexpr int kFuStages = 2;                              // steps of inputs in the ring
+constexpr int kFuBufs = 2;                                // digit buffers
+constexpr int kFuLoads = 8;                               // 16-byte copies a digit thread a step
+constexpr int kFuStage4 = kFuDigitThreads * kFuLoads;     // uint4s of a ring stage: 16 KB
+constexpr int kFuDigits4 = 9 * kDigit4;                   // uint4s of a step's digit planes
+constexpr int kFuPlanFields = 6;
+// Named barriers (0 is __syncthreads): kBarFull + k, digit buffer k holds
+// its step; kBarEmpty + k, the product warps are done with it; kBarTables,
+// the product warps' tables are in.
+constexpr int kBarFull = 1;
+constexpr int kBarEmpty = 3;
+constexpr int kBarTables = 5;
+static_assert(kFuStages == kFuBufs, "step i's ring stage and digit buffer are both i % 2");
+
+constexpr int fu_smem() {
+  return (9 * kPlane4 + kFuBufs * kFuDigits4 + kFuStages * kFuStage4) * 16 + kFuBufs * kTile * 4;
+}
+
+// i8full's launch plan (ops/cuda_probes.py: I8FullPlan holds the same
+// fields in this order).
+struct FuPlan {
+  int ctas;         // a persistent grid: at most resident, at most slices x steps
+  int threads;      // the digit warps, then the product warps
+  int digit_warps;
+  int mma_warps;
+  int stages;       // steps of inputs in flight
+  int smem;         // bytes of dynamic shared memory a CTA
+};
+
+int make_fu_plan(long long b, int n, int resident, FuPlan* p) {
+  if (b < 0 || n < kLanes || n % kLanes != 0 || n / kLanes > 8 || resident < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Every slice needs a CTA: at least n1 of them (items >= n1 where b > 0).
+  const long long items = (b + kTile - 1) / kTile * (n / kLanes);
+  const long long want = resident > n / kLanes ? resident : n / kLanes;
+  *p = FuPlan{static_cast<int>(items < want ? items : want), kFuThreads, kFuDigitWarps,
+              kFuMmaWarps, kFuStages, fu_smem()};
+  return 0;
+}
+
+// bar.arrive on named barrier `id` for `threads` threads: this thread's
+// earlier shared-memory writes are visible to the threads that bar.sync on
+// it once it completes.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// digits3's ladder with no floor and no float-to-int conversion: with M =
+// 1.5 2^(23 + s), y + M rounded down is M + 2^s floor(y / 2^s) for |y| <
+// 2^(22 + s) (the floats there are 2^s apart), so that sum's bits less M's
+// are the digit and the sum less M is 2^s times it, exactly.  The remainders
+// are the same IEEE subtractions as digits3's (2^16 d0 and 2^8 d1 exact), so
+// the digits are digits3's; each is the low byte of its sum's bits (M's low
+// byte is 0).
+__device__ __forceinline__ void digits3_rd(float v, uint32_t& b0, uint32_t& b1, uint32_t& b2) {
+  const float t0 = __fadd_rd(__fadd_rn(v, kB0), 0x1.8p39f);
+  const float r0 = __fsub_rn(v, __fsub_rn(t0, 0x1.8p39f));
+  const float t1 = __fadd_rd(__fadd_rn(r0, kB1), 0x1.8p31f);
+  const float r1 = __fsub_rn(r0, __fsub_rn(t1, 0x1.8p31f));
+  const float t2 = __fadd_rd(__fadd_rn(r1, 0.5f), 0x1.8p23f);
+  b0 = __float_as_uint(t0);
+  b1 = __float_as_uint(t1);
+  b2 = __float_as_uint(t2);
+}
+
+// The low bytes of four words, the first lowest: one int8 register.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// Digit thread d = lane 8 ks + 4 (g % 2) + t of digit warp g / 2 owns the A
+// fragment of lane 4 g + t at k-step ks: rows g and g + 8, columns 32 ks +
+// 4 t .. + 3 and 32 ks + 16 + 4 t .. + 3 (mma_s8.cuh).  Its copy j brings
+// plane j / 4's row g + 8 ((j / 2) % 2), columns 32 ks + 16 (j % 2) + 4 t
+// .. + 3 into ring word j kFuDigitThreads + d (ops/cuda_probes.py:
+// i8full_digit_map).
+__device__ __forceinline__ void fu_issue(uint4* stage, const float* __restrict__ xr,
+                                         const float* __restrict__ xi, long long b, int n,
+                                         long long step, int k1, int d, int ks, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kFuLoads; ++j) {
+    const long long row = step * kTile + g + 8 * ((j >> 1) & 1);
+    const bool valid = row < b;
+    const float* src = (j >> 2 ? xi : xr) +
+        (valid ? static_cast<size_t>(row) * n + k1 * kLanes + 32 * ks + 16 * (j & 1) + 4 * t : 0);
+    ln::cp_async16(stage + j * kFuDigitThreads + d, src, valid);
+  }
+}
+
+// A step's digit planes from this thread's sixteen points (q: its copies)
+// into the buffer sd (plane p's uint4 of lane 4 g + t at k-step ks at
+// p kDigit4 + 32 ks + 4 g + t, i8_probe_kernel's A-fragment order), and the
+// row scales of rows g and g + 8 into s_row: the row max over the 16 lanes
+// of a row (lane bits 0, 1, 3, 4) by shuffles, then digit_step's scales and
+// digits3's digits, operation for operation.
+__device__ __forceinline__ void fu_digit_step(const float4 (&q)[kFuLoads], uint4* sd, float* s_row,
+                                              int ks, int g, int t) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 a = q[2 * hi + h], c = q[4 + 2 * hi + h];
+      mx[hi] = fmaxf(mx[hi], __fadd_rn(fabsf(a.x), fabsf(c.x)));
+      mx[hi] = fmaxf(mx[hi], __fadd_rn(fabsf(a.y), fabsf(c.y)));
+      mx[hi] = fmaxf(mx[hi], __fadd_rn(fabsf(a.z), fabsf(c.z)));
+      mx[hi] = fmaxf(mx[hi], __fadd_rn(fabsf(a.w), fabsf(c.w)));
+    }
+  }
+  float ck[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 1));
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 8));
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 16));
+    mx[hi] = fmaxf(mx[hi], 1e-30f);
+    const int e = ((__float_as_int(mx[hi]) >> 23) & 0xff) - 127;  // floor(log2 mx): mx is normal
+    ck[hi] = __fmul_rn(pow2(-e - 1), kK);
+    if (ks == 0 && t == 0) s_row[g + 8 * hi] = __fmul_rn(kInvK2, pow2(e + 26));
+  }
+  uint32_t word[9][4];  // plane, A register (row g + 8 (r % 2), column half r / 2)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int hi = r & 1, h = r >> 1;
+    const float4 a4 = q[2 * hi + h], c4 = q[4 + 2 * hi + h];
+    const float ar[4] = {a4.x, a4.y, a4.z, a4.w}, ai[4] = {c4.x, c4.y, c4.z, c4.w};
+    uint32_t bytes[9][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x[3] = {ar[e], ai[e], __fadd_rn(ar[e], ai[e])};
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        digits3_rd(__fmul_rn(x[p], ck[hi]), bytes[3 * p][e], bytes[3 * p + 1][e],
+                   bytes[3 * p + 2][e]);
+    }
+#pragma unroll
+    for (int p = 0; p < 9; ++p)
+      word[p][r] = low_bytes(bytes[p][0], bytes[p][1], bytes[p][2], bytes[p][3]);
+  }
+#pragma unroll
+  for (int p = 0; p < 9; ++p)
+    sd[p * kDigit4 + 32 * ks + 4 * g + t] = make_uint4(word[p][0], word[p][1], word[p][2],
+                                                       word[p][3]);
+}
+
+// products<kFULL, kP> for product warp mw (output columns 16 mw .. + 15 of
+// the slice): the same six mma a k-step and n-tile in the same order.
+template <int kP>
+__device__ __forceinline__ void fu_products(const uint4* sd, const uint2* st, int mw, int lane,
+                                            int (&acc)[9][2][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint4 d0 = sd[((3 * kP) * 4 + ks) * 32 + lane];
+    const uint4 d1 = sd[((3 * kP + 1) * 4 + ks) * 32 + lane];
+    const uint4 d2 = sd[((3 * kP + 2) * 4 + ks) * 32 + lane];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int nt = 2 * mw + j, p = 3 * kP;
+      const uint2 t0 = st[((p * 16 + nt) * 4 + ks) * 32 + lane];
+      const uint2 t1 = st[(((p + 1) * 16 + nt) * 4 + ks) * 32 + lane];
+      const uint2 t2 = st[(((p + 2) * 16 + nt) * 4 + ks) * 32 + lane];
+      gdsp::mma_s8(acc[p][j], d0, t0);
+      gdsp::mma_s8(acc[p + 1][j], d0, t1);
+      gdsp::mma_s8(acc[p + 1][j], d1, t0);
+      gdsp::mma_s8(acc[p + 2][j], d0, t2);
+      gdsp::mma_s8(acc[p + 2][j], d1, t1);
+      gdsp::mma_s8(acc[p + 2][j], d2, t0);
+    }
+  }
+}
+
+// i8full on one CTA an SM (make_fu_plan): CTA c takes slice k1 = c % n1, and
+// the G CTAs of a slice split its T 16-row steps as [g T / G, (g + 1) T / G),
+// g = c / n1.  Digit warps: each step's points by cp.async into a ring of
+// kFuStages steps (every thread its own sixteen), their digits into digit
+// buffer i % 2 once the product warps are done with step i - 2 (kBarEmpty),
+// then kBarFull.  Product warps: the slice's tables by cp.async once, then
+// for each step, once kBarFull completes, its products, the row scales read,
+// kBarEmpty (but for the last two steps), the recombination and the store:
+// each row's 16 columns of a warp as four 16-byte stores a plane, each lane
+// trading one pair of columns with lane t ^ 1.
+__global__ void __launch_bounds__(kFuThreads, 1)
+i8full_kernel(const float* __restrict__ xr, const float* __restrict__ xi, float* __restrict__ yr,
+              float* __restrict__ yi, const uint4* __restrict__ tables, long long b, int n) {
+  extern __shared__ uint4 smem[];
+  uint4* st = smem;                                // the slice's nine table planes
+  uint4* sd = st + 9 * kPlane4;                    // kFuBufs digit buffers
+  uint4* ring = sd + kFuBufs * kFuDigits4;         // kFuStages input stages
+  float* s_row = reinterpret_cast<float*>(ring + kFuStages * kFuStage4);  // kFuBufs x 16
+  const int n1 = n / kLanes;
+  const int k1 = static_cast<int>(blockIdx.x % n1);
+  const long long g_cta = blockIdx.x / n1;
+  const long long per = (static_cast<long long>(gridDim.x) - k1 + n1 - 1) / n1;  // the slice's
+  const long long steps_all = (b + kTile - 1) / kTile;
+  const long long first = g_cta * steps_all / per;
+  const long long steps = (g_cta + 1) * steps_all / per - first;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (w < kFuDigitWarps) {
+    const int d = threadIdx.x;
+    const int ks = lane >> 3, g = 2 * w + ((lane >> 2) & 1), t = lane & 3;
+    for (int s = 0; s < kFuStages; ++s) {
+      if (s < steps) fu_issue(ring + s * kFuStage4, xr, xi, b, n, first + s, k1, d, ks, g, t);
+      ln::cp_async_commit();
+    }
+    for (long long i = 0; i < steps; ++i) {
+      const int k = static_cast<int>(i & 1);
+      ln::cp_async_wait<kFuStages - 1>();  // step i's copies (this thread's own) landed
+      uint4* stage = ring + k * kFuStage4;
+      float4 q[kFuLoads];
+#pragma unroll
+      for (int j = 0; j < kFuLoads; ++j) {
+        const uint4 u = stage[j * kFuDigitThreads + d];
+        q[j] = make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                           __uint_as_float(u.w));
+      }
+      if (i >= kFuBufs) hp::named_sync(kBarEmpty + k, kFuThreads);  // step i - 2 is read
+      fu_digit_step(q, sd + k * kFuDigits4, s_row + k * kTile, ks, g, t);
+      named_arrive(kBarFull + k, kFuThreads);
+      // The stage is refilled once its values are used (the digits above).
+      if (i + kFuStages < steps)
+        fu_issue(stage, xr, xi, b, n, first + i + kFuStages, k1, d, ks, g, t);
+      ln::cp_async_commit();
+    }
+  } else {
+    const int mt = threadIdx.x - kFuDigitThreads, mw = w - kFuDigitWarps;
+    const int g = lane >> 2, t = lane & 3;
+    const uint4* tk = tables + static_cast<size_t>(k1) * 9 * kPlane4;
+    for (int e = mt; e < 9 * kPlane4; e += kFuMmaThreads) ln::cp_async16(st + e, tk + e, true);
+    ln::cp_async_commit();
+    ln::cp_async_wait_all();
+    hp::named_sync(kBarTables, kFuMmaThreads);  // every product warp's share of the tables
+    const uint2* st2 = reinterpret_cast<const uint2*>(st);
+    const bool odd = t & 1;
+    const int col = k1 * kLanes + 16 * mw + (odd ? 6 + 2 * t : 2 * t);  // a lane's four columns
+    for (long long i = 0; i < steps; ++i) {
+      const int k = static_cast<int>(i & 1);
+      hp::named_sync(kBarFull + k, kFuThreads);
+      const uint4* sdk = sd + k * kFuDigits4;
+      int acc[9][2][4] = {};
+      fu_products<0>(sdk, st2, mw, lane, acc);
+      fu_products<1>(sdk, st2, mw, lane, acc);
+      fu_products<2>(sdk, st2, mw, lane, acc);
+      const float sr[2] = {s_row[k * kTile + g], s_row[k * kTile + g + 8]};
+      if (i + kFuBufs < steps) named_arrive(kBarEmpty + k, kFuThreads);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // C registers 2 h, 2 h + 1 of n-tile j: row g + 8 h, columns 8 j + 2 t, + 1.
+        const float2 a0 = outputs<kFULL>(acc, 0, 2 * h, sr[h]);
+        const float2 a1 = outputs<kFULL>(acc, 0, 2 * h + 1, sr[h]);
+        const float2 c0 = outputs<kFULL>(acc, 1, 2 * h, sr[h]);
+        const float2 c1 = outputs<kFULL>(acc, 1, 2 * h + 1, sr[h]);
+        // Even t keeps n-tile 0's pair and takes lane t + 1's; odd t takes
+        // lane t - 1's n-tile 1 pair and keeps its own.
+        const float2 re_send = odd ? make_float2(a0.x, a1.x) : make_float2(c0.x, c1.x);
+        const float2 im_send = odd ? make_float2(a0.y, a1.y) : make_float2(c0.y, c1.y);
+        const float2 re_got = make_float2(__shfl_xor_sync(0xffffffffu, re_send.x, 1),
+                                          __shfl_xor_sync(0xffffffffu, re_send.y, 1));
+        const float2 im_got = make_float2(__shfl_xor_sync(0xffffffffu, im_send.x, 1),
+                                          __shfl_xor_sync(0xffffffffu, im_send.y, 1));
+        const float4 re = odd ? make_float4(re_got.x, re_got.y, c0.x, c1.x)
+                              : make_float4(a0.x, a1.x, re_got.x, re_got.y);
+        const float4 im = odd ? make_float4(im_got.x, im_got.y, c0.y, c1.y)
+                              : make_float4(a0.y, a1.y, im_got.x, im_got.y);
+        const long long row = (first + i) * kTile + g + 8 * h;
+        if (row < b) {
+          const size_t off = static_cast<size_t>(row) * n + col;
+          *reinterpret_cast<float4*>(yr + off) = re;
+          *reinterpret_cast<float4*>(yi + off) = im;
+        }
+      }
+    }
+  }
+}
+
+int launch_i8full(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
+                  long long b, int n, int resident, cudaStream_t s) {
+  FuPlan p;
+  const int rc = make_fu_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  if (b == 0) return 0;
+  cudaError_t e = gdsp::allow_smem(i8full_kernel, static_cast<size_t>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  i8full_kernel<<<p.ctas, p.threads, p.smem, s>>>(xr, xi, yr, yi,
+                                                  static_cast<const uint4*>(tables), b, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kMode, bool kRows>
 int probe_smem(int n) {
   const int staged = kRows ? 3 : table_planes(kMode);
@@ -966,17 +1288,54 @@ int gdsp_i8dec(const float* xr, const float* xi, float* yr, float* yi, const voi
                                    static_cast<cudaStream_t>(stream));
 }
 
-// store_rows 0: each slice stored as it ends (i8full, resident ignored);
-// 1: whole rows of a 16-row tile gathered over a thread-block cluster
-// (i8_concat), resident the clusters of i8_concat_kernel the card holds at
-// once (gdsp_i8_concat_resident); returns cudaErrorLaunchOutOfResources
-// where resident < 1.
+// store_rows 0: each slice stored as it ends (i8full: i8full_kernel on a
+// persistent grid of `resident` CTAs at most, gdsp_i8full_resident, its
+// plan make_fu_plan; cudaErrorInvalidValue where resident < 1); 1: whole
+// rows of a 16-row tile gathered over a thread-block cluster (i8_concat),
+// resident the clusters of i8_concat_kernel the card holds at once
+// (gdsp_i8_concat_resident); returns cudaErrorLaunchOutOfResources where
+// resident < 1.
 int gdsp_i8full(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
                 long long b, int n, int store_rows, int resident, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (store_rows == 0) return launch_probe<kFULL, false>(xr, xi, yr, yi, tables, b, n, s);
+  if (store_rows == 0) return launch_i8full(xr, xi, yr, yi, tables, b, n, resident, s);
   if (store_rows == 1) return launch_i8_concat(xr, xi, yr, yi, tables, b, n, resident, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs of i8full_kernel the card holds at once (SMs x blocks a SM at its
+// shared memory): 0 where none fits, or -(CUDA error).
+int gdsp_i8full_resident() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = gdsp::allow_smem(i8full_kernel, static_cast<size_t>(fu_smem()));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, i8full_kernel, kFuThreads,
+                                                      fu_smem());
+  return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
+}
+
+// i8full's plan at (b, n) over `resident` CTAs: out[0..5] = CTAs, threads,
+// digit warps, product warps, input stages, shared bytes (FuPlan).
+// ops/cuda_probes.py: i8full_plan holds the same; the GPU tests and phase 3
+// compare.
+int gdsp_i8full_geometry(long long b, int n, int resident, int* out) {
+  FuPlan p;
+  const int rc = make_fu_plan(b, n, resident, &p);
+  if (rc != 0) return rc;
+  const int v[kFuPlanFields] = {p.ctas, p.threads, p.digit_warps, p.mma_warps, p.stages, p.smem};
+  for (int i = 0; i < kFuPlanFields; ++i) out[i] = v[i];
+  return 0;
+}
+
+// i8full's first design, the yardstick: a block a slice and a row group,
+// the slice's nine table planes staged once, each 16-row step's digits then
+// its products behind two block barriers.
+int gdsp_i8full_sync(const float* xr, const float* xi, float* yr, float* yi, const void* tables,
+                     long long b, int n, void* stream) {
+  return launch_probe<kFULL, false>(xr, xi, yr, yi, tables, b, n,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // i8_concat's first design, the yardstick: a block a 16-row tile walking

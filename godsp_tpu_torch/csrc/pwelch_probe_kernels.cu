@@ -17,9 +17,25 @@
 //             (bt - 1) * stride + nfft of them, comes into shared memory
 //             ONCE and the frames are cut from there, where K4 re-reads
 //             each sample nfft/stride times through L2; then what K4 does.
-// loadonly and frameonly keep K4's first design (a grid of tiles x rows, a
-// bit-reversed load and fft_block.cuh's radix-2 stages).  The spectral
-// twins give pad/2 + 1 bins a tile in natural order, as K4.
+// loadonly keeps K4's first design (a grid of tiles x rows).  The
+// spectral twins give pad/2 + 1 bins a tile in natural order, as K4.
+//
+// frameonly_partials_kernel, the frameonly twin redesigned, is K4's body as
+// it is today with the transform taken out: K4's tiles, CTA, slots, frame
+// order and register cap (K4Plan), each frame a warp read by
+// frame_regs.cuh's load_frame (windowed pairs t + r T in lane t's
+// registers, pad <= 2048; a CTA a frame from 4096 on), mask[s] times each
+// pair summed in registers in frame order, a warp's Q slots by a shuffle
+// butterfly, then the CTA's groups in a fixed order through shared memory
+// into the tile's pad floats, 16 bytes a thread.  K4 less frameonly prices
+// K4's transform, split and |X|^2 (probes/i8full_frameonly.py).  Its
+// result is the plain version's sums in another order.  Its first design,
+// frameonly_kernel (gdsp_pwfloor_frameonly_shared, kept as the yardstick),
+// is K4's first design's framing: a CTA of pad/2 threads a segment at a
+// time, each sample loaded 4 bytes a thread with w re-read, scattered
+// bit-reversed into shared memory and read back in time order behind two
+// block barriers, 0.149 ms by chain at the probe's geometry (NVIDIA H100
+// 80GB HBM3, 700.00 W), 13x its bound.
 //
 // noframe_partials_kernel and staged_partials_kernel, the noframe and
 // staged twins redesigned, are K4's body as it is today (frame_regs.cuh: a
@@ -63,7 +79,8 @@
 //
 // Bound on the H100 at the probe's geometry (nfft = pad = 1024, stride
 // 512, 16384 segments): bytes.  loadonly, frameonly, staged and K4 read
-// the 33.6 MB of samples once (0.010 ms at 3.35 TB/s); noframe reads the
+// the 33.6 MB of samples once (0.010 ms at 3.35 TB/s; frameonly also
+// writes 4.2 MB, 1024 tiles of 1024 floats: 0.0113 ms); noframe reads the
 // 67.1 MB of frames (0.020 ms); the FFTs' 4.2e8 float32 operations take
 // 0.006 ms at 67 TFLOP/s.  At hop 160 (52,428 segments) the operations
 // bound K4 and staged (0.022 ms), the 215 MB of frames noframe (0.065).
@@ -540,6 +557,120 @@ int launch_noframe(const float* frames, const float* mask, const float* w, float
   });
 }
 
+// ---------------------------------------------------------------------------
+// frameonly redesigned: K4's body without the transform
+// ---------------------------------------------------------------------------
+
+using gdsp::frames::Samples;
+using gdsp::frames::load_frame;
+
+// K4's sums (pwelch_kernel.cu: pwelch_partials_kernel<LOG2M, false>) with
+// the transform taken out: over the same tiles, slots and frame order, each
+// frame read by load_frame (pairs (x w) t + r T of lane t, zeros past nfft
+// and L), mask[s] times each pair summed in registers in frame order, the
+// Q slots a warp holds (pad <= 512) summed by a __shfl_xor_sync butterfly
+// over the lane bits above T, then the CTA's groups (its warps; the one
+// CTA of the block route) in order through shared memory into the tile's
+// pad floats, 16 bytes a thread.  smem: K4's slots, which hold every
+// group's pad floats.
+template <int LOG2M>
+__global__ void __launch_bounds__(K4Plan<LOG2M>::kThreads, K4Plan<LOG2M>::kMinBlocks)
+frameonly_partials_kernel(Samples src, const float* __restrict__ mask,
+                          const float2* __restrict__ w, float* __restrict__ out, long long S,
+                          int nfft, long long stride, int bt, int n_tiles, int fpc, int slots) {
+  using R = Row<LOG2M>;
+  constexpr int pad = 2 * R::kN;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int slot = threadIdx.x / R::kT;
+  const int t = threadIdx.x % R::kT;
+  const long long row = blockIdx.x / n_tiles;
+  const long long s0 = (static_cast<long long>(blockIdx.x) - row * n_tiles) * bt;
+  const int n = static_cast<int>(S - s0 < bt ? S - s0 : bt);  // the tile's segments
+  const float* __restrict__ x = src.x + row * src.x_stride;
+  const float* __restrict__ mr = mask + row * S;
+  const Slot<LOG2M> s = slot_of<LOG2M>(smem, slots, slot);  // load_frame's, unused without a halo
+  float2 part[R::kP];
+  unroll<R::kP>([&](auto ii) { part[GDSP_IDX(ii)] = make_float2(0.f, 0.f); });
+  const int steps = (n + fpc - 1) / fpc;
+#pragma unroll 1  // one frame's registers at a time
+  for (int it = 0; it < steps; ++it) {
+    const int j = it * fpc + slot;
+    const bool live = slot < fpc && j < n;
+    const float ms = live ? __ldg(&mr[s0 + j]) : 0.f;
+    const int tl = opaque(t);  // the frame's addresses are computed a frame
+    float2 v[R::kP];
+    load_frame<LOG2M, false>(v, tl, x, nullptr, (s0 + j) * stride, src, nfft, w, live, s);
+    unroll<R::kP>([&](auto ii) {
+      constexpr int i = GDSP_IDX(ii);
+      part[i].x += ms * v[i].x;
+      part[i].y += ms * v[i].y;
+    });
+  }
+  if constexpr (R::kWarp) {
+#pragma unroll
+    for (int d = R::kT; d < 32; d <<= 1) {
+      unroll<R::kP>([&](auto ii) {
+        constexpr int i = GDSP_IDX(ii);
+        part[i].x += __shfl_xor_sync(0xffffffffu, part[i].x, d);
+        part[i].y += __shfl_xor_sync(0xffffffffu, part[i].y, d);
+      });
+    }
+  }
+  // Group g's sums at smem[g pad ..], pair p at words 2 p, 2 p + 1: the
+  // first slot's lanes of each warp write them (the block route's one slot
+  // all of its threads).
+  const int group = R::kWarp ? static_cast<int>(threadIdx.x >> 5) : 0;
+  const int groups = R::kWarp ? static_cast<int>(blockDim.x >> 5) : 1;
+  if (!R::kWarp || (threadIdx.x & 31) < R::kT) {
+    float2* red = reinterpret_cast<float2*>(smem + group * pad);
+    unroll<R::kP>([&](auto ii) {
+      constexpr int i = GDSP_IDX(ii);
+      red[t + i * R::kT] = part[i];
+    });
+  }
+  __syncthreads();
+  float* const o = out + static_cast<long long>(blockIdx.x) * pad;
+  if constexpr (pad % 4 == 0) {
+    const float4* red4 = reinterpret_cast<const float4*>(smem);
+    for (int u = threadIdx.x; u < pad / 4; u += blockDim.x) {
+      float4 sum = red4[u];
+      for (int g = 1; g < groups; ++g) {
+        const float4 q = red4[g * (pad / 4) + u];
+        sum = make_float4(sum.x + q.x, sum.y + q.y, sum.z + q.z, sum.w + q.w);
+      }
+      reinterpret_cast<float4*>(o)[u] = sum;
+    }
+  } else {
+    for (int k = threadIdx.x; k < pad; k += blockDim.x) {
+      float sum = smem[k];
+      for (int g = 1; g < groups; ++g) sum += smem[g * pad + k];
+      o[k] = sum;
+    }
+  }
+}
+
+int launch_frameonly(const float* ext, const float* mask, const float* w, float* out,
+                     long long rows, long long L, long long S, int nfft, long long stride,
+                     int log2pad, int bt, int n_tiles, void* stream) {
+  return with_log2<0, 13>(log2pad - 1, [&](auto lg) {
+    constexpr int LM = decltype(lg)::value;
+    const int fpc = frames_per_cta<LM>(S < bt ? static_cast<int>(S) : bt, 1);
+    const Cta c = cta_shape<LM>(fpc);
+    const size_t smem = static_cast<size_t>(c.slots) * Row<LM>::kN * 2 * sizeof(float);
+    const long long blocks = rows * n_tiles;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = gdsp::allow_smem(frameonly_partials_kernel<LM>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const Samples src{ext, L, L, nullptr, 0, 0};
+    frameonly_partials_kernel<LM><<<static_cast<unsigned>(blocks), c.threads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        src, mask, reinterpret_cast<const float2*>(w), out, S, nfft, stride, bt, n_tiles, fpc,
+        c.slots);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -556,10 +687,25 @@ int gdsp_pwfloor_loadonly(const float* ext, const float* mask, const float* w, f
 }
 
 // frameonly: out[r, t, i] = sum over segments s of tile t of
-// mask[r, s] * w[i] * ext[r, s*stride + i] (i < nfft, zero to pad).
+// mask[r, s] * w[i] * ext[r, s*stride + i] (i < nfft, zero to pad), on K4's
+// body without the transform (frameonly_partials_kernel): K4's tiles, CTA
+// and frame order, the sums in registers, the groups in a fixed order.  w
+// 8-byte aligned (read as float2 pairs, as K4).  Returns
+// cudaErrorInvalidValue for a pad out of range or a grid past 2^31 - 1
+// blocks, else cudaGetLastError().
 int gdsp_pwfloor_frameonly(const float* ext, const float* mask, const float* w, float* out,
                            long long rows, long long L_ext, long long S, int nfft, int stride,
                            int log2pad, int bt, int n_tiles, void* stream) {
+  return launch_frameonly(ext, mask, w, out, rows, L_ext, S, nfft, stride, log2pad, bt, n_tiles,
+                          stream);
+}
+
+// frameonly's first design, the yardstick: the same sums, a segment at a
+// time through a bit-reversed round trip in shared memory behind two block
+// barriers.
+int gdsp_pwfloor_frameonly_shared(const float* ext, const float* mask, const float* w, float* out,
+                                  long long rows, long long L_ext, long long S, int nfft,
+                                  int stride, int log2pad, int bt, int n_tiles, void* stream) {
   const int pad = 1 << log2pad;
   const size_t smem = static_cast<size_t>(pad) * (sizeof(float2) + 4);
   cudaError_t e = gdsp::allow_smem(frameonly_kernel, smem);

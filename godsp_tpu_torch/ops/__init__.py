@@ -53,9 +53,12 @@
                  redesigns, beside gmm_concat_stream, ls_full_stream,
                  i8_concat_stream, gmm_tf32_sync, i8_dot_bytes,
                  gmm_floor_sync, slice8_add_sync, slicestore_sync,
-                 bd_hi_sync, bd_tf32_sync, anat_full_sync, vdif_sync and
-                 pwfloor_staged_radix2, the first designs of K14c, K14f,
-                 K14g's i8_dot, K13, K14d, K14h and K14a's staged twin
+                 bd_hi_sync, bd_tf32_sync, anat_full_sync, vdif_sync,
+                 pwfloor_staged_radix2, pwfloor_noframe_radix2,
+                 sdif_peel_sync, i8full_sync and pwfloor_frameonly_shared,
+                 the first designs of K14c, K14f, K14g's i8_dot and i8full,
+                 K13, K14d, K14h, K14i and K14a's staged, noframe and
+                 frameonly twins
 
 Sources live in godsp_tpu_torch/csrc and build with nvcc at first use
 (ops/_build.py).  launch_counts() reads every wrapper's count and

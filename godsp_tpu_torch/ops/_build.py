@@ -117,8 +117,9 @@ def _declare(lib) -> None:
     lib.gdsp_gmm_floor_geometry.restype = i
     lib.gdsp_pwfloor_loadonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
     lib.gdsp_pwfloor_loadonly.restype = i
-    lib.gdsp_pwfloor_frameonly.argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
-    lib.gdsp_pwfloor_frameonly.restype = i
+    for name in ("gdsp_pwfloor_frameonly", "gdsp_pwfloor_frameonly_shared"):
+        getattr(lib, name).argtypes = [p, p, p, p, i64, i64, i64, i, i, i, i, i, p]
+        getattr(lib, name).restype = i
     for name in ("gdsp_pwfloor_noframe", "gdsp_pwfloor_noframe_radix2"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i64, i64, i, i, i, p]
         getattr(lib, name).restype = i
@@ -205,10 +206,15 @@ def _declare(lib) -> None:
         getattr(lib, name).restype = i
     lib.gdsp_i8full.argtypes = [p, p, p, p, p, i64, i, i, i, p]
     lib.gdsp_i8full.restype = i
-    lib.gdsp_i8_concat_stream.argtypes = [p, p, p, p, p, i64, i, p]
-    lib.gdsp_i8_concat_stream.restype = i
+    for name in ("gdsp_i8_concat_stream", "gdsp_i8full_sync"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i64, i, p]
+        getattr(lib, name).restype = i
     lib.gdsp_i8_concat_resident.argtypes = [i, i]
     lib.gdsp_i8_concat_resident.restype = i
+    lib.gdsp_i8full_resident.argtypes = []
+    lib.gdsp_i8full_resident.restype = i
+    lib.gdsp_i8full_geometry.argtypes = [i64, i, i, p]
+    lib.gdsp_i8full_geometry.restype = i
 
 
 def _run_all(cmds: list[list[str]]) -> None:

@@ -12,7 +12,12 @@ what bounds them on the H100):
       (..., n_tiles), one float a tile;
   pwfloor_frameonly(ext, mask, w, nfft, stride, pad)  replaces :189 frameonly
       K4's framing and window, then the masked sum of the windowed frames,
-      no FFT: (..., n_tiles, pad) in time order;
+      no FFT: (..., n_tiles, pad) in time order, on K4's own CTA, tiles and
+      frame order with the sums in registers and the CTA's warps added in
+      a fixed order (frameonly_regs_model), so K4 less it prices K4's
+      transform; its first design, a segment at a time through a
+      bit-reversed round trip in shared memory, stays as the yardstick
+      pwfloor_frameonly_shared;
   pwfloor_noframe(frames, mask, w)                    replaces :264 noframe
       frames given as (..., S, pad) rows (K3's layout): window, FFT, |X|^2,
       masked sum: (..., n_tiles, pad//2 + 1), on K4's own CTA, transform
@@ -280,7 +285,14 @@ n1 <= 8:
   i8full(xr, xi)        replaces _i8full_kernel (:162): karatsuba_g_i8 of
       every slice with the digits of K13's unscaled G (i8full_tables, as
       make_i8full_tables) and extra_scale 1/128: K13's function to ~127
-      dB against float64; plain version i8full_plain;
+      dB against float64, on one CTA an SM whose digit warps make each
+      16-row step's digits (by round-down adds, no conversion) while its
+      product warps run the last step's mma, handing two digit buffers
+      over on named barriers (i8full_plan, i8full_walk, i8full_digit_map,
+      i8full_store_map; i8full_steps_model runs the same steps on the
+      host); its first design, a block a slice and a row group with the
+      digits and products of a step in turn, stays as the yardstick
+      i8full_sync; plain version i8full_plain;
   i8_concat(xr, xi)     replaces _i8_concat_kernel (probe_store.py:101):
       i8full's arithmetic storing whole rows of a 16-row tile, on a
       thread-block cluster of n1 CTAs, each a slice with its 144 KB of int8
@@ -398,6 +410,7 @@ __all__ = [
     "fft_pow2_radix2",
     "fft_pow2_rows",
     "fft_rows_fit",
+    "frameonly_regs_model",
     "gmm_concat",
     "gmm_concat_stream",
     "gmm_floor_sync",
@@ -431,6 +444,16 @@ __all__ = [
     "i8dec_plain",
     "i8full",
     "i8full_plain",
+    "i8full_sync",
+    "i8full_steps_model",
+    "i8full_store_map",
+    "smem_wavefronts",
+    "i8full_wavefronts",
+    "i8full_digit_map",
+    "i8full_walk",
+    "i8full_plan",
+    "I8FullPlan",
+    "I8FULL_SMEM",
     "i8full_tables",
     "i8mm",
     "i8mm_plain",
@@ -452,6 +475,7 @@ __all__ = [
     "pwelch_radix2",
     "pwfloor_frameonly",
     "pwfloor_frameonly_plain",
+    "pwfloor_frameonly_shared",
     "pwfloor_loadonly",
     "pwfloor_loadonly_plain",
     "pwfloor_noframe",
@@ -510,7 +534,8 @@ launches = {"pwfloor_loadonly": 0, "pwfloor_frameonly": 0, "pwfloor_noframe": 0,
             "ls_full_stream": 0, "i8_concat_stream": 0, "gmm_tf32_sync": 0, "i8_dot_bytes": 0,
             "gmm_floor_sync": 0, "slice8_add_sync": 0, "slicestore_sync": 0,
             "bd_hi_sync": 0, "bd_tf32_sync": 0, "vdif_sync": 0, "anat_full_sync": 0,
-            "pwfloor_staged_radix2": 0, "pwfloor_noframe_radix2": 0, "sdif_peel_sync": 0}
+            "pwfloor_staged_radix2": 0, "pwfloor_noframe_radix2": 0, "sdif_peel_sync": 0,
+            "i8full_sync": 0, "pwfloor_frameonly_shared": 0}
 
 def _staged_max_bt(nfft: int, stride: int, pad: int) -> int:
     """The most segments a tile of the first design (pwfloor_staged_radix2)
@@ -633,6 +658,42 @@ def pwfloor_frameonly_plain(ext, mask, w, nfft: int, stride: int, pad: int,
     return _tile_sum(frames * mask[..., None], S, bt)
 
 
+def frameonly_regs_model(ext, mask, w, nfft: int, stride: int, pad: int,
+                         bt: int) -> torch.Tensor:
+    """pwfloor_frameonly's kernel order in the inputs' dtype (csrc/
+    pwelch_probe_kernels.cu: frameonly_partials_kernel): K4's CTA
+    (partials_cta) on each tile, slot s taking the tile's frames it fpc + s
+    in order, each the windowed frame (x w, zero past nfft and the signal)
+    times its mask added into the slot's sums; the Q slots of a warp summed
+    by the xor butterfly over their index bits; then the warps in order.
+    (..., n_tiles, pad)."""
+    S = mask.shape[-1]
+    frames = _windowed_frames(ext, S, nfft, stride, pad, w) * mask[..., None]
+    fpc, _, slots = partials_cta(pad, S, bt)
+    g = geometry(pad // 2)
+    q = 32 // g.threads if g.warp else 1  # slots a warp
+    tiles = []
+    for s0 in range(0, S, bt):
+        n = min(S - s0, bt)
+        sums = [torch.zeros_like(frames[..., 0, :]) for _ in range(slots)]
+        for it in range(-(-n // fpc)):
+            for slot in range(min(fpc, n - it * fpc)):
+                sums[slot] = sums[slot] + frames[..., s0 + it * fpc + slot, :]
+        groups = []
+        for w0 in range(0, slots, q):
+            v = sums[w0:w0 + q]
+            d = 1
+            while d < q:
+                v = [v[i] + v[i ^ d] for i in range(q)]
+                d <<= 1
+            groups.append(v[0])
+        total = groups[0]
+        for grp in groups[1:]:
+            total = total + grp
+        tiles.append(total)
+    return torch.stack(tiles, dim=-2)
+
+
 def pwfloor_noframe_plain(frames, mask, w, bt: int) -> torch.Tensor:
     """Per tile: sum over segments of mask[s] * |rfft(w * frames[s])|^2."""
     yr, yi = rfft_pow2_plain(frames * w)
@@ -678,9 +739,8 @@ def pwfloor_loadonly(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nff
                    rows, ext.shape[-1], S, nfft, stride, pad, bt, n_tiles)
 
 
-def pwfloor_frameonly(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
-                      stride: int, pad: int | None = None, bt: int | None = None) -> torch.Tensor:
-    """The frameonly twin: (..., n_tiles, pad) masked sums of windowed frames."""
+def _frameonly_launch(name: str, ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                      nfft: int, stride: int, pad: int | None, bt: int | None) -> torch.Tensor:
     pad = pad or nfft
     _check(ext, mask, w, nfft, stride, pad)
     S, lead = mask.shape[-1], tuple(ext.shape[:-1])
@@ -688,12 +748,29 @@ def pwfloor_frameonly(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nf
     bt = bt or segs_per_tile(S, rows)
     if not ext.is_cuda:
         return pwfloor_frameonly_plain(ext, mask, w, nfft, stride, pad, bt)
-    ext, mask, w = _cuda_args("pwfloor_frameonly", ext, mask, w)
+    ext, mask, w = _cuda_args(name, ext, mask, w)
+    if name == "pwfloor_frameonly" and w.data_ptr() % 8:  # read as float2 pairs, as K4
+        w = w.clone()
     n_tiles = -(-S // bt)
     out = torch.empty(*lead, n_tiles, pad, dtype=torch.float32, device=ext.device)
-    return _launch("pwfloor_frameonly", _build.library().gdsp_pwfloor_frameonly, out,
+    return _launch(name, getattr(_build.library(), f"gdsp_{name}"), out,
                    ext.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
                    rows, ext.shape[-1], S, nfft, stride, pad.bit_length() - 1, bt, n_tiles)
+
+
+def pwfloor_frameonly(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
+                      stride: int, pad: int | None = None, bt: int | None = None) -> torch.Tensor:
+    """The frameonly twin: (..., n_tiles, pad) masked sums of windowed frames."""
+    return _frameonly_launch("pwfloor_frameonly", ext, mask, w, nfft, stride, pad, bt)
+
+
+def pwfloor_frameonly_shared(ext: torch.Tensor, mask: torch.Tensor, w: torch.Tensor, nfft: int,
+                             stride: int, pad: int | None = None,
+                             bt: int | None = None) -> torch.Tensor:
+    """pwfloor_frameonly's first design, its yardstick: a segment at a time
+    through a bit-reversed round trip in shared memory behind two block
+    barriers (K4's first design's framing), (..., n_tiles, pad)."""
+    return _frameonly_launch("pwfloor_frameonly_shared", ext, mask, w, nfft, stride, pad, bt)
 
 
 def _noframe_launch(name: str, entry: str, frames: torch.Tensor, mask: torch.Tensor,
@@ -2922,12 +2999,290 @@ def i8dec(xr: torch.Tensor, xi: torch.Tensor, tables=None) -> tuple[torch.Tensor
 def i8full(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K14g i8full: K13's function (gmm_floor: the twiddled 128-point DFT of
     every slice, over 128) by the exact int8-limb Karatsuba contraction,
-    each slice's outputs stored as they come; equal to i8full_plain."""
+    each slice's outputs stored as they come, on one CTA an SM with digit
+    warps and product warps overlapped (i8full_plan); equal to
+    i8full_plain."""
     _check_i8(xr, xi, "i8full")
     if not xr.is_cuda:
         return i8full_plain(xr, xi)
     return _i8_launch("i8full", _build.library().gdsp_i8full, xr, xi,
-                      _i8full_packed(xr.shape[1], xr.device), 0, 0)
+                      _i8full_packed(xr.shape[1], xr.device), 0, _i8full_resident(xr.device))
+
+
+@lru_cache(maxsize=None)
+def _i8full_resident(device: torch.device) -> int:
+    """CTAs of i8full's kernel the card holds at once (gdsp_i8full_resident:
+    SMs x blocks a SM), asked once a device; 0 or a negative CUDA error
+    where none fits: the launch then refuses."""
+    with torch.cuda.device(device):
+        return int(_build.library().gdsp_i8full_resident())
+
+
+def i8full_sync(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """i8full's first design (csrc/int8_probe_kernels.cu: a block a slice
+    and a row group, each 16-row step's digits then its products behind two
+    block barriers): a yardstick off the main path, equal to i8full."""
+    _check_i8(xr, xi, "i8full_sync")
+    if not xr.is_cuda:
+        return i8full_plain(xr, xi)
+    return _i8_launch("i8full_sync", _build.library().gdsp_i8full_sync, xr, xi,
+                      _i8full_packed(xr.shape[1], xr.device))
+
+
+# i8full's redesign (csrc/int8_probe_kernels.cu: i8full_kernel, make_fu_plan).
+I8FULL_DIGIT_WARPS = 4  # warps making a step's nine digit planes
+I8FULL_MMA_WARPS = 8  # warps running the products: 16 columns of the slice each
+I8FULL_THREADS = 32 * (I8FULL_DIGIT_WARPS + I8FULL_MMA_WARPS)
+I8FULL_STAGES = 2  # steps of inputs in the cp.async ring
+I8FULL_BUFS = 2  # digit buffers: the digit warps make step i + 1 while step i's products run
+I8FULL_LOADS = 8  # 16-byte copies a digit thread a step
+I8_TILE = 16  # rows of a step: one m16 tile
+_I8_PLANE = LANES * LANES  # bytes of a table plane
+_I8_DIGITS = 9 * I8_TILE * LANES  # bytes of a step's nine digit planes
+I8FULL_SMEM = (9 * _I8_PLANE + I8FULL_BUFS * _I8_DIGITS
+               + I8FULL_STAGES * 32 * I8FULL_DIGIT_WARPS * I8FULL_LOADS * 16
+               + I8FULL_BUFS * I8_TILE * 4)
+
+
+class I8FullPlan(NamedTuple):
+    """i8full's launch plan (gdsp_i8full_geometry returns the same fields in
+    this order)."""
+
+    ctas: int  # one a SM: min(max(resident, slices), slices x steps)
+    threads: int  # digit warps and product warps
+    digit_warps: int
+    mma_warps: int
+    stages: int  # steps of inputs in flight
+    smem: int  # bytes of dynamic shared memory a CTA
+
+
+def i8full_plan(b: int, n: int, resident: int = 132) -> I8FullPlan:
+    """i8full's plan at (b, n): a persistent grid of `resident` CTAs (one an
+    SM) at most, but one a slice at least, CTA c on slice c % n1 with its
+    144 KB of tables resident, the slice's 16-row steps split evenly among
+    that slice's CTAs (i8full_walk).  Raises ValueError for a shape the
+    kernel refuses."""
+    if b < 0 or n < LANES or n % LANES or n // LANES > I8_MAX_N1 or resident < 1:
+        raise ValueError(f"i8full_plan: bad shape ({b}, {n}) or resident {resident}")
+    items = -(-b // I8_TILE) * (n // LANES)  # every slice needs a CTA: at least n1
+    return I8FullPlan(min(max(resident, n // LANES), items), I8FULL_THREADS,
+                      I8FULL_DIGIT_WARPS, I8FULL_MMA_WARPS, I8FULL_STAGES, I8FULL_SMEM)
+
+
+def i8full_walk(plan: I8FullPlan, b: int, n: int) -> list[tuple[int, range]]:
+    """(slice, its 16-row steps) of each CTA of the plan, in block order:
+    CTA c takes slice k1 = c % n1, and the G CTAs of that slice split its T
+    steps as [g T / G, (g + 1) T / G), g = c // n1."""
+    n1, steps = n // LANES, -(-b // I8_TILE)
+    out = []
+    for c in range(plan.ctas):
+        k1, g = c % n1, c // n1
+        G = (plan.ctas - k1 + n1 - 1) // n1
+        out.append((k1, range(g * steps // G, (g + 1) * steps // G)))
+    return out
+
+
+def i8full_digit_map() -> tuple[np.ndarray, np.ndarray]:
+    """Where i8full's digit threads read and write a step (csrc/
+    int8_probe_kernels.cu: fu_digit_step): (loads, units).  loads[d, j] =
+    (row, first column) of the 4 floats that digit thread d's copy j brings
+    (plane j // 4: re then im); units[d] = the 16-byte unit of a digit plane
+    it writes, the A fragment of lane 4 g + t at k-step ks (mma_s8.cuh:
+    rows g, g + 8, columns 32 ks + 4 t .. and 32 ks + 16 + 4 t ..).  Digit
+    thread d is lane 8 ks + 4 (g % 2) + t of digit warp g // 2."""
+    threads = 32 * I8FULL_DIGIT_WARPS
+    loads = np.zeros((threads, I8FULL_LOADS, 2), dtype=np.int64)
+    units = np.zeros(threads, dtype=np.int64)
+    for d in range(threads):
+        w, lane = divmod(d, 32)
+        ks, g, t = lane >> 3, 2 * w + ((lane >> 2) & 1), lane & 3
+        for j in range(I8FULL_LOADS):
+            loads[d, j] = (g + 8 * ((j >> 1) & 1), 32 * ks + 16 * (j & 1) + 4 * t)
+        units[d] = ks * 32 + 4 * g + t
+    return loads, units
+
+
+def smem_wavefronts(addresses, width: int) -> int:
+    """Shared-memory wavefronts of one warp access: the lanes' byte addresses
+    (None: an inactive lane), each reading or writing `width` bytes (4, 8
+    or 16).  The warp goes in phases of 128 / width * 4 lanes (32 lanes of
+    4 bytes, 16 of 8, 8 of 16); a phase takes as many wavefronts as the
+    most distinct 4-byte words any of the 32 banks holds among its lanes'
+    words."""
+    per = 32 * 4 // width
+    total = 0
+    for p in range(0, 32, per):
+        banks: dict[int, set] = {}
+        for a in addresses[p:p + per]:
+            if a is None:
+                continue
+            for word in range(a // 4, (a + width) // 4):
+                banks.setdefault(word % 32, set()).add(word)
+        total += max((len(v) for v in banks.values()), default=0)
+    return total
+
+
+def i8full_wavefronts(design: str) -> dict[str, int]:
+    """Shared-memory wavefronts of one 16-row step of i8full's CTA, by its
+    accesses: "A" the product warps' digit fragment loads (a uint4 a lane
+    for each of nine planes and four k-steps), "B" their table fragment
+    loads (a uint2 for each of nine planes, two n-tiles and four k-steps),
+    "digits" the digit planes' stores, "ring" (the redesign) its inputs'
+    cp.async writes and reads; design "first" (i8full_sync: a thread a row
+    and 8 columns storing four-byte words) or "redesign" (i8full_digit_map:
+    a uint4 a plane)."""
+    a_unit = smem_wavefronts([16 * lane for lane in range(32)], 16)
+    b_unit = smem_wavefronts([8 * lane for lane in range(32)], 8)
+    out = {"A": I8FULL_MMA_WARPS * 9 * 4 * a_unit, "B": I8FULL_MMA_WARPS * 9 * 2 * 4 * b_unit}
+    if design == "first":
+        digits = 0
+        for w in range(8):
+            for u in range(2):
+                addrs = []
+                for lane in range(32):
+                    tid = 32 * w + lane
+                    row, part = tid >> 4, tid & 15
+                    c = 8 * part + 4 * u
+                    at = ((c >> 5) * 32 + 4 * (row & 7) + ((c >> 2) & 3)) * 4 + (row >> 3) \
+                        + 2 * ((c >> 4) & 1)
+                    addrs.append(4 * at)
+                digits += 9 * smem_wavefronts(addrs, 4)
+        out["digits"] = digits
+    elif design == "redesign":
+        _, units = i8full_digit_map()
+        per_warp = [smem_wavefronts([16 * int(u) for u in units[32 * w:32 * w + 32]], 16)
+                    for w in range(I8FULL_DIGIT_WARPS)]
+        out["digits"] = 9 * sum(per_warp)
+        ring = smem_wavefronts([16 * lane for lane in range(32)], 16)
+        out["ring"] = 2 * I8FULL_DIGIT_WARPS * I8FULL_LOADS * ring
+    else:
+        raise ValueError(f"i8full_wavefronts: design {design!r}")
+    out["total"] = sum(out.values())
+    return out
+
+
+def i8full_store_map() -> list[tuple[int, int, int, int, list[tuple[int, int]]]]:
+    """i8full's 16-byte stores a product warp, lane by lane (csrc/
+    int8_probe_kernels.cu: i8full_kernel): (lane, h, row, first column,
+    [(lane, column) of each of the four floats]): row g + 8 h of the step
+    and four columns of the warp's 16, and where each float was made (the
+    C fragment of lane 4 g + t holds columns 8 j + 2 t, + 1 of n-tile j,
+    mma_s8.cuh).  Even t keeps its n-tile 0 pair and takes lane t + 1's,
+    odd t takes lane t - 1's n-tile 1 pair and keeps its own."""
+    out = []
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for h in range(2):
+            if t & 1:
+                src = [(lane ^ 1, 8 + 2 * (t - 1)), (lane ^ 1, 9 + 2 * (t - 1)),
+                       (lane, 8 + 2 * t), (lane, 9 + 2 * t)]
+                col = 6 + 2 * t
+            else:
+                src = [(lane, 2 * t), (lane, 2 * t + 1), (lane ^ 1, 2 * (t + 1)),
+                       (lane ^ 1, 2 * (t + 1) + 1)]
+                col = 2 * t
+            out.append((lane, h, g + 8 * h, col, src))
+    return out
+
+
+def _fragment_index() -> tuple[np.ndarray, np.ndarray]:
+    """(rows, columns) of A-fragment unit 32 ks + 4 g + t, register r, byte e
+    (mma_s8.cuh: rows g + 8 (r % 2), columns 32 ks + 16 (r / 2) + 4 t + e):
+    (128, 4, 1) and (128, 4, 4)."""
+    unit = np.arange(128)[:, None, None]
+    r, e = np.arange(4)[None, :, None], np.arange(4)[None, None, :]
+    ks, g, t = unit >> 5, (unit & 31) >> 2, unit & 3
+    return g + 8 * (r & 1), 32 * ks + 16 * (r >> 1) + 4 * t + e
+
+
+def i8full_steps_model(xr: torch.Tensor, xi: torch.Tensor,
+                       resident: int = 132) -> tuple[torch.Tensor, torch.Tensor]:
+    """i8full's redesign as its CTAs run it, on the host: i8full_walk's
+    steps a CTA; the digit warps' copies (i8full_digit_map) and row max over
+    a row's 16 lanes, the scales and digits3's digits packed into digit
+    buffer i % 2 in A-fragment order, ahead of the product warps by one step
+    (step i + 1's digits are made before step i's products read buffer i %
+    2, step i + 2's only after), the row scales beside; the product warps'
+    fragments read back from the buffer, the six products of each digit
+    triple with the tables' digits exact in int64, the Karatsuba +- and
+    recombination in float32, each row stored through i8full_store_map.
+    Equal to i8full_plain bit for bit where the maps are right."""
+    b, n = _check_i8(xr, xi, "i8full_steps_model")
+    n1 = n // LANES
+    plan = i8full_plan(b, n, resident)
+    loads, units = i8full_digit_map()
+    g_of = torch.from_numpy(loads[:, 0, 0])  # a digit thread's row g
+    plane_of = torch.arange(I8FULL_LOADS)[None, :, None] >> 2
+    ld_r = torch.from_numpy(loads[:, :, 0])[..., None]
+    ld_c = torch.from_numpy(loads[:, :, 1])[..., None] + torch.arange(4)
+    frag_r, frag_c = _fragment_index()
+    t = i8full_tables(n)
+    tab = [[np.asarray(t[3 * p][k1], np.int64) for p in range(3)] for k1 in range(n1)]
+    # Every product warp's stores: destination row and columns, source columns.
+    st_row, st_dst, st_src = [], [], []
+    for mw in range(I8FULL_MMA_WARPS):
+        for _, _, row, col, src in i8full_store_map():
+            st_row.append(row)
+            st_dst.append([16 * mw + col + e for e in range(4)])
+            st_src.append([16 * mw + c for _, c in src])
+    st_row, st_dst, st_src = (torch.tensor(v) for v in (st_row, st_dst, st_src))
+    yr, yi = torch.zeros(b, n, dtype=torch.float32), torch.zeros(b, n, dtype=torch.float32)
+    xr_h, xi_h = xr.detach().cpu(), xi.detach().cpu()
+
+    def produce(k1: int, step: int) -> tuple[np.ndarray, torch.Tensor]:
+        rows = step * I8_TILE + torch.arange(I8_TILE)
+        live = rows < b
+        tile = torch.zeros(2, I8_TILE, LANES, dtype=torch.float32)
+        for c, x in enumerate((xr_h, xi_h)):
+            tile[c, live] = x[rows[live], k1 * LANES:(k1 + 1) * LANES]
+        q = tile[plane_of, ld_r, ld_c]  # (threads, 8 copies, 4): each thread's own
+        a = q[:, :4].abs() + q[:, 4:].abs()  # copy c = 2 hi + h
+        mx = torch.stack([a[:, 0:2].amax(dim=(1, 2)), a[:, 2:4].amax(dim=(1, 2))], dim=1)
+        row_max = torch.zeros(I8_TILE, dtype=torch.float32)
+        for g in range(8):  # the 16 lanes of rows g and g + 8, by shuffles
+            row_max[g], row_max[g + 8] = mx[g_of == g, 0].max(), mx[g_of == g, 1].max()
+        ck, s_out = row_quant_scales(row_max)
+        rows_c = g_of[:, None] + 8 * (torch.arange(4)[None, :] >> 1)  # (threads, copy)
+        ar, ai = q[:, :4], q[:, 4:]
+        buf = np.zeros((9, 128, 4, 4), dtype=np.int64)
+        reg = [(c >> 1) + 2 * (c & 1) for c in range(4)]  # copy 2 hi + h -> A register hi + 2 h
+        for p, v in enumerate((ar, ai, ar + ai)):
+            for e, digit in enumerate(digits3(v * ck[rows_c][..., None])):
+                buf[3 * p + e][units[:, None], reg] = digit.numpy()
+        return buf, s_out * (1.0 / LANES)
+
+    def consume(k1: int, step: int, buf: np.ndarray, s_row: torch.Tensor) -> None:
+        dg = np.zeros((9, I8_TILE, LANES), dtype=np.int64)
+        dg[:, frag_r, frag_c] = buf
+        q = []
+        for p in range(3):
+            d0, d1, d2 = dg[3 * p], dg[3 * p + 1], dg[3 * p + 2]
+            t0, t1, t2 = (tab[k1][p][:, LANES * j:LANES * (j + 1)] for j in range(3))
+            q.append([torch.from_numpy(v) for v in
+                      (d0 @ t0, d0 @ t1 + d1 @ t0, d0 @ t2 + d1 @ t1 + d2 @ t0)])
+        qr, qi, qs = q
+        re = _recombine([a - c for a, c in zip(qr, qi)], s_row[:, None])
+        im = _recombine([2 * s - a - c for s, a, c in zip(qs, qr, qi)], s_row[:, None])
+        r = step * I8_TILE + st_row
+        keep = r < b
+        at = k1 * LANES + st_dst[keep]
+        yr[r[keep][:, None], at] = re[st_row[keep][:, None], st_src[keep]]
+        yi[r[keep][:, None], at] = im[st_row[keep][:, None], st_src[keep]]
+
+    for k1, steps in i8full_walk(plan, b, n):
+        bufs: dict[int, tuple] = {}
+        steps = list(steps)
+        for i in range(len(steps) + 1):
+            if i < len(steps):  # the digit warps: step i into buffer i % 2 ...
+                if i % I8FULL_BUFS in bufs:
+                    raise AssertionError("a digit buffer overwritten before its products read it")
+                bufs[i % I8FULL_BUFS] = (i, *produce(k1, steps[i]))
+            if i >= 1:  # ... while the product warps run step i - 1 from buffer (i - 1) % 2
+                j, buf, s_row = bufs.pop((i - 1) % I8FULL_BUFS)
+                if j != i - 1:
+                    raise AssertionError(f"product step {i - 1} found step {j}'s digits")
+                consume(k1, steps[j], buf, s_row)
+    return yr.to(xr.device), yi.to(xr.device)
 
 
 def i8_concat(xr: torch.Tensor, xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -57,4 +57,10 @@
             512 and 160), the TMA route, K8 and K12, the first designs'
             variants and the redesigns' pricing copies:
             python3 -m godsp_tpu_torch.probes.noframe_sdif
+  i8full_frameonly — K14g's i8full and K14a's pwfloor_frameonly beside
+            their first designs: ptxas, SASS counts a step or segment, the
+            fragment loads' wavefronts, times beside i8mm, i8_concat,
+            torch.matmul, pwfloor_loadonly and K4 (at hop 512 and 160) and
+            the first designs' variants:
+            python3 -m godsp_tpu_torch.probes.i8full_frameonly
 """

@@ -8,7 +8,9 @@ Each row is timed with utils.metrics.time_chain_diff (two chains of
 launches between CUDA events; their difference over the extra launches):
 
   loadonly   the tile's samples, mask and window read once and summed;
-  frameonly  K4's framing and window, masked sum, no FFT;
+  frameonly  K4's framing and window, masked sum, no FFT: K4's own body
+             (its CTA, tiles, frame order and sums in registers) without
+             the transform;
   noframe    the same frames given materialized (S, pad): window, FFT,
              |X|^2, masked sum (twice the bytes read);
   staged     K4's function with each tile's span staged once in shared
@@ -20,8 +22,9 @@ each beside K12's copy ceiling on the bytes it reads (ops/cuda_metrics
 copy_split over the same tensor split in two planes: those bytes read
 and written once) and beside its bound (bytes over 3.35 TB/s, utils.
 metrics.bound_ms).  The gap from loadonly to frameonly prices K4's
-framing; frameonly to full its FFT and reduction; staged against full
-the L2 re-reads; noframe against rfft the window, |X|^2 and sum.
+framing; frameonly to full its transform, split and |X|^2 (frameonly is
+K4's body without them); staged against full the L2 re-reads; noframe
+against rfft the window, |X|^2 and sum.
 
 The TPU probe's dimension_semantics A/B ("arbitrary" against "parallel"
 grid axes) has no Hopper meaning: a CUDA grid has no sequential

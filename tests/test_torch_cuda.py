@@ -2869,3 +2869,108 @@ def test_noframe_and_sdif_kernels_do_not_spill(cuda, tmp_path):
                 assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in \
                     lines[i + 1], line
     assert seen == 15
+
+
+# ------------------------------ K14g i8full and K14a pwfloor_frameonly redesigned
+
+
+@pytest.mark.parametrize("b,n", [(16384, 1024), (1001, 512), (33, 384), (1, 128), (17, 1024),
+                                 (257, 256), (16 * 65535 + 17, 128)])
+def test_i8full_redesign_on_card(cuda, b, n):
+    """i8full (digit warps and product warps on named barriers, one CTA an
+    SM) torch.equal to its plain version, to i8_concat and to its first
+    design i8full_sync, one launch each: ragged b, n1 = 1 to 8, b past
+    grid.y's 65535 16-row tiles."""
+    xr, xi = (v * 0.01 for v in _lane_planes(cuda, b, n, b + n))
+    reset_launch_counts()
+    got, first = cuda_probes.i8full(xr, xi), cuda_probes.i8full_sync(xr, xi)
+    counts = launch_counts()
+    assert counts["i8full"] == counts["i8full_sync"] == 1
+    for want in (cuda_probes.i8full_plain(xr, xi), cuda_probes.i8_concat(xr, xi), first):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_i8full_geometry_matches_the_host_plan(cuda):
+    """gdsp_i8full_geometry (CTAs, threads, warps a role, stages, shared
+    bytes) equals ops/cuda_probes.py's i8full_plan at the card's resident
+    CTAs and fewer, and refuses a shape the kernel does not take."""
+    import ctypes
+
+    lib, out = _build.library(), (ctypes.c_int * 6)()
+    resident = cuda_probes._i8full_resident(cuda)
+    assert resident >= 1
+    for b in (0, 1, 17, 1001, 16384, 16 * 65535 + 17):
+        for n in (128, 384, 1024):
+            for res in (1, 7, resident):
+                assert lib.gdsp_i8full_geometry(b, n, res, out) == 0
+                assert tuple(out) == tuple(cuda_probes.i8full_plan(b, n, res)), (b, n, res)
+    for b, n, res in ((-1, 128, 1), (4, 200, 1), (4, 2048, 1), (4, 128, 0)):
+        assert lib.gdsp_i8full_geometry(b, n, res, out) != 0
+
+
+def test_i8full_occupancy_of_zero_raises(cuda, monkeypatch):
+    """A launch told no CTA fits refuses in the C entry; the wrapper raises
+    without counting a launch."""
+    xr, xi = _lane_planes(cuda, 64, 1024, 2)
+    monkeypatch.setattr(cuda_probes, "_i8full_resident", lambda device: 0)
+    before = launch_counts()["i8full"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_probes.i8full(xr, xi)
+    assert launch_counts()["i8full"] == before
+    torch.cuda.synchronize()
+
+
+# (nfft, hop, pad, segments, kept, rows, offset of the window in its tensor)
+_FRAMEONLY_GEOMETRIES = [(1024, 512, 1024, 16384, 16384, 1, 0), (1000, 160, 1024, 5001, 4990, 1, 0),
+                         (4096, 1024, 4096, 300, 290, 2, 0), (16384, 4096, 16384, 9, 9, 1, 0),
+                         (1000, 333, 2048, 777, 770, 2, 1), (31, 7, 32, 1000, 999, 3, 0),
+                         (200, 17, 256, 555, 500, 1, 0), (3, 3, 4, 64, 63, 1, 0),
+                         (2, 1, 2, 100, 99, 2, 1)]
+
+
+@pytest.mark.parametrize("nfft,hop,pad,S,keep,rows,offset", _FRAMEONLY_GEOMETRIES)
+def test_pwfloor_frameonly_redesign_on_card(cuda, nfft, hop, pad, S, keep, rows, offset):
+    """pwfloor_frameonly (K4's body without the transform) and its first
+    design pwfloor_frameonly_shared >= 120 dB against the float64 plain
+    version, one launch each: the probe geometry, hop 160 with pad > nfft,
+    the block route (pad 4096, 16384), odd hops, Q frames a warp (pads 32,
+    4, 2), masked segments, a window off an 8-byte boundary (cloned)."""
+    g = torch.Generator(device=cuda).manual_seed(S + pad)
+    ext = torch.rand(rows, (S - 1) * hop + nfft - 3, generator=g, device=cuda) * 2 - 1
+    mask = (torch.arange(S, device=cuda) < keep).float().expand(rows, S).contiguous()
+    base = torch.zeros(pad + offset, device=cuda)
+    base[offset:] = window.window_table("hann", pad, device=cuda, dtype=torch.float32)
+    w = base[offset:]
+    reset_launch_counts()
+    got = cuda_probes.pwfloor_frameonly(ext, mask, w, nfft, hop, pad)
+    first = cuda_probes.pwfloor_frameonly_shared(ext, mask, w, nfft, hop, pad)
+    counts = launch_counts()
+    assert counts["pwfloor_frameonly"] == counts["pwfloor_frameonly_shared"] == 1
+    bt = cuda_pwelch.segs_per_tile(S, rows)
+    want = _np(cuda_probes.pwfloor_frameonly_plain(ext.double(), mask.double(), w.double(), nfft,
+                                                   hop, pad, bt))
+    assert got.shape == first.shape == want.shape
+    assert dsputils.snr_db(_np(got), want) >= SNR_CARD_DB
+    assert dsputils.snr_db(_np(first), want) >= SNR_CARD_DB
+
+
+def test_i8full_and_frameonly_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas -v: i8full_kernel and frameonly_partials_kernel at every pad
+    spill nothing and keep no stack frame (registers printed)."""
+    import subprocess
+
+    seen = 0
+    for src, names in (("int8_probe_kernels.cu", ("13i8full_kernel",)),
+                       ("pwelch_probe_kernels.cu", ("25frameonly_partials_kernel",))):
+        r = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
+                            str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                           capture_output=True, text=True, check=True)
+        lines = (r.stdout + r.stderr).splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and any(k in line for k in names):
+                seen += 1
+                print(line.split("for ")[-1], lines[i + 1].strip(), lines[i + 2].strip())
+                assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in \
+                    lines[i + 1], line
+    assert seen == 15

@@ -73,7 +73,9 @@ def test_noframe_constants_match_the_source():
     assert "q[u] = live ? __ldg(&x4[u * R::kT + unit])" in src
     # K4's CTA and register cap: the bounds of pwelch_kernel.cu's Plan<LOG2M, false>.
     assert "noframe_partials_kernel(const float* __restrict__ frames" in src
-    assert src.count("__launch_bounds__(K4Plan<LOG2M>::kThreads, K4Plan<LOG2M>::kMinBlocks)") == 2
+    for kernel in ("staged_partials_kernel(", "noframe_partials_kernel("):
+        assert f"__launch_bounds__(K4Plan<LOG2M>::kThreads, K4Plan<LOG2M>::kMinBlocks)\n{kernel}" \
+            in src, kernel
 
 
 @pytest.mark.parametrize("pad", [2 ** k for k in range(1, 15)])
